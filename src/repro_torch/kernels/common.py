@@ -1,0 +1,137 @@
+"""Shared kernel utilities: device checks, the nvcc build-and-load helper,
+and integer helpers.
+
+The port's counterpart of ``repro.kernels.common.default_interpret``: where
+the JAX package chose between a compiled and an interpreted Pallas kernel,
+a wrapper here chooses by the tensor it was given.  A CPU tensor takes the
+kernel's plain PyTorch version; a CUDA tensor launches the kernel, and
+anything the kernel cannot take raises.  There is no flag that forces
+either side.
+
+Kernels are CUDA C++ sources under ``<package>/csrc/`` with a plain C
+interface.  They are compiled with ``nvcc`` at first use into
+``build/kernels/`` at the root of the checkout (listed in ``.gitignore``)
+and loaded with ``ctypes``.  Nothing is built or imported at module import
+time, so the CPU-only test suite imports every module.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, Optional, Sequence, Union
+
+import torch
+
+ROOT = Path(__file__).resolve().parents[3]
+BUILD_DIR = ROOT / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_libs: Dict[str, ctypes.CDLL] = {}
+_build_lock = threading.Lock()
+build_log: Dict[str, Dict[str, object]] = {}
+
+
+def cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def round_up(a: int, b: int) -> int:
+    return cdiv(a, b) * b
+
+
+def resolve_device(device: Union[str, torch.device, None]) -> torch.device:
+    """The device an entry point runs on: CUDA unless the caller names
+    another.  With no GPU and no explicit device this raises; it never
+    falls back to the CPU quietly."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is visible; pass device='cpu' to run the "
+                "port on the CPU")
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+def is_cuda(*tensors: torch.Tensor) -> bool:
+    """True when every tensor lies on one CUDA device, False when every
+    tensor lies on the CPU; mixed placement raises."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"tensors on different devices: {sorted(map(str, devices))}")
+    dev = devices.pop()
+    if dev.type == "cuda":
+        return True
+    if dev.type == "cpu":
+        return False
+    raise ValueError(f"unsupported device {dev}")
+
+
+def nvcc_path() -> str:
+    cand = [os.environ.get("CUDA_HOME", ""), "/usr/local/cuda"]
+    for home in cand:
+        p = Path(home) / "bin" / "nvcc" if home else None
+        if p is not None and p.is_file():
+            return str(p)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (looked in $CUDA_HOME/bin, "
+                           "/usr/local/cuda/bin and PATH)")
+    return found
+
+
+def load_library(name: str, sources: Sequence[Path]) -> ctypes.CDLL:
+    """Compile ``sources`` with nvcc for sm_90a into a shared library named
+    after ``name`` and a hash of the sources and flags, and load it.
+
+    The library is cached in this process and on disk; a build by a
+    concurrent process lands under a temporary name and is renamed into
+    place, so readers never see a half-written file.  ``build_log[name]``
+    records the seconds spent and the assembler's register/spill report."""
+    with _build_lock:
+        if name in _libs:
+            return _libs[name]
+        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        for src in sources:
+            h.update(Path(src).read_bytes())
+        out = BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+        t0 = time.perf_counter()
+        report = ""
+        if not out.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+                   *map(str, sources)]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed for {name} ({proc.returncode}):\n"
+                    f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+            report = proc.stderr
+            os.replace(tmp, out)
+        build_log[name] = {"seconds": time.perf_counter() - t0,
+                           "library": str(out), "ptxas": report}
+        lib = ctypes.CDLL(str(out))
+        _libs[name] = lib
+        return lib
+
+
+def check_cuda_status(status: int, what: str) -> None:
+    """Raise on a non-zero ``cudaError_t`` returned by a launcher."""
+    if status != 0:
+        raise RuntimeError(f"{what}: CUDA error {status} at launch")
+
+
+def stream_ptr(device: torch.device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def data_ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
+    return ctypes.c_void_p(0 if t is None else t.data_ptr())

@@ -1,0 +1,142 @@
+"""Common layers: norms, rotary embeddings, MLPs, initializers.
+
+Plain functions on tensors, params as dicts of tensors (the port of
+``repro/models/layers.py``).  Norm statistics are computed in float32
+regardless of the compute dtype; matmuls run in the config dtype.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+
+
+def compute_dtype(cfg: ModelConfig) -> torch.dtype:
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+# ---------------------------------------------------------------------------
+# Initializers (random numbers from a torch.Generator on the target device;
+# they differ from jax.random's for the same seed)
+# ---------------------------------------------------------------------------
+
+
+def dense_init(gen: torch.Generator, shape, dtype, in_axis: int = -2):
+    """Truncated-normal fan-in init (stddev = 1/sqrt(fan_in)), drawn in
+    float32 on the generator's device and cast to ``dtype``."""
+    fan_in = shape[in_axis]
+    std = 1.0 / np.sqrt(max(fan_in, 1))
+    t = torch.empty(shape, dtype=torch.float32, device=gen.device)
+    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return t.mul_(std).to(dtype)
+
+
+def embed_init(gen: torch.Generator, shape, dtype):
+    t = torch.empty(shape, dtype=torch.float32, device=gen.device)
+    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return t.mul_(0.02).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+
+def init_norm(cfg: ModelConfig, device, d: Optional[int] = None):
+    d = d or cfg.d_model
+    p = {"scale": torch.ones((d,), dtype=torch.float32, device=device)}
+    if cfg.norm_kind == "layernorm":
+        p["nbias"] = torch.zeros((d,), dtype=torch.float32, device=device)
+    return p
+
+
+def apply_norm(p, x, cfg: ModelConfig, eps: Optional[float] = None):
+    eps = eps or cfg.norm_eps
+    xf = x.float()
+    if cfg.norm_kind == "layernorm":
+        mu = xf.mean(-1, keepdim=True)
+        var = (xf - mu).square().mean(-1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + eps)
+        y = y * p["scale"]
+        if "nbias" in p:
+            y = y + p["nbias"]
+    else:  # rmsnorm
+        var = xf.square().mean(-1, keepdim=True)
+        y = xf * torch.rsqrt(var + eps) * p["scale"]
+    return y.to(x.dtype)
+
+
+def rms_norm_simple(x, scale, eps: float = 1e-6):
+    xf = x.float()
+    y = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
+    return (y * scale).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings (half-split convention, not interleaved)
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
+    return 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float32)
+                            / head_dim))
+
+
+def apply_rope(x, positions, theta: float):
+    """x: (..., seq, heads, head_dim); positions: (..., seq) integer."""
+    if theta <= 0.0:
+        return x
+    hd = x.shape[-1]
+    freqs = torch.from_numpy(rope_freqs(hd, theta)).to(x.device)  # (hd/2,)
+    angles = positions[..., None].float() * freqs          # (..., S, hd/2)
+    cos = torch.cos(angles)[..., None, :]                  # (..., S, 1, hd/2)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+
+def init_mlp(gen: torch.Generator, cfg: ModelConfig,
+             d_ff: Optional[int] = None,
+             d: Optional[int] = None) -> Dict[str, torch.Tensor]:
+    d = d or cfg.d_model
+    ff = d_ff or cfg.d_ff
+    dt = compute_dtype(cfg)
+    if cfg.act == "swiglu":
+        p = {"w_gate": dense_init(gen, (d, ff), dt),
+             "w_up": dense_init(gen, (d, ff), dt),
+             "w_down": dense_init(gen, (ff, d), dt)}
+    else:
+        p = {"w_up": dense_init(gen, (d, ff), dt),
+             "w_down": dense_init(gen, (ff, d), dt)}
+    if cfg.use_bias:
+        p["b_up"] = torch.zeros((ff,), dtype=dt, device=gen.device)
+        p["b_down"] = torch.zeros((d,), dtype=dt, device=gen.device)
+    return p
+
+
+def apply_mlp(p, x, cfg: ModelConfig):
+    if cfg.act == "swiglu":
+        h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
+    else:
+        u = x @ p["w_up"]
+        if "b_up" in p:
+            u = u + p["b_up"]
+        if cfg.act == "relu_sq":
+            h = F.relu(u).square()
+        else:  # gelu, tanh approximation as jax.nn.gelu's default
+            h = F.gelu(u, approximate="tanh")
+    out = h @ p["w_down"]
+    if "b_down" in p:
+        out = out + p["b_down"]
+    return out

@@ -1,0 +1,75 @@
+"""Weight carry-over between the packages, and the port's independence
+from JAX: ``repro_torch`` and ``chip_smoke.py`` import neither ``jax`` nor
+anything of ``repro``."""
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from conftest import smoke_model
+from repro.configs import get_config as jget_config
+from repro.configs import reduce_for_smoke as jreduce
+from repro.models import build_model as jbuild_model
+from repro.training.checkpoint import _flatten
+from repro_torch.params import flatten, from_jax, to_flat, unflatten
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+@pytest.mark.parametrize("arch,dtype", [("yi-9b", "float32"),
+                                        ("command-r-plus-104b", "bfloat16")])
+def test_from_jax_to_flat_round_trip(arch, dtype):
+    import dataclasses
+    cfg = dataclasses.replace(jreduce(jget_config(arch)), dtype=dtype)
+    flat = _flatten(jbuild_model(cfg).init(jax.random.PRNGKey(0)))
+    params = from_jax(flat, "cpu")
+    assert set(params) == set(flat)
+    back = to_flat(params)
+    assert set(back) == set(flat)
+    for k, v in flat.items():
+        assert back[k].shape == v.shape and back[k].dtype == v.dtype, k
+        np.testing.assert_array_equal(back[k], v)
+
+
+def test_from_jax_casts_and_places():
+    _, _, jp = smoke_model("yi-9b")
+    params = from_jax(_flatten(jp), "cpu", dtype=torch.bfloat16)
+    assert all(t.dtype == torch.bfloat16 for t in params.values())
+    assert all(t.device.type == "cpu" for t in params.values())
+
+
+def test_flatten_unflatten_inverse():
+    tree = {"a": {"b": 1, "c": {"d": 2}}, "e": 3}
+    assert flatten(tree) == {"a/b": 1, "a/c/d": 2, "e": 3}
+    assert unflatten(flatten(tree)) == tree
+
+
+def test_import_guard_no_jax_no_repro():
+    code = ("import sys, repro_torch.launch.serve, repro_torch.serving.server,"
+            " repro_torch.kernels.flash_attention.ops;"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'));"
+            "print(bad); sys.exit(1 if bad else 0)")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_source_scan_no_jax_no_repro_imports():
+    pattern = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|"
+                         r"from\s+repro\.|import\s+repro\.|"
+                         r"from\s+repro\s+import|import\s+repro\s*$)",
+                         re.MULTILINE)
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 20
+    offenders = [str(f) for f in files if pattern.search(f.read_text())]
+    assert offenders == []
