@@ -10,22 +10,40 @@ Phases (any failure exits non-zero and prints no final result line):
 
 1. device: the card's name and power limit (nvidia-smi); TF32 off for the
    comparisons.
-2. build: every kernel of the main path is compiled from the checkout's
-   sources with nvcc for sm_90a.
+2. build: every kernel of the main path (K1 flash_attention, K2
+   decode_attention) is compiled from the checkout's sources with nvcc for
+   sm_90a, one nvcc per source, started together.
 3. kernels: each kernel is held against its plain PyTorch version on the
-   card at the main path's shapes (yi-9b attention: B=8, S=256, H=32, K=4,
-   hd=128, bf16 and fp32) and at the edges (sliding window, ragged
-   lengths, S not a multiple of the tile, strided inputs, other head
-   dims), then timed beside its plain version and the PyTorch library
-   call that computes the same function (SDPA, a yardstick only).
-4. main path: ``build_app(["yi-9b", "yi-9b"], full=True)`` — two members
-   at full width and depth with random weights from a seed — behind
-   ``FlexServeServer`` on an ephemeral port; /v1/infer and /v1/detect at
-   batch sizes 1, 3 and 8, some concurrent.  Every response must be 200
-   and have the paper schema; the kernel launch counts, zeroed just before
-   and read just after, must equal members x layers x forwards.  One
-   batch's member logits are then held against the plain path (the same
-   forward with the kernels' plain versions) on the card.
+   card at the main path's shapes and at the edges.  K1: yi-9b attention,
+   B=8, S=256, H=32, K=4, hd=128, bf16 and fp32, plus sliding window,
+   ragged lengths, S not a multiple of the tile, strided inputs, other
+   head dims.  K2: the decode tick at B=8, Smax=1024, H=32, K=4, hd=128
+   with ragged lengths (bf16 and fp32), plus a window, ring-style lengths,
+   a length-1 row, Smax not a multiple of the tile, a layer view of the
+   stacked cache, danube's hd=80 G=4, G=12 and hd=256.  Each is then
+   timed beside its plain version, the PyTorch library call that computes
+   the same function (SDPA, a yardstick only) and its bound; K2 also at
+   B=8, Smax=32768, full lengths.
+4. ensemble path: ``build_app(["yi-9b", "yi-9b"], full=True)`` — two
+   members at full width and depth with random weights from a seed —
+   behind ``FlexServeServer`` on an ephemeral port; /v1/infer and
+   /v1/detect at batch sizes 1, 3 and 8, some concurrent.  Every response
+   must be 200 and have the paper schema; the launch counts, zeroed just
+   before and read just after, must be members x layers x forwards for K1
+   and 0 for K2, and /v1/generate still answers 501.  One batch's member
+   logits are then held against the plain path on the card.
+5. generate path: ``InferenceEngine`` over member yi-9b#0's params (full
+   width and depth, bf16, max_len 1024, max_batch 8).  A greedy
+   ``generate`` of 8 prompts of 17-300 tokens, 32 new tokens each, must
+   launch K1 48 x prefill_calls and K2 48 x decode_calls times, with
+   decode_calls == steps - 1.  Prefill and 8 teacher-forced decode steps
+   run again with the kernels and with their plain versions, and the
+   logits must agree within LOGITS_TOL at every step; whether the two
+   greedy streams agree is reported.  A seeded sampled run (temperature
+   0.8, top_k 50, top_p 0.9, seed 7) must repeat token for token, and the
+   rng's bits on the card must equal its bits on the CPU.  Prefill ms,
+   decode ms per tick and tokens/s are printed; with ``--profile`` also
+   K2's share of one tick's device time.
 
 The line before the nvidia-smi line is ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -37,6 +55,7 @@ import argparse
 import concurrent.futures
 import http.client
 import json
+import re
 import subprocess
 import sys
 import time
@@ -219,6 +238,175 @@ def kernel_phase(failures):
     return [entry]
 
 
+def device_ms(prof, names) -> float:
+    """Summed device time (ms) of the profiled kernels whose name holds
+    one of ``names`` (all kernels when ``names`` is empty).  Only device
+    events count: an operator's row repeats its kernels' time."""
+    from torch.autograd import DeviceType
+    total = 0.0
+    for evt in prof.key_averages():
+        if getattr(evt, "device_type", None) != DeviceType.CUDA:
+            continue
+        if names and not any(n in evt.key for n in names):
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = getattr(evt, "self_cuda_time_total", 0.0)
+        total += us
+    return total / 1e3
+
+
+def profiled_ms(fn, names, iters: int = 20) -> float:
+    """Device time per call of the named kernels over ``iters`` calls,
+    from torch.profiler (the launches' host overhead is not in it)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return device_ms(prof, names) / iters
+
+
+K2_KERNELS = ("decode_split_kernel", "decode_combine_kernel")
+
+
+def decode_case(name, B, Smax, H, K, hd, dtype, *, window=None,
+                lengths="ragged", stacked=False, seed=0):
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dt = getattr(torch, dtype)
+    layers = 3 if stacked else 1
+    q = torch.randn((B, H, hd), generator=g, device="cuda").to(dt)
+    ck = torch.randn((layers, B, Smax, K, hd), generator=g,
+                     device="cuda").to(dt)
+    cv = torch.randn((layers, B, Smax, K, hd), generator=g,
+                     device="cuda").to(dt)
+    ck, cv = ck[layers // 2], cv[layers // 2]
+    if lengths == "full":
+        lens = torch.full((B,), Smax, dtype=torch.int32, device="cuda")
+    elif lengths == "ring":           # min(L+1, Smax): some rows wrapped
+        L = torch.randint(0, 3 * Smax, (B,), generator=g, device="cuda")
+        lens = torch.clamp(L + 1, max=Smax).to(torch.int32)
+    else:
+        lens = torch.randint(1, Smax + 1, (B,), generator=g, device="cuda",
+                             dtype=torch.int32)
+        lens[0] = Smax
+        if lengths == "one":
+            lens[1] = 1
+    return dict(name=name, q=q, k=ck, v=cv, lengths=lens, window=window,
+                dtype=dtype)
+
+
+def time_decode(c):
+    """K2 beside its plain version, SDPA and its bound at one case."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_plain)
+    q, k, v, lens = c["q"], c["k"], c["v"], c["lengths"]
+    B, H, hd = q.shape
+    Smax, K = k.shape[1], k.shape[2]
+    kernel_ms = cuda_time_ms(lambda: decode_attention(q, k, v, lens))
+    kernel_dev_ms = profiled_ms(lambda: decode_attention(q, k, v, lens),
+                                K2_KERNELS)
+    plain_ms = cuda_time_ms(lambda: decode_attention_plain(q, k, v, lens))
+    qs = q[:, :, None, :]
+    ks, vs = (t.transpose(1, 2).contiguous() for t in (k, v))
+    mask = (torch.arange(Smax, device="cuda")[None, :]
+            < lens[:, None])[:, None, None, :]
+    try:
+        library_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=mask, enable_gqa=True))
+    except TypeError:                   # torch without enable_gqa
+        library_ms = None
+    keys = int(torch.clamp(lens, max=Smax).sum())
+    nbytes = 2 * keys * K * hd * k.element_size() \
+        + 2 * q.numel() * q.element_size()
+    flops = 4 * hd * (H // K) * K * keys
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_flops = flops / PEAK_FLOPS[c["dtype"]]
+    return {"shape": f"B={B} Smax={Smax} H={H} K={K} hd={hd} {c['dtype']} "
+                     f"valid keys {keys}",
+            "ms": kernel_ms, "kernel_ms": kernel_ms,
+            "device_ms": kernel_dev_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms,
+            "bound_ms": 1e3 * max(t_bytes, t_flops),
+            "bound_by": "bytes" if t_bytes >= t_flops else "operations",
+            "bytes": nbytes, "flops": flops}
+
+
+def decode_kernel_phase(failures):
+    import torch
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_plain)
+    yi = (32, 4, 128)
+    cases = [
+        decode_case("yi-9b bf16 ragged", 8, 1024, *yi, "bfloat16"),
+        decode_case("yi-9b fp32 ragged", 8, 1024, *yi, "float32"),
+        decode_case("yi-9b bf16 window 100", 8, 1024, *yi, "bfloat16",
+                    window=100),
+        decode_case("ring lengths min(L+1,Smax) bf16", 8, 256, *yi,
+                    "bfloat16", lengths="ring"),
+        decode_case("length-1 row bf16", 8, 1024, *yi, "bfloat16",
+                    lengths="one"),
+        decode_case("Smax 1000 fp32 (ragged tile)", 3, 1000, *yi,
+                    "float32"),
+        decode_case("layer view of a stacked cache bf16", 8, 512, *yi,
+                    "bfloat16", stacked=True),
+        decode_case("danube hd=80 G=4 bf16 window 300", 4, 512, 32, 8, 80,
+                    "bfloat16", window=300),
+        decode_case("G=12 bf16", 2, 700, 96, 8, 128, "bfloat16"),
+        decode_case("hd=256 fp32", 2, 300, 8, 2, 256, "float32"),
+        decode_case("hd=256 bf16", 2, 300, 8, 2, 256, "bfloat16"),
+    ]
+    results = []
+    for c in cases:
+        args = (c["q"], c["k"], c["v"], c["lengths"])
+        out = decode_attention(*args, window=c["window"])
+        ref = decode_attention_plain(*args, window=c["window"])
+        torch.cuda.synchronize()
+        err = float((out.float() - ref.float()).abs().max())
+        tol = TOL[c["dtype"]]
+        ok = bool(torch.isfinite(out.float()).all()) and torch.allclose(
+            out.float(), ref.float(), **tol)
+        log(f"[kernels] decode_attention {c['name']}: max_abs_err {err:.3e} "
+            f"({'ok' if ok else 'FAIL'}, rtol/atol {tol['rtol']})")
+        if not ok:
+            failures.append(f"decode_attention {c['name']}: err {err}")
+        results.append({"case": c["name"], "max_abs_err": err, "ok": ok})
+
+    main = time_decode(cases[0])
+    long_case = decode_case("long cache", 8, 32768, *yi, "bfloat16",
+                            lengths="full")
+    long = time_decode(long_case)
+    del long_case
+    for t in (main, long):
+        log(f"[kernels] decode_attention timed at {t['shape']}: kernel "
+            f"{t['kernel_ms']:.4f} ms (device time {t['device_ms']:.4f} "
+            f"ms), plain {t['plain_ms']:.4f} ms, SDPA {t['library_ms']} "
+            f"ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}, "
+            f"{t['bytes']} bytes)")
+    entry = {
+        "name": "decode_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/decode_attention/csrc/"
+                  "decode_attention.cu",
+        "replaces": "src/repro/kernels/decode_attention/kernel.py:72 "
+                    "(decode_attention_bkgd)",
+        "launches": None,
+        "max_abs_err": results[0]["max_abs_err"],
+        **main,
+        "long_cache": long,
+        "cases": results,
+    }
+    torch.cuda.empty_cache()
+    return [entry]
+
+
 # --- phase 4: main path --------------------------------------------------------
 
 
@@ -255,6 +443,7 @@ def check_schema(status, body, n, kind):
 def main_path_phase(failures, kernels, profile_dir):
     import numpy as np
     import torch
+    from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
     from repro_torch.launch.serve import build_app
@@ -305,13 +494,15 @@ def main_path_phase(failures, kernels, profile_dir):
         check_schema(status, body, 8, "infer")
         status, m0 = client.call("GET", "/metrics")
         batches0 = m0["coalesce"]["batches_formed"]
-        flash_attention.launches = 0            # the main path's run
+        flash_attention.launches = 0            # the ensemble path's run
+        decode_attention.launches = 0
         results = [send(kind, t) for kind, t in requests]
         with concurrent.futures.ThreadPoolExecutor(len(concurrent_reqs)) as ex:
             futs = [ex.submit(send, kind, t) for kind, t in concurrent_reqs]
             results += [f.result() for f in futs]
         torch.cuda.synchronize()
         launches = flash_attention.launches
+        decode_launches = decode_attention.launches
         status, m1 = client.call("GET", "/metrics")
         forwards = m1["coalesce"]["batches_formed"] - batches0
         for kind, n, st, resp, dt in results:
@@ -325,6 +516,9 @@ def main_path_phase(failures, kernels, profile_dir):
         if launches != expected or launches == 0:
             failures.append(f"flash_attention launches {launches} != "
                             f"{expected}")
+        if decode_launches != 0:
+            failures.append(f"decode_attention launched {decode_launches} "
+                            f"times on the ensemble path")
         kernels[0]["launches"] = launches
         for name in ("/health", "/healthz", "/v1/models"):
             st, body = client.call("GET", name)
@@ -366,6 +560,7 @@ def main_path_phase(failures, kernels, profile_dir):
     kernels[0]["ensemble_forward_plain_ms"] = fwd_plain_ms
     if profile_dir:
         profile_forward(ens, timed, Path(profile_dir))
+    return app
 
 
 def host_time_ms(fn, reps: int = 5) -> float:
@@ -395,6 +590,207 @@ def profile_forward(ens, batch, out_dir: Path) -> None:
     log("[profile] " + table.replace("\n", "\n[profile] "))
 
 
+# --- phase 5: generate path ----------------------------------------------------
+
+GEN_MAX_LEN = 1024
+GEN_BATCH = 8
+GEN_TOKENS = 32
+FORCED_STEPS = 8
+
+
+def first_divergence(a, b):
+    """(row, position) of the first differing token of two streams."""
+    for i, (x, y) in enumerate(zip(a, b)):
+        for j, (s, t) in enumerate(zip(x, y)):
+            if s != t:
+                return i, j
+    return None
+
+
+def generate_phase(failures, kernels, app, profile_dir):
+    import numpy as np
+    import torch
+    from repro_torch.core import InferenceEngine, SamplingParams, rng
+    from repro_torch.core.batching import pad_sequences
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_plain)
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    from repro_torch.models import attention as attn_mod
+
+    member = app.registry.get(f"{ARCH}#0")        # no second copy of weights
+    cfg = member.model.config
+    layers = cfg.num_layers
+    engine = InferenceEngine(member.model, member.params,
+                             max_len=GEN_MAX_LEN, max_batch=GEN_BATCH)
+    r = np.random.default_rng(0)
+    lens = r.integers(17, 301, GEN_BATCH)
+    lens[0], lens[-1] = 17, 300
+    prompts = [r.integers(0, cfg.vocab_size, n).tolist() for n in lens]
+    log(f"[generate] InferenceEngine(yi-9b#0: {layers} layers, "
+        f"d_model {cfg.d_model}, {cfg.dtype}; max_len {GEN_MAX_LEN}, "
+        f"max_batch {GEN_BATCH}); prompts of {sorted(lens.tolist())} tokens")
+    engine.generate(prompts, max_new_tokens=2)      # warm the allocator
+    torch.cuda.synchronize()
+
+    # the generate path's counted run
+    engine.prefill_calls = engine.decode_calls = 0
+    flash_attention.launches = 0
+    decode_attention.launches = 0
+    t0 = time.perf_counter()
+    res = engine.generate(prompts, max_new_tokens=GEN_TOKENS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fa_n, da_n = flash_attention.launches, decode_attention.launches
+    pre_n, dec_n = engine.prefill_calls, engine.decode_calls
+    log(f"[generate] greedy generate: {res.steps} steps in {1e3 * wall:.1f} "
+        f"ms; prefill_calls {pre_n}, decode_calls {dec_n}; flash_attention "
+        f"launches {fa_n} (expected {layers} x {pre_n}), decode_attention "
+        f"launches {da_n} (expected {layers} x {dec_n})")
+    good = (len(res.tokens) == GEN_BATCH
+            and all(len(t) == GEN_TOKENS for t in res.tokens)
+            and all(0 <= x < cfg.vocab_size for t in res.tokens for x in t)
+            and res.finish_reasons == ["length"] * GEN_BATCH
+            and res.steps == GEN_TOKENS)
+    if not good:
+        failures.append(f"greedy generate output malformed: steps "
+                        f"{res.steps}, reasons {res.finish_reasons}")
+    if fa_n != layers * pre_n or pre_n != 1:
+        failures.append(f"flash_attention launches {fa_n} != {layers} x "
+                        f"{pre_n} prefill calls")
+    if da_n != layers * dec_n or dec_n != res.steps - 1 or da_n == 0:
+        failures.append(f"decode_attention launches {da_n} != {layers} x "
+                        f"{dec_n} decode calls (steps {res.steps})")
+    kernels[0]["launches_generate"] = fa_n
+    kernels[1]["launches"] = da_n
+    kernels[1]["launches_per_tick"] = da_n // max(dec_n, 1)
+
+    # prefill ms and decode ms per tick (host clock, synchronised)
+    tokens, lengths = pad_sequences(prompts, engine.seq_buckets)
+    dev = engine.device
+    batch = {"tokens": torch.from_numpy(tokens).to(dev),
+             "lengths": torch.from_numpy(lengths).to(dev)}
+    prefill_ms = host_time_ms(
+        lambda: engine.prefill(batch, engine.new_state(GEN_BATCH)))
+    samp_greedy = {"temperature": torch.zeros(GEN_BATCH, device=dev),
+                   "top_k": torch.zeros(GEN_BATCH, dtype=torch.int32,
+                                        device=dev),
+                   "top_p": torch.ones(GEN_BATCH, device=dev),
+                   "key": torch.zeros((GEN_BATCH, 2), dtype=torch.int64,
+                                      device=dev),
+                   "regime": "greedy"}
+    logits, state = engine.prefill(batch, engine.new_state(GEN_BATCH))
+    ctr = torch.zeros(GEN_BATCH, dtype=torch.int32, device=dev)
+    tok = engine.sample(logits, samp_greedy, ctr)
+    ticks = []
+    for _ in range(16):
+        t = time.perf_counter()
+        tok, state, ctr = engine.decode_sample(tok, state, samp_greedy, ctr)
+        tok.cpu()                                  # the loop's one transfer
+        ticks.append(1e3 * (time.perf_counter() - t))
+    tick_ms = sorted(ticks)[len(ticks) // 2]
+    tick_share = None
+    if profile_dir:
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            tok, state, ctr = engine.decode_sample(tok, state, samp_greedy,
+                                                   ctr)
+            torch.cuda.synchronize()
+        total, k2 = device_ms(prof, ()), device_ms(prof, K2_KERNELS)
+        tick_share = {"tick_device_ms": total, "decode_attention_ms": k2,
+                      "share": k2 / total if total else None}
+        out_dir = Path(profile_dir)
+        out_dir.mkdir(parents=True, exist_ok=True)
+        table = prof.key_averages().table(sort_by="cuda_time_total",
+                                          row_limit=30)
+        (out_dir / "decode_tick_profile.txt").write_text(table)
+        log("[profile] " + table.replace("\n", "\n[profile] "))
+        log(f"[profile] one decode tick: device time {total:.3f} ms, "
+            f"decode_attention {k2:.3f} ms ({100 * k2 / total:.1f}%)")
+    del state
+    gen = {"generate_wall_ms": 1e3 * wall, "prefill_ms": prefill_ms,
+           "decode_tick_ms": tick_ms,
+           "decode_tokens_per_s": GEN_BATCH * 1e3 / tick_ms,
+           "generate_tokens_per_s": GEN_BATCH * GEN_TOKENS / wall,
+           "tick_profile": tick_share}
+    kernels[1]["generate"] = gen
+    log(f"[generate] B={GEN_BATCH}, prompt bucket {tokens.shape[1]}: "
+        f"prefill {prefill_ms:.2f} ms (median of 5); decode tick "
+        f"{tick_ms:.2f} ms (host clock median of 16, sampling and the ids' "
+        f"transfer included) = {gen['decode_tokens_per_s']:.1f} tokens/s; "
+        f"generate of {GEN_TOKENS} tokens {gen['generate_tokens_per_s']:.1f} "
+        f"tokens/s end to end")
+
+    # teacher-forced logits: kernels vs their plain versions
+    teacher = torch.tensor(res.tokens, dtype=torch.int32, device=dev)
+
+    def forced():
+        logits, state = engine.prefill(batch, engine.new_state(GEN_BATCH))
+        outs = [logits.float()]
+        for t in range(FORCED_STEPS):
+            logits, state = engine.decode(teacher[:, t], state)
+            outs.append(logits.float())
+        return outs
+
+    kern_logits = forced()
+    attn_mod.flash_attention = flash_attention_plain
+    attn_mod.decode_attention = decode_attention_plain
+    try:
+        plain_logits = forced()
+        plain_res = engine.generate(prompts, max_new_tokens=GEN_TOKENS)
+    finally:
+        attn_mod.flash_attention = flash_attention
+        attn_mod.decode_attention = decode_attention
+    errs = []
+    for step, (a, b) in enumerate(zip(kern_logits, plain_logits)):
+        err = float((a - b).abs().max())
+        errs.append(err)
+        ok = (bool(torch.isfinite(a).all())
+              and tuple(a.shape) == (GEN_BATCH, cfg.vocab_size)
+              and torch.allclose(a, b, **LOGITS_TOL))
+        if not ok:
+            failures.append(f"teacher-forced logits step {step} vs plain: "
+                            f"err {err}")
+    log(f"[generate] teacher-forced logits, kernels vs plain versions, "
+        f"prefill + {FORCED_STEPS} decode steps: max_abs_err per step "
+        f"{[f'{e:.3e}' for e in errs]}, max |logit| "
+        f"{float(plain_logits[-1].abs().max()):.3f}")
+    div = first_divergence(res.tokens, plain_res.tokens)
+    log(f"[generate] greedy streams, kernels vs plain versions: "
+        + ("identical" if div is None else
+           f"first differ at row {div[0]}, token {div[1]} (near-ties under "
+           f"random weights can flip; reported, not checked)"))
+    gen["teacher_forced_max_abs_err"] = errs
+    gen["greedy_first_divergence"] = div
+
+    # seeded sampled streams repeat token for token
+    sp = SamplingParams(temperature=0.8, top_k=50, top_p=0.9, seed=7,
+                        max_new_tokens=GEN_TOKENS)
+    s1 = engine.generate(prompts, sampling=sp)
+    s2 = engine.generate(prompts, sampling=sp)
+    same = s1.tokens == s2.tokens
+    log(f"[generate] seeded sampled run (temperature 0.8, top_k 50, top_p "
+        f"0.9, seed 7) twice: {'identical' if same else 'DIFFERENT'}; row 0 "
+        f"{s1.tokens[0][:12]}...")
+    if not same or any(len(t) != GEN_TOKENS for t in s1.tokens):
+        failures.append("seeded sampled generate did not repeat")
+
+    # the rng's bits on the card equal its bits on the CPU
+    keys = np.stack([rng.base_key(s) for s in (0, 7, 12345, 2 ** 31 - 1)])
+    ctrs = np.array([0, 1, 31, 1000], np.int32)
+    on_card = rng.bits(rng.fold_in(rng.as_key(keys, dev),
+                                   torch.from_numpy(ctrs).to(dev)),
+                       cfg.vocab_size).cpu()
+    on_cpu = rng.bits(rng.fold_in(rng.as_key(keys),
+                                  torch.from_numpy(ctrs)), cfg.vocab_size)
+    bits_ok = torch.equal(on_card, on_cpu)
+    log(f"[generate] rng bits, card vs CPU, 4 keys x {cfg.vocab_size}: "
+        f"{'equal' if bits_ok else 'DIFFERENT'}")
+    if not bits_ok:
+        failures.append("rng bits differ between the card and the CPU")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", default=None, metavar="DIR",
@@ -420,20 +816,27 @@ def main(argv=None) -> int:
         f"{torch.cuda.device_count()} device(s)")
 
     from repro_torch.kernels import common
+    from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
     t0 = time.perf_counter()
-    fa_ops.build()
+    with concurrent.futures.ThreadPoolExecutor(2) as ex:   # one nvcc each
+        for fut in [ex.submit(fa_ops.build), ex.submit(da_ops.build)]:
+            fut.result()
     log(f"[build] kernels built in {time.perf_counter() - t0:.1f}s")
     for name, rec in common.build_log.items():
         log(f"[build] {name}: {rec['seconds']:.1f}s -> {rec['library']}")
+        entry = ""
         for line in str(rec["ptxas"]).splitlines():
-            if ("registers" in line or "spill" in line
-                    or "Compiling entry" in line):
-                log(f"[build]   {line.strip()}")
+            if "Compiling entry" in line:       # the mangled template args
+                m = re.search(r"(\w+_kernel)I(\w*?)EEv", line)
+                entry = f"{m.group(1)}<{m.group(2)}>" if m else line
+            elif "registers" in line or "spill" in line:
+                log(f"[build]   {entry}: {line.split(':', 1)[-1].strip()}")
 
     failures = []
-    kernels = kernel_phase(failures)
-    main_path_phase(failures, kernels, args.profile)
+    kernels = kernel_phase(failures) + decode_kernel_phase(failures)
+    app = main_path_phase(failures, kernels, args.profile)
+    generate_phase(failures, kernels, app, args.profile)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -1,0 +1,292 @@
+"""InferenceEngine: bucketed prefill + autoregressive decode with on-device
+sampling.
+
+The port of ``repro/core/engine.py`` for the dense cache.  One engine
+serves one model.  It owns the decode state, buckets prompt lengths and
+batch sizes as the JAX engine does (so the kernels' launch shapes come
+from a bounded set), and keeps the decode data path on the device:
+``decode_sample`` runs the model's decode step and samples the next ids
+there, so per tick only the ``(batch,)`` int32 ids cross to the host.
+
+Where the JAX engine jits and donates, this one runs eagerly under
+``torch.no_grad`` and the model writes each tick's K/V into the state's
+cache in place; a state passed to ``prefill`` or ``decode`` must not be
+used again afterwards except through the returned one.  The sampling
+regime (greedy / plain / filtered) is chosen on the host from the numpy
+copies of the per-row parameters, carried in ``samp["regime"]``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core.batching import BucketSpec, pad_sequences
+from repro_torch.core.sampling import (SamplingParams, base_key,
+                                       sample_tokens, samplers_for,
+                                       sampling_regime)
+from repro_torch.models.build import Model
+
+
+@dataclass
+class GenerationResult:
+    tokens: List[List[int]]            # new tokens per row
+    prompt_lengths: List[int]
+    steps: int
+    finish_reasons: Optional[List[Optional[str]]] = None
+
+
+class InferenceEngine:
+    def __init__(self, model: Model, params, *, max_len: int = 2048,
+                 max_batch: int = 8, window: Optional[int] = None):
+        self.model = model
+        self.params = params
+        self.device = params["embed"].device
+        self.max_len = max_len
+        self.window = window
+        self.batch_buckets = BucketSpec.pow2(max_batch)
+        self.seq_buckets = BucketSpec.pow2(max_len, min_size=16)
+        # forward-call accounting (batched prefill shows up as fewer
+        # prefill calls than admitted requests)
+        self.prefill_calls = 0
+        self.decode_calls = 0
+        self._kw = {} if window is None else {"window": window}
+        self._state_axes = None
+
+    # --- API -----------------------------------------------------------------
+
+    def new_state(self, batch: int):
+        return self.model.init_state(batch, self.max_len, device=self.device)
+
+    @torch.no_grad()
+    def prefill(self, batch: Dict[str, Any], state):
+        self.prefill_calls += 1
+        return self.model.prefill(self.params, batch, state, **self._kw)
+
+    @torch.no_grad()
+    def decode(self, token, state):
+        self.decode_calls += 1
+        return self.model.decode(self.params, token, state, **self._kw)
+
+    @torch.no_grad()
+    def decode_sample(self, token, state, samp: Dict[str, Any], ctr):
+        """One decode tick: model decode step + on-device sampling.
+        ``samp`` holds the per-row tensors (temperature/top_k/top_p/key)
+        and the host-chosen "regime", ``ctr`` the per-row token counters.
+        Returns ``(token_ids (B,) int32 device tensor, new_state, ctr+1)``;
+        the ids are the only thing a caller needs to pull to the host."""
+        self.decode_calls += 1
+        logits, state = self.model.decode(self.params, token, state,
+                                          **self._kw)
+        toks = self.sample(logits, samp, ctr)
+        return toks, state, ctr + 1
+
+    @torch.no_grad()
+    def sample(self, logits, samp: Dict[str, Any], ctr):
+        """On-device sampling of standalone logits (the prefill first-token
+        path); same per-row contract as ``decode_sample``."""
+        return sample_tokens(logits, samp["temperature"], samp["top_k"],
+                             samp["top_p"], samp["key"], ctr,
+                             regime=samp.get("regime"))
+
+    def decode_cache_size(self) -> Optional[int]:
+        """Compiled-variant count of the decode step: None, since eager
+        PyTorch compiles nothing to introspect (the JAX contract's value
+        when a build has no cache introspection)."""
+        return None
+
+    @torch.no_grad()
+    def insert_rows(self, pool_state, group_state, src_rows, write_mask):
+        """Slot scatter: copy selected rows of a freshly prefilled GROUP
+        state into selected slots of a pooled decode state.  Slot b takes
+        group row ``src_rows[b]`` iff ``write_mask[b]``.  Returns a new
+        state; the pool's tensors are left as they were."""
+        axes = self.state_batch_axes()
+        dev = self.device
+        src_rows = torch.as_tensor(src_rows, device=dev).long()
+        write_mask = torch.as_tensor(write_mask, device=dev).bool()
+
+        def one(pool, sub, axis):
+            if axis is None:
+                return pool
+            pool_m = pool.movedim(axis, 0)
+            picked = sub.movedim(axis, 0).index_select(0, src_rows)
+            mask = write_mask.reshape((-1,) + (1,) * (pool_m.ndim - 1))
+            out = torch.where(mask, picked.to(pool_m.dtype), pool_m)
+            return out.movedim(0, axis)
+
+        return _map_state(one, pool_state, group_state, axes)
+
+    def state_batch_axes(self):
+        """Per-leaf batch axis of the decode state, found by comparing the
+        state's shapes at two batch sizes on the meta device (nothing is
+        allocated)."""
+        if self._state_axes is None:
+            s2, s3 = (self.model.init_state(n, self.max_len, device="meta")
+                      for n in (2, 3))
+            self._state_axes = _map_state(
+                lambda a, b: next((i for i, (x, y) in
+                                   enumerate(zip(a.shape, b.shape))
+                                   if x != y), None), s2, s3)
+        return self._state_axes
+
+    def generate(self, prompts: Sequence[Sequence[int]], *,
+                 max_new_tokens: int = 32, eos_id: Optional[int] = None,
+                 extras: Optional[Dict[str, Any]] = None,
+                 sampling: Optional[SamplingParams] = None,
+                 device_sampling: bool = True) -> GenerationResult:
+        """Generation for a variable-size batch of variable-length prompts
+        (greedy by default; ``sampling`` selects per-row temperature /
+        top-k / top-p decoding).  Batch and prompt length are bucketed;
+        rows beyond the real batch are masked out of the result.
+
+        With ``device_sampling`` (default) every step samples on the
+        device: row i of a seeded request draws token j with
+        ``fold_in(PRNGKey(seed + i), j)``, the JAX engine's stream.
+        ``device_sampling=False`` keeps the numpy ``TokenSampler``
+        reference path."""
+        if sampling is None:
+            sampling = SamplingParams(max_new_tokens=max_new_tokens,
+                                      eos_id=eos_id)
+        n = len(prompts)
+        B = self.batch_buckets.bucket_for(n)
+        tokens, lengths = pad_sequences(prompts, self.seq_buckets)
+        tokens = np.asarray(pad_batch_rows(tokens, B))
+        lengths = np.asarray(pad_batch_rows(lengths, B, fill=1))
+        state = self.new_state(B)
+        batch = {"tokens": torch.from_numpy(tokens).to(self.device),
+                 "lengths": torch.from_numpy(lengths.astype(np.int32)).to(
+                     self.device)}
+        if extras:
+            batch.update({k: _pad_rows(v, B, self.device)
+                          for k, v in extras.items()})
+        logits, state = self.prefill(batch, state)
+        if device_sampling:
+            return self._generate_device(prompts, sampling, logits, state)
+        return self._generate_host(prompts, sampling, logits, state)
+
+    def _generate_device(self, prompts, sampling: SamplingParams,
+                         logits, state) -> GenerationResult:
+        """Device-resident decode loop: per step, only (B,) token ids
+        cross to the host."""
+        n = len(prompts)
+        B = logits.shape[0]
+        row_params = [sampling.for_row(i) for i in range(n)]
+        samplers = [p.sampler() for p in row_params]       # is_stop only
+        temps = np.zeros((B,), np.float32)
+        top_ks = np.zeros((B,), np.int32)
+        top_ps = np.ones((B,), np.float32)
+        keys = np.zeros((B, 2), np.int64)
+        for i, p in enumerate(row_params):
+            temps[i] = p.temperature
+            top_ks[i] = p.top_k
+            top_ps[i] = p.top_p
+            keys[i] = base_key(p.resolve_seed())
+        dev = self.device
+        samp = {"temperature": torch.from_numpy(temps).to(dev),
+                "top_k": torch.from_numpy(top_ks).to(dev),
+                "top_p": torch.from_numpy(top_ps).to(dev),
+                "key": torch.from_numpy(keys).to(dev),
+                "regime": sampling_regime(temps, top_ks, top_ps,
+                                          logits.shape[-1])}
+        out: List[List[int]] = [[] for _ in range(n)]
+        reasons: List[Optional[str]] = [None] * n
+        done = np.zeros((n,), bool)
+        steps = 0
+        # ctr is uniform across rows: a live row has produced exactly
+        # `step` tokens when token `step` is sampled (done rows ignore it)
+        ctr = torch.zeros((B,), dtype=torch.int32, device=dev)
+        tok_dev = self.sample(logits, samp, ctr)
+        ctr = ctr + 1
+        for _ in range(sampling.max_new_tokens):
+            host = tok_dev.cpu().numpy()                   # (B,) int32
+            for i in range(n):
+                if done[i]:
+                    continue
+                t = int(host[i])
+                out[i].append(t)
+                if samplers[i].is_stop(t):
+                    done[i] = True
+                    reasons[i] = ("eos" if sampling.eos_id is not None
+                                  and t == sampling.eos_id else "stop")
+                elif len(out[i]) >= sampling.max_new_tokens:
+                    done[i] = True
+                    reasons[i] = "length"
+            steps += 1
+            if done.all():
+                break
+            tok_dev, state, ctr = self.decode_sample(tok_dev, state,
+                                                     samp, ctr)
+        return GenerationResult(tokens=out,
+                                prompt_lengths=[len(p) for p in prompts],
+                                steps=steps, finish_reasons=reasons)
+
+    def _generate_host(self, prompts, sampling: SamplingParams,
+                       logits, state) -> GenerationResult:
+        """Reference decode loop: numpy TokenSampler on host logits."""
+        n = len(prompts)
+        B = logits.shape[0]
+        samplers = samplers_for(sampling, n)
+        out: List[List[int]] = [[] for _ in range(n)]
+        reasons: List[Optional[str]] = [None] * n
+        done = np.zeros((n,), bool)
+        steps = 0
+        next_host = np.zeros((B,), np.int32)
+        for _ in range(sampling.max_new_tokens):
+            if sampling.greedy:
+                # argmax on the device: only B ints cross to the host
+                host_logits = None
+                greedy = torch.argmax(logits, -1).to(torch.int32).cpu() \
+                    .numpy()
+            else:
+                host_logits = logits.float().cpu().numpy()     # (B, V)
+            for i in range(n):
+                if done[i]:
+                    continue
+                t = (int(greedy[i]) if host_logits is None
+                     else samplers[i].sample(host_logits[i]))
+                out[i].append(t)
+                next_host[i] = t
+                if samplers[i].is_stop(t):
+                    done[i] = True
+                    reasons[i] = ("eos" if sampling.eos_id is not None
+                                  and t == sampling.eos_id else "stop")
+                elif len(out[i]) >= sampling.max_new_tokens:
+                    done[i] = True
+                    reasons[i] = "length"
+            steps += 1
+            if done.all():
+                break
+            logits, state = self.decode(
+                torch.from_numpy(next_host).to(self.device), state)
+        return GenerationResult(tokens=out,
+                                prompt_lengths=[len(p) for p in prompts],
+                                steps=steps, finish_reasons=reasons)
+
+
+def _map_state(fn, *trees):
+    """Apply ``fn`` leaf-wise over decode states of one nesting (dicts of
+    dicts of tensors)."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _map_state(fn, *(t[k] for t in trees)) for k in first}
+    return fn(*trees)
+
+
+def _param_bytes(params) -> int:
+    return sum(t.numel() * t.element_size() for t in params.values())
+
+
+def pad_batch_rows(arr: np.ndarray, n: int, fill=0) -> np.ndarray:
+    if arr.shape[0] == n:
+        return arr
+    pad = [(0, n - arr.shape[0])] + [(0, 0)] * (arr.ndim - 1)
+    return np.pad(arr, pad, constant_values=fill)
+
+
+def _pad_rows(x, n, device=None):
+    x = np.asarray(x)
+    return torch.from_numpy(pad_batch_rows(x, n)).to(device)

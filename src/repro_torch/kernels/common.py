@@ -35,8 +35,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _libs: Dict[str, ctypes.CDLL] = {}
-_build_lock = threading.Lock()
-build_log: Dict[str, Dict[str, object]] = {}
+_locks_guard = threading.Lock()
+_build_locks: Dict[str, threading.Lock] = {}    # one per library: builds of
+build_log: Dict[str, Dict[str, object]] = {}    # different kernels overlap
 
 
 def cdiv(a: int, b: int) -> int:
@@ -94,8 +95,11 @@ def load_library(name: str, sources: Sequence[Path]) -> ctypes.CDLL:
     The library is cached in this process and on disk; a build by a
     concurrent process lands under a temporary name and is renamed into
     place, so readers never see a half-written file.  ``build_log[name]``
-    records the seconds spent and the assembler's register/spill report."""
-    with _build_lock:
+    records the seconds spent and the assembler's register/spill report.
+    Different libraries may be built from several threads at once."""
+    with _locks_guard:
+        lock = _build_locks.setdefault(name, threading.Lock())
+    with lock:
         if name in _libs:
             return _libs[name]
         h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())

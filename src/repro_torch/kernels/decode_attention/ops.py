@@ -1,0 +1,154 @@
+"""Flash-decode wrapper in model layout: q (B,H,hd) against one layer of
+the KV cache, k/v (B,Smax,K,hd).
+
+CPU tensors take the plain version (``ref.decode_attention_plain``); CUDA
+tensors launch the Hopper kernel in ``csrc/decode_attention.cu`` or raise.
+The kernel reads the cache through its strides, so a layer view of the
+stacked (L,B,Smax,K,hd) cache costs no copy (the TPU wrapper moved the
+head axis and padded Smax, a copy of the whole layer on every call)."""
+
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.kernels.common import (cdiv, check_cuda_status, data_ptr,
+                                        is_cuda, load_library, round_up,
+                                        stream_ptr)
+from repro_torch.kernels.decode_attention.ref import decode_attention_plain
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "decode_attention.cu"
+MAX_HEAD_DIM = 256
+MAX_SPLITS = 1024
+MIN_KEYS_PER_SPLIT = 64
+# split target: the blocks one wave holds.  The split kernel is compiled
+# for three resident 128-thread blocks per SM (kBlocksPerSM in the source).
+BLOCKS_PER_SM = 3
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_sm_count: Dict[int, int] = {}
+
+
+def build() -> ctypes.CDLL:
+    """Compile (once per process, cached on disk) and bind the kernel."""
+    lib = load_library("decode_attention", [SOURCE])
+    fn = lib.decode_attention_fwd
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+                   + [ctypes.c_longlong] * 10
+                   + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def _head_dim_pad(hd: int) -> int:
+    return next(p for p in (32, 64, 128, 256) if hd <= p)
+
+
+def heads_per_block(G: int, hd: int) -> int:
+    """Query heads a block keeps in registers: the GQA group rounded up to
+    a power of two, at most 8 (4 for head_dim above 128); larger groups
+    take several blocks."""
+    cap = 8 if hd <= 128 else 4
+    return min(cap, 1 << (G - 1).bit_length())
+
+
+def split_plan(B: int, K: int, G: int, Smax: int, hd: int,
+               sms: int) -> tuple:
+    """(nsplit, chunk): the KV axis is cut into ``nsplit`` chunks of
+    ``chunk`` keys so that the grid fills one wave of BLOCKS_PER_SM blocks
+    per SM without spilling into a second, with at least
+    MIN_KEYS_PER_SPLIT keys each.  It depends on shapes only (never on
+    ``lengths``, which live on the device)."""
+    blocks = B * K * cdiv(G, heads_per_block(G, hd))
+    nsplit = max(1, min(cdiv(Smax, MIN_KEYS_PER_SPLIT),
+                        BLOCKS_PER_SM * sms // blocks, MAX_SPLITS))
+    chunk = round_up(cdiv(Smax, nsplit), 16)
+    return cdiv(Smax, chunk), chunk
+
+
+def _sms(device: torch.device) -> int:
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _sm_count:
+        _sm_count[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _sm_count[idx]
+
+
+def _check_aligned(hd: int, *tensors) -> None:
+    """The kernel reads a lane's span of head dims (its padded head dim /
+    32 elements) with vector loads: every row start must be aligned to the
+    span, and hd a multiple of it.  The model's q and cache always are."""
+    vec = _head_dim_pad(hd) // 32
+    span = vec * tensors[0].element_size()
+    if hd % vec or any(t.data_ptr() % span or
+                       any(s % vec for s in t.stride()[:-1])
+                       for t in tensors):
+        raise ValueError(f"decode_attention needs head_dim a multiple of "
+                         f"{vec} and rows aligned to {span} bytes")
+
+
+def decode_attention(q, cache_k, cache_v, lengths, *,
+                     window: Optional[int] = None):
+    """One-token attention against one cache layer; see
+    ``csrc/decode_attention.cu``.  ``lengths`` (B,) counts each row's valid
+    keys including this tick's; ``window`` keeps keys with
+    ``kpos > length - 1 - window``.  Returns (B,H,hd) in q's dtype."""
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    if not is_cuda(q, cache_k, cache_v, lengths):
+        return decode_attention_plain(q, cache_k, cache_v, lengths,
+                                      window=window)
+    if q.dim() != 3 or cache_k.dim() != 4:
+        raise ValueError("decode_attention takes q (B,H,hd) and cache "
+                         "k/v (B,Smax,K,hd)")
+    B, H, hd = q.shape
+    Smax, K = cache_k.shape[1], cache_k.shape[2]
+    if cache_k.shape != (B, Smax, K, hd) or cache_v.shape != cache_k.shape:
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, cache_k "
+                         f"{tuple(cache_k.shape)}, cache_v "
+                         f"{tuple(cache_v.shape)}")
+    if H % K:
+        raise ValueError(f"{H} query heads not divisible by {K} kv heads")
+    if hd > MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {hd} exceeds the kernel's "
+                         f"{MAX_HEAD_DIM}")
+    if (q.dtype not in _DTYPES or cache_k.dtype != q.dtype
+            or cache_v.dtype != q.dtype):
+        raise TypeError(f"decode_attention takes float32 or bfloat16 q and "
+                        f"cache of one dtype, got {q.dtype}/{cache_k.dtype}/"
+                        f"{cache_v.dtype}")
+    if any(t.stride(-1) != 1 for t in (q, cache_k, cache_v)):
+        raise ValueError("the head dimension of q and the cache must be "
+                         "contiguous")
+    if lengths.shape != (B,) or lengths.is_floating_point():
+        raise ValueError(f"lengths must be integer ({B},), got "
+                         f"{lengths.dtype} {tuple(lengths.shape)}")
+    _check_aligned(hd, q, cache_k, cache_v)
+    G = H // K
+    gb = heads_per_block(G, hd)
+    if B > 65535 or K * cdiv(G, gb) > 65535:
+        raise ValueError(f"grid too large: B={B}, H={H}")
+    nsplit, chunk = split_plan(B, K, G, Smax, hd, _sms(q.device))
+    lengths = lengths.to(torch.int32).contiguous()
+    out = torch.empty((B, H, hd), dtype=q.dtype, device=q.device)
+    part_acc = torch.empty((B, H, nsplit, hd), dtype=torch.float32,
+                           device=q.device)
+    part_ml = torch.empty((B, H, nsplit, 2), dtype=torch.float32,
+                          device=q.device)
+    lib = build()
+    status = lib.decode_attention_fwd(
+        data_ptr(q), data_ptr(cache_k), data_ptr(cache_v), data_ptr(out),
+        data_ptr(lengths), data_ptr(part_acc), data_ptr(part_ml),
+        _DTYPES[q.dtype], B, Smax, H, K, hd, *q.stride()[:2],
+        *cache_k.stride()[:3], *cache_v.stride()[:3], *out.stride()[:2],
+        nsplit, chunk, gb, int(window or 0), 1.0 / (hd ** 0.5),
+        stream_ptr(q.device))
+    check_cuda_status(status, "decode_attention")
+    decode_attention.launches += 1
+    return out
+
+
+decode_attention.launches = 0

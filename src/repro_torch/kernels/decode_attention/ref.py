@@ -1,0 +1,40 @@
+"""Plain PyTorch flash-decode: the oracle the kernel is held against.
+
+``decode_attention_plain`` ports ``repro/models/attention.py::
+decode_attention_ref`` with the JAX package's default ``attn_dtype`` path:
+scores from cache-dtype operands with float32 accumulation (a bf16 value
+is exact in float32, so the products are taken in float32), a float32
+softmax, and P cast to the cache dtype before P.V.  It materialises the
+(B, K, G, Smax) score matrix."""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
+
+
+def decode_attention_plain(q, cache_k, cache_v, lengths, *,
+                           window: Optional[int] = None):
+    """q (B,H,hd); cache_k/v (B,Smax,K,hd); lengths (B,) = valid keys per
+    row, counting the token written this tick.  Keys with
+    ``kpos <= length - 1 - window`` are masked.  Returns (B,H,hd) in q's
+    dtype.  A row of length 0 averages every value uniformly (NEG_INF is
+    finite), as the JAX reference does."""
+    B, H, hd = q.shape
+    Smax, K = cache_k.shape[1], cache_k.shape[2]
+    G = H // K
+    scale = 1.0 / (hd ** 0.5)
+    qr = q.reshape(B, K, G, hd).float()
+    scores = torch.einsum("bkgh,btkh->bkgt", qr, cache_k.float()) * scale
+    pos = torch.arange(Smax, device=q.device)[None, :]
+    lengths = lengths.to(q.device)[:, None]
+    valid = pos < lengths
+    if window is not None:
+        valid &= pos > (lengths - 1 - window)
+    scores = torch.where(valid[:, None, None, :], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(cache_v.dtype).float()
+    out = torch.einsum("bkgt,btkh->bkgh", probs, cache_v.float())
+    return out.reshape(B, H, hd).to(q.dtype)

@@ -7,8 +7,16 @@ Self-attention always goes through ``kernels.flash_attention``: on a CUDA
 tensor that launches the Hopper kernel (any S >= 1; a shape the kernel
 cannot take raises), on a CPU tensor it runs the kernel's plain version.
 ``gqa_attention`` stays the materialised-scores path for cross-attention
-and the reference the tests hold both against.  The decode-cache ops and
-MLA come with later slices.
+and the reference the tests hold both against.
+
+The decode half (``init_kv_cache`` .. ``decode_attn_block``) keeps one
+cache per layer as a (B, Smax, K, hd) view of the stacked
+(L, B, Smax, K, hd) cache, and writes each tick's K/V into it IN PLACE:
+the JAX package donates the state to get the same effect, and a copy of
+the cache per tick would move gigabytes at serving sizes.  One-token
+attention goes through ``kernels.decode_attention``.  The fp8 e4m3 cache
+(``kv_cache_f8``, off by default in the JAX package) and MLA come with
+later slices.
 """
 
 from __future__ import annotations
@@ -18,6 +26,8 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.decode_attention import (decode_attention,
+                                                  decode_attention_plain)
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.layers import (apply_rope, compute_dtype, dense_init,
                                        rms_norm_simple)
@@ -148,3 +158,102 @@ def attention_block(p, x, cfg: ModelConfig, *, positions=None, kv_x=None,
         out = gqa_attention(q, k, v, mask)
     out = out.reshape(B, S, cfg.num_heads * cfg.head_dim)
     return _linear(out, p["wo"], p.get("bo"))
+
+
+# ---------------------------------------------------------------------------
+# KV cache ops (decode)
+# ---------------------------------------------------------------------------
+
+# The plain one-token attention: the JAX model layer's ``decode_attention_ref``
+decode_attention_ref = decode_attention_plain
+
+
+def cache_dtype(cfg: ModelConfig) -> torch.dtype:
+    """The cache keeps the compute dtype (bf16 or fp32)."""
+    return compute_dtype(cfg)
+
+
+def init_kv_cache(num_layers: int, batch: int, max_len: int,
+                  cfg: ModelConfig, dtype=None, device=None):
+    dt = dtype or cache_dtype(cfg)
+    shape = (num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=dt, device=device),
+        "v": torch.zeros(shape, dtype=dt, device=device),
+        "length": torch.zeros((batch,), dtype=torch.int32, device=device),
+    }
+
+
+def _write_rows(cache, new, slots):
+    """cache[b, slots[b]] = new[b] for every row b, in place."""
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    cache[rows, slots] = new.to(cache.dtype)
+
+
+def cache_write(cache_k, cache_v, new_k, new_v, lengths):
+    """Write one token per row at position lengths[b], IN PLACE.
+
+    cache_k/v: (B, Smax, K, hd); new_k/v: (B, 1, K, hd); lengths: (B,).
+    A row whose position is past the cache's end keeps its cache as it
+    was, as JAX drops an out-of-range scatter: its write is aimed at the
+    last slot with that slot's own contents (masked, not clamped: no value
+    of the new token lands anywhere).  Returns (cache_k, cache_v)."""
+    Smax = cache_k.shape[1]
+    rows = torch.arange(cache_k.shape[0], device=cache_k.device)
+    inside = (lengths < Smax)[:, None, None]
+    slots = torch.clamp(lengths, max=Smax - 1).long()
+    for cache, new in ((cache_k, new_k), (cache_v, new_v)):
+        kept = torch.where(inside, new[:, 0].to(cache.dtype),
+                           cache[rows, slots])
+        _write_rows(cache, kept, slots)
+    return cache_k, cache_v
+
+
+def ring_write(cache_k, cache_v, new_k, new_v, lengths, window: int):
+    """Ring-buffer write, in place: token at position L lands in slot
+    L % window, so a ring of size ``window`` holds the last ``window``
+    tokens.  Returns (cache_k, cache_v)."""
+    slots = (lengths % window).long()
+    _write_rows(cache_k, new_k[:, 0], slots)
+    _write_rows(cache_v, new_v[:, 0], slots)
+    return cache_k, cache_v
+
+
+def ring_lengths(lengths, window: int):
+    """#valid ring slots after the current token was written."""
+    return torch.clamp(lengths + 1, max=window)
+
+
+def ring_fill(k_full, lengths, window: int):
+    """Pack the last ``window`` positions of a (B, S, ...) tensor into ring
+    order: slot s holds the newest token t < L with t % window == s."""
+    B, S = k_full.shape[:2]
+    s = torch.arange(window, device=k_full.device)[None, :]
+    L = lengths.to(k_full.device).long()[:, None]
+    t = L - 1 - torch.remainder(L - 1 - s, window)    # (B, W), may be < 0
+    t = torch.clamp(t, 0, S - 1)
+    rows = torch.arange(B, device=k_full.device)[:, None]
+    return k_full[rows, t]
+
+
+def decode_attn_block(p, x1, layer_cache_k, layer_cache_v, lengths,
+                      cfg: ModelConfig, *, window: Optional[int] = None,
+                      rope: bool = True):
+    """Single-token self-attention with an in-place cache write.
+
+    If the cache is ring-sized (Smax <= window), writes wrap and the
+    window mask is implicit in the ring's lengths.  x1: (B, 1, D).
+    Returns (out (B,1,D), cache_k, cache_v)."""
+    B = x1.shape[0]
+    positions = lengths[:, None]                       # this token's position
+    q, k, v = project_qkv(p, x1, cfg, positions=positions, rope=rope)
+    Smax = layer_cache_k.shape[1]
+    if window is not None and Smax <= window:          # ring mode
+        ck, cv = ring_write(layer_cache_k, layer_cache_v, k, v, lengths,
+                            Smax)
+        out = decode_attention(q[:, 0], ck, cv, ring_lengths(lengths, Smax))
+    else:
+        ck, cv = cache_write(layer_cache_k, layer_cache_v, k, v, lengths)
+        out = decode_attention(q[:, 0], ck, cv, lengths + 1, window=window)
+    out = out.reshape(B, 1, cfg.num_heads * cfg.head_dim)
+    return _linear(out, p["wo"], p.get("bo")), ck, cv

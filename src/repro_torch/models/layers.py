@@ -7,6 +7,7 @@ regardless of the compute dtype; matmuls run in the config dtype.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional
 
 import numpy as np
@@ -87,12 +88,21 @@ def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
                             / head_dim))
 
 
+@functools.lru_cache(maxsize=32)
+def _rope_freqs_on(head_dim: int, theta: float,
+                   device: torch.device) -> torch.Tensor:
+    """``rope_freqs`` as a tensor on ``device``, copied there once: a copy
+    from pageable host memory per call would wait for the device's queue
+    to drain every layer.  Callers must not modify the tensor."""
+    return torch.from_numpy(rope_freqs(head_dim, theta)).to(device)
+
+
 def apply_rope(x, positions, theta: float):
     """x: (..., seq, heads, head_dim); positions: (..., seq) integer."""
     if theta <= 0.0:
         return x
     hd = x.shape[-1]
-    freqs = torch.from_numpy(rope_freqs(hd, theta)).to(x.device)  # (hd/2,)
+    freqs = _rope_freqs_on(hd, float(theta), x.device)      # (hd/2,)
     angles = positions[..., None].float() * freqs          # (..., S, hd/2)
     cos = torch.cos(angles)[..., None, :]                  # (..., S, 1, hd/2)
     sin = torch.sin(angles)[..., None, :]

@@ -4,12 +4,18 @@ half of ``repro/models/transformer.py``.
 Covers yi-9b, mistral-large-123b, command-r-plus-104b (LayerNorm, parallel
 block, tied embeddings) and h2o-danube-1.8b (native sliding window).  The
 layers run as a Python loop over views of the stacked ``(L, ...)`` params.
-MoE, MLA and the decode path come with later slices.
+
+The decode path (``init_state``, ``prefill``, ``decode_step``) is the port
+of the JAX module's second half.  Its state is ``{"cache": {"k", "v"}
+(L, B, Smax, K, hd), "length": (B,) int32}``; ``prefill`` and
+``decode_step`` write the cache IN PLACE (the JAX engine donates it) and
+return a new dict holding the same cache tensors and the new lengths.
+MoE and MLA come with later slices.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -21,8 +27,8 @@ from repro_torch.models.layers import (apply_mlp, apply_norm, compute_dtype,
 from repro_torch.params import flatten, unflatten
 
 LATER_SLICE = ("family {fam!r} ({name}) is not ported yet: moe/MLA, ssm, "
-               "hybrid, vlm and encdec come with ROADMAP section 1, item 10 "
-               "(other families)")
+               "hybrid, vlm and encdec come with the ROADMAP section 1 item "
+               "\"Other families, with K4 and K5\"")
 
 
 def check_family(cfg: ModelConfig) -> None:
@@ -85,16 +91,21 @@ def subtree(params: Dict[str, torch.Tensor], prefix: str,
 # ---------------------------------------------------------------------------
 
 
-def _layer_full(cfg: ModelConfig, window, x, lp, positions, kv_lengths):
-    h = apply_norm(lp["ln1"], x, cfg)
-    attn_out = attn.attention_block(lp["attn"], h, cfg, positions=positions,
-                                    causal=True, window=window,
-                                    kv_lengths=kv_lengths)
+def _residual(cfg: ModelConfig, lp, x, h, attn_out):
+    """The block around attention: parallel (x + attn + mlp(h)) or serial."""
     if cfg.parallel_block:
         return x + attn_out + apply_mlp(lp["mlp"], h, cfg)
     x = x + attn_out
     h2 = apply_norm(lp["ln2"], x, cfg)
     return x + apply_mlp(lp["mlp"], h2, cfg)
+
+
+def _layer_full(cfg: ModelConfig, window, x, lp, positions, kv_lengths):
+    h = apply_norm(lp["ln1"], x, cfg)
+    attn_out = attn.attention_block(lp["attn"], h, cfg, positions=positions,
+                                    causal=True, window=window,
+                                    kv_lengths=kv_lengths)
+    return _residual(cfg, lp, x, h, attn_out)
 
 
 def forward(params, tokens, cfg: ModelConfig, *, kv_lengths=None,
@@ -116,3 +127,96 @@ def forward(params, tokens, cfg: ModelConfig, *, kv_lengths=None,
 def project_logits(params, h, cfg: ModelConfig):
     head = params["head"] if "head" in params else params["embed"].T
     return h @ head
+
+
+# ---------------------------------------------------------------------------
+# Decode path: one token against a per-layer cache
+# ---------------------------------------------------------------------------
+
+
+def init_state(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
+               window: Optional[int] = None, device=None) -> Dict[str, Any]:
+    """A zeroed decode state on ``device``.  With a sliding window (the
+    config's, or ``window``) the cache is a ring of ``min(max_len,
+    window)`` slots: the JAX package's ``ring_cache`` default."""
+    check_family(cfg)
+    window = window if window is not None else cfg.sliding_window
+    if window is not None:
+        max_len = min(max_len, window)
+    c = attn.init_kv_cache(cfg.num_layers, batch, max_len, cfg, dtype,
+                           device)
+    length = c.pop("length")
+    return {"cache": c, "length": length}
+
+
+def _layer_decode(cfg: ModelConfig, window, x, lp, cache_k, cache_v,
+                  lengths):
+    """One block of the decode step; writes this layer's cache in place."""
+    h = apply_norm(lp["ln1"], x, cfg)
+    attn_out, _, _ = attn.decode_attn_block(lp["attn"], h, cache_k, cache_v,
+                                            lengths, cfg, window=window)
+    return _residual(cfg, lp, x, h, attn_out)
+
+
+def decode_step(params, token, state, cfg: ModelConfig, *,
+                window: Optional[int] = None):
+    """token (B,) -> (logits (B,V), new state).  Appends one position; the
+    cache is written in place."""
+    window = window if window is not None else cfg.sliding_window
+    lengths = state["length"]
+    cache = state["cache"]
+    x = params["embed"][token.long()][:, None, :]            # (B,1,D)
+    for i in range(cfg.num_layers):
+        x = _layer_decode(cfg, window, x, subtree(params, "layers", i),
+                          cache["k"][i], cache["v"][i], lengths)
+    h = apply_norm(subtree(params, "final_norm"), x, cfg)
+    logits = project_logits(params, h, cfg)[:, 0]
+    return logits, {**state, "length": lengths + 1}
+
+
+# ---------------------------------------------------------------------------
+# Prefill: full-sequence forward that also fills the cache
+# ---------------------------------------------------------------------------
+
+
+def prefill(params, tokens, state, cfg: ModelConfig, *, lengths=None,
+            window: Optional[int] = None):
+    """Process a (right-padded) prompt batch, filling the decode cache in
+    place.  tokens (B,S); lengths (B,) valid lengths (default: all S).
+    Returns (last-valid-position logits (B,V), new state).
+
+    Attention runs through the flash kernel with ``lengths`` and
+    ``window``, as the ensemble forward's does (the JAX prefill takes the
+    materialised-scores path; the two differ only at padded query
+    positions, which nothing reads)."""
+    B, S = tokens.shape
+    window = window if window is not None else cfg.sliding_window
+    if lengths is None:
+        lengths = torch.full((B,), S, dtype=torch.int32, device=tokens.device)
+    lengths = lengths.to(torch.int32)
+    x = params["embed"][tokens.long()]
+    positions = torch.arange(S, device=x.device)[None, :]
+    ck_all, cv_all = state["cache"]["k"], state["cache"]["v"]
+    Smax = ck_all.shape[2]
+    ring = Smax < S or (window is not None and Smax <= window)
+    H, hd = cfg.num_heads, cfg.head_dim
+    for i in range(cfg.num_layers):
+        lp = subtree(params, "layers", i)
+        h = apply_norm(lp["ln1"], x, cfg)
+        q, k, v = attn.project_qkv(lp["attn"], h, cfg, positions=positions)
+        out = attn.flash_attention(q, k, v, causal=True, window=window,
+                                   lengths=lengths)
+        attn_out = attn._linear(out.reshape(B, S, H * hd), lp["attn"]["wo"],
+                                lp["attn"].get("bo"))
+        for cache, new in ((ck_all[i], k), (cv_all[i], v)):
+            if ring:     # keep only the last Smax positions, in ring order
+                cache.copy_(attn.ring_fill(new, lengths, Smax))
+            else:
+                cache[:, :S].copy_(new)
+                cache[:, S:].zero_()
+        x = _residual(cfg, lp, x, h, attn_out)
+    h = apply_norm(subtree(params, "final_norm"), x, cfg)
+    rows = torch.arange(B, device=h.device)
+    h_last = h[rows, lengths.long() - 1]          # each row's last valid
+    logits = project_logits(params, h_last, cfg)
+    return logits, {**state, "length": lengths}

@@ -60,6 +60,13 @@ def from_jax(flat: Dict[str, np.ndarray], device,
     return out
 
 
+def state_from_jax(state: Dict[str, Any], device) -> Dict[str, Any]:
+    """A JAX decode state (``{"cache": {"k", "v"}, "length"}``, nested,
+    numpy or JAX leaves; bf16 and int32 kept) -> the same nesting of
+    tensors on ``device``, ready for the port's ``prefill``/``decode``."""
+    return unflatten(from_jax(flatten(state), device))
+
+
 def to_flat(params: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     """Tensors -> flat numpy leaves with the same keys, shapes and dtypes
     (bfloat16 as ml_dtypes' numpy bfloat16, as the JAX package writes it)."""

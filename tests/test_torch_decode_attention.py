@@ -1,0 +1,220 @@
+"""The port's flash-decode (K2) against the JAX package's.
+
+CPU cases: the same numpy inputs through the JAX ``decode_attention``
+(Pallas, interpret mode) and ``decode_attention_ref`` and through the
+port's wrapper on CPU tensors (its plain version), on the parameter grid
+of tests/test_kernels.py::test_decode_attention, with its tolerances:
+fp32 2e-5 (the sides sum in different orders), bf16 3e-2 (the Pallas
+kernel keeps P in fp32, the plain version rounds it to bf16).  Only rows
+of length >= 1 are compared: a length-0 row gets zeros from the kernels
+and a uniform average from the masked-softmax references.
+
+GPU cases (marker ``gpu``, skipped without a CUDA device): the Hopper
+kernel against the plain version on the card at the same tolerances.
+They need no JAX.
+"""
+
+import numpy as np
+import pytest
+import torch
+from numpy.testing import assert_allclose
+
+from repro_torch.kernels.decode_attention import (decode_attention,
+                                                  decode_attention_plain)
+from repro_torch.kernels.decode_attention.ops import (heads_per_block,
+                                                      split_plan)
+from repro_torch.models import attention as tattn
+
+TOL32 = dict(rtol=2e-5, atol=2e-5)
+TOL16 = dict(rtol=3e-2, atol=3e-2)
+
+# tests/test_kernels.py::test_decode_attention's grid
+GRID = [(4, 256, 8, 2, 64, None), (2, 512, 8, 8, 128, None),
+        (3, 300, 4, 1, 64, 64), (2, 1024, 16, 2, 128, 256)]
+
+
+@pytest.fixture(scope="module")
+def jax_da():
+    """The JAX package's decode attention (wrapper, model-layer oracle)."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from repro.kernels.decode_attention import decode_attention as jda
+    from repro.models.attention import decode_attention_ref as jref
+    return jda, jref, jnp
+
+
+def _inputs(B, Smax, H, K, hd, seed=0):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, H, hd)).astype(np.float32)
+    ck = rng.standard_normal((B, Smax, K, hd)).astype(np.float32)
+    cv = rng.standard_normal((B, Smax, K, hd)).astype(np.float32)
+    lengths = rng.integers(1, Smax, (B,)).astype(np.int32)
+    return q, ck, cv, lengths
+
+
+def _jax_in(jnp, x, dtype):
+    return jnp.asarray(x, jnp.bfloat16 if dtype == "bfloat16" else
+                       jnp.float32)
+
+
+def _torch_in(x, dtype, device="cpu"):
+    return torch.from_numpy(x).to(device, getattr(torch, dtype))
+
+
+@pytest.mark.parametrize("B,Smax,H,K,hd,window", GRID)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_matches_jax_kernel(jax_da, B, Smax, H, K, hd, window, dtype):
+    jda, _, jnp = jax_da
+    q, ck, cv, lengths = _inputs(B, Smax, H, K, hd)
+    want = jda(*(_jax_in(jnp, x, dtype) for x in (q, ck, cv)),
+               jnp.asarray(lengths), window=window, kv_blk=128)
+    got = decode_attention(*(_torch_in(x, dtype) for x in (q, ck, cv)),
+                           torch.from_numpy(lengths), window=window)
+    assert got.dtype == getattr(torch, dtype)
+    assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                    **(TOL32 if dtype == "float32" else TOL16))
+
+
+@pytest.mark.parametrize("B,Smax,H,K,hd,window", GRID)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_matches_jax_ref(jax_da, B, Smax, H, K, hd, window, dtype):
+    """The model layer's oracle, ``jattn.decode_attention_ref``, with the
+    default ``attn_dtype`` path: both sides round P to the cache dtype."""
+    _, jref, jnp = jax_da
+    q, ck, cv, lengths = _inputs(B, Smax, H, K, hd, seed=1)
+    want = jref(*(_jax_in(jnp, x, dtype) for x in (q, ck, cv)),
+                jnp.asarray(lengths), window=window)
+    got = tattn.decode_attention_ref(
+        *(_torch_in(x, dtype) for x in (q, ck, cv)),
+        torch.from_numpy(lengths), window=window)
+    assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                    **(TOL32 if dtype == "float32" else TOL16))
+
+
+def test_length_one_rows_attend_to_their_token(jax_da):
+    """tests/test_kernels.py::test_decode_attention_empty_rows: a length-1
+    row attends only to slot 0 and returns its value row."""
+    jda, _, jnp = jax_da
+    q, ck, cv, _ = _inputs(2, 64, 4, 2, 32, seed=2)
+    lengths = np.array([1, 2], np.int32)
+    got = decode_attention(torch.from_numpy(q), torch.from_numpy(ck),
+                           torch.from_numpy(cv), torch.from_numpy(lengths))
+    want = jda(jnp.asarray(q), jnp.asarray(ck), jnp.asarray(cv),
+               jnp.asarray(lengths), kv_blk=32)
+    assert torch.isfinite(got).all()
+    assert_allclose(got.numpy(), np.asarray(want), **TOL32)
+    assert_allclose(got[0].numpy(), np.repeat(cv[0, 0], 2, axis=0), **TOL32)
+
+
+def test_rejects_bad_window_and_mixed_devices():
+    q, ck, cv, lengths = (torch.from_numpy(x) for x in
+                          _inputs(1, 8, 2, 1, 32))
+    with pytest.raises(ValueError):
+        decode_attention(q, ck, cv, lengths, window=0)
+    with pytest.raises(ValueError):
+        decode_attention(q.to("meta"), ck, cv, lengths)
+
+
+@pytest.mark.parametrize("B,K,G,Smax,hd,sms,want", [
+    (8, 4, 8, 1024, 128, 132, (11, 96)),       # yi-9b serving shape
+    (8, 4, 8, 32768, 128, 132, (12, 2736)),    # long cache: one wave
+    (1, 1, 1, 100, 64, 132, (2, 64)),
+    (4, 8, 12, 4096, 128, 132, (6, 688)),      # G=12: two head groups
+])
+def test_split_plan(B, K, G, Smax, hd, sms, want):
+    """The KV split depends on shapes only; every key lies in a split."""
+    nsplit, chunk = split_plan(B, K, G, Smax, hd, sms)
+    assert (nsplit, chunk) == want
+    assert nsplit * chunk >= Smax > (nsplit - 1) * chunk
+    assert heads_per_block(12, 128) == 8 and heads_per_block(16, 256) == 4
+    assert heads_per_block(4, 80) == 4 and heads_per_block(3, 64) == 4
+
+
+# --- on the card ------------------------------------------------------------
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the Hopper kernel has no CPU mode)")
+    return torch.device("cuda")
+
+
+GPU_CASES = [
+    # name, B, Smax, H, K, hd, window, lengths ("ragged" | "ring" | "one")
+    ("yi-9b serving shape", 8, 1024, 32, 4, 128, None, "ragged"),
+    ("window 100", 8, 1024, 32, 4, 128, 100, "ragged"),
+    ("ring lengths min(L+1,Smax)", 8, 256, 32, 4, 128, None, "ring"),
+    ("length-1 rows", 4, 128, 32, 4, 128, None, "one"),
+    ("Smax 1000 (ragged tile)", 3, 1000, 32, 4, 128, None, "ragged"),
+    ("danube hd=80 G=4", 4, 512, 32, 8, 80, 300, "ragged"),
+    ("G=12", 2, 700, 96, 8, 128, None, "ragged"),
+    ("hd=256", 2, 300, 8, 2, 256, None, "ragged"),
+    ("hd=32 G=1", 3, 64, 4, 4, 32, None, "ragged"),
+]
+
+
+def gpu_case_lengths(kind, B, Smax, seed=0):
+    rng = np.random.default_rng(seed)
+    if kind == "one":
+        return np.ones((B,), np.int32)
+    if kind == "ring":              # some rows wrapped, some not yet
+        L = rng.integers(0, 3 * Smax, (B,))
+        return np.minimum(L + 1, Smax).astype(np.int32)
+    lengths = rng.integers(1, Smax + 1, (B,)).astype(np.int32)
+    lengths[0] = Smax
+    return lengths
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,B,Smax,H,K,hd,window,kind", GPU_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_matches_plain_on_gpu(cuda, name, B, Smax, H, K, hd, window,
+                                     kind, dtype):
+    q, ck, cv, _ = _inputs(B, Smax, H, K, hd)
+    lengths = torch.from_numpy(gpu_case_lengths(kind, B, Smax)).to(cuda)
+    q, ck, cv = (_torch_in(x, dtype, cuda) for x in (q, ck, cv))
+    before = decode_attention.launches
+    got = decode_attention(q, ck, cv, lengths, window=window)
+    want = decode_attention_plain(q, ck, cv, lengths, window=window)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 1
+    assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                    **(TOL32 if dtype == "float32" else TOL16))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_reads_a_layer_view_of_the_stacked_cache(cuda, dtype):
+    """A (B,Smax,K,hd) layer view of a (L,B,Smax,K,hd) cache, and a q that
+    is a strided slice: read through strides, no copy."""
+    L, B, Smax, H, K, hd = 3, 4, 384, 16, 2, 128
+    rng = np.random.default_rng(3)
+    ck = _torch_in(rng.standard_normal((L, B, Smax, K, hd)).astype(
+        np.float32), dtype, cuda)
+    cv = _torch_in(rng.standard_normal((L, B, Smax, K, hd)).astype(
+        np.float32), dtype, cuda)
+    q = _torch_in(rng.standard_normal((B, 1, H, 2 * hd)).astype(np.float32),
+                  dtype, cuda)[:, 0, :, :hd]
+    lengths = torch.tensor([384, 1, 200, 77], dtype=torch.int32, device=cuda)
+    got = decode_attention(q, ck[1], cv[1], lengths)
+    want = decode_attention_plain(q, ck[1], cv[1], lengths)
+    torch.cuda.synchronize()
+    assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                    **(TOL32 if dtype == "float32" else TOL16))
+
+
+@pytest.mark.gpu
+def test_kernel_rejects_what_it_cannot_take(cuda):
+    q = torch.zeros((1, 2, 512), device=cuda)
+    c = torch.zeros((1, 8, 1, 512), device=cuda)
+    lengths = torch.ones((1,), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        decode_attention(q, c, c, lengths)
+    with pytest.raises(TypeError):
+        h = q[..., :64].half()
+        decode_attention(h, c[..., :64].half(), c[..., :64].half(), lengths)
+    with pytest.raises(ValueError, match="aligned"):   # rows 1 element off
+        qb = torch.zeros((1, 2, 129), dtype=torch.bfloat16, device=cuda)
+        cb = torch.zeros((1, 8, 1, 129), dtype=torch.bfloat16, device=cuda)
+        decode_attention(qb[..., 1:], cb[..., 1:], cb[..., 1:], lengths)

@@ -53,7 +53,9 @@ def test_flatten_unflatten_inverse():
 
 def test_import_guard_no_jax_no_repro():
     code = ("import sys, repro_torch.launch.serve, repro_torch.serving.server,"
-            " repro_torch.kernels.flash_attention.ops;"
+            " repro_torch.kernels.flash_attention.ops,"
+            " repro_torch.kernels.decode_attention.ops,"
+            " repro_torch.core.engine;"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'));"
             "print(bad); sys.exit(1 if bad else 0)")

@@ -223,7 +223,20 @@ def test_other_families_raise(arch):
 
 
 def test_generate_entry_points_raise():
+    """The generate entry points run on CPU tensors when asked for the CPU
+    (tests/test_torch_decode.py holds them to JAX); without a device they
+    run on the card, and with no card visible ``init_state`` raises
+    instead of falling back to the CPU."""
     model = build_model(reduce_for_smoke(get_config("yi-9b")))
-    for fn in (model.init_state, model.prefill, model.decode):
-        with pytest.raises(NotImplementedError, match="generate"):
-            fn()
+    params = model.init(0, "cpu")
+    state = model.init_state(2, 16, device="cpu")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, model.config.vocab_size, (2, 5)).astype(np.int32))
+    logits, state = model.prefill(params, {"tokens": tokens}, state)
+    assert logits.shape == (2, model.config.vocab_size)
+    logits, state = model.decode(params, logits.argmax(-1), state)
+    assert logits.shape == (2, model.config.vocab_size)
+    assert state["length"].tolist() == [6, 6]
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            model.init_state(2, 16)
