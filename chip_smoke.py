@@ -10,9 +10,10 @@ Phases (any failure exits non-zero and prints no final result line):
 
 1. device: the card's name and power limit (nvidia-smi); TF32 off for the
    comparisons.
-2. build: every kernel of the main path (K1 flash_attention, K2
-   decode_attention) is compiled from the checkout's sources with nvcc for
-   sm_90a, one nvcc per source, started together.
+2. build: every kernel of the main paths (K1 flash_attention; K2
+   decode_attention and K3 paged_decode_attention, one source) is compiled
+   from the checkout's sources with nvcc for sm_90a, one nvcc per source,
+   started together.
 3. kernels: each kernel is held against its plain PyTorch version on the
    card at the main path's shapes and at the edges.  K1: yi-9b attention,
    B=8, S=256, H=32, K=4, hd=128, bf16 and fp32, plus sliding window,
@@ -23,7 +24,14 @@ Phases (any failure exits non-zero and prints no final result line):
    stacked cache, danube's hd=80 G=4, G=12 and hd=256.  Each is then
    timed beside its plain version, the PyTorch library call that computes
    the same function (SDPA, a yardstick only) and its bound; K2 also at
-   B=8, Smax=32768, full lengths.
+   B=8, Smax=32768, full lengths.  K3: the paged tick at B=8, 64 pages of
+   16 per row, H=32, K=4, hd=128, ragged lengths 17-330, a shuffled table
+   in which 3 rows share their first 4 pages (bf16 and fp32), plus a
+   window, a vacant row on the dump page, danube's hd=80 G=4, hd=256, page
+   sizes 32 and 64, and a layer view of a stacked pool; at page size 16
+   it must equal K2 on the gathered cache bit for bit.  Timed at the tick
+   shape and at 2,048 pages (32k keys) per row beside K2 on the gathered
+   cache, the plain version, a gather + SDPA yardstick and its bound.
 4. ensemble path: ``build_app(["yi-9b", "yi-9b"], full=True)`` — two
    members at full width and depth with random weights from a seed —
    behind ``FlexServeServer`` on an ephemeral port; /v1/infer and
@@ -44,9 +52,28 @@ Phases (any failure exits non-zero and prints no final result line):
    rng's bits on the card must equal its bits on the CPU.  Prefill ms,
    decode ms per tick and tokens/s are printed; with ``--profile`` also
    K2's share of one tick's device time.
+6. scheduler path: a ``SchedulerService`` over an ``InferenceEngine`` and
+   one over a ``PagedInferenceEngine`` (page size 16), both over member
+   yi-9b#0 at full width and depth, max_len 1024, 8 slots, each warmed
+   first.  Two rounds in turns (dense, paged, dense, paged), each with its
+   own 12 requests (prompts of 17-300 tokens, 32 new tokens, greedy mixed
+   with seeded sampled rows): every request must finish with reason
+   "length", the paged streams must equal the dense streams, K1 must
+   launch 48 x prefill forwards, K2 48 x dense ticks and K3 48 x paged
+   ticks (counts zeroed just before each run and read just after it), and
+   each tick must move num_slots int32 ids to the host.  Then three greedy
+   requests sharing a 64-token prefix on one slot (the followers must
+   reuse 4 pages and 64 tokens each; their streams go through the C > 0
+   plain attention, so the first divergence from dense is reported), and
+   a scheduler run that pauses and resumes a request mid-decode: the paged
+   engine must reattach without recompute and reproduce the uninterrupted
+   streams; the dense engine's recompute is reported against them (its
+   re-prefilled K/V is not bitwise the decode-time K/V in bf16).  Tokens/s,
+   ticks, tick times, TTFT, warm seconds and the pool's high water are
+   printed.
 
-The line before the nvidia-smi line is ``{"kernels": [...]}``; the last
-line is ``{"ok": true, "device": {...}}``.
+The line before the nvidia-smi line is ``{"kernels": [...]}`` (K1, K2,
+K3); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -58,6 +85,7 @@ import json
 import re
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -407,6 +435,187 @@ def decode_kernel_phase(failures):
     return [entry]
 
 
+
+def paged_case(name, B, MP, ps, H, K, hd, dtype, *, window=None,
+               lengths="ragged", share=False, vacant=False, stacked=False,
+               shuffle=True, seed=0):
+    """q, a pool of B*MP + 1 pages (page 0 the dump page) and a shuffled
+    table (``shuffle=False``: each row's pages in pool order); ``share``:
+    rows 1-2 take row 0's first 4 pages; ``vacant``: the last row sits on
+    the dump page with length 1."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dt = getattr(torch, dtype)
+    layers = 3 if stacked else 1
+    P = B * MP + 1
+    q = torch.randn((B, H, hd), generator=g, device="cuda").to(dt)
+    kp = torch.randn((layers, P, ps, K, hd), generator=g,
+                     device="cuda").to(dt)
+    vp = torch.randn((layers, P, ps, K, hd), generator=g,
+                     device="cuda").to(dt)
+    kp, vp = kp[layers // 2], vp[layers // 2]
+    perm = (torch.randperm(P - 1, generator=g, device="cuda") if shuffle
+            else torch.arange(P - 1, device="cuda")) + 1
+    table = perm.reshape(B, MP).to(torch.int32)
+    Smax = MP * ps
+    if lengths == "full":
+        lens = torch.full((B,), Smax, dtype=torch.int32, device="cuda")
+    elif lengths == "tick":          # the generate phase's 17-330 tokens
+        lens = torch.randint(17, 331, (B,), generator=g, device="cuda",
+                             dtype=torch.int32)
+    else:
+        lens = torch.randint(1, Smax + 1, (B,), generator=g, device="cuda",
+                             dtype=torch.int32)
+    if share:
+        table[1:3, :4] = table[0, :4]
+        lens[1:3] = torch.clamp(lens[1:3], min=4 * ps + 1)
+    if vacant:
+        table[-1] = 0
+        lens[-1] = 1
+    return dict(name=name, q=q, k=kp, v=vp, table=table, lengths=lens,
+                window=window, dtype=dtype, ps=ps)
+
+
+def paged_decode_kernel_phase(failures):
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import (
+        decode_attention, paged_decode_attention,
+        paged_decode_attention_plain)
+    from repro_torch.models.paged import _gathered_view
+
+    yi = (32, 4, 128)
+    cases = [
+        paged_case("yi-9b tick bf16, 3 rows share 4 pages", 8, 64, 16, *yi,
+                   "bfloat16", lengths="tick", share=True),
+        paged_case("yi-9b tick fp32, 3 rows share 4 pages", 8, 64, 16, *yi,
+                   "float32", lengths="tick", share=True),
+        paged_case("yi-9b bf16 window 100", 8, 64, 16, *yi, "bfloat16",
+                   window=100),
+        paged_case("vacant row on the dump page bf16", 8, 64, 16, *yi,
+                   "bfloat16", vacant=True),
+        paged_case("danube hd=80 G=4 bf16 window 300", 4, 32, 16, 32, 8,
+                   80, "bfloat16", window=300),
+        paged_case("hd=256 bf16", 2, 20, 16, 8, 2, 256, "bfloat16"),
+        paged_case("page size 32 bf16", 8, 32, 32, *yi, "bfloat16"),
+        paged_case("page size 64 bf16", 8, 16, 64, *yi, "bfloat16"),
+        paged_case("layer view of a stacked pool bf16", 8, 32, 16, *yi,
+                   "bfloat16", stacked=True),
+    ]
+    results = []
+    for c in cases:
+        args = (c["q"], c["k"], c["v"], c["table"], c["lengths"])
+        out = paged_decode_attention(*args, window=c["window"])
+        ref = paged_decode_attention_plain(*args, window=c["window"])
+        bitwise = None
+        if c["ps"] == 16:            # K2's split plan: K2's bits
+            gk, gv = _gathered_view(c["k"], c["v"], c["table"])
+            k2 = decode_attention(c["q"], gk, gv, c["lengths"],
+                                  window=c["window"])
+            bitwise = bool(torch.equal(out, k2))
+        torch.cuda.synchronize()
+        err = float((out.float() - ref.float()).abs().max())
+        tol = TOL[c["dtype"]]
+        ok = (bool(torch.isfinite(out.float()).all())
+              and torch.allclose(out.float(), ref.float(), **tol)
+              and bitwise is not False)
+        log(f"[kernels] paged_decode_attention {c['name']}: max_abs_err "
+            f"{err:.3e} (rtol/atol {tol['rtol']})"
+            + ("" if bitwise is None else
+               f", bitwise equal to K2 on the gathered cache: {bitwise}")
+            + f" -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"paged_decode_attention {c['name']}: err {err}, "
+                            f"bitwise vs K2 {bitwise}")
+        results.append({"case": c["name"], "max_abs_err": err, "ok": ok,
+                        "bitwise_k2": bitwise})
+
+    def timed(c):
+        q, kp, vp, table, lens = (c[k] for k in ("q", "k", "v", "table",
+                                                 "lengths"))
+        B, H, hd = q.shape
+        ps, K = kp.shape[1], kp.shape[2]
+        Smax = table.shape[1] * ps
+        gk, gv = _gathered_view(kp, vp, table)
+        kernel_ms = cuda_time_ms(
+            lambda: paged_decode_attention(q, kp, vp, table, lens))
+        dev_ms = profiled_ms(
+            lambda: paged_decode_attention(q, kp, vp, table, lens),
+            K2_KERNELS)
+        k2_ms = cuda_time_ms(lambda: decode_attention(q, gk, gv, lens))
+        k2_dev_ms = profiled_ms(lambda: decode_attention(q, gk, gv, lens),
+                                K2_KERNELS)
+        plain_ms = cuda_time_ms(
+            lambda: paged_decode_attention_plain(q, kp, vp, table, lens))
+        mask = (torch.arange(Smax, device="cuda")[None, :]
+                < lens[:, None])[:, None, None, :]
+
+        def library():              # the JAX default: gather, then attend
+            ck, cv = _gathered_view(kp, vp, table)
+            return F.scaled_dot_product_attention(
+                q[:, :, None, :], ck.transpose(1, 2), cv.transpose(1, 2),
+                attn_mask=mask, enable_gqa=True)
+        try:
+            library_ms = cuda_time_ms(library)
+        except TypeError:                   # torch without enable_gqa
+            library_ms = None
+        del gk, gv
+        keys = int(torch.clamp(lens, max=Smax).sum())
+        pages = int(((torch.clamp(lens, max=Smax) + ps - 1) // ps).sum())
+        nbytes = 2 * keys * K * hd * kp.element_size() + 4 * pages \
+            + 2 * q.numel() * q.element_size()
+        flops = 4 * hd * H * keys
+        t_bytes = nbytes / PEAK_BYTES_PER_S
+        t_flops = flops / PEAK_FLOPS[c["dtype"]]
+        return {"shape": f"B={B} pages/row={table.shape[1]} ps={ps} H={H} "
+                         f"K={K} hd={hd} {c['dtype']} valid keys {keys}",
+                "ms": kernel_ms, "kernel_ms": kernel_ms,
+                "device_ms": dev_ms, "k2_ms": k2_ms, "k2_device_ms": k2_dev_ms,
+                "plain_ms": plain_ms, "library_ms": library_ms,
+                "bound_ms": 1e3 * max(t_bytes, t_flops),
+                "bound_by": "bytes" if t_bytes >= t_flops else "operations",
+                "bytes": nbytes, "flops": flops}
+
+    main = timed(cases[0])
+    long_case = paged_case("32k keys per row", 8, 2048, 16, *yi, "bfloat16",
+                           lengths="full")
+    long = timed(long_case)
+    del long_case
+    # the same pool with each row's pages in pool order: what page
+    # scattering over 0.5 GB costs beside the indirection itself
+    long_case = paged_case("32k keys per row, pages in order", 8, 2048, 16,
+                           *yi, "bfloat16", lengths="full", shuffle=False)
+    ordered = timed(long_case)
+    del long_case
+    long["pages_in_order"] = {k: ordered[k] for k in (
+        "kernel_ms", "device_ms", "k2_ms", "k2_device_ms")}
+    log(f"[kernels] paged_decode_attention at 32k keys per row with each "
+        f"row's pages in pool order: kernel {ordered['kernel_ms']:.4f} ms "
+        f"(device {ordered['device_ms']:.4f} ms); K2 on the gathered cache "
+        f"{ordered['k2_ms']:.4f} ms (device {ordered['k2_device_ms']:.4f} "
+        f"ms)")
+    for t in (main, long):
+        log(f"[kernels] paged_decode_attention timed at {t['shape']}: kernel "
+            f"{t['kernel_ms']:.4f} ms (device {t['device_ms']:.4f} ms); K2 on "
+            f"the gathered cache {t['k2_ms']:.4f} ms (device "
+            f"{t['k2_device_ms']:.4f} ms); plain {t['plain_ms']:.4f} ms; "
+            f"gather + SDPA {t['library_ms']} ms; bound {t['bound_ms']:.4f} "
+            f"ms ({t['bound_by']}, {t['bytes']} bytes)")
+    torch.cuda.empty_cache()
+    return [{
+        "name": "paged_decode_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/decode_attention/csrc/"
+                  "decode_attention.cu",
+        "replaces": "src/repro/kernels/decode_attention/kernel.py:164 "
+                    "(pallas_call :202)",
+        "launches": None,
+        "max_abs_err": results[0]["max_abs_err"],
+        **main,
+        "long_cache": long,
+        "cases": results,
+    }]
+
 # --- phase 4: main path --------------------------------------------------------
 
 
@@ -443,7 +652,8 @@ def check_schema(status, body, n, kind):
 def main_path_phase(failures, kernels, profile_dir):
     import numpy as np
     import torch
-    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      paged_decode_attention)
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
     from repro_torch.launch.serve import build_app
@@ -496,13 +706,15 @@ def main_path_phase(failures, kernels, profile_dir):
         batches0 = m0["coalesce"]["batches_formed"]
         flash_attention.launches = 0            # the ensemble path's run
         decode_attention.launches = 0
+        paged_decode_attention.launches = 0
         results = [send(kind, t) for kind, t in requests]
         with concurrent.futures.ThreadPoolExecutor(len(concurrent_reqs)) as ex:
             futs = [ex.submit(send, kind, t) for kind, t in concurrent_reqs]
             results += [f.result() for f in futs]
         torch.cuda.synchronize()
         launches = flash_attention.launches
-        decode_launches = decode_attention.launches
+        decode_launches = (decode_attention.launches
+                           + paged_decode_attention.launches)
         status, m1 = client.call("GET", "/metrics")
         forwards = m1["coalesce"]["batches_formed"] - batches0
         for kind, n, st, resp, dt in results:
@@ -517,8 +729,9 @@ def main_path_phase(failures, kernels, profile_dir):
             failures.append(f"flash_attention launches {launches} != "
                             f"{expected}")
         if decode_launches != 0:
-            failures.append(f"decode_attention launched {decode_launches} "
-                            f"times on the ensemble path")
+            failures.append(f"decode_attention/paged_decode_attention "
+                            f"launched {decode_launches} times on the "
+                            f"ensemble path")
         kernels[0]["launches"] = launches
         for name in ("/health", "/healthz", "/v1/models"):
             st, body = client.call("GET", name)
@@ -613,7 +826,8 @@ def generate_phase(failures, kernels, app, profile_dir):
     from repro_torch.core import InferenceEngine, SamplingParams, rng
     from repro_torch.core.batching import pad_sequences
     from repro_torch.kernels.decode_attention import (decode_attention,
-                                                      decode_attention_plain)
+                                                      decode_attention_plain,
+                                                      paged_decode_attention)
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
     from repro_torch.models import attention as attn_mod
@@ -637,11 +851,16 @@ def generate_phase(failures, kernels, app, profile_dir):
     engine.prefill_calls = engine.decode_calls = 0
     flash_attention.launches = 0
     decode_attention.launches = 0
+    paged_decode_attention.launches = 0
     t0 = time.perf_counter()
     res = engine.generate(prompts, max_new_tokens=GEN_TOKENS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     fa_n, da_n = flash_attention.launches, decode_attention.launches
+    if paged_decode_attention.launches:
+        failures.append(f"paged_decode_attention launched "
+                        f"{paged_decode_attention.launches} times in the "
+                        f"dense generate run")
     pre_n, dec_n = engine.prefill_calls, engine.decode_calls
     log(f"[generate] greedy generate: {res.steps} steps in {1e3 * wall:.1f} "
         f"ms; prefill_calls {pre_n}, decode_calls {dec_n}; flash_attention "
@@ -791,11 +1010,298 @@ def generate_phase(failures, kernels, app, profile_dir):
         failures.append("rng bits differ between the card and the CPU")
 
 
+# --- phase 6: scheduler path ---------------------------------------------------
+
+SCHED_SLOTS = 8
+SCHED_REQUESTS = 12
+PREFIX_TOKENS = 64
+
+
+def sched_workload(vocab, seed):
+    """12 requests: prompts of 17-300 tokens, 32 new tokens, greedy rows
+    mixed with seeded sampled rows (temperature 0.8, top_k 50, top_p 0.9)."""
+    import numpy as np
+    from repro_torch.core import SamplingParams
+    r = np.random.default_rng(seed)
+    lens = r.integers(17, 301, SCHED_REQUESTS)
+    lens[0], lens[-1] = 17, 300
+    work = []
+    for i, n in enumerate(lens):
+        extra = ({} if i % 2 == 0 else
+                 dict(temperature=0.8, top_k=50, top_p=0.9, seed=100 + i))
+        work.append((r.integers(0, vocab, n).tolist(),
+                     SamplingParams(max_new_tokens=GEN_TOKENS, **extra)))
+    return work
+
+
+def counts_reset():
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      paged_decode_attention)
+    from repro_torch.kernels.flash_attention import flash_attention
+    for fn in (flash_attention, decode_attention, paged_decode_attention):
+        fn.launches = 0
+
+
+def counts_read():
+    import torch
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      paged_decode_attention)
+    from repro_torch.kernels.flash_attention import flash_attention
+    torch.cuda.synchronize()
+    return (flash_attention.launches, decode_attention.launches,
+            paged_decode_attention.launches)
+
+
+def drive_service(svc, work):
+    """Submit every request (a sink per request, as ``submit_request``
+    does) and wait for all; returns (requests, wall seconds).  The 12 land
+    under the service's lock, so the driver's next tick sees all of them
+    and both engines admit the same prefill groups (a prefill's matmul
+    shapes, and so its bits, depend on the group's batch bucket)."""
+    done = [threading.Event() for _ in work]
+    t0 = time.perf_counter()
+    with svc._lock:
+        reqs = [svc.scheduler.submit(prompt, sampling=sp,
+                                     sink=lambda r, t, f, ev=ev: ev.set()
+                                     if f else None)
+                for (prompt, sp), ev in zip(work, done)]
+        svc._work.notify()
+    for ev in done:
+        if not ev.wait(900):
+            raise TimeoutError("scheduler request did not finish")
+    return reqs, time.perf_counter() - t0
+
+
+def drive_counted(failures, svc, work, name, layers, warm_s, rnd):
+    """One counted run of the 12 requests through ``svc``: the launch
+    counts are zeroed just before it and read just after it.  Returns the
+    run's record and its streams."""
+    s = svc.scheduler
+    ticks0, fwd0, xfer0 = (s.decode_ticks, s.prefill_forwards,
+                           s.decode_transfer_bytes)
+    host0, dev0 = len(s.host_ms_window), len(s.device_ms_window)
+    pre0 = s.prefill_s_total
+    counts_reset()
+    reqs, wall = drive_service(svc, work)
+    fa_n, k2_n, k3_n = counts_read()
+    ticks = s.decode_ticks - ticks0
+    fwds = s.prefill_forwards - fwd0
+    ntok = sum(len(r.output) for r in reqs)
+    dev = sorted(s.device_ms_window[dev0:])
+    host = sorted(s.host_ms_window[host0:])
+    ttft = sorted(r.ttft_s for r in reqs)
+    pages_hw = (s.pager_stats() or {}).get("pages_used_high_water", 0)
+    rec = {"round": rnd, "tokens_per_s": ntok / wall, "wall_s": wall,
+           "ticks": ticks, "prefill_forwards": fwds,
+           "tick_decode_ms_p50": dev[len(dev) // 2],
+           "tick_bookkeeping_ms_p50": host[len(host) // 2],
+           "prefill_ms_mean": 1e3 * (s.prefill_s_total - pre0) / max(fwds, 1),
+           "ttft_ms_p50": 1e3 * ttft[len(ttft) // 2], "warm_s": warm_s,
+           "pages_used_high_water": pages_hw,
+           "launches": {"flash_attention": fa_n, "decode_attention": k2_n,
+                        "paged_decode_attention": k3_n}}
+    log(f"[scheduler] {name} round {rnd}: {SCHED_REQUESTS} requests, {ntok} "
+        f"tokens in {wall:.2f} s = {ntok / wall:.1f} tokens/s; {ticks} "
+        f"ticks, {fwds} prefill forwards; tick p50: decode call through the "
+        f"ids on the host {rec['tick_decode_ms_p50']:.2f} ms + scheduler "
+        f"bookkeeping {rec['tick_bookkeeping_ms_p50']:.2f} ms; prefill "
+        f"{rec['prefill_ms_mean']:.2f} ms per forward (mean, first tokens "
+        f"included); TTFT p50 {rec['ttft_ms_p50']:.1f} ms; warm "
+        f"{warm_s:.2f} s; pool pages used at most {pages_hw}; launches K1 "
+        f"{fa_n}, K2 {k2_n}, K3 {k3_n}")
+    reasons = [r.finish_reason for r in reqs]
+    if reasons != ["length"] * SCHED_REQUESTS or any(
+            len(r.output) != GEN_TOKENS for r in reqs):
+        failures.append(f"scheduler {name}: reasons {reasons}")
+    want_k2, want_k3 = ((layers * ticks, 0) if name == "dense"
+                        else (0, layers * ticks))
+    if (fa_n != layers * fwds or k2_n != want_k2 or k3_n != want_k3
+            or ticks == 0):
+        failures.append(f"scheduler {name}: launches K1 {fa_n} K2 {k2_n} "
+                        f"K3 {k3_n}, expected {layers * fwds}, {want_k2}, "
+                        f"{want_k3} ({ticks} ticks, {fwds} forwards)")
+    xfer = s.decode_transfer_bytes - xfer0
+    if xfer != 4 * SCHED_SLOTS * ticks:
+        failures.append(f"scheduler {name}: transfer {xfer} bytes over "
+                        f"{ticks} ticks")
+    return rec, [r.output for r in reqs]
+
+
+def profile_scheduler_tick(eng, work, out_dir: Path, name: str):
+    """torch.profiler over one decode-only scheduler tick with every slot
+    live: the tick's device time and the decode-attention kernels' share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import ContinuousBatchingScheduler
+    s = ContinuousBatchingScheduler(eng, num_slots=SCHED_SLOTS)
+    for prompt, sp in work[:SCHED_SLOTS]:
+        s.submit(prompt, sampling=sp)
+    s.step()                                # admits all, first tick
+    s.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        s.step()
+        torch.cuda.synchronize()
+    total, attn = device_ms(prof, ()), device_ms(prof, K2_KERNELS)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    table = prof.key_averages().table(sort_by="cuda_time_total",
+                                      row_limit=30)
+    (out_dir / f"scheduler_tick_{name}_profile.txt").write_text(table)
+    log(f"[profile] one {name} scheduler tick ({SCHED_SLOTS} live slots): "
+        f"device time {total:.3f} ms, decode attention {attn:.3f} ms "
+        f"({100 * attn / total:.1f}%), host clock of the tick "
+        f"{s.device_ms_window[-1] + s.host_ms_window[-1]:.2f} ms")
+    return {"tick_device_ms": total, "decode_attention_ms": attn,
+            "share": attn / total if total else None,
+            "tick_host_clock_ms": s.device_ms_window[-1]
+            + s.host_ms_window[-1]}
+
+
+def scheduler_phase(failures, kernels, app, profile_dir):
+    import numpy as np
+    import torch
+    from repro_torch.core import (ContinuousBatchingScheduler,
+                                  InferenceEngine, PagedInferenceEngine,
+                                  SamplingParams, SchedulerService)
+
+    member = app.registry.get(f"{ARCH}#0")        # no second copy of weights
+    cfg = member.model.config
+    layers = cfg.num_layers
+    kw = dict(max_len=GEN_MAX_LEN, max_batch=GEN_BATCH)
+    engines = {"dense": InferenceEngine(member.model, member.params, **kw),
+               "paged": PagedInferenceEngine(member.model, member.params,
+                                             page_size=16, **kw)}
+    pool = engines["paged"]
+    log(f"[scheduler] yi-9b#0 ({layers} layers, full width), max_len "
+        f"{GEN_MAX_LEN}, {SCHED_SLOTS} slots; paged pool {pool.num_pages} "
+        f"pages of 16 x {pool.page_bytes / 2**20:.2f} MiB = "
+        f"{pool.num_pages * pool.page_bytes / 1e9:.3f} GB")
+    services = {name: SchedulerService(eng, num_slots=SCHED_SLOTS)
+                for name, eng in engines.items()}
+    info = {name: [] for name in engines}
+    try:
+        warm_s = {name: svc.warm() for name, svc in services.items()}
+        # two rounds in turns (dense, paged, dense, paged): host-clock
+        # times on a shared host spread between runs.  Each round has its
+        # own prompts, so none finds the paged prefix cache warm.
+        for rnd in range(2):
+            work = sched_workload(cfg.vocab_size, seed=1 + rnd)
+            out = {}
+            for name, svc in services.items():
+                rec, out[name] = drive_counted(failures, svc, work, name,
+                                               layers, warm_s[name], rnd)
+                info[name].append(rec)
+            same = out["paged"] == out["dense"]
+            log(f"[scheduler] round {rnd}, fresh prompts, paged vs dense "
+                f"streams: {'identical' if same else 'DIFFERENT'}")
+            if not same:
+                failures.append(f"scheduler round {rnd}: paged streams "
+                                f"differ from dense")
+    finally:
+        for svc in services.values():
+            svc.close()
+    kernels[2]["launches"] = info["paged"][0]["launches"][
+        "paged_decode_attention"]
+    kernels[2]["launches_per_tick"] = layers
+    kernels[2]["scheduler"] = {"runs": info}
+    if profile_dir:
+        kernels[2]["scheduler"]["tick_profile"] = {
+            name: profile_scheduler_tick(eng, work, Path(profile_dir), name)
+            for name, eng in engines.items()}
+
+    # shared prefix: one slot, so each follower finds the leader's pages
+    r = np.random.default_rng(2)
+    prefix = r.integers(0, cfg.vocab_size, PREFIX_TOKENS).tolist()
+    pwork = [prefix + r.integers(0, cfg.vocab_size, 3 + i).tolist()
+             for i in range(3)]
+    streams = {}
+    for name, eng in engines.items():
+        s = ContinuousBatchingScheduler(eng, num_slots=1)
+        counts_reset()
+        reqs = [s.submit(p, sampling=SamplingParams(max_new_tokens=16))
+                for p in pwork]
+        s.run()
+        fa_n, k2_n, k3_n = counts_read()
+        streams[name] = [x.output for x in reqs]
+        if name == "paged":
+            st = s.pager_stats()
+            followers = len(pwork) - 1
+            log(f"[scheduler] shared {PREFIX_TOKENS}-token prefix, 1 slot: "
+                f"prefix_hits {st['prefix_hits']}, prefill_tokens_reused "
+                f"{st['prefill_tokens_reused']} (expected "
+                f"{4 * followers} and {PREFIX_TOKENS * followers}); "
+                f"launches K1 {fa_n} K3 {k3_n} over {s.decode_ticks} ticks")
+            if (st["prefix_hits"] != 4 * followers
+                    or st["prefill_tokens_reused"] != PREFIX_TOKENS
+                    * followers or k3_n != layers * s.decode_ticks
+                    or k2_n != 0):
+                failures.append(f"shared prefix: {st}, K2 {k2_n} K3 {k3_n}")
+            kernels[2]["scheduler"]["prefix"] = st
+    div = first_divergence(streams["dense"], streams["paged"])
+    log("[scheduler] shared-prefix streams (followers through the C > 0 "
+        "plain attention), paged vs dense: "
+        + ("identical" if div is None else
+           f"first differ at request {div[0]}, token {div[1]} (reported, "
+           f"not checked)"))
+    kernels[2]["scheduler"]["prefix_first_divergence"] = div
+
+    # pause/resume mid-decode: dense recomputes, paged reattaches its
+    # pages.  The paged streams must equal the same requests run without a
+    # pause (reattach keeps the decode-time K/V).  The dense resume
+    # re-derives the K/V of a's emitted tokens through a prefill, which in
+    # bf16 is not bitwise the decode-time K/V: its first divergence is
+    # reported, not checked.
+    a_prompt = r.integers(0, cfg.vocab_size, 100).tolist()
+    b_prompt = r.integers(0, cfg.vocab_size, 40).tolist()
+    resumed = {}
+    for name, eng in (("uninterrupted", engines["dense"]),
+                      *engines.items()):
+        s = ContinuousBatchingScheduler(eng, num_slots=2)
+        a = s.submit(a_prompt, sampling=SamplingParams(
+            max_new_tokens=12, temperature=0.8, top_k=50, top_p=0.9,
+            seed=42))
+        s.step()                                  # a prefilled alone
+        b = s.submit(b_prompt, sampling=SamplingParams(max_new_tokens=12))
+        s.step()
+        if name != "uninterrupted":
+            s.pause(a)
+        s.step()
+        s.step()
+        if name != "uninterrupted" and not s.resume(a):
+            failures.append(f"pause/resume {name}: nothing parked")
+        s.run()
+        resumed[name] = ([a.output, b.output], s.prefill_requests,
+                         (s.pager_stats() or {}).get(
+                             "resumes_without_recompute"))
+    want = resumed["uninterrupted"][0]
+    paged_ok = resumed["paged"][0] == want
+    div = first_divergence(want, resumed["dense"][0])
+    log(f"[scheduler] pause/resume mid-decode: paged (reattached) streams vs "
+        f"the uninterrupted run: {'identical' if paged_ok else 'DIFFERENT'}; "
+        f"dense (recomputed) vs the uninterrupted run: "
+        + ("identical" if div is None else
+           f"first differ at request {div[0]}, token {div[1]} (reported, not "
+           f"checked)")
+        + f"; prefill requests dense {resumed['dense'][1]}, paged "
+        f"{resumed['paged'][1]}; paged resumes_without_recompute "
+        f"{resumed['paged'][2]}")
+    if (not paged_ok or resumed["paged"][2] != 1
+            or resumed["dense"][1] != 3 or resumed["paged"][1] != 2
+            or resumed["dense"][0][1] != want[1]):
+        failures.append(f"pause/resume: {resumed}")
+    kernels[2]["scheduler"]["pause_resume_dense_first_divergence"] = div
+    del engines
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", default=None, metavar="DIR",
-                    help="also profile one ensemble forward with "
-                         "torch.profiler and write the table under DIR")
+                    help="also profile one ensemble forward, one decode "
+                         "tick and one dense and one paged scheduler tick "
+                         "with torch.profiler and write the tables under "
+                         "DIR")
     args = ap.parse_args(argv)
 
     import torch
@@ -834,9 +1340,11 @@ def main(argv=None) -> int:
                 log(f"[build]   {entry}: {line.split(':', 1)[-1].strip()}")
 
     failures = []
-    kernels = kernel_phase(failures) + decode_kernel_phase(failures)
+    kernels = (kernel_phase(failures) + decode_kernel_phase(failures)
+               + paged_decode_kernel_phase(failures))
     app = main_path_phase(failures, kernels, args.profile)
     generate_phase(failures, kernels, app, args.profile)
+    scheduler_phase(failures, kernels, app, args.profile)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -1,7 +1,8 @@
 """InferenceEngine: bucketed prefill + autoregressive decode with on-device
-sampling.
+sampling; PagedInferenceEngine: the same over a block-paged KV pool.
 
-The port of ``repro/core/engine.py`` for the dense cache.  One engine
+The port of ``repro/core/engine.py`` (speculative decoding comes with its
+slice).  One engine
 serves one model.  It owns the decode state, buckets prompt lengths and
 batch sizes as the JAX engine does (so the kernels' launch shapes come
 from a bounded set), and keeps the decode data path on the device:
@@ -25,9 +26,12 @@ import numpy as np
 import torch
 
 from repro_torch.core.batching import BucketSpec, pad_sequences
+from repro_torch.core.kv_pager import pages_for_budget
 from repro_torch.core.sampling import (SamplingParams, base_key,
                                        sample_tokens, samplers_for,
                                        sampling_regime)
+from repro_torch.models import paged
+from repro_torch.models.attention import cache_dtype
 from repro_torch.models.build import Model
 
 
@@ -69,6 +73,10 @@ class InferenceEngine:
     @torch.no_grad()
     def decode(self, token, state):
         self.decode_calls += 1
+        return self._decode_step(token, state)
+
+    def _decode_step(self, token, state):
+        """The model's one-token step on this engine's state layout."""
         return self.model.decode(self.params, token, state, **self._kw)
 
     @torch.no_grad()
@@ -79,8 +87,7 @@ class InferenceEngine:
         Returns ``(token_ids (B,) int32 device tensor, new_state, ctr+1)``;
         the ids are the only thing a caller needs to pull to the host."""
         self.decode_calls += 1
-        logits, state = self.model.decode(self.params, token, state,
-                                          **self._kw)
+        logits, state = self._decode_step(token, state)
         toks = self.sample(logits, samp, ctr)
         return toks, state, ctr + 1
 
@@ -265,6 +272,102 @@ class InferenceEngine:
         return GenerationResult(tokens=out,
                                 prompt_lengths=[len(p) for p in prompts],
                                 steps=steps, finish_reasons=reasons)
+
+
+class PagedInferenceEngine(InferenceEngine):
+    """InferenceEngine whose decode state is a block-paged KV pool.
+
+    Same public decode contract as the dense engine — ``decode_sample`` /
+    ``sample`` / ``decode_cache_size`` are inherited, so the scheduler's
+    decode tick is the same — but the state carries a shared
+    ``(layers, num_pages, page_size, K, hd)`` page pool plus a per-slot
+    ``(num_slots, max_pages_per_seq)`` page table instead of per-slot
+    worst-case caches.  Page bookkeeping (allocation, refcounts, prefix
+    sharing) lives host-side in the scheduler's ``KVPager``; this class
+    owns only the device programs.  Decode attends through K3
+    (``paged_decode_attention``) on a CUDA state.
+
+    Prefill is context-aware: ``paged_prefill`` runs the SUFFIX of each
+    prompt (what its shared prefix doesn't cover) and commits the new K/V
+    straight into freshly allocated pool pages, in place — there is no
+    per-group cache to scatter with ``insert_rows`` afterwards."""
+
+    def __init__(self, model: Model, params, *, max_len: int = 2048,
+                 max_batch: int = 8, window: Optional[int] = None,
+                 page_size: int = 16, num_pages: Optional[int] = None,
+                 hbm_budget_bytes: Optional[int] = None):
+        cfg = model.config
+        if not paged.supports_paging(cfg):
+            raise ValueError(f"{cfg.name}: no paged KV path for family "
+                             f"{cfg.family}/{cfg.attn_kind}")
+        if max_len % page_size:
+            raise ValueError(f"max_len {max_len} not a multiple of "
+                             f"page_size {page_size}")
+        super().__init__(model, params, max_len=max_len, max_batch=max_batch,
+                         window=window)
+        self.paged = True
+        self.page_size = page_size
+        self.max_pages_per_seq = max_len // page_size
+        self.page_bytes = page_kv_bytes(cfg, page_size)
+        if num_pages is None:
+            if hbm_budget_bytes is not None:
+                num_pages = pages_for_budget(hbm_budget_bytes,
+                                             self.page_bytes)
+            else:
+                # dense-equivalent worst case + the reserved dump page
+                num_pages = max_batch * self.max_pages_per_seq + 1
+        if num_pages - 1 < self.max_pages_per_seq:
+            raise ValueError(
+                f"{num_pages} pages cannot hold even one max-length "
+                f"sequence ({self.max_pages_per_seq} pages)")
+        self.num_pages = num_pages
+        # context-page-count buckets for the shared-prefix prefill variants
+        self.ctx_buckets = BucketSpec.pow2(self.max_pages_per_seq,
+                                           min_size=1)
+        self._pkw: Dict[str, Any] = {"page_size": page_size, **self._kw}
+
+    def ctx_bucket_for(self, n_ctx_pages: int) -> int:
+        """Bucketed context-page count (0 stays 0: the no-sharing prefill
+        variant is exactly the dense computation)."""
+        if n_ctx_pages == 0:
+            return 0
+        return self.ctx_buckets.bucket_for(n_ctx_pages)
+
+    def new_state(self, batch: int):
+        return paged.init_paged_state(self.model.config, batch,
+                                      self.num_pages, self.page_size,
+                                      self.max_pages_per_seq,
+                                      device=self.device)
+
+    @torch.no_grad()
+    def paged_prefill(self, state, tokens, lengths, ctx_table, ctx_lens,
+                      dest_table):
+        """Suffix prefill into pool pages.  ``tokens``/``lengths`` are the
+        bucketed per-row suffixes, ``ctx_table`` the shared prefix pages
+        each row attends to, ``dest_table`` the pages the new K/V lands in.
+        Returns ``(first-token logits, new state)`` — the pool is updated
+        in place; the table/length tensors pass through."""
+        self.prefill_calls += 1
+        return paged.paged_prefill(self.params, tokens, lengths, state,
+                                   ctx_table, ctx_lens, dest_table,
+                                   self.model.config, **self._pkw)
+
+    def _decode_step(self, token, state):
+        return paged.paged_decode_step(self.params, token, state,
+                                       self.model.config, **self._pkw)
+
+    def generate(self, *args, **kwargs):
+        raise NotImplementedError(
+            "PagedInferenceEngine has no standalone generate(): page "
+            "allocation lives in the scheduler — drive it through "
+            "ContinuousBatchingScheduler / SchedulerService")
+
+
+def page_kv_bytes(cfg, page_size: int) -> int:
+    """Device bytes one KV page costs across every layer (k and v)."""
+    itemsize = torch.empty((), dtype=cache_dtype(cfg)).element_size()
+    return (cfg.num_layers * page_size * cfg.num_kv_heads * cfg.head_dim *
+            itemsize * 2)
 
 
 def _map_state(fn, *trees):

@@ -87,8 +87,18 @@ class MemoryLedger:
         self.entries.append(e)
         return e
 
+    def add_kv_pages(self, name: str, page_bytes: int, num_pages: int, *,
+                     shard_factor: Optional[int] = None) -> MemoryEntry:
+        """Paged KV pool: the ledger accounts PAGES, not per-slot
+        worst-case caches — the pool size is the capacity knob, decoupled
+        from slot count (slots only cost their int32 page-table rows)."""
+        e = MemoryEntry(name, "kv_pages", page_bytes * num_pages,
+                        shard_factor or self.n_chips)
+        self.entries.append(e)
+        return e
+
     def remaining_per_chip(self) -> int:
-        """Unclaimed budget."""
+        """Unclaimed budget — what a paged KV pool gets sized against."""
         return max(0, self.budget_per_chip - self.bytes_per_chip)
 
     @property

@@ -1,4 +1,7 @@
-from repro_torch.kernels.decode_attention.ops import decode_attention
-from repro_torch.kernels.decode_attention.ref import decode_attention_plain
+from repro_torch.kernels.decode_attention.ops import (decode_attention,
+                                                      paged_decode_attention)
+from repro_torch.kernels.decode_attention.ref import (
+    decode_attention_plain, paged_decode_attention_plain)
 
-__all__ = ["decode_attention", "decode_attention_plain"]
+__all__ = ["decode_attention", "decode_attention_plain",
+           "paged_decode_attention", "paged_decode_attention_plain"]

@@ -1,31 +1,43 @@
 // Flash-decode for Hopper (sm_90a), CUDA C++ with a plain C interface
-// loaded through ctypes (see repro_torch/kernels/common.py).
+// loaded through ctypes (see repro_torch/kernels/common.py).  Two entries
+// share one split kernel and one combine kernel:
 //
-// Replaces: src/repro/kernels/decode_attention/kernel.py::decode_attention_bkgd
-// (the Pallas TPU kernel; pl.pallas_call at kernel.py:87).
+//  * decode_attention_fwd (K2) replaces
+//    src/repro/kernels/decode_attention/kernel.py::decode_attention_bkgd
+//    (the Pallas TPU kernel; pl.pallas_call at kernel.py:87): the cache is
+//    one contiguous layer per row.
+//  * paged_decode_attention_fwd (K3) replaces
+//    src/repro/kernels/decode_attention/kernel.py::decode_attention_paged_bkgd
+//    (pl.pallas_call at kernel.py:202): key t of row b lives in physical
+//    page page_table[b, t / ps] of a shared page pool, at offset t % ps.
 //
-// What it computes (the same function as the TPU kernel): one query token
+// What it computes (the same function as the TPU kernels): one query token
 // per row against that row's KV cache, GQA (query head h reads KV head
 // h / G), online softmax over the row's lengths[b] valid keys (clamped to
-// Smax), optionally only keys with kpos > lengths[b] - 1 - window.  Scores
-// are scaled by 1/sqrt(head_dim); m, l and the accumulator are fp32, and P
-// stays fp32 for P.V (as in the TPU kernel; the plain version rounds P to
-// the cache dtype first).  A row with no valid key produces zeros.
+// Smax, which is MP * ps for the paged pool), optionally only keys with
+// kpos > lengths[b] - 1 - window.  Scores are scaled by 1/sqrt(head_dim); m,
+// l and the accumulator are fp32, and P stays fp32 for P.V (as in the TPU
+// kernels; the plain versions round P to the cache dtype first).  A row with
+// no valid key produces zeros.
 //
-// Layout: q (B,H,hd) and o (B,H,hd) through (batch, head) element strides;
-// the cache layer k/v (B,Smax,K,hd) through (batch, position, head)
-// strides, so a layer view of the stacked (L,B,Smax,K,hd) cache is read
-// where it lies, with no transpose and no padding copy (the TPU wrapper
-// moved the head axis and padded Smax on every call).  The last dimension
-// must be contiguous.  fp32 and bf16; q, k and v share one dtype and o has
-// q's dtype.
+// Layout: q (B,H,hd) and o (B,H,hd) through (batch, head) element strides.
+// K2's cache layer k/v (B,Smax,K,hd) is read through (batch, position,
+// head) strides, so a layer view of the stacked (L,B,Smax,K,hd) cache is
+// read where it lies, with no transpose and no padding copy (the TPU wrapper
+// moved the head axis and padded Smax on every call).  K3's pool layer
+// k/v_pages (P,ps,K,hd) is read through (page, position, head) strides in
+// the same way (the TPU wrapper transposed the whole pool to (P,K,ps,hd) on
+// every call); page_table (B,MP) is int32 and contiguous, and page 0 is the
+// dump page that vacant rows point at.  Page offsets are 64-bit.  The last
+// dimension must be contiguous.  fp32 and bf16; q, k and v share one dtype
+// and o has q's dtype.
 //
 // What bounds it on an H100: one decode tick reads every valid K/V byte of
 // the layer once and does 4*hd FLOP per (query head, key), i.e. 2*G FLOP
 // per K/V byte read at bf16: 16 for yi-9b's G=8, far below the ~295 FLOP
 // per byte where the tensor cores rather than device memory would bind.
-// So the bound is the K/V bytes over 3.35 TB/s.  What the design does
-// about it:
+// So the bound is the K/V bytes (plus K3's table) over 3.35 TB/s.  What the
+// design does about it:
 //  * Each K/V row is loaded from device memory exactly once, by one warp,
 //    into registers, and used there for all the G query heads of its KV
 //    head (no shared-memory staging is needed for reuse across heads).
@@ -34,10 +46,18 @@
 //    splits per (row, KV head) to put a few blocks on every SM, and a
 //    second small kernel combines the splits' (m, l, acc) partials.
 //  * Inside a block, 4 warps take interleaved steps of 4 keys each, so
-//    every warp keeps 8 row loads in flight.  A lane owns HD_PAD/32
-//    consecutive head dims of q, of each K/V row and of the accumulators;
-//    a q.k dot product is reduced across the warp with shuffles.  The
+//    every warp keeps 8 row loads in flight (loaded as raw words with no
+//    branch and converted after the last one, see Span).  A lane owns
+//    HD_PAD/32 consecutive head dims of q, of each K/V row and of the
+//    accumulators; a q.k dot product is reduced across the warp with shuffles.  The
 //    warps' partial states are merged in shared memory at the end.
+//  * K3 differs from K2 only in how a key row is addressed (the KV
+//    template parameter of the split kernel).  A block first copies its
+//    split's page-table entries into shared memory (chunk / ps ints), so
+//    a key's page is one shared load.  The wrapper starts every split on
+//    a page boundary and, at ps = 16, uses K2's split plan unchanged, so
+//    K3 walks the same keys in the same order as K2 and its output on a
+//    pool equals K2's on the gathered cache bit for bit.
 // Not yet done (later work): tensor cores (G query heads form too few
 // rows for an m16 mma without padding), cp.async/TMA pipelining, the fp8
 // e4m3 cache.
@@ -57,7 +77,14 @@ constexpr int kBlocksPerSM = 3;
 constexpr int kKeysPerStep = 4;       // keys one warp loads per step
 constexpr int kCombineThreads = 128;
 constexpr float kNegInf = -1e30f;     // NEG_INF of the TPU kernel
+// K3 stages a split's table entries in dynamic shared memory: at most this
+// many (32 KB; with the split kernel's 16.6 KB of static shared memory the
+// block stays under the 48 KB a launch gets without opting in).
+constexpr int kMaxSplitPages = 8192;
 
+// Element strides of a cache layer: (batch row, position, head) for K2's
+// (B,Smax,K,hd) layer; (page, position in page, head) for K3's (P,ps,K,hd)
+// pool layer.
 struct Strides {
   long long b, s, h;
 };
@@ -87,7 +114,7 @@ struct Chunk<8> { using type = uint2; };
 template <>
 struct Chunk<16> { using type = uint4; };
 
-// VEC consecutive elements at p + d0 (a lane's head dims of one row) as
+// VEC consecutive elements at p + d0 (a lane's head dims of q) as
 // floats, read with 16-byte (or narrower) loads; zeros past hd.  The wrapper
 // guarantees that every row start is aligned to the lane's span and that hd
 // is a multiple of VEC, so a lane's span is wholly inside or outside hd.
@@ -112,23 +139,124 @@ __device__ __forceinline__ void load_dims(const T* p, int d0, int hd,
   }
 }
 
+// How the split kernel finds key/value row t of (batch row b, KV head kh).
+// at(b, kh, first, last, smem) is called by every thread of the block
+// before q is loaded (a __syncthreads follows) and returns a cursor whose
+// rows(t, kr, vr) gives key t's two row pointers, first <= t <= last.
+
+// K2: a contiguous cache layer, row t at base + b*sb + t*ss + kh*sh.
+template <typename T>
+struct ContigKV {
+  const T* k;
+  const T* v;
+  Strides ks, vs;
+  struct Cursor {
+    const T* kb;
+    const T* vb;
+    long long kss, vss;
+    __device__ __forceinline__ void rows(int t, const T*& kr, const T*& vr) {
+      kr = kb + (long long)t * kss;
+      vr = vb + (long long)t * vss;
+    }
+  };
+  __device__ __forceinline__ Cursor at(int b, int kh, int, int, int*) const {
+    return {k + b * ks.b + kh * ks.h, v + b * vs.b + kh * vs.h, ks.s, vs.s};
+  }
+};
+
+// K3: a page pool layer, row t at pool + table[b, t/ps]*sp + (t%ps)*ss +
+// kh*sh.  at() stages the split's table entries in shared memory, so a
+// key's page is one shared load; t / ps is a multiply-high by a magic
+// number (exact for t < 2^31).
+__device__ __forceinline__ int div_magic(int t, unsigned magic,
+                                         unsigned shift) {
+  return (int)((__umulhi((unsigned)t, magic) + (unsigned)t) >> shift);
+}
+
+template <typename T>
+struct PagedKV {
+  const T* k;
+  const T* v;
+  Strides ks, vs;
+  const int* table;       // (B, MP) int32, contiguous
+  int MP, ps;
+  unsigned magic, shift;  // t / ps == div_magic(t, magic, shift)
+  struct Cursor {
+    const T* kb;
+    const T* vb;
+    const int* pages;     // shared: table[b, p_lo ..]
+    long long ksp, kss, vsp, vss;
+    int ps, p_lo;
+    unsigned magic, shift;
+    __device__ __forceinline__ void rows(int t, const T*& kr, const T*& vr) {
+      const int p = div_magic(t, magic, shift);
+      const long long pg = pages[p - p_lo];
+      const long long o = t - p * ps;
+      kr = kb + pg * ksp + o * kss;
+      vr = vb + pg * vsp + o * vss;
+    }
+  };
+  __device__ __forceinline__ Cursor at(int b, int kh, int first, int last,
+                                       int* smem) const {
+    const int p_lo = div_magic(first, magic, shift);
+    const int n = last >= first ?                            // empty split
+        div_magic(last, magic, shift) - p_lo + 1 : 0;
+    const int* trow = table + (long long)b * MP;
+    for (int i = threadIdx.x; i < n; i += blockDim.x) smem[i] = trow[p_lo + i];
+    return {k + kh * ks.h, v + kh * vs.h, smem, ks.b, ks.s, vs.b, vs.s, ps,
+            p_lo, magic, shift};
+  }
+};
+
+// A lane's span of one K/V row as raw words, loaded without a branch (a
+// lane past hd reads the row's first span and is zeroed when converted),
+// so that the compiler keeps all of a step's row loads in flight before
+// any conversion waits on one.  (With load_dims' branch, K3's address
+// arithmetic made the compiler put each load and its conversion in a
+// block of its own: eight memory latencies a step in a row.)
+template <typename T, int VEC>
+struct Span {
+  static constexpr int BYTES = VEC * (int)sizeof(T);
+  static constexpr int CH = BYTES < 16 ? BYTES : 16;
+  static constexpr int N = BYTES / CH;
+  static constexpr int PER = CH / (int)sizeof(T);
+  using C = typename Chunk<CH>::type;
+  C c[N];
+  __device__ __forceinline__ void load(const T* p, int d0, int hd) {
+    const C* src = reinterpret_cast<const C*>(p + (d0 < hd ? d0 : 0));
+#pragma unroll
+    for (int i = 0; i < N; ++i) c[i] = src[i];
+  }
+  __device__ __forceinline__ void to_floats(bool valid,
+                                            float (&out)[VEC]) const {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const T* e = reinterpret_cast<const T*>(&c[i]);
+#pragma unroll
+      for (int j = 0; j < PER; ++j)
+        out[i * PER + j] = valid ? to_float(e[j]) : 0.f;
+    }
+  }
+};
+
 // One block per (KV split, KV head x head group, batch row).  The block's
 // GB query heads are g0 .. g0+GB-1 of KV head kh (those >= G are padding).
 // Writes the split's unnormalised accumulator to part_acc (B,H,nsplit,hd)
 // and its (max, sum) to part_ml (B,H,nsplit,2).
-template <typename T, int HD_PAD, int GB>
+template <typename T, int HD_PAD, int GB, typename KV>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
-decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const int* __restrict__ lengths,
+decode_split_kernel(const T* __restrict__ q, KV kv,
+                    const int* __restrict__ lengths,
                     float* __restrict__ part_acc, float* __restrict__ part_ml,
                     int Smax, int H, int G, int hd, int ngroups, int chunk,
                     int nsplit, int window, float scale, long long q_sb,
-                    long long q_sh, Strides ks, Strides vs) {
+                    long long q_sh) {
   constexpr int VEC = HD_PAD / 32;
   constexpr int U = kKeysPerStep;
   __shared__ float sm_m[kWarps][GB];
   __shared__ float sm_l[kWarps][GB];
   __shared__ __align__(16) float sm_acc[kWarps][GB][HD_PAD];
+  extern __shared__ int sm_pages[];     // K3: the split's table entries
 
   const int b = blockIdx.z;
   const int kh = blockIdx.y / ngroups;
@@ -142,6 +270,9 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int lo = window > 0 ? max(0, L - window) : 0;
   const int begin = max(lo, split * chunk);
   const int end = min(L, split * chunk + chunk);
+
+  typename KV::Cursor cur = kv.at(b, kh, begin, end - 1, sm_pages);
+  __syncthreads();
 
   float qv[GB][VEC];
   float acc[GB][VEC];
@@ -163,16 +294,23 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
     l[gi] = 0.f;
   }
 
-  const T* kbase = k + b * ks.b + kh * ks.h;
-  const T* vbase = v + b * vs.b + kh * vs.h;
   for (int j0 = begin + warp * U; j0 < end; j0 += kWarps * U) {
+    Span<T, VEC> kraw[U], vraw[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int j = min(j0 + u, end - 1);   // past the end: a valid row, unused
+      const T* krow;
+      const T* vrow;
+      cur.rows(j, krow, vrow);
+      kraw[u].load(krow, d0, hd);
+      vraw[u].load(vrow, d0, hd);
+    }
     float kr[U][VEC];
     float vr[U][VEC];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      const int j = min(j0 + u, end - 1);   // past the end: a valid row, unused
-      load_dims<T, VEC>(kbase + (long long)j * ks.s, d0, hd, kr[u]);
-      load_dims<T, VEC>(vbase + (long long)j * vs.s, d0, hd, vr[u]);
+      kraw[u].to_floats(d0 < hd, kr[u]);
+      vraw[u].to_floats(d0 < hd, vr[u]);
     }
     float s[U][GB];
 #pragma unroll
@@ -284,68 +422,66 @@ decode_combine_kernel(const float* __restrict__ part_acc,
   }
 }
 
-template <typename T, int HD_PAD, int GB>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   const int* lengths, float* part_acc, float* part_ml, int B,
-                   int Smax, int H, int K, int hd, long long q_sb,
-                   long long q_sh, Strides ks, Strides vs, long long o_sb,
-                   long long o_sh, int nsplit, int chunk, int window,
-                   float scale, cudaStream_t stream) {
-  const int G = H / K;
+// The arguments both entries share.
+struct Common {
+  int smem_pages;     // K3: table entries a split stages (chunk / ps)
+  const void* q;
+  void* o;
+  const int* lengths;
+  float* part_acc;
+  float* part_ml;
+  int B, Smax, H, K, hd;
+  long long q_sb, q_sh, o_sb, o_sh;
+  int nsplit, chunk, window;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <typename T, int HD_PAD, int GB, typename KV>
+cudaError_t launch(const Common& a, KV kv) {
+  const int G = a.H / a.K;
   const int ngroups = (G + GB - 1) / GB;
-  const dim3 grid(nsplit, K * ngroups, B);
-  decode_split_kernel<T, HD_PAD, GB><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), lengths, part_acc, part_ml, Smax, H, G, hd,
-      ngroups, chunk, nsplit, window, scale, q_sb, q_sh, ks, vs);
+  const dim3 grid(a.nsplit, a.K * ngroups, a.B);
+  decode_split_kernel<T, HD_PAD, GB, KV>
+      <<<grid, kThreads, a.smem_pages * sizeof(int), a.stream>>>(
+      static_cast<const T*>(a.q), kv, a.lengths, a.part_acc, a.part_ml,
+      a.Smax, a.H, G, a.hd, ngroups, a.chunk, a.nsplit, a.window, a.scale,
+      a.q_sb, a.q_sh);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  decode_combine_kernel<T><<<dim3(H, B), kCombineThreads,
-                             nsplit * sizeof(float), stream>>>(
-      part_acc, part_ml, static_cast<T*>(o), H, hd, nsplit, o_sb, o_sh);
+  decode_combine_kernel<T><<<dim3(a.H, a.B), kCombineThreads,
+                             a.nsplit * sizeof(float), a.stream>>>(
+      a.part_acc, a.part_ml, static_cast<T*>(a.o), a.H, a.hd, a.nsplit,
+      a.o_sb, a.o_sh);
   return cudaGetLastError();
 }
 
-template <typename T, int HD_PAD>
-cudaError_t dispatch_gb(int gb, const void* q, const void* k, const void* v,
-                        void* o, const int* lengths, float* part_acc,
-                        float* part_ml, int B, int Smax, int H, int K, int hd,
-                        long long q_sb, long long q_sh, Strides ks, Strides vs,
-                        long long o_sb, long long o_sh, int nsplit, int chunk,
-                        int window, float scale, cudaStream_t stream) {
-#define DA_LAUNCH(GBV)                                                       \
-  return launch<T, HD_PAD, GBV>(q, k, v, o, lengths, part_acc, part_ml, B,   \
-                                Smax, H, K, hd, q_sb, q_sh, ks, vs, o_sb,    \
-                                o_sh, nsplit, chunk, window, scale, stream)
+template <typename T, int HD_PAD, typename KV>
+cudaError_t dispatch_gb(int gb, const Common& a, KV kv) {
   switch (gb) {
-    case 1: DA_LAUNCH(1);
-    case 2: DA_LAUNCH(2);
-    case 4: DA_LAUNCH(4);
+    case 1: return launch<T, HD_PAD, 1>(a, kv);
+    case 2: return launch<T, HD_PAD, 2>(a, kv);
+    case 4: return launch<T, HD_PAD, 4>(a, kv);
     default:
       if constexpr (HD_PAD <= 128) {
-        DA_LAUNCH(8);
+        return launch<T, HD_PAD, 8>(a, kv);
       }
   }
   return cudaErrorInvalidValue;   // 8 heads per block only up to hd 128
-#undef DA_LAUNCH
 }
 
-template <typename T>
-cudaError_t dispatch_hd(int gb, const void* q, const void* k, const void* v,
-                        void* o, const int* lengths, float* part_acc,
-                        float* part_ml, int B, int Smax, int H, int K, int hd,
-                        long long q_sb, long long q_sh, Strides ks, Strides vs,
-                        long long o_sb, long long o_sh, int nsplit, int chunk,
-                        int window, float scale, cudaStream_t stream) {
-#define DA_HD(HDV)                                                           \
-  return dispatch_gb<T, HDV>(gb, q, k, v, o, lengths, part_acc, part_ml, B,  \
-                             Smax, H, K, hd, q_sb, q_sh, ks, vs, o_sb, o_sh, \
-                             nsplit, chunk, window, scale, stream)
-  if (hd <= 32) DA_HD(32);
-  if (hd <= 64) DA_HD(64);
-  if (hd <= 128) DA_HD(128);
-  DA_HD(256);
-#undef DA_HD
+template <typename T, typename KV>
+cudaError_t dispatch_hd(int gb, const Common& a, KV kv) {
+  if (a.hd <= 32) return dispatch_gb<T, 32>(gb, a, kv);
+  if (a.hd <= 64) return dispatch_gb<T, 64>(gb, a, kv);
+  if (a.hd <= 128) return dispatch_gb<T, 128>(gb, a, kv);
+  return dispatch_gb<T, 256>(gb, a, kv);
+}
+
+bool bad_common(const Common& a) {
+  return a.B < 1 || a.Smax < 1 || a.K < 1 || a.H % a.K != 0 || a.hd < 1 ||
+         a.hd > 256 || a.nsplit < 1 || a.chunk < 1 ||
+         (long long)a.nsplit * a.chunk < a.Smax;
 }
 
 }  // namespace
@@ -364,20 +500,58 @@ extern "C" int decode_attention_fwd(
     long long k_sh, long long v_sb, long long v_ss, long long v_sh,
     long long o_sb, long long o_sh, int nsplit, int chunk, int gb, int window,
     float scale, void* stream) {
-  if (B < 1 || Smax < 1 || K < 1 || H % K != 0 || hd < 1 || hd > 256 ||
-      nsplit < 1 || chunk < 1 || (long long)nsplit * chunk < Smax)
-    return (int)cudaErrorInvalidValue;
+  const Common a{0, q, o, lengths, part_acc, part_ml, B, Smax, H, K, hd,
+                 q_sb, q_sh, o_sb, o_sh, nsplit, chunk, window, scale,
+                 static_cast<cudaStream_t>(stream)};
+  if (bad_common(a)) return (int)cudaErrorInvalidValue;
   const Strides ks{k_sb, k_ss, k_sh}, vs{v_sb, v_ss, v_sh};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (dtype == 0)
-    e = dispatch_hd<float>(gb, q, k, v, o, lengths, part_acc, part_ml, B, Smax,
-                           H, K, hd, q_sb, q_sh, ks, vs, o_sb, o_sh, nsplit,
-                           chunk, window, scale, st);
+    e = dispatch_hd<float>(gb, a, ContigKV<float>{
+        static_cast<const float*>(k), static_cast<const float*>(v), ks, vs});
   else if (dtype == 1)
-    e = dispatch_hd<__nv_bfloat16>(gb, q, k, v, o, lengths, part_acc, part_ml,
-                                   B, Smax, H, K, hd, q_sb, q_sh, ks, vs, o_sb,
-                                   o_sh, nsplit, chunk, window, scale, st);
+    e = dispatch_hd<__nv_bfloat16>(gb, a, ContigKV<__nv_bfloat16>{
+        static_cast<const __nv_bfloat16*>(k),
+        static_cast<const __nv_bfloat16*>(v), ks, vs});
+  else
+    e = cudaErrorInvalidValue;
+  return (int)e;
+}
+
+// K3.  As decode_attention_fwd, with k/v the pool layer (P,ps,K,hd) through
+// (page, position, head) strides, page_table (B,MP) int32 contiguous, and
+// Smax = MP * ps.  `chunk` must be a multiple of ps (every split starts on a
+// page boundary) and chunk / ps at most kMaxSplitPages.  Every table entry
+// must be a page of the pool.
+extern "C" int paged_decode_attention_fwd(
+    const void* q, const void* k, const void* v, void* o,
+    const int* page_table, const int* lengths, float* part_acc,
+    float* part_ml, int dtype, int B, int MP, int ps, int H, int K, int hd,
+    long long q_sb, long long q_sh, long long k_sp, long long k_ss,
+    long long k_sh, long long v_sp, long long v_ss, long long v_sh,
+    long long o_sb, long long o_sh, int nsplit, int chunk, int gb, int window,
+    float scale, void* stream) {
+  const Common a{ps > 0 ? chunk / ps : 0, q, o, lengths, part_acc, part_ml,
+                 B, MP * ps, H, K, hd, q_sb, q_sh, o_sb, o_sh, nsplit, chunk,
+                 window, scale, static_cast<cudaStream_t>(stream)};
+  if (MP < 1 || ps < 1 || bad_common(a) || chunk % ps != 0 ||
+      a.smem_pages > kMaxSplitPages)
+    return (int)cudaErrorInvalidValue;
+  unsigned shift = 0;                   // ceil(log2(ps))
+  while ((1u << shift) < (unsigned)ps) ++shift;
+  const unsigned magic = (unsigned)(
+      ((1ull << 32) * ((1ull << shift) - ps)) / ps + 1);
+  const Strides ks{k_sp, k_ss, k_sh}, vs{v_sp, v_ss, v_sh};
+  cudaError_t e;
+  if (dtype == 0)
+    e = dispatch_hd<float>(gb, a, PagedKV<float>{
+        static_cast<const float*>(k), static_cast<const float*>(v), ks, vs,
+        page_table, MP, ps, magic, shift});
+  else if (dtype == 1)
+    e = dispatch_hd<__nv_bfloat16>(gb, a, PagedKV<__nv_bfloat16>{
+        static_cast<const __nv_bfloat16*>(k),
+        static_cast<const __nv_bfloat16*>(v), ks, vs, page_table, MP, ps,
+        magic, shift});
   else
     e = cudaErrorInvalidValue;
   return (int)e;

@@ -1,11 +1,16 @@
-"""Flash-decode wrapper in model layout: q (B,H,hd) against one layer of
-the KV cache, k/v (B,Smax,K,hd).
+"""Flash-decode wrappers in model layout.
 
-CPU tensors take the plain version (``ref.decode_attention_plain``); CUDA
-tensors launch the Hopper kernel in ``csrc/decode_attention.cu`` or raise.
-The kernel reads the cache through its strides, so a layer view of the
-stacked (L,B,Smax,K,hd) cache costs no copy (the TPU wrapper moved the
-head axis and padded Smax, a copy of the whole layer on every call)."""
+``decode_attention`` (K2): q (B,H,hd) against one layer of the dense KV
+cache, k/v (B,Smax,K,hd).  ``paged_decode_attention`` (K3): q against one
+layer of the page pool, k/v_pages (P,ps,K,hd), through a (B,MP) page
+table.
+
+CPU tensors take the plain versions (``ref.py``); CUDA tensors launch the
+Hopper kernels in ``csrc/decode_attention.cu`` or raise.  The kernels read
+the cache and the pool through their strides, so a layer view of the
+stacked (L,B,Smax,K,hd) cache or (L,P,ps,K,hd) pool costs no copy (the TPU
+wrappers moved the head axis, and K2's padded Smax, a copy of the whole
+layer or pool on every call)."""
 
 from __future__ import annotations
 
@@ -18,12 +23,16 @@ import torch
 from repro_torch.kernels.common import (cdiv, check_cuda_status, data_ptr,
                                         is_cuda, load_library, round_up,
                                         stream_ptr)
-from repro_torch.kernels.decode_attention.ref import decode_attention_plain
+from repro_torch.kernels.decode_attention.ref import (
+    decode_attention_plain, paged_decode_attention_plain)
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "decode_attention.cu"
 MAX_HEAD_DIM = 256
 MAX_SPLITS = 1024
 MIN_KEYS_PER_SPLIT = 64
+# K3 stages a split's page-table entries in shared memory (kMaxSplitPages
+# in the source)
+MAX_SPLIT_PAGES = 8192
 # split target: the blocks one wave holds.  The split kernel is compiled
 # for three resident 128-thread blocks per SM (kBlocksPerSM in the source).
 BLOCKS_PER_SM = 3
@@ -32,10 +41,15 @@ _sm_count: Dict[int, int] = {}
 
 
 def build() -> ctypes.CDLL:
-    """Compile (once per process, cached on disk) and bind the kernel."""
+    """Compile (once per process, cached on disk) and bind both kernels."""
     lib = load_library("decode_attention", [SOURCE])
     fn = lib.decode_attention_fwd
     fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+                   + [ctypes.c_longlong] * 10
+                   + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    fn = lib.paged_decode_attention_fwd
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
                    + [ctypes.c_longlong] * 10
                    + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -77,6 +91,17 @@ def _sms(device: torch.device) -> int:
     return _sm_count[idx]
 
 
+def paged_split_plan(B: int, K: int, G: int, MP: int, ps: int, hd: int,
+                     sms: int) -> tuple:
+    """K3's (nsplit, chunk): K2's plan for Smax = MP * ps with ``chunk``
+    rounded up to whole pages, so every split starts on a page boundary.
+    At ps = 16 (or any ps dividing K2's chunk) it is K2's plan unchanged."""
+    Smax = MP * ps
+    _, chunk = split_plan(B, K, G, Smax, hd, sms)
+    chunk = round_up(chunk, ps)
+    return cdiv(Smax, chunk), chunk
+
+
 def _check_aligned(hd: int, *tensors) -> None:
     """The kernel reads a lane's span of head dims (its padded head dim /
     32 elements) with vector loads: every row start must be aligned to the
@@ -88,6 +113,42 @@ def _check_aligned(hd: int, *tensors) -> None:
                        for t in tensors):
         raise ValueError(f"decode_attention needs head_dim a multiple of "
                          f"{vec} and rows aligned to {span} bytes")
+
+
+def _check_common(name: str, q, k, v, lengths, B: int, K: int,
+                  hd: int) -> None:
+    """The checks K2 and K3 share: heads, head_dim, dtypes, contiguity of
+    the head dimension, lengths, row alignment and the grid's size."""
+    H = q.shape[1]
+    if H % K:
+        raise ValueError(f"{H} query heads not divisible by {K} kv heads")
+    if hd > MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {hd} exceeds the kernel's "
+                         f"{MAX_HEAD_DIM}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"{name} takes float32 or bfloat16 q and cache of "
+                        f"one dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
+    if any(t.stride(-1) != 1 for t in (q, k, v)):
+        raise ValueError("the head dimension of q and the cache must be "
+                         "contiguous")
+    if lengths.shape != (B,) or lengths.is_floating_point():
+        raise ValueError(f"lengths must be integer ({B},), got "
+                         f"{lengths.dtype} {tuple(lengths.shape)}")
+    _check_aligned(hd, q, k, v)
+    G = H // K
+    if B > 65535 or K * cdiv(G, heads_per_block(G, hd)) > 65535:
+        raise ValueError(f"grid too large: B={B}, H={H}")
+
+
+def _scratch(q, nsplit: int):
+    """Output and the splits' fp32 partials for one launch."""
+    B, H, hd = q.shape
+    out = torch.empty((B, H, hd), dtype=q.dtype, device=q.device)
+    part_acc = torch.empty((B, H, nsplit, hd), dtype=torch.float32,
+                           device=q.device)
+    part_ml = torch.empty((B, H, nsplit, 2), dtype=torch.float32,
+                          device=q.device)
+    return out, part_acc, part_ml
 
 
 def decode_attention(q, cache_k, cache_v, lengths, *,
@@ -110,34 +171,12 @@ def decode_attention(q, cache_k, cache_v, lengths, *,
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, cache_k "
                          f"{tuple(cache_k.shape)}, cache_v "
                          f"{tuple(cache_v.shape)}")
-    if H % K:
-        raise ValueError(f"{H} query heads not divisible by {K} kv heads")
-    if hd > MAX_HEAD_DIM:
-        raise ValueError(f"head_dim {hd} exceeds the kernel's "
-                         f"{MAX_HEAD_DIM}")
-    if (q.dtype not in _DTYPES or cache_k.dtype != q.dtype
-            or cache_v.dtype != q.dtype):
-        raise TypeError(f"decode_attention takes float32 or bfloat16 q and "
-                        f"cache of one dtype, got {q.dtype}/{cache_k.dtype}/"
-                        f"{cache_v.dtype}")
-    if any(t.stride(-1) != 1 for t in (q, cache_k, cache_v)):
-        raise ValueError("the head dimension of q and the cache must be "
-                         "contiguous")
-    if lengths.shape != (B,) or lengths.is_floating_point():
-        raise ValueError(f"lengths must be integer ({B},), got "
-                         f"{lengths.dtype} {tuple(lengths.shape)}")
-    _check_aligned(hd, q, cache_k, cache_v)
+    _check_common("decode_attention", q, cache_k, cache_v, lengths, B, K, hd)
     G = H // K
     gb = heads_per_block(G, hd)
-    if B > 65535 or K * cdiv(G, gb) > 65535:
-        raise ValueError(f"grid too large: B={B}, H={H}")
     nsplit, chunk = split_plan(B, K, G, Smax, hd, _sms(q.device))
     lengths = lengths.to(torch.int32).contiguous()
-    out = torch.empty((B, H, hd), dtype=q.dtype, device=q.device)
-    part_acc = torch.empty((B, H, nsplit, hd), dtype=torch.float32,
-                           device=q.device)
-    part_ml = torch.empty((B, H, nsplit, 2), dtype=torch.float32,
-                          device=q.device)
+    out, part_acc, part_ml = _scratch(q, nsplit)
     lib = build()
     status = lib.decode_attention_fwd(
         data_ptr(q), data_ptr(cache_k), data_ptr(cache_v), data_ptr(out),
@@ -152,3 +191,57 @@ def decode_attention(q, cache_k, cache_v, lengths, *,
 
 
 decode_attention.launches = 0
+
+
+def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
+                           window: Optional[int] = None):
+    """One-token attention through a page table (K3); see
+    ``csrc/decode_attention.cu``.  q (B,H,hd); k/v_pages (P,ps,K,hd), the
+    pool in cache layout (a layer view of the stacked pool is read through
+    its strides); page_table (B,MP) int32, row b's logical page j living in
+    pool page ``page_table[b, j]`` (0 = the dump page); lengths (B,) valid
+    keys per row, counting this tick's.  Returns (B,H,hd) in q's dtype."""
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    if not is_cuda(q, k_pages, v_pages, page_table, lengths):
+        return paged_decode_attention_plain(q, k_pages, v_pages, page_table,
+                                            lengths, window=window)
+    if q.dim() != 3 or k_pages.dim() != 4 or page_table.dim() != 2:
+        raise ValueError("paged_decode_attention takes q (B,H,hd), "
+                         "k/v_pages (P,ps,K,hd) and page_table (B,MP)")
+    B, H, hd = q.shape
+    P, ps, K = k_pages.shape[:3]
+    MP = page_table.shape[1]
+    if (k_pages.shape != (P, ps, K, hd) or v_pages.shape != k_pages.shape
+            or page_table.shape[0] != B):
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k_pages "
+                         f"{tuple(k_pages.shape)}, v_pages "
+                         f"{tuple(v_pages.shape)}, page_table "
+                         f"{tuple(page_table.shape)}")
+    if page_table.dtype != torch.int32:
+        raise TypeError(f"page_table must be int32, got {page_table.dtype}")
+    _check_common("paged_decode_attention", q, k_pages, v_pages, lengths, B,
+                  K, hd)
+    G = H // K
+    gb = heads_per_block(G, hd)
+    nsplit, chunk = paged_split_plan(B, K, G, MP, ps, hd, _sms(q.device))
+    if chunk // ps > MAX_SPLIT_PAGES:
+        raise ValueError(f"a split of {chunk // ps} pages exceeds the "
+                         f"kernel's {MAX_SPLIT_PAGES}")
+    lengths = lengths.to(torch.int32).contiguous()
+    page_table = page_table.contiguous()
+    out, part_acc, part_ml = _scratch(q, nsplit)
+    lib = build()
+    status = lib.paged_decode_attention_fwd(
+        data_ptr(q), data_ptr(k_pages), data_ptr(v_pages), data_ptr(out),
+        data_ptr(page_table), data_ptr(lengths), data_ptr(part_acc),
+        data_ptr(part_ml), _DTYPES[q.dtype], B, MP, ps, H, K, hd,
+        *q.stride()[:2], *k_pages.stride()[:3], *v_pages.stride()[:3],
+        *out.stride()[:2], nsplit, chunk, gb, int(window or 0),
+        1.0 / (hd ** 0.5), stream_ptr(q.device))
+    check_cuda_status(status, "paged_decode_attention")
+    paged_decode_attention.launches += 1
+    return out
+
+
+paged_decode_attention.launches = 0

@@ -5,7 +5,8 @@ decode_attention_ref`` with the JAX package's default ``attn_dtype`` path:
 scores from cache-dtype operands with float32 accumulation (a bf16 value
 is exact in float32, so the products are taken in float32), a float32
 softmax, and P cast to the cache dtype before P.V.  It materialises the
-(B, K, G, Smax) score matrix."""
+(B, K, G, Smax) score matrix.  ``paged_decode_attention_plain`` is K3's
+plain version: the gathered-view oracle of the paged kernel."""
 
 from __future__ import annotations
 
@@ -38,3 +39,18 @@ def decode_attention_plain(q, cache_k, cache_v, lengths, *,
     probs = torch.softmax(scores, dim=-1).to(cache_v.dtype).float()
     out = torch.einsum("bkgt,btkh->bkgh", probs, cache_v.float())
     return out.reshape(B, H, hd).to(q.dtype)
+
+
+def paged_decode_attention_plain(q, k_pages, v_pages, page_table, lengths, *,
+                                 window: Optional[int] = None):
+    """Paged one-token attention: gather each row's pages into the
+    contiguous (B, MP*ps, K, hd) cache they stand for, then run
+    ``decode_attention_plain`` (``repro/kernels/decode_attention/ref.py::
+    paged_decode_attention_oracle``).  q (B,H,hd); k/v_pages (P,ps,K,hd);
+    page_table (B,MP) int32 (0 = the dump page); lengths (B,)."""
+    B, MP = page_table.shape
+    _, ps, K, hd = k_pages.shape
+    idx = page_table.to(k_pages.device).long()
+    ck = k_pages[idx].reshape(B, MP * ps, K, hd)
+    cv = v_pages[idx].reshape(B, MP * ps, K, hd)
+    return decode_attention_plain(q, ck, cv, lengths, window=window)

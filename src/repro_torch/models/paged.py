@@ -1,0 +1,205 @@
+"""Paged decode path for the dense transformer: a block-paged KV pool with
+page-table indirection, context-aware suffix prefill, and O(1) reattach.
+
+The port of ``repro/models/paged.py``.  The dense decode state is
+``(L, B, Smax, K, hd)``: every slot reserves worst-case context.  The
+paged state replaces the per-slot axis with a shared PAGE POOL plus a
+per-slot page table:
+
+    cache:      {"k": (L, P, ps, K, hd), "v": (L, P, ps, K, hd)}
+    page_table: (B, MP) int32  — slot b's logical page j lives in physical
+                page ``page_table[b, j]`` (0 = the reserved dump page)
+    length:     (B,)   int32  — tokens written so far, same as dense
+
+Token t of slot b lives at ``(page_table[b, t // ps], t % ps)``.  Gathering
+a row's pages reconstructs the dense ``(Smax, K, hd)`` cache row
+(MP * ps == Smax).  Pages are refcounted host-side
+(``repro_torch.core.kv_pager``), which buys shared prefixes and
+pin-while-parked preemption.
+
+  * ``init_paged_state``   — the pool and table, on the caller's device.
+  * ``paged_decode_step``  — one token: write the new K/V IN PLACE into
+    each row's current page (``pool[pg, off] = k``; vacant rows all land
+    on the dump page, at duplicate indices whose winner is undefined on
+    CUDA — harmless, since nothing valid reads page 0), then attend
+    through the page table with ``paged_decode_attention`` (K3 on a CUDA
+    tensor, its plain gathered-view version on a CPU one).
+  * ``paged_prefill``      — context-aware prefill: suffix tokens at
+    absolute positions ``ctx_len + i`` attend to [gathered context pages ||
+    suffix K/V] under a per-row mask, and the suffix K/V is committed in
+    place to freshly allocated pages.  With no context pages (C == 0) this
+    is exactly the port's dense prefill computation (K1 through
+    ``attention.flash_attention``), which keeps paged and dense streams
+    identical for fresh prompts.  With C > 0 the attention is the
+    materialised-scores ``gqa_attention``, as in the JAX package.
+
+As with the dense engine, a state passed into ``paged_prefill`` or
+``paged_decode_step`` is written in place and must not be reused except
+through the returned one.  Only the dense GQA family pages here; MoE pages
+with its family.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.decode_attention import paged_decode_attention
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import apply_norm
+from repro_torch.models.transformer import _residual, project_logits, subtree
+
+
+def supports_paging(cfg: ModelConfig) -> bool:
+    """Paged KV covers the self-attention transformer with a standard
+    (k, v) cache; MLA/latent and recurrent states do not page, and MoE
+    comes with its family."""
+    return cfg.family == "dense" and cfg.attn_kind == "gqa"
+
+
+def init_paged_state(cfg: ModelConfig, num_slots: int, num_pages: int,
+                     page_size: int, max_pages_per_seq: int, dtype=None,
+                     device=None) -> Dict[str, Any]:
+    if not supports_paging(cfg):
+        raise ValueError(f"{cfg.name}: family {cfg.family}/{cfg.attn_kind} "
+                         "has no paged KV path")
+    dt = dtype or attn.cache_dtype(cfg)
+    shape = (cfg.num_layers, num_pages, page_size, cfg.num_kv_heads,
+             cfg.head_dim)
+    return {
+        "cache": {"k": torch.zeros(shape, dtype=dt, device=device),
+                  "v": torch.zeros(shape, dtype=dt, device=device)},
+        "length": torch.zeros((num_slots,), dtype=torch.int32,
+                              device=device),
+        "page_table": torch.zeros((num_slots, max_pages_per_seq),
+                                  dtype=torch.int32, device=device),
+    }
+
+
+def _gathered_view(pool_k, pool_v, table):
+    """Page-table gather -> the contiguous (B, MP*ps, K, hd) cache view."""
+    B, MP = table.shape
+    _, ps, K, hd = pool_k.shape
+    idx = table.long()
+    return (pool_k[idx].reshape(B, MP * ps, K, hd),
+            pool_v[idx].reshape(B, MP * ps, K, hd))
+
+
+def _attn_out(lp, out, cfg: ModelConfig):
+    B, S = out.shape[:2]
+    return attn._linear(out.reshape(B, S, cfg.num_heads * cfg.head_dim),
+                        lp["attn"]["wo"], lp["attn"].get("bo"))
+
+
+def paged_decode_step(params, token, state, cfg: ModelConfig, *,
+                      page_size: int, window: Optional[int] = None):
+    """token (B,) -> (logits (B,V), new state).  Appends one position
+    through the page table, writing the pool in place; vacant rows (table
+    all zeros) write into the dump page and read values nothing
+    consumes."""
+    window = window if window is not None else cfg.sliding_window
+    lengths = state["length"]
+    table = state["page_table"]
+    B = token.shape[0]
+    MP = table.shape[1]
+    rows = torch.arange(B, device=table.device)
+    # current write target: logical page lengths // ps (clamped so runaway
+    # vacant rows stay inside the table; their zero row -> dump page)
+    pg = table[rows, torch.clamp(lengths // page_size, max=MP - 1).long()]
+    pg = pg.long()
+    off = (lengths % page_size).long()
+    pool_k, pool_v = state["cache"]["k"], state["cache"]["v"]
+    x = params["embed"][token.long()][:, None, :]            # (B,1,D)
+    positions = lengths[:, None]
+    for i in range(cfg.num_layers):
+        lp = subtree(params, "layers", i)
+        h = apply_norm(lp["ln1"], x, cfg)
+        q, k, v = attn.project_qkv(lp["attn"], h, cfg, positions=positions)
+        pk, pv = pool_k[i], pool_v[i]
+        pk[pg, off] = k[:, 0].to(pk.dtype)
+        pv[pg, off] = v[:, 0].to(pv.dtype)
+        # K3 on CUDA, its plain gathered-view version on the CPU
+        out = paged_decode_attention(q[:, 0], pk, pv, table, lengths + 1,
+                                     window=window)
+        x = _residual(cfg, lp, x, h, _attn_out(lp, out[:, None], cfg))
+    h = apply_norm(subtree(params, "final_norm"), x, cfg)
+    logits = project_logits(params, h, cfg)[:, 0]
+    return logits, {**state, "length": lengths + 1}
+
+
+def _suffix_mask(S: int, n_ctx: int, ctx_lens, suf_lens,
+                 window: Optional[int]):
+    """(B, 1, S, n_ctx + S) mask for context-aware prefill: suffix query i
+    sits at absolute position ``ctx_len + i`` and may attend to valid
+    context positions plus causally-earlier valid suffix positions."""
+    dev = ctx_lens.device
+    B = ctx_lens.shape[0]
+    ctx_lens = ctx_lens.long()[:, None]
+    ar_s = torch.arange(S, device=dev)[None, :]
+    ar_c = torch.arange(n_ctx, device=dev)[None, :]
+    qpos = ctx_lens + ar_s                                      # (B, S)
+    kpos = torch.cat([ar_c.expand(B, n_ctx), ctx_lens + ar_s], dim=1)
+    kvalid = torch.cat([ar_c < ctx_lens,
+                        ar_s < suf_lens.long()[:, None]], dim=1)
+    m = kvalid[:, None, :] & (kpos[:, None, :] <= qpos[:, :, None])
+    if window is not None:
+        m &= kpos[:, None, :] > qpos[:, :, None] - window
+    return m[:, None]                                          # (B,1,S,Skv)
+
+
+def paged_prefill(params, tokens, lengths, state, ctx_table, ctx_lens,
+                  dest_table, cfg: ModelConfig, *, page_size: int,
+                  window: Optional[int] = None):
+    """Context-aware prefill of SUFFIX tokens into freshly allocated pages.
+
+    tokens (B, S): the per-row suffix (prompt minus its shared prefix);
+    lengths (B,): valid suffix lengths; ctx_table (B, C): shared context
+    pages (C == 0 when nothing is shared — then this is exactly the dense
+    prefill computation); ctx_lens (B,): context token counts, page-aligned
+    by construction; dest_table (B, ceil(S/ps)): destination pages for the
+    suffix chunks (0 entries land in the dump page).
+
+    Returns (first-token logits (B, V), new state).  The pool is written in
+    place; ``state["length"]`` and ``state["page_table"]`` pass through
+    untouched — the scheduler owns those host-side and re-uploads them on
+    slot changes."""
+    window = window if window is not None else cfg.sliding_window
+    B, S = tokens.shape
+    C = ctx_table.shape[1]
+    nc = dest_table.shape[1]
+    pad_s = nc * page_size - S
+    lengths = lengths.to(torch.int32)
+    x = params["embed"][tokens.long()]
+    positions = ctx_lens.long()[:, None] + torch.arange(
+        S, device=x.device)[None, :]
+    mask = (None if C == 0 else
+            _suffix_mask(S, C * page_size, ctx_lens, lengths, window))
+    flat = dest_table.reshape(-1).long()
+    pool_k, pool_v = state["cache"]["k"], state["cache"]["v"]
+    for i in range(cfg.num_layers):
+        lp = subtree(params, "layers", i)
+        h = apply_norm(lp["ln1"], x, cfg)
+        q, k, v = attn.project_qkv(lp["attn"], h, cfg, positions=positions)
+        pk, pv = pool_k[i], pool_v[i]
+        if C == 0:
+            out = attn.flash_attention(q, k, v, causal=True, window=window,
+                                       lengths=lengths)
+        else:
+            ck, cv = _gathered_view(pk, pv, ctx_table)
+            out = attn.gqa_attention(q, torch.cat([ck.to(k.dtype), k], 1),
+                                     torch.cat([cv.to(v.dtype), v], 1), mask)
+        attn_out = _attn_out(lp, out, cfg)
+        # commit the suffix K/V: chunk c -> physical page dest[b, c]
+        # (dump-page duplicates across rows/padding are harmless)
+        for pool, new in ((pk, k), (pv, v)):
+            padded = F.pad(new, (0, 0, 0, 0, 0, pad_s))
+            pool[flat] = padded.reshape(B * nc, page_size,
+                                        *new.shape[2:]).to(pool.dtype)
+        x = _residual(cfg, lp, x, h, attn_out)
+    h = apply_norm(subtree(params, "final_norm"), x, cfg)
+    rows = torch.arange(B, device=h.device)
+    logits = project_logits(params, h[rows, lengths.long() - 1], cfg)
+    return logits, dict(state)

@@ -55,7 +55,8 @@ def test_import_guard_no_jax_no_repro():
     code = ("import sys, repro_torch.launch.serve, repro_torch.serving.server,"
             " repro_torch.kernels.flash_attention.ops,"
             " repro_torch.kernels.decode_attention.ops,"
-            " repro_torch.core.engine;"
+            " repro_torch.core.engine, repro_torch.core.scheduler,"
+            " repro_torch.core.kv_pager, repro_torch.models.paged;"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'));"
             "print(bad); sys.exit(1 if bad else 0)")
