@@ -127,6 +127,14 @@ def load_library(name: str, sources: Sequence[Path]) -> ctypes.CDLL:
         return lib
 
 
+def float_rows(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as float32 with a contiguous last dimension: a view where it
+    already is one (the kernels read the other dimensions through
+    strides)."""
+    t = t.float()
+    return t if t.stride(-1) == 1 else t.contiguous()
+
+
 def check_cuda_status(status: int, what: str) -> None:
     """Raise on a non-zero ``cudaError_t`` returned by a launcher."""
     if status != 0:

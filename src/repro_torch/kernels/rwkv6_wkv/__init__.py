@@ -1,0 +1,4 @@
+from repro_torch.kernels.rwkv6_wkv.ops import wkv6
+from repro_torch.kernels.rwkv6_wkv.ref import wkv6_plain, wkv6_ref
+
+__all__ = ["wkv6", "wkv6_plain", "wkv6_ref"]

@@ -1,12 +1,14 @@
 """Uniform model API: config -> Model(config, init, forward, init_state,
 prefill, decode).
 
-The port of ``repro/models/build.py`` for family ``dense``.  Params are a
-flat dict of tensors keyed by the JAX checkpoint paths (see
-``repro_torch.params``); they live on the device ``init`` was given.  The
-decode state lives where ``init_state`` puts it: CUDA unless the caller
-names another device; ``prefill`` and ``decode`` update its cache in place
-and return the new state."""
+The port of ``repro/models/build.py`` for the families ``dense``
+(``transformer.py``), ``ssm`` (``rwkv6.py``) and ``hybrid``
+(``hybrid.py``); ``build_model`` raises for the families no slice has
+ported yet.  Params are a flat dict of tensors keyed by the JAX checkpoint
+paths (see ``repro_torch.params``); they live on the device ``init`` was
+given.  The decode state lives where ``init_state`` puts it: CUDA unless
+the caller names another device; ``prefill`` and ``decode`` update its
+tensors in place and return the new state."""
 
 from __future__ import annotations
 
@@ -17,40 +19,54 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.common import resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import hybrid, rwkv6, transformer
+
+_FAMILIES = {"dense": transformer, "ssm": rwkv6, "hybrid": hybrid}
+LATER_SLICE = ("family {fam!r} ({name}) is not ported yet: moe/MLA, vlm "
+               "and encdec come with the ROADMAP section 1 item \"Other "
+               "families: moe/MLA, vlm, encdec\"")
 
 
 @dataclass(frozen=True)
 class Model:
     config: ModelConfig
 
+    @property
+    def module(self):
+        """The module that implements this config's family."""
+        return _FAMILIES[self.config.family]
+
     def init(self, seed: int, device) -> Dict[str, torch.Tensor]:
         """Random params on ``device`` from a seeded torch.Generator."""
-        return transformer.init_params(seed, self.config, device)
+        return self.module.init_params(seed, self.config, device)
 
     def forward(self, params, batch: Dict[str, Any], **kw) -> torch.Tensor:
         """batch {"tokens": (B,S)} -> logits (B,S,V)."""
-        return transformer.forward(params, batch["tokens"], self.config, **kw)
+        return self.module.forward(params, batch["tokens"], self.config, **kw)
 
     def init_state(self, batch: int, max_len: int,
                    window: Optional[int] = None, *, dtype=None, device=None):
         """A zeroed decode state for ``batch`` rows of up to ``max_len``
-        tokens (a ring of the sliding window's size where one applies)."""
-        return transformer.init_state(self.config, batch, max_len, dtype,
+        tokens (KV caches are rings of the window's size where one
+        applies; recurrent states do not grow with ``max_len``)."""
+        return self.module.init_state(self.config, batch, max_len, dtype,
                                       window, resolve_device(device))
 
     def prefill(self, params, batch: Dict[str, Any], state, **kw):
         """batch {"tokens": (B,S), "lengths": (B,)} -> (logits (B,V), state)."""
-        return transformer.prefill(params, batch["tokens"], state,
+        return self.module.prefill(params, batch["tokens"], state,
                                    self.config, lengths=batch.get("lengths"),
                                    **kw)
 
     def decode(self, params, token, state, **kw):
         """token (B,) -> (logits (B,V), state)."""
-        return transformer.decode_step(params, token, state, self.config,
+        return self.module.decode_step(params, token, state, self.config,
                                        **kw)
 
 
 def build_model(cfg: ModelConfig) -> Model:
-    transformer.check_family(cfg)
+    if cfg.family not in _FAMILIES or (cfg.family == "dense"
+                                       and cfg.attn_kind != "gqa"):
+        raise NotImplementedError(
+            LATER_SLICE.format(fam=cfg.family, name=cfg.name))
     return Model(cfg)

@@ -43,6 +43,22 @@ def embed_init(gen: torch.Generator, shape, dtype):
     return t.mul_(0.02).to(dtype)
 
 
+def stack_init(gen: torch.Generator, num: int, init_fn, *args
+               ) -> Dict[str, torch.Tensor]:
+    """``num`` draws of ``init_fn(gen, *args)`` (a flat dict of tensors)
+    stacked on a leading axis: the port of ``stack_init``'s vmap over
+    layers.  Each stacked tensor is allocated once and filled a draw at a
+    time, so the float32 temporaries never exceed one draw's tensor."""
+    stacked: Dict[str, torch.Tensor] = {}
+    for i in range(num):
+        for k, v in init_fn(gen, *args).items():
+            if i == 0:
+                stacked[k] = torch.empty((num, *v.shape), dtype=v.dtype,
+                                         device=v.device)
+            stacked[k][i] = v
+    return stacked
+
+
 # ---------------------------------------------------------------------------
 # Norms
 # ---------------------------------------------------------------------------
@@ -76,6 +92,17 @@ def rms_norm_simple(x, scale, eps: float = 1e-6):
     xf = x.float()
     y = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
     return (y * scale).to(x.dtype)
+
+
+def group_norm(x, scale, bias, num_groups: int, eps: float = 1e-5):
+    """GroupNorm over the channel dim (rwkv6's per-head output norm).  The
+    variance is the population variance, as ``jnp.var``'s default."""
+    *lead, d = x.shape
+    xf = x.float().reshape(*lead, num_groups, d // num_groups)
+    mu = xf.mean(-1, keepdim=True)
+    var = xf.var(-1, keepdim=True, correction=0)
+    y = ((xf - mu) * torch.rsqrt(var + eps)).reshape(*lead, d)
+    return (y * scale + bias).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

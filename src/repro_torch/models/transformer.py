@@ -10,7 +10,8 @@ of the JAX module's second half.  Its state is ``{"cache": {"k", "v"}
 (L, B, Smax, K, hd), "length": (B,) int32}``; ``prefill`` and
 ``decode_step`` write the cache IN PLACE (the JAX engine donates it) and
 return a new dict holding the same cache tensors and the new lengths.
-MoE and MLA come with later slices.
+MoE and MLA come with later slices; the ssm and hybrid families live in
+``rwkv6.py`` and ``hybrid.py``.
 """
 
 from __future__ import annotations
@@ -23,18 +24,17 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (apply_mlp, apply_norm, compute_dtype,
                                        dense_init, embed_init, init_mlp,
-                                       init_norm)
+                                       init_norm, stack_init)
 from repro_torch.params import flatten, unflatten
-
-LATER_SLICE = ("family {fam!r} ({name}) is not ported yet: moe/MLA, ssm, "
-               "hybrid, vlm and encdec come with the ROADMAP section 1 item "
-               "\"Other families, with K4 and K5\"")
 
 
 def check_family(cfg: ModelConfig) -> None:
+    """This module serves dense GQA configs; ``build_model`` routes the
+    other ported families elsewhere and refuses the rest."""
     if cfg.family != "dense" or cfg.attn_kind != "gqa":
-        raise NotImplementedError(
-            LATER_SLICE.format(fam=cfg.family, name=cfg.name))
+        raise ValueError(f"transformer.py serves family 'dense' with gqa "
+                         f"attention, not {cfg.family!r}/{cfg.attn_kind!r} "
+                         f"({cfg.name})")
 
 
 # ---------------------------------------------------------------------------
@@ -53,10 +53,8 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, torch.Tensor
 
 
 def init_params(seed: int, cfg: ModelConfig, device) -> Dict[str, torch.Tensor]:
-    """Random params on ``device`` from a seeded ``torch.Generator``.
-
-    Stacked layer tensors are allocated once and filled a layer at a time,
-    so the float32 temporaries never exceed one layer's matrix."""
+    """Random params on ``device`` from a seeded ``torch.Generator``;
+    stacked layer tensors are filled a layer at a time (``stack_init``)."""
     check_family(cfg)
     gen = torch.Generator(device=torch.device(device))
     gen.manual_seed(seed)
@@ -65,13 +63,7 @@ def init_params(seed: int, cfg: ModelConfig, device) -> Dict[str, torch.Tensor]:
     params.update(flatten({"final_norm": init_norm(cfg, gen.device)}))
     if not cfg.tie_embeddings:
         params["head"] = dense_init(gen, (cfg.d_model, cfg.vocab_size), dt)
-    stacked: Dict[str, torch.Tensor] = {}
-    for i in range(cfg.num_layers):
-        for k, v in init_layer(gen, cfg).items():
-            if i == 0:
-                stacked[k] = torch.empty((cfg.num_layers, *v.shape),
-                                         dtype=v.dtype, device=v.device)
-            stacked[k][i] = v
+    stacked = stack_init(gen, cfg.num_layers, init_layer, cfg)
     params.update({f"layers/{k}": v for k, v in stacked.items()})
     return params
 

@@ -61,9 +61,12 @@ def from_jax(flat: Dict[str, np.ndarray], device,
 
 
 def state_from_jax(state: Dict[str, Any], device) -> Dict[str, Any]:
-    """A JAX decode state (``{"cache": {"k", "v"}, "length"}``, nested,
-    numpy or JAX leaves; bf16 and int32 kept) -> the same nesting of
-    tensors on ``device``, ready for the port's ``prefill``/``decode``."""
+    """A JAX decode state of any ported family, nested, with numpy or JAX
+    leaves (bf16, float32 and int32 kept) -> the same nesting of tensors
+    on ``device``, ready for the port's ``prefill``/``decode``: the dense
+    KV cache (``{"cache": {"k", "v"}, "length"}``), rwkv6's recurrent state
+    (``tm_shift``, ``cm_shift``, ``wkv``, ``length``) or the hybrid's
+    (``conv``, ``ssd``, ``shared_k``, ``shared_v``, ``length``)."""
     return unflatten(from_jax(flatten(state), device))
 
 

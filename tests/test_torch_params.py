@@ -24,7 +24,9 @@ ROOT = Path(__file__).resolve().parents[1]
 
 
 @pytest.mark.parametrize("arch,dtype", [("yi-9b", "float32"),
-                                        ("command-r-plus-104b", "bfloat16")])
+                                        ("command-r-plus-104b", "bfloat16"),
+                                        ("rwkv6-1.6b", "bfloat16"),
+                                        ("zamba2-2.7b", "float32")])
 def test_from_jax_to_flat_round_trip(arch, dtype):
     import dataclasses
     cfg = dataclasses.replace(jreduce(jget_config(arch)), dtype=dtype)
@@ -56,7 +58,10 @@ def test_import_guard_no_jax_no_repro():
             " repro_torch.kernels.flash_attention.ops,"
             " repro_torch.kernels.decode_attention.ops,"
             " repro_torch.core.engine, repro_torch.core.scheduler,"
-            " repro_torch.core.kv_pager, repro_torch.models.paged;"
+            " repro_torch.core.kv_pager, repro_torch.models.paged,"
+            " repro_torch.models.rwkv6, repro_torch.models.hybrid,"
+            " repro_torch.kernels.rwkv6_wkv.ops,"
+            " repro_torch.kernels.mamba2_ssd.ops;"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'));"
             "print(bad); sys.exit(1 if bad else 0)")

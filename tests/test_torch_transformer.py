@@ -192,7 +192,8 @@ def test_forward_ragged_lengths_and_window_override():
 
 @pytest.mark.parametrize("arch,dtype", [
     ("yi-9b", "float32"), ("command-r-plus-104b", "float32"),
-    ("h2o-danube-1.8b", "bfloat16")])
+    ("h2o-danube-1.8b", "bfloat16"), ("rwkv6-1.6b", "float32"),
+    ("zamba2-2.7b", "bfloat16")])
 def test_init_matches_jax_keys_shapes_dtypes(arch, dtype):
     jcfg, tcfg = _cfgs(arch, dtype=dtype)
     shapes = jax.eval_shape(lambda: jbuild_model(jcfg).init(
@@ -216,10 +217,23 @@ def test_init_is_seeded():
 
 
 @pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "deepseek-v3-671b",
-                                  "rwkv6-1.6b", "whisper-base"])
+                                  "llama-3.2-vision-11b", "whisper-base"])
 def test_other_families_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(reduce_for_smoke(get_config(arch)))
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "zamba2-2.7b",
+                                  "deepseek-v3-671b"])
+def test_dense_module_refuses_other_families(arch):
+    """build_model routes ssm/hybrid to their own modules; the dense
+    module called directly on such a config refuses it instead of
+    building a dense model from it."""
+    cfg = reduce_for_smoke(get_config(arch))
+    with pytest.raises(ValueError, match="transformer.py serves"):
+        transformer.init_params(0, cfg, "cpu")
+    with pytest.raises(ValueError, match="transformer.py serves"):
+        transformer.init_state(cfg, 1, 8, None, None, "cpu")
 
 
 def test_generate_entry_points_raise():
