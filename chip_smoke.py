@@ -13,27 +13,33 @@ Phases (any failure exits non-zero and prints no final result line):
 2. build: every kernel of the main paths (K1 flash_attention; K2
    decode_attention and K3 paged_decode_attention, one source; K4 wkv6;
    K5 ssd) is compiled from the checkout's sources with nvcc for sm_90a,
-   one nvcc per source, started together.
+   one nvcc per source, started together.  cuobjdump's SASS must show
+   HGMMA (wgmma) in K1's library and HMMA (mma.sync) in K2/K3's.
 3. kernels: each kernel is held against its plain PyTorch version on the
    card at the main path's shapes and at the edges.  K1: yi-9b attention,
    B=8, S=256, H=32, K=4, hd=128, bf16 and fp32, plus sliding window,
    ragged lengths, S not a multiple of the tile, strided inputs, other
-   head dims, and zamba2's shared block (hd=80, G=1, window 4096, B=8,
-   S=512).  K2: the decode tick at B=8, Smax=1024, H=32, K=4, hd=128
-   with ragged lengths (bf16 and fp32), plus a window, ring-style lengths,
-   a length-1 row, Smax not a multiple of the tile, a layer view of the
-   stacked cache, danube's hd=80 G=4, G=12, hd=256 and zamba2's hd=80
-   G=1 ring tick.  Each is then
-   timed beside its plain version, the PyTorch library call that computes
-   the same function (SDPA, a yardstick only) and its bound; K2 also at
-   B=8, Smax=32768, full lengths.  K3: the paged tick at B=8, 64 pages of
-   16 per row, H=32, K=4, hd=128, ragged lengths 17-330, a shuffled table
-   in which 3 rows share their first 4 pages (bf16 and fp32), plus a
-   window, a vacant row on the dump page, danube's hd=80 G=4, hd=256, page
-   sizes 32 and 64, and a layer view of a stacked pool; at page size 16
-   it must equal K2 on the gathered cache bit for bit.  Timed at the tick
-   shape and at 2,048 pages (32k keys) per row beside K2 on the gathered
-   cache, the plain version, a gather + SDPA yardstick and its bound.
+   head dims, G=12 (96/8 heads), a window of 20 with ragged lengths and a
+   length-0 row, S=1024 (the largest prefill bucket at max_len 1024), and
+   zamba2's shared block (hd=80, G=1, window 4096, B=8, S=512).  K2: the
+   decode tick at B=8, Smax=1024, H=32, K=4, hd=128 with ragged lengths
+   (bf16 and fp32), plus a window, ring-style lengths, a length-1 row,
+   Smax not a multiple of the tile, a layer view of the stacked cache,
+   danube's hd=80 G=4, G=12 (one block per group), hd=256 and zamba2's
+   hd=80 G=1 ring tick.  Each is then timed (CUDA events and
+   torch.profiler device time) beside its plain version, the PyTorch
+   library call that computes the same function (SDPA, a yardstick only,
+   also with its device time) and its bound; K1 at yi-9b S=256 and 1024
+   and zamba2's shape, K2 also at B=8, Smax=32768, full lengths.  K3: the
+   paged tick at B=8, 64 pages of 16 per row, H=32, K=4, hd=128, ragged
+   lengths 17-330, a shuffled table in which 3 rows share their first 4
+   pages (bf16 and fp32), plus a window, a vacant row on the dump page,
+   danube's hd=80 G=4, hd=256, G=12, zamba2's hd=80 G=1 ring, page sizes
+   32 and 64, and a layer view of a stacked pool; at page size 16 it must
+   equal K2 on the gathered cache bit for bit.  Timed at the tick shape
+   and at 2,048 pages (32k keys) per row beside K2 on the gathered cache
+   (bit for bit equal there too), the plain version, a gather + SDPA
+   yardstick and its bound.
    K4 (fp32, tolerance 1e-4): the rwkv6-1.6b prefill bucket B=8, T=512,
    H=32, N=64, T=300 and T=17, masked pad steps (the masked row's state
    must equal the unpadded call's), a nonzero s0 with k=v=0, a two-call
@@ -164,6 +170,19 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def sass_counts(library: str) -> dict:
+    """Tensor-core instructions in a built library's SASS (cuobjdump):
+    HGMMA is wgmma, HMMA is mma.sync.  Empty when cuobjdump is missing."""
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).is_file():
+        return {}
+    out = subprocess.run([tool, "-sass", library], capture_output=True,
+                         text=True, timeout=300).stdout
+    return {op: len(re.findall(rf"\b{op}\.", out))
+            for op in ("HGMMA", "HMMA")}
+
+
 def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     import torch
     for _ in range(warmup):
@@ -183,7 +202,8 @@ def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 
 def attention_case(name, B, S, H, K, hd, dtype, *, causal=True, window=None,
-                   ragged=False, strided=False, offset=0, seed=0):
+                   ragged=False, strided=False, offset=0, empty_row=False,
+                   seed=0):
     import torch
     g = torch.Generator(device="cuda").manual_seed(seed)
     dt = getattr(torch, dtype)
@@ -197,6 +217,8 @@ def attention_case(name, B, S, H, K, hd, dtype, *, causal=True, window=None,
         lengths = torch.randint(0, S + 1, (B,), generator=g, device="cuda",
                                 dtype=torch.int32)
         lengths[0] = S
+        if empty_row:
+            lengths[1] = 0
     return dict(name=name, q=q, k=k, v=v, lengths=lengths, causal=causal,
                 window=window, dtype=dtype)
 
@@ -225,13 +247,19 @@ def time_flash(c):
     K = k.shape[2]
     kw = dict(causal=c["causal"], window=c["window"], lengths=None)
     kernel_ms = cuda_time_ms(lambda: flash_attention(q, k, v, **kw))
+    kernel_dev_ms = profiled_ms(lambda: flash_attention(q, k, v, **kw),
+                                K1_KERNELS)
     plain_ms = cuda_time_ms(lambda: flash_attention_plain(q, k, v, **kw))
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+
+    def library():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
     try:
-        library_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True))
+        library_ms = cuda_time_ms(library)
+        library_dev_ms = profiled_ms(library, ())
     except TypeError:                   # torch without enable_gqa
-        library_ms = None
+        library_ms = library_dev_ms = None
     nbytes = sum(t.numel() * t.element_size() for t in (q, k, v)) \
         + q.numel() * q.element_size()
     flops = 4 * hd * H * visible_pairs(S, c["causal"], c["window"], None, B)
@@ -239,8 +267,9 @@ def time_flash(c):
     t_flops = flops / PEAK_FLOPS[c["dtype"]]
     return {"shape": f"B={B} S={S} H={H} K={K} hd={hd} {c['dtype']} causal"
                      + (f" window {c['window']}" if c["window"] else ""),
-            "ms": kernel_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-            "library_ms": library_ms,
+            "ms": kernel_ms, "kernel_ms": kernel_ms,
+            "device_ms": kernel_dev_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "library_device_ms": library_dev_ms,
             "bound_ms": 1e3 * max(t_bytes, t_flops),
             "bound_by": "bytes" if t_bytes >= t_flops else "operations",
             "bytes": nbytes, "flops": flops}
@@ -275,6 +304,15 @@ def kernel_phase(failures):
         attention_case("hd=32 fp32 S=1", 4, 1, 4, 2, 32, "float32"),
         attention_case("hd=256 bf16 non-causal window 40", 2, 96, 4, 1, 256,
                        "bfloat16", causal=False, window=40),
+        # mistral-large's and command-r-plus's group: 96 heads on 8
+        attention_case("G=12 hd=128 bf16 (96/8 heads)", 2, 300, 96, 8, 128,
+                       "bfloat16"),
+        attention_case("bf16 window 20 (under one tile), ragged lengths "
+                       "with a length-0 row", 4, 300, 32, 4, 128, "bfloat16",
+                       window=20, ragged=True, empty_row=True),
+        # the largest prefill bucket at max_len 1024
+        attention_case("yi-9b bf16 causal S=1024", 8, 1024, 32, 4, 128,
+                       "bfloat16"),
         # zamba2's shared block: MHA (G=1), hd=80, its 4096 window
         attention_case("zamba2 hd=80 G=1 bf16 window 4096", 8, 512, 32, 32,
                        80, "bfloat16", window=4096),
@@ -298,6 +336,7 @@ def kernel_phase(failures):
 
     main = time_flash(cases[0])
     zamba = time_flash(cases[-1])
+    long = time_flash(cases[-2])
     entry = {
         "name": "flash_attention",
         "route": "cuda",
@@ -309,13 +348,16 @@ def kernel_phase(failures):
         "max_abs_err": results[0]["max_abs_err"],
         **main,
         "zamba2_shape": zamba,
+        "s1024": long,
         "cases": results,
     }
-    for t in (main, zamba):
+    for t in (main, zamba, long):
         log(f"[kernels] flash_attention timed at {t['shape']}: kernel "
-            f"{t['kernel_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, SDPA "
-            f"{t['library_ms']} ms, bound {t['bound_ms']:.4f} ms "
-            f"({t['bound_by']})")
+            f"{t['kernel_ms']:.4f} ms (device time {t['device_ms']:.4f} ms), "
+            f"plain {t['plain_ms']:.4f} ms, SDPA {t['library_ms']} ms "
+            f"(device time {t['library_device_ms']} ms), bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
+    torch.cuda.empty_cache()
     return [entry]
 
 
@@ -352,7 +394,9 @@ def profiled_ms(fn, names, iters: int = 20) -> float:
     return device_ms(prof, names) / iters
 
 
-K2_KERNELS = ("decode_split_kernel", "decode_combine_kernel")
+K1_KERNELS = ("flash_attention_wgmma_kernel", "flash_attention_kernel")
+K2_KERNELS = ("decode_split_kernel", "decode_split_mma_kernel",
+              "decode_combine_kernel")
 
 
 def decode_case(name, B, Smax, H, K, hd, dtype, *, window=None,
@@ -399,11 +443,14 @@ def time_decode(c):
     ks, vs = (t.transpose(1, 2).contiguous() for t in (k, v))
     mask = (torch.arange(Smax, device="cuda")[None, :]
             < lens[:, None])[:, None, None, :]
+    def library():
+        return F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                              enable_gqa=True)
     try:
-        library_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
-            qs, ks, vs, attn_mask=mask, enable_gqa=True))
+        library_ms = cuda_time_ms(library)
+        library_dev_ms = profiled_ms(library, ())
     except TypeError:                   # torch without enable_gqa
-        library_ms = None
+        library_ms = library_dev_ms = None
     keys = int(torch.clamp(lens, max=Smax).sum())
     nbytes = 2 * keys * K * hd * k.element_size() \
         + 2 * q.numel() * q.element_size()
@@ -414,7 +461,7 @@ def time_decode(c):
                      f"valid keys {keys}",
             "ms": kernel_ms, "kernel_ms": kernel_ms,
             "device_ms": kernel_dev_ms, "plain_ms": plain_ms,
-            "library_ms": library_ms,
+            "library_ms": library_ms, "library_device_ms": library_dev_ms,
             "bound_ms": 1e3 * max(t_bytes, t_flops),
             "bound_by": "bytes" if t_bytes >= t_flops else "operations",
             "bytes": nbytes, "flops": flops}
@@ -473,8 +520,8 @@ def decode_kernel_phase(failures):
         log(f"[kernels] decode_attention timed at {t['shape']}: kernel "
             f"{t['kernel_ms']:.4f} ms (device time {t['device_ms']:.4f} "
             f"ms), plain {t['plain_ms']:.4f} ms, SDPA {t['library_ms']} "
-            f"ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}, "
-            f"{t['bytes']} bytes)")
+            f"ms (device time {t['library_device_ms']} ms), bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}, {t['bytes']} bytes)")
     entry = {
         "name": "decode_attention",
         "route": "cuda",
@@ -521,6 +568,9 @@ def paged_case(name, B, MP, ps, H, K, hd, dtype, *, window=None,
     elif lengths == "tick":          # the generate phase's 17-330 tokens
         lens = torch.randint(17, 331, (B,), generator=g, device="cuda",
                              dtype=torch.int32)
+    elif lengths == "ring":          # min(L+1, Smax): some rows wrapped
+        L = torch.randint(0, 3 * Smax, (B,), generator=g, device="cuda")
+        lens = torch.clamp(L + 1, max=Smax).to(torch.int32)
     else:
         lens = torch.randint(1, Smax + 1, (B,), generator=g, device="cuda",
                              dtype=torch.int32)
@@ -555,6 +605,10 @@ def paged_decode_kernel_phase(failures):
         paged_case("danube hd=80 G=4 bf16 window 300", 4, 32, 16, 32, 8,
                    80, "bfloat16", window=300),
         paged_case("hd=256 bf16", 2, 20, 16, 8, 2, 256, "bfloat16"),
+        paged_case("G=12 bf16 (one block per group)", 2, 44, 16, 96, 8, 128,
+                   "bfloat16"),
+        paged_case("zamba2 hd=80 G=1 bf16 ring lengths", 8, 64, 16, 32, 32,
+                   80, "bfloat16", lengths="ring"),
         paged_case("page size 32 bf16", 8, 32, 32, *yi, "bfloat16"),
         paged_case("page size 64 bf16", 8, 16, 64, *yi, "bfloat16"),
         paged_case("layer view of a stacked pool bf16", 8, 32, 16, *yi,
@@ -605,6 +659,10 @@ def paged_decode_kernel_phase(failures):
                                 K2_KERNELS)
         plain_ms = cuda_time_ms(
             lambda: paged_decode_attention_plain(q, kp, vp, table, lens))
+        # page size 16: K2's split plan, so K2's bits on the gathered cache
+        bitwise = bool(torch.equal(
+            paged_decode_attention(q, kp, vp, table, lens),
+            decode_attention(q, gk, gv, lens))) if ps == 16 else None
         mask = (torch.arange(Smax, device="cuda")[None, :]
                 < lens[:, None])[:, None, None, :]
 
@@ -632,7 +690,7 @@ def paged_decode_kernel_phase(failures):
                 "plain_ms": plain_ms, "library_ms": library_ms,
                 "bound_ms": 1e3 * max(t_bytes, t_flops),
                 "bound_by": "bytes" if t_bytes >= t_flops else "operations",
-                "bytes": nbytes, "flops": flops}
+                "bytes": nbytes, "flops": flops, "bitwise_k2": bitwise}
 
     main = timed(cases[0])
     long_case = paged_case("32k keys per row", 8, 2048, 16, *yi, "bfloat16",
@@ -658,7 +716,11 @@ def paged_decode_kernel_phase(failures):
             f"the gathered cache {t['k2_ms']:.4f} ms (device "
             f"{t['k2_device_ms']:.4f} ms); plain {t['plain_ms']:.4f} ms; "
             f"gather + SDPA {t['library_ms']} ms; bound {t['bound_ms']:.4f} "
-            f"ms ({t['bound_by']}, {t['bytes']} bytes)")
+            f"ms ({t['bound_by']}, {t['bytes']} bytes); bitwise equal to K2 "
+            f"on the gathered cache: {t['bitwise_k2']}")
+        if t["bitwise_k2"] is False:
+            failures.append(f"paged_decode_attention at {t['shape']}: not "
+                            f"bitwise equal to K2 on the gathered cache")
     torch.cuda.empty_cache()
     return [{
         "name": "paged_decode_attention",
@@ -2156,6 +2218,14 @@ def main(argv=None) -> int:
                 log(f"[build]   {entry}: {line.split(':', 1)[-1].strip()}")
 
     failures = []
+    # the bf16 paths' products: wgmma in K1, mma.sync in K2/K3
+    for name, op in (("flash_attention", "HGMMA"),
+                     ("decode_attention", "HMMA")):
+        counts = sass_counts(str(common.build_log[name]["library"]))
+        log(f"[build] {name} SASS tensor-core instructions: "
+            f"{counts or 'cuobjdump not found'}")
+        if counts and not counts[op]:
+            failures.append(f"{name}: no {op} in its SASS")
     kernels = (kernel_phase(failures) + decode_kernel_phase(failures)
                + paged_decode_kernel_phase(failures)
                + wkv_kernel_phase(failures) + ssd_kernel_phase(failures))

@@ -16,9 +16,10 @@
 // h / G), online softmax over the row's lengths[b] valid keys (clamped to
 // Smax, which is MP * ps for the paged pool), optionally only keys with
 // kpos > lengths[b] - 1 - window.  Scores are scaled by 1/sqrt(head_dim); m,
-// l and the accumulator are fp32, and P stays fp32 for P.V (as in the TPU
-// kernels; the plain versions round P to the cache dtype first).  A row with
-// no valid key produces zeros.
+// l and the accumulator are fp32.  The tensor-core kernel rounds the
+// unnormalised P to bf16 for P.V (the plain versions round the normalised
+// P to the cache dtype); the CUDA-core kernel keeps P fp32, as the TPU
+// kernels do.  A row with no valid key produces zeros.
 //
 // Layout: q (B,H,hd) and o (B,H,hd) through (batch, head) element strides.
 // K2's cache layer k/v (B,Smax,K,hd) is read through (batch, position,
@@ -36,34 +37,43 @@
 // the layer once and does 4*hd FLOP per (query head, key), i.e. 2*G FLOP
 // per K/V byte read at bf16: 16 for yi-9b's G=8, far below the ~295 FLOP
 // per byte where the tensor cores rather than device memory would bind.
-// So the bound is the K/V bytes (plus K3's table) over 3.35 TB/s.  What the
-// design does about it:
-//  * Each K/V row is loaded from device memory exactly once, by one warp,
-//    into registers, and used there for all the G query heads of its KV
-//    head (no shared-memory staging is needed for reuse across heads).
+// So the bound is the K/V bytes (plus K3's table) over 3.35 TB/s: 0.16 ms
+// at 32k keys for yi-9b's B=8.  Reaching it takes some 40-60 KB of loads
+// in flight on every SM and little issue work per byte.  What the design
+// does about it (the tensor-core kernel, decode_split_mma_kernel, for bf16
+// at head_dim 32-128, which the model always runs):
+//  * The G query heads of a KV head are the rows of one mma.sync m16n8k16
+//    A tile (padded to 16), so one block serves the whole group, each K/V
+//    row is read from device memory once, and both products run on tensor
+//    cores: no per-key warp reductions (the CUDA-core kernel spends five
+//    shuffles per key and head on its q.k sums, about 40 per key at G=8,
+//    which alone exceeds the bound at 32k keys).
+//  * Each warp streams its own 16-key tiles through a 3-stage ring of
+//    16-byte cp.async copies in shared memory (padded rows, so ldmatrix is
+//    conflict-free), keeping two tiles (17 KB at hd 128) in flight while it
+//    computes one; two blocks of four warps per SM hold some 140 KB in
+//    flight.
 //  * The KV axis is split over blocks: at serving shapes a (B,K) grid is
 //    32 blocks on 132 SMs (yi-9b, B=8), so the wrapper picks `nsplit`
-//    splits per (row, KV head) to put a few blocks on every SM, and a
-//    second small kernel combines the splits' (m, l, acc) partials.
-//  * Inside a block, 4 warps take interleaved steps of 4 keys each, so
-//    every warp keeps 8 row loads in flight (loaded as raw words with no
-//    branch and converted after the last one, see Span).  A lane owns
-//    HD_PAD/32 consecutive head dims of q, of each K/V row and of the
-//    accumulators; a q.k dot product is reduced across the warp with shuffles.  The
-//    warps' partial states are merged in shared memory at the end.
+//    splits per (row, KV head) to fill one wave of two blocks per SM, and
+//    a second small kernel combines the splits' (m, l, acc) partials.
 //  * K3 differs from K2 only in how a key row is addressed (the KV
-//    template parameter of the split kernel).  A block first copies its
+//    template parameter of the split kernels).  A block first copies its
 //    split's page-table entries into shared memory (chunk / ps ints), so
 //    a key's page is one shared load.  The wrapper starts every split on
 //    a page boundary and, at ps = 16, uses K2's split plan unchanged, so
 //    K3 walks the same keys in the same order as K2 and its output on a
 //    pool equals K2's on the gathered cache bit for bit.
-// Not yet done (later work): tensor cores (G query heads form too few
-// rows for an m16 mma without padding), cp.async/TMA pipelining, the fp8
-// e4m3 cache.
+// The CUDA-core kernel (decode_split_kernel) serves fp32 caches, hd 256,
+// G > 16 and rows not 16-byte aligned: 4 warps take interleaved steps of 4
+// keys, a lane owns HD_PAD/32 head dims, and a q.k dot product is reduced
+// across the warp with shuffles.  TMA is not used: a paged row is found
+// through the page table, one 16-key tile at a time.
+// Not yet done (later work): the fp8 e4m3 cache.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
@@ -388,6 +398,308 @@ decode_split_kernel(const T* __restrict__ q, KV kv,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Tensor-core split kernel: bf16, head_dim 32/64/80/96/128, 16-byte aligned
+// rows, G <= 16.  One block of 4 warps per (KV split, KV head, batch row);
+// the G query heads of the KV head are the rows of one mma.sync m16n8k16 A
+// tile (padded to 16 rows with zeros), held in registers for the whole
+// split.  Each warp walks its own 16-key tiles (warp w takes tiles w, w+4,
+// ...) through a private ring of kTcStages shared-memory stages filled by
+// 16-byte cp.async, so every warp keeps kTcStages - 1 tiles in flight while
+// it computes one.  Per tile: S = Q K^T (K by ldmatrix), the online softmax
+// in the exp2 domain across the four lanes of a quad, P rounded to bf16 as
+// the A operand of O += P V (V by ldmatrix.trans).  The warps' (m, l, acc)
+// are merged through shared memory at the end.  Keys of a tile outside the
+// split's [begin, end) load the nearest row inside it (so K3 stays on its
+// staged pages) and are masked.
+// ---------------------------------------------------------------------------
+
+constexpr int kTcWarps = 4;
+constexpr int kTcThreads = 32 * kTcWarps;
+// Resident blocks per SM the tensor-core kernel is sized for (registers
+// and a 3-stage ring of 16-key K/V tiles per warp: 104 KB at head_dim 128);
+// the wrapper's split plan (ops.py TC_BLOCKS_PER_SM) sizes one wave by it.
+constexpr int kTcBlocksPerSM = 2;
+constexpr int kTcKeys = 16;           // keys per warp tile
+constexpr int kTcStages = 3;          // ring stages per warp
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+// c += a (16x16, row) * b (16x8, col); bf16 in, fp32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(a),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Bytes of the ring (all warps) at head_dim HD; K3's page entries come
+// first, at offset 0, and the ring starts at `ring_off` (128-aligned).
+template <int HD>
+constexpr int tc_ring_bytes() {
+  return kTcWarps * kTcStages * 2 * kTcKeys * (HD + 8) * 2;
+}
+
+template <int HD, typename KV>
+__global__ void __launch_bounds__(kTcThreads, kTcBlocksPerSM)
+decode_split_mma_kernel(const __nv_bfloat16* __restrict__ q, KV kv,
+                        const int* __restrict__ lengths,
+                        float* __restrict__ part_acc,
+                        float* __restrict__ part_ml, int Smax, int H, int G,
+                        int chunk, int nsplit, int window, float scale_log2,
+                        long long q_sb, long long q_sh, int ring_off) {
+  static_assert(HD % 16 == 0 && HD <= 128, "head_dim");
+  constexpr int LDS = HD + 8;  // padded smem row: ldmatrix conflict-free
+  constexpr int KSTEPS = HD / 16;
+  constexpr int NT_O = HD / 8;
+  constexpr int CH = HD / 8;           // 16-byte chunks per row
+  constexpr int TILE = kTcKeys * LDS;  // elements of one K (or V) tile
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  int* sm_pages = reinterpret_cast<int*>(tc_smem);
+
+  const int b = blockIdx.z;
+  const int kh = blockIdx.y;
+  const int split = blockIdx.x;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int t4 = lane % 4;
+  const int mi = lane >> 3;            // ldmatrix: which 8x8 matrix
+  __nv_bfloat16* wring = reinterpret_cast<__nv_bfloat16*>(tc_smem + ring_off)
+                         + warp * kTcStages * 2 * TILE;
+
+  const int L = min(max(lengths[b], 0), Smax);
+  const int lo = window > 0 ? max(0, L - window) : 0;
+  const int begin = max(lo, split * chunk);
+  const int end = min(L, split * chunk + chunk);
+
+  typename KV::Cursor cur = kv.at(b, kh, begin, end - 1, sm_pages);
+  __syncthreads();
+
+  // Q as A fragments: rows g and g+8 are query heads g0 = kh*G + row
+  uint32_t qf[KSTEPS][4];
+#pragma unroll
+  for (int kk = 0; kk < KSTEPS; ++kk) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = g + (i & 1) * 8;
+      const int col = kk * 16 + (i >> 1) * 8 + 2 * t4;
+      qf[kk][i] = r < G ? *reinterpret_cast<const uint32_t*>(
+                              q + b * q_sb + (long long)(kh * G + r) * q_sh +
+                              col)
+                        : 0u;
+    }
+  }
+  float acc[NT_O][4];
+#pragma unroll
+  for (int d = 0; d < NT_O; ++d)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[d][i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};   // log2 domain
+  float l[2] = {0.f, 0.f};               // this lane's partial row sums
+
+  const int tbase = (begin / kTcKeys) * kTcKeys;
+  const int ntiles = end > begin ? (end - tbase + kTcKeys - 1) / kTcKeys : 0;
+  const int nmine =
+      ntiles > warp ? (ntiles - warp + kTcWarps - 1) / kTcWarps : 0;
+
+  auto issue = [&](int i) {            // this warp's i-th tile -> stage i % S
+    const int t0 = tbase + (warp + i * kTcWarps) * kTcKeys;
+    __nv_bfloat16* ks = wring + (i % kTcStages) * 2 * TILE;
+    __nv_bfloat16* vs = ks + TILE;
+#pragma unroll
+    for (int c = lane; c < kTcKeys * CH; c += 32) {
+      const int j = c / CH;
+      const int col = (c % CH) * 8;
+      const int t = min(max(t0 + j, begin), end - 1);
+      const __nv_bfloat16* kr;
+      const __nv_bfloat16* vr;
+      cur.rows(t, kr, vr);
+      cp_async16(ks + j * LDS + col, kr + col);
+      cp_async16(vs + j * LDS + col, vr + col);
+    }
+  };
+
+#pragma unroll
+  for (int i = 0; i < kTcStages - 1; ++i) {
+    if (i < nmine) issue(i);
+    cp_async_commit();
+  }
+  for (int i = 0; i < nmine; ++i) {
+    if (i + kTcStages - 1 < nmine) issue(i + kTcStages - 1);
+    cp_async_commit();
+    cp_async_wait<kTcStages - 1>();
+    __syncwarp();
+    const __nv_bfloat16* ks = wring + (i % kTcStages) * 2 * TILE;
+    const __nv_bfloat16* vs = ks + TILE;
+    const int t0 = tbase + (warp + i * kTcWarps) * kTcKeys;
+
+    // S = Q K^T: 16 heads x 16 keys, two n-tiles of 8 keys
+    float s[2][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KSTEPS; ++kk) {
+      // matrices: (keys 0-7, dims kk*16), (+8 dims), (keys 8-15, ..), (..)
+      uint32_t bf[4];
+      ldsm_x4(bf, ks + ((mi >> 1) * 8 + (lane & 7)) * LDS + kk * 16 +
+                      (mi & 1) * 8);
+      mma_bf16(s[0], qf[kk], bf[0], bf[1]);
+      mma_bf16(s[1], qf[kk], bf[2], bf[3]);
+    }
+
+    // scale into the log2 domain, mask keys outside [begin, end)
+    const bool edge = t0 < begin || t0 + kTcKeys > end;
+    float tmax[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e] * scale_log2;
+        if (edge) {
+          const int kp = t0 + j * 8 + 2 * t4 + (e & 1);
+          if (kp < begin || kp >= end) x = -INFINITY;
+        }
+        s[j][e] = x;
+        tmax[e >> 1] = fmaxf(tmax[e >> 1], x);
+      }
+    }
+    float alpha[2], m_use[2];
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      tmax[x] = fmaxf(tmax[x], __shfl_xor_sync(0xffffffffu, tmax[x], 1));
+      tmax[x] = fmaxf(tmax[x], __shfl_xor_sync(0xffffffffu, tmax[x], 2));
+      const float m_new = fmaxf(m[x], tmax[x]);
+      m_use[x] = m_new == -INFINITY ? 0.f : m_new;
+      alpha[x] = exp2f(m[x] - m_use[x]);
+      m[x] = m_new;
+      l[x] *= alpha[x];
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(s[j][e] - m_use[e >> 1]);
+        s[j][e] = p;
+        l[e >> 1] += p;
+      }
+    }
+#pragma unroll
+    for (int d = 0; d < NT_O; ++d) {
+      acc[d][0] *= alpha[0];
+      acc[d][1] *= alpha[0];
+      acc[d][2] *= alpha[1];
+      acc[d][3] *= alpha[1];
+    }
+
+    // O += P V: P (16 heads x 16 keys) as one A fragment
+    uint32_t pf[4];
+    pf[0] = pack_bf16(s[0][0], s[0][1]);
+    pf[1] = pack_bf16(s[0][2], s[0][3]);
+    pf[2] = pack_bf16(s[1][0], s[1][1]);
+    pf[3] = pack_bf16(s[1][2], s[1][3]);
+#pragma unroll
+    for (int d = 0; d < NT_O; d += 2) {
+      // matrices: (keys 0-7, dims 8d), (keys 8-15, dims 8d), (.., 8d+8)
+      uint32_t bf[4];
+      ldsm_x4_trans(bf, vs + ((mi & 1) * 8 + (lane & 7)) * LDS +
+                            (d + (mi >> 1)) * 8);
+      mma_bf16(acc[d], pf, bf[0], bf[1]);
+      mma_bf16(acc[d + 1], pf, bf[2], bf[3]);
+    }
+    __syncwarp();                      // the stage may be refilled next
+  }
+  cp_async_wait<0>();
+  __syncwarp();
+
+  // merge the four warps' states through each warp's own ring region:
+  // [16] m, [16] l, [16][HD] acc (fp32); an empty warp has m = -inf, l = 0
+  float* wm = reinterpret_cast<float*>(wring);
+  float* wl = wm + 16;
+  float* wacc = wl + 16;
+#pragma unroll
+  for (int x = 0; x < 2; ++x) {
+    l[x] += __shfl_xor_sync(0xffffffffu, l[x], 1);
+    l[x] += __shfl_xor_sync(0xffffffffu, l[x], 2);
+    if (t4 == 0) {
+      wm[g + 8 * x] = m[x];
+      wl[g + 8 * x] = l[x];
+    }
+#pragma unroll
+    for (int d = 0; d < NT_O; ++d) {
+      wacc[(g + 8 * x) * HD + d * 8 + 2 * t4] = acc[d][2 * x];
+      wacc[(g + 8 * x) * HD + d * 8 + 2 * t4 + 1] = acc[d][2 * x + 1];
+    }
+  }
+  __syncthreads();
+  const float* base = reinterpret_cast<const float*>(
+      tc_smem + ring_off);
+  constexpr int WSTRIDE = kTcStages * 2 * TILE / 2;   // floats per warp ring
+  for (int idx = threadIdx.x; idx < G * HD; idx += kTcThreads) {
+    const int gi = idx / HD;
+    const int d = idx % HD;
+    float M = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < kTcWarps; ++w) M = fmaxf(M, base[w * WSTRIDE + gi]);
+    const float M_use = M == -INFINITY ? 0.f : M;
+    float a_sum = 0.f, l_sum = 0.f;
+#pragma unroll
+    for (int w = 0; w < kTcWarps; ++w) {
+      const float* wb = base + w * WSTRIDE;
+      const float a = exp2f(wb[gi] - M_use);
+      a_sum += a * wb[32 + gi * HD + d];
+      l_sum += a * wb[16 + gi];
+    }
+    const long long row = ((long long)b * H + kh * G + gi) * nsplit + split;
+    part_acc[row * HD + d] = a_sum;
+    if (d == 0) {                      // the combine kernel's natural-log m
+      part_ml[2 * row] = M == -INFINITY ? kNegInf : M / kLog2e;
+      part_ml[2 * row + 1] = l_sum;
+    }
+  }
+}
+
 // One block per (query head, batch row): o = sum_s w_s acc_s / sum_s w_s l_s
 // with w_s = exp(m_s - max_s m_s).  A row whose splits are all empty has
 // l = 0 everywhere and gets zeros.
@@ -437,6 +749,15 @@ struct Common {
   cudaStream_t stream;
 };
 
+template <typename T>
+cudaError_t launch_combine(const Common& a) {
+  decode_combine_kernel<T><<<dim3(a.H, a.B), kCombineThreads,
+                             a.nsplit * sizeof(float), a.stream>>>(
+      a.part_acc, a.part_ml, static_cast<T*>(a.o), a.H, a.hd, a.nsplit,
+      a.o_sb, a.o_sh);
+  return cudaGetLastError();
+}
+
 template <typename T, int HD_PAD, int GB, typename KV>
 cudaError_t launch(const Common& a, KV kv) {
   const int G = a.H / a.K;
@@ -447,13 +768,48 @@ cudaError_t launch(const Common& a, KV kv) {
       static_cast<const T*>(a.q), kv, a.lengths, a.part_acc, a.part_ml,
       a.Smax, a.H, G, a.hd, ngroups, a.chunk, a.nsplit, a.window, a.scale,
       a.q_sb, a.q_sh);
-  cudaError_t e = cudaGetLastError();
+  const cudaError_t e = cudaGetLastError();
+  return e != cudaSuccess ? e : launch_combine<T>(a);
+}
+
+// The tensor-core kernel: K3's table entries, then the warps' rings.
+template <int HD, typename KV>
+cudaError_t launch_tc(const Common& a, KV kv) {
+  const int ring_off = (a.smem_pages * (int)sizeof(int) + 127) / 128 * 128;
+  const int smem = ring_off + tc_ring_bytes<HD>();
+  auto kern = decode_split_mma_kernel<HD, KV>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  decode_combine_kernel<T><<<dim3(a.H, a.B), kCombineThreads,
-                             a.nsplit * sizeof(float), a.stream>>>(
-      a.part_acc, a.part_ml, static_cast<T*>(a.o), a.H, a.hd, a.nsplit,
-      a.o_sb, a.o_sh);
-  return cudaGetLastError();
+  const dim3 grid(a.nsplit, a.K, a.B);
+  kern<<<grid, kTcThreads, smem, a.stream>>>(
+      static_cast<const __nv_bfloat16*>(a.q), kv, a.lengths, a.part_acc,
+      a.part_ml, a.Smax, a.H, a.H / a.K, a.chunk, a.nsplit, a.window,
+      a.scale * kLog2e, a.q_sb, a.q_sh, ring_off);
+  e = cudaGetLastError();
+  return e != cudaSuccess ? e : launch_combine<__nv_bfloat16>(a);
+}
+
+// gb == kTcHeads selects the tensor-core kernel (the whole GQA group in one
+// block); the wrapper picks it for bf16, these head dims, G <= 16 and
+// 16-byte aligned rows, and the entries check the same.
+constexpr int kTcHeads = 16;
+
+template <typename KV>
+cudaError_t dispatch_tc(const Common& a, KV kv) {
+  switch (a.hd) {
+    case 32: return launch_tc<32>(a, kv);
+    case 64: return launch_tc<64>(a, kv);
+    case 80: return launch_tc<80>(a, kv);
+    case 96: return launch_tc<96>(a, kv);
+    case 128: return launch_tc<128>(a, kv);
+  }
+  return cudaErrorInvalidValue;
+}
+
+bool aligned16(const void* p, long long s0, long long s1, long long s2) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0 && s0 % 8 == 0 &&
+         s1 % 8 == 0 && s2 % 8 == 0;
 }
 
 template <typename T, int HD_PAD, typename KV>
@@ -506,7 +862,14 @@ extern "C" int decode_attention_fwd(
   if (bad_common(a)) return (int)cudaErrorInvalidValue;
   const Strides ks{k_sb, k_ss, k_sh}, vs{v_sb, v_ss, v_sh};
   cudaError_t e;
-  if (dtype == 0)
+  if (gb == kTcHeads) {
+    if (dtype != 1 || H / K > kTcHeads || !aligned16(q, q_sb, q_sh, 0) ||
+        !aligned16(k, k_sb, k_ss, k_sh) || !aligned16(v, v_sb, v_ss, v_sh))
+      return (int)cudaErrorInvalidValue;
+    e = dispatch_tc(a, ContigKV<__nv_bfloat16>{
+        static_cast<const __nv_bfloat16*>(k),
+        static_cast<const __nv_bfloat16*>(v), ks, vs});
+  } else if (dtype == 0)
     e = dispatch_hd<float>(gb, a, ContigKV<float>{
         static_cast<const float*>(k), static_cast<const float*>(v), ks, vs});
   else if (dtype == 1)
@@ -543,7 +906,15 @@ extern "C" int paged_decode_attention_fwd(
       ((1ull << 32) * ((1ull << shift) - ps)) / ps + 1);
   const Strides ks{k_sp, k_ss, k_sh}, vs{v_sp, v_ss, v_sh};
   cudaError_t e;
-  if (dtype == 0)
+  if (gb == kTcHeads) {
+    if (dtype != 1 || H / K > kTcHeads || !aligned16(q, q_sb, q_sh, 0) ||
+        !aligned16(k, k_sp, k_ss, k_sh) || !aligned16(v, v_sp, v_ss, v_sh))
+      return (int)cudaErrorInvalidValue;
+    e = dispatch_tc(a, PagedKV<__nv_bfloat16>{
+        static_cast<const __nv_bfloat16*>(k),
+        static_cast<const __nv_bfloat16*>(v), ks, vs, page_table, MP, ps,
+        magic, shift});
+  } else if (dtype == 0)
     e = dispatch_hd<float>(gb, a, PagedKV<float>{
         static_cast<const float*>(k), static_cast<const float*>(v), ks, vs,
         page_table, MP, ps, magic, shift});

@@ -33,9 +33,17 @@ MIN_KEYS_PER_SPLIT = 64
 # K3 stages a split's page-table entries in shared memory (kMaxSplitPages
 # in the source)
 MAX_SPLIT_PAGES = 8192
-# split target: the blocks one wave holds.  The split kernel is compiled
-# for three resident 128-thread blocks per SM (kBlocksPerSM in the source).
+# split target: the blocks one wave holds.  The CUDA-core split kernel is
+# compiled for three resident 128-thread blocks per SM (kBlocksPerSM in the
+# source), the tensor-core one for two (kTcBlocksPerSM: its registers and
+# its 104 KB of cp.async ring at head_dim 128).
 BLOCKS_PER_SM = 3
+TC_BLOCKS_PER_SM = 2
+# The tensor-core split kernel (decode_split_mma_kernel) takes bf16 at these
+# head dims with 16-byte aligned rows and serves a whole GQA group of up to
+# TC_HEADS query heads in one block (the rows of one m16 A tile).
+TC_HEAD_DIMS = (32, 64, 80, 96, 128)
+TC_HEADS = 16
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _sm_count: Dict[int, int] = {}
 
@@ -60,24 +68,41 @@ def _head_dim_pad(hd: int) -> int:
     return next(p for p in (32, 64, 128, 256) if hd <= p)
 
 
-def heads_per_block(G: int, hd: int) -> int:
-    """Query heads a block keeps in registers: the GQA group rounded up to
-    a power of two, at most 8 (4 for head_dim above 128); larger groups
-    take several blocks."""
+def heads_per_block(G: int, hd: int, tensor_cores: bool) -> int:
+    """Query heads a block serves.  Tensor cores: TC_HEADS, the rows of the
+    A tile, so the whole group (G <= 16) is one block.  CUDA cores: the
+    group rounded up to a power of two, at most 8 (4 for head_dim above
+    128); larger groups take several blocks."""
+    if tensor_cores:
+        return TC_HEADS
     cap = 8 if hd <= 128 else 4
     return min(cap, 1 << (G - 1).bit_length())
 
 
-def split_plan(B: int, K: int, G: int, Smax: int, hd: int,
-               sms: int) -> tuple:
+def tensor_core_path(q, k, v) -> bool:
+    """Whether a launch takes the tensor-core split kernel: bf16, a head
+    dim of TC_HEAD_DIMS, G <= TC_HEADS and every row start of q and the
+    cache 16-byte aligned (the model's always are).  Everything else takes
+    the CUDA-core kernel."""
+    hd, G = q.shape[-1], q.shape[1] // k.shape[2]
+    return (q.dtype == torch.bfloat16 and hd in TC_HEAD_DIMS
+            and G <= TC_HEADS
+            and all(t.data_ptr() % 16 == 0
+                    and all(st % 8 == 0 for st in t.stride()[:-1])
+                    for t in (q, k, v)))
+
+
+def split_plan(B: int, K: int, G: int, Smax: int, hd: int, sms: int,
+               tensor_cores: bool) -> tuple:
     """(nsplit, chunk): the KV axis is cut into ``nsplit`` chunks of
-    ``chunk`` keys so that the grid fills one wave of BLOCKS_PER_SM blocks
-    per SM without spilling into a second, with at least
+    ``chunk`` keys so that the grid fills one wave of the kernel's resident
+    blocks per SM without spilling into a second, with at least
     MIN_KEYS_PER_SPLIT keys each.  It depends on shapes only (never on
     ``lengths``, which live on the device)."""
-    blocks = B * K * cdiv(G, heads_per_block(G, hd))
+    blocks = B * K * cdiv(G, heads_per_block(G, hd, tensor_cores))
+    per_sm = TC_BLOCKS_PER_SM if tensor_cores else BLOCKS_PER_SM
     nsplit = max(1, min(cdiv(Smax, MIN_KEYS_PER_SPLIT),
-                        BLOCKS_PER_SM * sms // blocks, MAX_SPLITS))
+                        per_sm * sms // blocks, MAX_SPLITS))
     chunk = round_up(cdiv(Smax, nsplit), 16)
     return cdiv(Smax, chunk), chunk
 
@@ -92,12 +117,12 @@ def _sms(device: torch.device) -> int:
 
 
 def paged_split_plan(B: int, K: int, G: int, MP: int, ps: int, hd: int,
-                     sms: int) -> tuple:
+                     sms: int, tensor_cores: bool) -> tuple:
     """K3's (nsplit, chunk): K2's plan for Smax = MP * ps with ``chunk``
     rounded up to whole pages, so every split starts on a page boundary.
     At ps = 16 (or any ps dividing K2's chunk) it is K2's plan unchanged."""
     Smax = MP * ps
-    _, chunk = split_plan(B, K, G, Smax, hd, sms)
+    _, chunk = split_plan(B, K, G, Smax, hd, sms, tensor_cores)
     chunk = round_up(chunk, ps)
     return cdiv(Smax, chunk), chunk
 
@@ -116,9 +141,10 @@ def _check_aligned(hd: int, *tensors) -> None:
 
 
 def _check_common(name: str, q, k, v, lengths, B: int, K: int,
-                  hd: int) -> None:
+                  hd: int) -> bool:
     """The checks K2 and K3 share: heads, head_dim, dtypes, contiguity of
-    the head dimension, lengths, row alignment and the grid's size."""
+    the head dimension, lengths, row alignment and the grid's size.
+    Returns whether the launch takes the tensor-core kernel."""
     H = q.shape[1]
     if H % K:
         raise ValueError(f"{H} query heads not divisible by {K} kv heads")
@@ -136,8 +162,10 @@ def _check_common(name: str, q, k, v, lengths, B: int, K: int,
                          f"{lengths.dtype} {tuple(lengths.shape)}")
     _check_aligned(hd, q, k, v)
     G = H // K
-    if B > 65535 or K * cdiv(G, heads_per_block(G, hd)) > 65535:
+    tc = tensor_core_path(q, k, v)
+    if B > 65535 or K * cdiv(G, heads_per_block(G, hd, tc)) > 65535:
         raise ValueError(f"grid too large: B={B}, H={H}")
+    return tc
 
 
 def _scratch(q, nsplit: int):
@@ -171,10 +199,11 @@ def decode_attention(q, cache_k, cache_v, lengths, *,
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, cache_k "
                          f"{tuple(cache_k.shape)}, cache_v "
                          f"{tuple(cache_v.shape)}")
-    _check_common("decode_attention", q, cache_k, cache_v, lengths, B, K, hd)
+    tc = _check_common("decode_attention", q, cache_k, cache_v, lengths, B,
+                       K, hd)
     G = H // K
-    gb = heads_per_block(G, hd)
-    nsplit, chunk = split_plan(B, K, G, Smax, hd, _sms(q.device))
+    gb = heads_per_block(G, hd, tc)
+    nsplit, chunk = split_plan(B, K, G, Smax, hd, _sms(q.device), tc)
     lengths = lengths.to(torch.int32).contiguous()
     out, part_acc, part_ml = _scratch(q, nsplit)
     lib = build()
@@ -220,11 +249,12 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
                          f"{tuple(page_table.shape)}")
     if page_table.dtype != torch.int32:
         raise TypeError(f"page_table must be int32, got {page_table.dtype}")
-    _check_common("paged_decode_attention", q, k_pages, v_pages, lengths, B,
-                  K, hd)
+    tc = _check_common("paged_decode_attention", q, k_pages, v_pages,
+                       lengths, B, K, hd)
     G = H // K
-    gb = heads_per_block(G, hd)
-    nsplit, chunk = paged_split_plan(B, K, G, MP, ps, hd, _sms(q.device))
+    gb = heads_per_block(G, hd, tc)
+    nsplit, chunk = paged_split_plan(B, K, G, MP, ps, hd, _sms(q.device),
+                                     tc)
     if chunk // ps > MAX_SPLIT_PAGES:
         raise ValueError(f"a split of {chunk // ps} pages exceeds the "
                          f"kernel's {MAX_SPLIT_PAGES}")

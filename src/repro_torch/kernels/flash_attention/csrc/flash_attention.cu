@@ -24,20 +24,50 @@
 // below the ~295 FLOP per byte at which the card's bf16 tensor cores rather
 // than its memory become the limit, so the ideal kernel is bound by device
 // memory (chip_smoke.py prints the bound it computes for each run beside
-// the measured time).  What the design does about it: every q/o byte is
-// touched once, K/V tiles are staged once per block in shared memory and
-// reused by all of the block's query rows, scores and probabilities never
-// reach device memory, and key tiles that no row of a block (or warp) can
-// see under the causal mask or the window are skipped.  It does not reach
-// the bound yet: the loads are synchronous (no cp.async/TMA pipeline), GQA
-// groups re-read their shared K/V tile per query head, and at 220
-// registers only two blocks fit an SM.  wgmma and TMA come later.
+// the measured time).  The ideal is some 11 us; at these small shapes
+// (2-16 key tiles per 128 query rows) what keeps a kernel from it is
+// latency, and at S = 1024 the rate at which the tensor cores are fed.
+// What the design does about it:
+//  * tensor cores through wgmma (the only way to their full rate on this
+//    card) for both products, fp32 accumulators in registers; the online
+//    softmax keeps m on the raw scores and folds log2(e)/sqrt(hd) into the
+//    FFMA before each ex2;
+//  * TMA loads into a 4-stage K/V ring on mbarriers, issued by a producer
+//    warp that runs ahead of the two consumer warpgroups;
+//  * persistent blocks, one per SM, each walking a static list of work
+//    items (128 query rows of one head; the rows nearest the end of a
+//    causal sequence, which see the most keys, first): the K/V ring runs
+//    on from one item into the next and Q is double-buffered, so an item's
+//    Q and first tiles load while the previous item finishes;
+//  * inside a warpgroup, Q K^T of tile j is issued ahead of P V of tile
+//    j-1 and the softmax of tile j runs while P V does;
+//  * the producer loads only tiles some row of the item can see under
+//    causality, the window and lengths[b], a warpgroup skips the ones none
+//    of its rows sees, and masks are applied only on tiles that straddle
+//    the diagonal, the window edge or the length;
+//  * the tensor maps describe the model layout through its strides, so
+//    nothing is transposed, padded or copied in device memory.
+// Rows are 128 positions of one query head (two warpgroups of 64), not
+// (position, head-in-group) pairs: 128 is not a multiple of G = 12
+// (command-r-plus, mistral-large), and the G heads that share a K/V tile
+// run as neighbouring items that find it in L2.
+// Head dims 80 and 96: their rows do not fit one 128-byte swizzle row, so
+// a row is two boxes of 64 dims and TMA zero-fills the dims past hd (the
+// map's inner extent is hd); they run the hd-128 instantiation, whose
+// products then include zero columns (the hd-80 instantiation of its own
+// had its wgmma serialized by ptxas for want of registers).
+// What it does not reach: on this card SDPA's library kernel is about 1.2x
+// faster at the main shapes (PERF.md).  A variant without the softmax ran
+// little faster, so the products' pipeline, not the exponentials, bounds
+// it; not yet done (later work): Q K^T with Q in registers and 128-key
+// tiles (fewer shared-memory reads per product), 256-row items for G = 1
+// (fewer K/V re-reads), and a TMA store of O.
 //
 // Two paths, chosen per call from what the inputs are:
-//  * tensor cores (flash_attention_mma_kernel): bf16, head_dim 64, 80, 96
+//  * tensor cores (flash_attention_wgmma_kernel): bf16, head_dim 64, 80, 96
 //    or 128, every row start 16-byte aligned (the model's q/k/v always
-//    are).  One block of 4 warps per (64 query rows, query head, batch
-//    row); mma.sync m16n8k16 with fp32 accumulators; 64-key K/V tiles.
+//    are).  One persistent block per SM of 2 consumer warpgroups and a
+//    producer warp; see the section below.
 //  * CUDA cores (flash_attention_kernel): fp32, other head dims (up to
 //    256), unaligned bf16.  One block of 128 threads per (query tile,
 //    query head, batch row); each query row is owned by HD_PAD/32
@@ -45,12 +75,19 @@
 //    accumulator in registers, a q.k dot product is reduced across those
 //    lanes with warp shuffles, and 32-key K/V tiles are converted to fp32
 //    in shared memory, read as float4 in an order that keeps the lanes of
-//    a warp on distinct banks.
+//    a warp on distinct banks.  It serves the float32 checks, not the
+//    served path.
 // Both run the key loop inside the block and keep m, l and the output
 // accumulator in registers for the whole loop.
+//
+// The tensor maps are encoded per call on the host with
+// cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint, so the
+// library links no -lcuda.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
@@ -207,45 +244,198 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core path: bf16 inputs, head_dim a multiple of 16 up to 128, 16-byte
-// aligned rows.  FA2 layout: a block of 4 warps owns 64 query rows (16 per
-// warp); per 64-key tile, S = Q K^T and O += P V run on mma.sync m16n8k16
-// (bf16 in, fp32 accumulate).  Q stays in registers as A fragments, K/V
-// tiles sit in shared memory with rows padded by 16 bytes so that ldmatrix
-// is free of bank conflicts, and P goes from the S accumulators straight
-// into A fragments without touching memory.  Each lane holds two query
-// rows (g and g+8 of its warp); row statistics are reduced across the four
-// lanes of a quad.
+// Tensor-core path: bf16, head_dim 64, 80, 96 or 128, 16-byte aligned rows.
+// A block is kFaWG consumer warpgroups of 64 query rows each (an item: 128
+// positions of one query head) and one producer warp.  For each item the
+// producer's elected thread loads Q into one of two buffers (qfull/qempty)
+// and then every K/V tile the item can see by TMA into a ring of kFaStages
+// stages, completing on mbarriers (full[s]); the consumers release a stage
+// by arriving on empty[s].  Tiles are 64 keys by 64 head
+// dims of 128 bytes, 128B-swizzled, so a head dim of 80, 96 or 128 is two
+// such boxes and TMA zero-fills the columns past hd.  S = Q K^T is
+// wgmma.m64n64k16 with both operands K-major in shared memory; O += P V is
+// wgmma.m64nNk16 with P converted to bf16 in registers as the A operand and
+// V read MN-major (transposed) from the same swizzled tile, N = 64 for
+// hd 64 and 128 otherwise (the columns past hd are zeros and are dropped).
 // ---------------------------------------------------------------------------
 
-constexpr int kMmaBQ = 64;
-constexpr int kMmaBKV = 64;
+constexpr int kFaWG = 2;                     // consumer warpgroups per block
+constexpr int kFaM = 64 * kFaWG;             // query rows per block
+constexpr int kFaBKV = 64;                   // keys per tile
+constexpr int kFaStages = 4;                 // K/V ring depth
+constexpr int kFaThreads = 128 * kFaWG + 32; // + the producer warp
+constexpr int kBoxBytes = 128;  // 64 bf16 head dims: one swizzle row
+constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
-                                              const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
 }
 
-// c += a (16x16, row) * b (16x8, col); bf16 in, fp32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.b32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  }
+}
+
+// One TMA box (64 head dims x 1 head x rows x 1 batch row) at
+// (col, head, pos, batch) into shared memory, completing on `bar`.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int col, int head,
+                                         int pos, int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::
+          "r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(col),
+      "r"(head), "r"(pos), "r"(batch)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor for a 128B-swizzled operand: start address,
+// leading and stride byte offsets (16-byte units), layout type 1 (128B).
+__device__ __forceinline__ uint64_t gmma_desc(const void* p, uint32_t lbo,
+                                              uint32_t sbo) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// 2^x on the SFU, subnormal results flushed (exp2f adds a range fix-up)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Pin accumulator registers around an asynchronous wgmma, so the compiler
+// neither reads them before the wait nor moves them while it runs.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// d (m64 x n64, fp32) (+)= A (64x16, smem desc) * B (16x64, smem desc),
+// both K-major; scale_d = 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}"
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (m64 x n64, fp32) += A (64x16 bf16, registers) * B (16x64, smem
+// desc, MN-major, i.e. transposed)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}"
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (m64 x n128, fp32) += A (64x16 bf16, registers) * B (16x128, smem
+// desc, MN-major, i.e. transposed)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63}"
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -253,202 +443,441 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-template <int HD>
-__global__ void __launch_bounds__(kThreads)
-flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                           const __nv_bfloat16* __restrict__ k,
-                           const __nv_bfloat16* __restrict__ v,
-                           __nv_bfloat16* __restrict__ o,
-                           const int* __restrict__ lengths, int S, int G,
-                           Strides qs, Strides ks, Strides vs, Strides os,
-                           int causal, int window, float scale) {
-  static_assert(HD % 16 == 0 && HD <= 128, "head_dim");
-  constexpr int LDS = HD + 8;          // padded smem row, in elements
-  constexpr int KSTEPS = HD / 16;      // k-steps of Q K^T
-  constexpr int NT_S = kMmaBKV / 8;    // n-tiles of S (keys)
-  constexpr int NT_O = HD / 8;         // n-tiles of O (head dims)
-  constexpr int CHUNKS = HD / 8;       // 16-byte chunks per row
-  __shared__ __align__(16) __nv_bfloat16 k_s[kMmaBKV * LDS];
-  __shared__ __align__(16) __nv_bfloat16 v_s[kMmaBKV * LDS];
+// Shared-memory plan of the tensor-core kernel for NC 64-dim boxes per row.
+template <int NC>
+struct FaTiles {
+  static constexpr int NPV = 64 * NC;         // N of O += P V
+  static constexpr int QBYTES = NC * kFaM * kBoxBytes;    // one Q buffer
+  static constexpr int TBYTES = NC * kFaBKV * kBoxBytes;  // a K or V tile
+  static constexpr int STAGE = 2 * TBYTES;
+  static constexpr int RING = 2 * QBYTES;     // two Q buffers, then the ring
+  static constexpr int BARS = RING + kFaStages * STAGE;
+  // + the barriers, + slack to align the base to the 1024-byte swizzle atom
+  static constexpr int SMEM = BARS + 8 * (4 + 2 * kFaStages) + 1024;
+};
 
-  const int b = blockIdx.z;
-  const int h = blockIdx.y;
-  const int kh = h / G;
-  const int q0 = blockIdx.x * kMmaBQ;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int g = lane / 4;              // row within the 8-row group
-  const int t4 = lane % 4;             // lane within the quad
-  const int wq0 = q0 + warp * 16;      // the warp's first query row
-  const int rows[2] = {wq0 + g, wq0 + g + 8};
+// One work item: 128 query rows (block mb) of query head h of batch row b,
+// and the key tiles [tfirst, tfirst + ntiles * kFaBKV) some row can see.
+struct FaItem {
+  int b, h, q0, L, tfirst, ntiles;
+};
 
-  int L = lengths != nullptr ? lengths[b] : S;
-  L = min(max(L, 0), S);
-  const int lo = window > 0 ? max(0, q0 - window + 1) : 0;
-  const int hi = causal ? min(L, q0 + kMmaBQ) : L;
+__device__ __forceinline__ FaItem fa_item(int t, int nmb, int B, int H,
+                                          int S, const int* lengths,
+                                          int causal, int window) {
+  FaItem it;
+  const int per_mb = H * B;
+  // causal: the row blocks with the most key tiles come first; heads run
+  // fastest, so the G heads of a KV head are in flight together
+  const int mb = causal ? nmb - 1 - t / per_mb : t / per_mb;
+  const int rest = t % per_mb;
+  it.h = rest % H;
+  it.b = rest / H;
+  it.q0 = mb * kFaM;
+  int L = lengths != nullptr ? lengths[it.b] : S;
+  it.L = min(max(L, 0), S);
+  const int lo = window > 0 ? max(0, it.q0 - window + 1) : 0;
+  const int hi = causal ? min(it.L, it.q0 + kFaM) : it.L;
+  it.tfirst = (lo / kFaBKV) * kFaBKV;
+  it.ntiles = hi > it.tfirst ? (hi - it.tfirst + kFaBKV - 1) / kFaBKV : 0;
+  return it;
+}
 
-  // Q as A fragments: reg0 (row g, cols 2*t4..), reg1 (row g+8), reg2/3 the
-  // same rows at cols + 8
-  uint32_t qf[KSTEPS][4];
-#pragma unroll
-  for (int kk = 0; kk < KSTEPS; ++kk) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = rows[i & 1];
-      const int col = kk * 16 + (i >> 1) * 8 + 2 * t4;
-      qf[kk][i] = r < S ? *reinterpret_cast<const uint32_t*>(
-                              q + b * qs.b + (long long)r * qs.s +
-                              h * qs.h + col)
-                        : 0u;
-    }
-  }
+// Persistent: one block per SM walks the work items t = blockIdx.x,
+// blockIdx.x + gridDim.x, ...  The producer runs ahead across items: the
+// K/V ring continues from one item into the next, and Q is double-buffered,
+// so an item's Q and first tiles load while the previous item finishes.
+template <int NC>
+__global__ void __launch_bounds__(kFaThreads, 1)
+flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                             const __grid_constant__ CUtensorMap tm_k,
+                             const __grid_constant__ CUtensorMap tm_v,
+                             __nv_bfloat16* __restrict__ o,
+                             const int* __restrict__ lengths, int B, int S,
+                             int H, int G, int hd, Strides os, int causal,
+                             int window, float scale_log2) {
+  using T = FaTiles<NC>;
+  constexpr int KSTEPS = 4 * NC;             // 16 head dims a step
+  extern __shared__ unsigned char fa_smem_raw[];
+  unsigned char* smem =
+      fa_smem_raw + ((1024u - (smem_u32(fa_smem_raw) & 1023u)) & 1023u);
+  uint64_t* qfull = reinterpret_cast<uint64_t*>(smem + T::BARS);
+  uint64_t* qempty = qfull + 2;
+  uint64_t* full = qempty + 2;
+  uint64_t* empty = full + kFaStages;
+  const int nmb = (S + kFaM - 1) / kFaM;
+  const int items = nmb * H * B;
 
-  float acc[NT_O][4];
-#pragma unroll
-  for (int d = 0; d < NT_O; ++d)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[d][i] = 0.f;
-  float m[2] = {kNegInf, kNegInf};
-  float l[2] = {0.f, 0.f};             // this lane's partial row sums
-
-  for (int t0 = lo; t0 < hi; t0 += kMmaBKV) {
-    __syncthreads();                   // the previous tile is consumed
-    for (int idx = tid; idx < kMmaBKV * CHUNKS; idx += kThreads) {
-      const int j = idx / CHUNKS;
-      const int c = (idx % CHUNKS) * 8;
-      const int kp = t0 + j;
-      uint4 kx = make_uint4(0u, 0u, 0u, 0u), vx = kx;
-      if (kp < hi) {
-        kx = *reinterpret_cast<const uint4*>(
-            k + b * ks.b + (long long)kp * ks.s + kh * ks.h + c);
-        vx = *reinterpret_cast<const uint4*>(
-            v + b * vs.b + (long long)kp * vs.s + kh * vs.h + c);
-      }
-      *reinterpret_cast<uint4*>(k_s + j * LDS + c) = kx;
-      *reinterpret_cast<uint4*>(v_s + j * LDS + c) = vx;
-    }
-    __syncthreads();
-
-    // tiles no row of this warp can see
-    if (causal && wq0 + 15 < t0) continue;
-    if (window > 0 && t0 + kMmaBKV - 1 <= wq0 - window) continue;
-
-    float s[NT_S][4];
-#pragma unroll
-    for (int j = 0; j < NT_S; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) s[j][i] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KSTEPS; ++kk) {
-#pragma unroll
-      for (int j = 0; j < NT_S; j += 2) {
-        // matrices: (keys j, dims kk*16), (keys j, +8), (keys j+1, ...)
-        const int mi = lane >> 3;
-        uint32_t bf[4];
-        ldsm_x4(bf, k_s + ((j + (mi >> 1)) * 8 + (lane & 7)) * LDS +
-                        kk * 16 + (mi & 1) * 8);
-        mma_bf16(s[j], qf[kk], bf[0], bf[1]);
-        mma_bf16(s[j + 1], qf[kk], bf[2], bf[3]);
-      }
-    }
-
-    // mask, scale, online softmax (rows g and g+8 of the warp)
-    float tile_max[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int j = 0; j < NT_S; ++j) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = rows[i >> 1];
-        const int kp = t0 + j * 8 + 2 * t4 + (i & 1);
-        const bool ok = kp < hi && (!causal || kp <= r) &&
-                        (window <= 0 || kp > r - window);
-        s[j][i] = ok ? s[j][i] * scale : kNegInf;
-        tile_max[i >> 1] = fmaxf(tile_max[i >> 1], s[j][i]);
-      }
-    }
-    float alpha[2];
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
 #pragma unroll
     for (int x = 0; x < 2; ++x) {
-      tile_max[x] = fmaxf(tile_max[x],
-                          __shfl_xor_sync(0xffffffffu, tile_max[x], 1));
-      tile_max[x] = fmaxf(tile_max[x],
-                          __shfl_xor_sync(0xffffffffu, tile_max[x], 2));
-      const float m_new = fmaxf(m[x], tile_max[x]);
-      alpha[x] = expf(m[x] - m_new);
-      m[x] = m_new;
-      l[x] *= alpha[x];
+      mbar_init(&qfull[x], 1);
+      mbar_init(&qempty[x], 4 * kFaWG);      // one arrival per consumer warp
     }
 #pragma unroll
-    for (int j = 0; j < NT_S; ++j) {
+    for (int s = 0; s < kFaStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * kFaWG);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 4 * kFaWG) {                   // the producer warp
+    if (lane == 0) {
+      int seq = 0;                           // ring tiles issued so far
+      int n = 0;                             // items of this block so far
+      for (int t = blockIdx.x; t < items; t += gridDim.x, ++n) {
+        const FaItem it = fa_item(t, nmb, B, H, S, lengths, causal, window);
+        const int qb = n & 1;
+        if (n >= 2) mbar_wait(&qempty[qb], ((n >> 1) - 1) & 1);
+        mbar_expect_tx(&qfull[qb], T::QBYTES);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int x = i >> 1;
-        const float p = s[j][i] > 0.5f * kNegInf ? expf(s[j][i] - m[x]) : 0.f;
-        s[j][i] = p;
-        l[x] += p;
+        for (int c = 0; c < NC; ++c)
+          tma_load(smem + qb * T::QBYTES + c * kFaM * kBoxBytes, &tm_q,
+                   &qfull[qb], c * 64, it.h, it.q0, it.b);
+        const int kh = it.h / G;
+        for (int i = 0; i < it.ntiles; ++i, ++seq) {
+          const int s = seq % kFaStages;
+          if (seq >= kFaStages)
+            mbar_wait(&empty[s], (seq / kFaStages - 1) & 1);
+          unsigned char* st = smem + T::RING + s * T::STAGE;
+          const int t0 = it.tfirst + i * kFaBKV;
+          mbar_expect_tx(&full[s], T::STAGE);
+#pragma unroll
+          for (int c = 0; c < NC; ++c) {
+            tma_load(st + c * kFaBKV * kBoxBytes, &tm_k, &full[s], c * 64,
+                     kh, t0, it.b);
+            tma_load(st + T::TBYTES + c * kFaBKV * kBoxBytes, &tm_v,
+                     &full[s], c * 64, kh, t0, it.b);
+          }
+        }
       }
     }
-#pragma unroll
-    for (int d = 0; d < NT_O; ++d) {
-      acc[d][0] *= alpha[0];
-      acc[d][1] *= alpha[0];
-      acc[d][2] *= alpha[1];
-      acc[d][3] *= alpha[1];
-    }
+    return;
+  }
 
-    // O += P V: P from the S accumulators as A fragments, 16 keys a step
+  // consumer warpgroup wg owns rows r0 .. r0+63 of an item; a lane holds
+  // rows g, g+8 of its warp's 16
+  const int wg = warp / 4;
+  const int g = lane / 4;
+  const int t4 = lane % 4;
+  float oacc[T::NPV / 2];
+  float m[2], l[2];      // row maxima of the raw scores, partial row sums
+  float sacc[32];
+  uint32_t pf[2][4][4];                      // P of two tiles as A fragments
+  float alpha[2];
+  int seq = 0;                               // ring tiles consumed so far
+  int n = 0;
+  for (int t = blockIdx.x; t < items; t += gridDim.x, ++n) {
+    const FaItem it = fa_item(t, nmb, B, H, S, lengths, causal, window);
+    const int L = it.L;
+    const int r0 = it.q0 + wg * 64;
+    const int rows[2] = {r0 + (warp % 4) * 16 + g,
+                         r0 + (warp % 4) * 16 + g + 8};
+    const int wlo = window > 0 ? max(0, r0 - window + 1) : 0;
+    const int whi = causal ? min(L, r0 + 64) : L;
+    const unsigned char* qs = smem + (n & 1) * T::QBYTES;
 #pragma unroll
-    for (int t = 0; t < kMmaBKV / 16; ++t) {
-      uint32_t pf[4];
-      pf[0] = pack_bf16(s[2 * t][0], s[2 * t][1]);
-      pf[1] = pack_bf16(s[2 * t][2], s[2 * t][3]);
-      pf[2] = pack_bf16(s[2 * t + 1][0], s[2 * t + 1][1]);
-      pf[3] = pack_bf16(s[2 * t + 1][2], s[2 * t + 1][3]);
+    for (int j = 0; j < T::NPV / 2; ++j) oacc[j] = 0.f;
+    m[0] = m[1] = -INFINITY;
+    l[0] = l[1] = 0.f;
+
+    auto stage_of = [&](int i) {
+      return smem + T::RING + ((seq + i) % kFaStages) * T::STAGE;
+    };
+    auto full_wait = [&](int i) {
+      mbar_wait(&full[(seq + i) % kFaStages], ((seq + i) / kFaStages) & 1);
+    };
+    auto release = [&](int i) {              // this warp is done with tile i
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[(seq + i) % kFaStages]);
+    };
+    // the tiles some row of this warpgroup sees are one run of the item's
+    // tiles; the others are only released
+    auto active = [&](int i) {
+      const int t0 = it.tfirst + i * kFaBKV;
+      return t0 < whi && t0 + kFaBKV > wlo;
+    };
+    // S = Q K^T of tile i, issued (not waited for)
+    auto issue_qk = [&](int i) {
+      const unsigned char* kt = stage_of(i);
 #pragma unroll
-      for (int d = 0; d < NT_O; d += 2) {
-        // matrices: (keys 16t, dims 8d), (keys 16t+8, dims 8d), (.., 8d+8)
-        const int mi = lane >> 3;
-        uint32_t bf[4];
-        ldsm_x4_trans(bf, v_s + (t * 16 + (mi & 1) * 8 + (lane & 7)) * LDS +
-                              (d + (mi >> 1)) * 8);
-        mma_bf16(acc[d], pf, bf[0], bf[1]);
-        mma_bf16(acc[d + 1], pf, bf[2], bf[3]);
+      for (int kk = 0; kk < KSTEPS; ++kk) {
+        const int c = kk / 4;
+        const int off = (kk % 4) * 32;
+        const uint64_t da = gmma_desc(
+            qs + (c * kFaM + wg * 64) * kBoxBytes + off, 16, 1024);
+        const uint64_t db = gmma_desc(kt + c * kFaBKV * kBoxBytes + off, 16,
+                                      1024);
+        wgmma_ss_n64(sacc, da, db, kk > 0);
+      }
+      wgmma_commit();
+    };
+    // O += P V of tile i with P fragments p, issued
+    auto issue_pv = [&](int i, const uint32_t (&p)[4][4]) {
+      const unsigned char* vt = stage_of(i) + T::TBYTES;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        // V rows 16kk.. as B, MN-major: the 64-dim boxes are kFaBKV rows
+        // apart (LBO), 8-row groups 1024 bytes apart (SBO)
+        const uint64_t dv = gmma_desc(vt + kk * 16 * kBoxBytes,
+                                      kFaBKV * kBoxBytes, 1024);
+        if constexpr (NC == 1)
+          wgmma_rs_n64(oacc, p[kk], dv);
+        else
+          wgmma_rs_n128(oacc, p[kk], dv);
+      }
+      wgmma_commit();
+    };
+    // The online softmax of tile i's scores: updates m and l, writes P into
+    // p and the factor the output accumulator must be scaled by into alpha.
+    // m is kept on the raw scores; the scale goes into the exponent's FFMA.
+    auto softmax = [&](int i, uint32_t (&p)[4][4]) {
+      const int t0 = it.tfirst + i * kFaBKV;
+      // masks only on tiles that straddle the length, the diagonal or the
+      // window edge of some row of the warpgroup
+      if (t0 + kFaBKV > L || (causal && t0 + kFaBKV - 1 > r0) ||
+          (window > 0 && t0 <= r0 + 63 - window)) {
+#pragma unroll
+        for (int j = 0; j < 32; ++j) {
+          const int kp = t0 + 8 * (j / 4) + 2 * t4 + (j & 1);
+          const int r = rows[(j >> 1) & 1];
+          if (!(kp < L && (!causal || kp <= r) &&
+                (window <= 0 || kp > r - window)))
+            sacc[j] = -INFINITY;
+        }
+      }
+      float ms[2];
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {          // row g (x = 0) and g + 8
+        float a[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          a[j] = fmaxf(sacc[4 * j + 2 * x], sacc[4 * j + 2 * x + 1]);
+#pragma unroll
+        for (int w = 4; w > 0; w >>= 1)
+#pragma unroll
+          for (int j = 0; j < w; ++j) a[j] = fmaxf(a[j], a[j + w]);
+        float tmax = fmaxf(a[0], __shfl_xor_sync(0xffffffffu, a[0], 1));
+        tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 2));
+        const float m_new = fmaxf(m[x], tmax);
+        const float m_use = m_new == -INFINITY ? 0.f : m_new;
+        alpha[x] = ex2((m[x] - m_use) * scale_log2);
+        ms[x] = m_use * scale_log2;
+        m[x] = m_new;
+      }
+#pragma unroll
+      for (int j = 0; j < 32; ++j)
+        sacc[j] = ex2(fmaf(sacc[j], scale_log2, -ms[(j >> 1) & 1]));
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        float a[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          a[j] = sacc[4 * j + 2 * x] + sacc[4 * j + 2 * x + 1];
+#pragma unroll
+        for (int w = 4; w > 0; w >>= 1)
+#pragma unroll
+          for (int j = 0; j < w; ++j) a[j] += a[j + w];
+        l[x] = l[x] * alpha[x] + a[0];
+      }
+      // the S accumulators of n-tiles 2kk and 2kk+1 are the A layout of
+      // rows g, g+8 for keys 16kk..16kk+15
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        p[kk][0] = pack_bf16(sacc[8 * kk], sacc[8 * kk + 1]);
+        p[kk][1] = pack_bf16(sacc[8 * kk + 2], sacc[8 * kk + 3]);
+        p[kk][2] = pack_bf16(sacc[8 * kk + 4], sacc[8 * kk + 5]);
+        p[kk][3] = pack_bf16(sacc[8 * kk + 6], sacc[8 * kk + 7]);
+      }
+    };
+    auto rescale = [&]() {
+#pragma unroll
+      for (int j = 0; j < T::NPV / 8; ++j) {
+        oacc[4 * j] *= alpha[0];
+        oacc[4 * j + 1] *= alpha[0];
+        oacc[4 * j + 2] *= alpha[1];
+        oacc[4 * j + 3] *= alpha[1];
+      }
+    };
+    // one step of the software pipeline: Q K^T of tile i is issued, then
+    // P V of tile prev (P in pin) behind it on the tensor cores; the
+    // softmax of tile i (into pout) runs while P V does, and O is rescaled
+    // once P V is done.  pin/pout alternate between pf[0] and pf[1] at
+    // fixed indices.
+    auto step = [&](int i, int prev, const uint32_t (&pin)[4][4],
+                    uint32_t (&pout)[4][4]) {
+      full_wait(i);
+      fence_regs(oacc);
+      wgmma_fence();
+      issue_qk(i);
+      issue_pv(prev, pin);
+      wgmma_wait<1>();                       // Q K^T of tile i is done
+      fence_regs(sacc);
+      softmax(i, pout);
+      wgmma_wait<0>();                       // P V of tile prev is done
+      fence_regs(oacc);
+      release(prev);
+      rescale();
+    };
+    auto finish = [&](int prev, const uint32_t (&pin)[4][4]) {
+      fence_regs(oacc);
+      wgmma_fence();
+      issue_pv(prev, pin);
+      wgmma_wait<0>();
+      fence_regs(oacc);
+      release(prev);
+    };
+
+    mbar_wait(&qfull[n & 1], (n >> 1) & 1);
+    int i = 0;
+    for (; i < it.ntiles && !active(i); ++i) {
+      full_wait(i);
+      release(i);
+    }
+    if (i < it.ntiles) {
+      full_wait(i);
+#pragma unroll
+      for (int j = 0; j < 32; ++j) sacc[j] = 0.f;
+      fence_regs(sacc);
+      wgmma_fence();
+      issue_qk(i);
+      wgmma_wait<0>();
+      fence_regs(sacc);
+      softmax(i, pf[0]);
+      int prev = i++;
+      for (;;) {
+        if (i == it.ntiles || !active(i)) {
+          finish(prev, pf[0]);
+          break;
+        }
+        step(i, prev, pf[0], pf[1]);
+        prev = i++;
+        if (i == it.ntiles || !active(i)) {
+          finish(prev, pf[1]);
+          break;
+        }
+        step(i, prev, pf[1], pf[0]);
+        prev = i++;
       }
     }
-  }
+    for (; i < it.ntiles; ++i) {
+      full_wait(i);
+      release(i);
+    }
+    __syncwarp();                            // Q of this item is done with
+    if (lane == 0) mbar_arrive(&qempty[n & 1]);
+    seq += it.ntiles;
 
 #pragma unroll
-  for (int x = 0; x < 2; ++x) {
-    l[x] += __shfl_xor_sync(0xffffffffu, l[x], 1);
-    l[x] += __shfl_xor_sync(0xffffffffu, l[x], 2);
-  }
+    for (int x = 0; x < 2; ++x) {
+      l[x] += __shfl_xor_sync(0xffffffffu, l[x], 1);
+      l[x] += __shfl_xor_sync(0xffffffffu, l[x], 2);
+    }
 #pragma unroll
-  for (int x = 0; x < 2; ++x) {
-    const int r = rows[x];
-    if (r >= S) continue;
-    const float denom = fmaxf(l[x], 1e-30f);
-    __nv_bfloat16* orow = o + b * os.b + (long long)r * os.s + h * os.h;
+    for (int x = 0; x < 2; ++x) {
+      const int r = rows[x];
+      if (r >= S) continue;
+      const float inv = 1.f / fmaxf(l[x], 1e-30f);
+      __nv_bfloat16* orow =
+          o + it.b * os.b + (long long)r * os.s + it.h * os.h;
 #pragma unroll
-    for (int d = 0; d < NT_O; ++d) {
-      *reinterpret_cast<uint32_t*>(orow + d * 8 + 2 * t4) =
-          pack_bf16(acc[d][2 * x] / denom, acc[d][2 * x + 1] / denom);
+      for (int j = 0; j < T::NPV / 8; ++j) {
+        const int col = 8 * j + 2 * t4;
+        if (col < hd)
+          *reinterpret_cast<uint32_t*>(orow + col) = pack_bf16(
+              oacc[4 * j + 2 * x] * inv, oacc[4 * j + 2 * x + 1] * inv);
+      }
     }
   }
 }
 
-template <int HD>
-cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
-                       const int* lengths, int B, int S, int H, int G,
-                       Strides qs, Strides ks, Strides vs, Strides os,
-                       int causal, int window, float scale,
-                       cudaStream_t stream) {
-  const dim3 grid((S + kMmaBQ - 1) / kMmaBQ, H, B);
-  flash_attention_mma_kernel<HD><<<grid, kThreads, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      lengths, S, G, qs, ks, vs, os, causal, window, scale);
+// cuTensorMapEncodeTiled, reached through the runtime's driver entry point
+// so that the library needs no -lcuda.
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = []() -> EncodeTiledFn {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult res;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &res);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &res);
+#endif
+    return e == cudaSuccess && res == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiledFn>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A 4-d map of a bf16 (B, S, heads, hd) tensor in model layout, through its
+// element strides: boxes of 64 head dims x 1 head x `rows` positions x 1
+// batch row, 128B-swizzled, zeros outside the tensor.
+bool make_map(CUtensorMap* map, const void* base, int B, int S, int heads,
+              int hd, const Strides& st, int rows) {
+  const EncodeTiledFn enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads,
+                              (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)st.h * 2, (cuuint64_t)st.s * 2,
+                                 (cuuint64_t)st.b * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+             const_cast<void*>(base), dims, strides, box, elem,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The SMs of the current device, for the persistent grid.
+int sm_count() {
+  static const int n = [] {
+    int dev = 0, v = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      return 0;
+    return v;
+  }();
+  return n;
+}
+
+template <int NC>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
+                         const int* lengths, int B, int S, int H, int K,
+                         int hd, Strides qs, Strides ks, Strides vs,
+                         Strides os, int causal, int window, float scale,
+                         cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  if (!make_map(&tq, q, B, S, H, hd, qs, kFaM) ||
+      !make_map(&tk, k, B, S, K, hd, ks, kFaBKV) ||
+      !make_map(&tv, v, B, S, K, hd, vs, kFaBKV))
+    return cudaErrorInvalidValue;
+  auto kern = flash_attention_wgmma_kernel<NC>;
+  constexpr int smem = FaTiles<NC>::SMEM;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  const long long items = (long long)((S + kFaM - 1) / kFaM) * H * B;
+  const int sms = sm_count();
+  if (sms < 1 || items > (1ll << 31) - 1) return cudaErrorInvalidValue;
+  const unsigned grid = (unsigned)(items < sms ? items : sms);
+  kern<<<grid, kFaThreads, smem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lengths, B, S, H, H / K,
+      hd, os, causal, window, scale * kLog2e);
   return cudaGetLastError();
 }
 
@@ -523,23 +952,11 @@ extern "C" int flash_attention_fwd(
   else if (dtype == 1 && mma_aligned(q, qs) && mma_aligned(k, ks) &&
            mma_aligned(v, vs) && mma_aligned(o, os) &&
            (hd == 64 || hd == 80 || hd == 96 || hd == 128)) {
-    switch (hd) {
-      case 64:
-        e = launch_mma<64>(q, k, v, o, lengths, B, S, H, G, qs, ks, vs, os,
-                           causal, window, scale, st);
-        break;
-      case 80:
-        e = launch_mma<80>(q, k, v, o, lengths, B, S, H, G, qs, ks, vs, os,
-                           causal, window, scale, st);
-        break;
-      case 96:
-        e = launch_mma<96>(q, k, v, o, lengths, B, S, H, G, qs, ks, vs, os,
-                           causal, window, scale, st);
-        break;
-      default:
-        e = launch_mma<128>(q, k, v, o, lengths, B, S, H, G, qs, ks, vs, os,
-                            causal, window, scale, st);
-    }
+    // one 64-dim box (hd 64) or two, TMA zero-filling the dims past hd
+    e = hd == 64 ? launch_wgmma<1>(q, k, v, o, lengths, B, S, H, K, hd, qs,
+                                   ks, vs, os, causal, window, scale, st)
+                 : launch_wgmma<2>(q, k, v, o, lengths, B, S, H, K, hd, qs,
+                                   ks, vs, os, causal, window, scale, st);
   } else if (dtype == 1)
     e = dispatch_hd<__nv_bfloat16>(q, k, v, o, lengths, B, S, H, G, hd, qs,
                                    ks, vs, os, causal, window, scale, st);

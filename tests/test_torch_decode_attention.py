@@ -22,7 +22,8 @@ from numpy.testing import assert_allclose
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_plain)
 from repro_torch.kernels.decode_attention.ops import (heads_per_block,
-                                                      split_plan)
+                                                      split_plan,
+                                                      tensor_core_path)
 from repro_torch.models import attention as tattn
 
 TOL32 = dict(rtol=2e-5, atol=2e-5)
@@ -115,19 +116,53 @@ def test_rejects_bad_window_and_mixed_devices():
         decode_attention(q.to("meta"), ck, cv, lengths)
 
 
-@pytest.mark.parametrize("B,K,G,Smax,hd,sms,want", [
-    (8, 4, 8, 1024, 128, 132, (11, 96)),       # yi-9b serving shape
-    (8, 4, 8, 32768, 128, 132, (12, 2736)),    # long cache: one wave
-    (1, 1, 1, 100, 64, 132, (2, 64)),
-    (4, 8, 12, 4096, 128, 132, (6, 688)),      # G=12: two head groups
+@pytest.mark.parametrize("B,K,G,Smax,hd,sms,tc,want", [
+    # tensor cores: one block per (split, KV head, row), two per SM
+    (8, 4, 8, 1024, 128, 132, True, (8, 128)),       # yi-9b serving shape
+    (8, 4, 8, 32768, 128, 132, True, (8, 4096)),     # long cache: one wave
+    (1, 1, 1, 100, 64, 132, True, (2, 64)),
+    (4, 8, 12, 4096, 128, 132, True, (8, 512)),      # G=12 in one block
+    (8, 32, 1, 1024, 80, 132, True, (1, 1024)),      # zamba2's shared block
+    # CUDA cores (fp32, hd 256): head groups of <= 8, three blocks per SM
+    (8, 4, 8, 1024, 128, 132, False, (11, 96)),
+    (8, 4, 8, 32768, 128, 132, False, (12, 2736)),
+    (1, 1, 1, 100, 64, 132, False, (2, 64)),
+    (4, 8, 12, 4096, 128, 132, False, (6, 688)),     # G=12: two head groups
 ])
-def test_split_plan(B, K, G, Smax, hd, sms, want):
+def test_split_plan(B, K, G, Smax, hd, sms, tc, want):
     """The KV split depends on shapes only; every key lies in a split."""
-    nsplit, chunk = split_plan(B, K, G, Smax, hd, sms)
+    nsplit, chunk = split_plan(B, K, G, Smax, hd, sms, tc)
     assert (nsplit, chunk) == want
     assert nsplit * chunk >= Smax > (nsplit - 1) * chunk
-    assert heads_per_block(12, 128) == 8 and heads_per_block(16, 256) == 4
-    assert heads_per_block(4, 80) == 4 and heads_per_block(3, 64) == 4
+
+
+def test_heads_per_block():
+    """Tensor cores serve the whole group (up to 16 heads, the rows of the
+    A tile) in one block; CUDA cores a power of two up to 8 (4 past hd
+    128)."""
+    assert heads_per_block(12, 128, True) == 16
+    assert heads_per_block(1, 80, True) == 16
+    assert heads_per_block(12, 128, False) == 8
+    assert heads_per_block(16, 256, False) == 4
+    assert heads_per_block(4, 80, False) == 4
+    assert heads_per_block(3, 64, False) == 4
+
+
+@pytest.mark.parametrize("dtype,hd,G,offset,want", [
+    (torch.bfloat16, 128, 8, 0, True),
+    (torch.bfloat16, 80, 1, 0, True),
+    (torch.bfloat16, 128, 12, 0, True),
+    (torch.bfloat16, 256, 4, 0, False),      # hd 256: CUDA cores
+    (torch.bfloat16, 128, 32, 0, False),     # G above 16
+    (torch.bfloat16, 128, 8, 4, False),      # rows 8 bytes off 16
+    (torch.float32, 128, 8, 0, False),
+])
+def test_tensor_core_path(dtype, hd, G, offset, want):
+    """Which launches the tensor-core split kernel takes."""
+    K = 2
+    q = torch.zeros((2, K * G, hd + offset), dtype=dtype)[..., offset:]
+    c = torch.zeros((2, 8, K, hd + offset), dtype=dtype)[..., offset:]
+    assert tensor_core_path(q, c, c) is want
 
 
 # --- on the card ------------------------------------------------------------
@@ -149,6 +184,8 @@ GPU_CASES = [
     ("Smax 1000 (ragged tile)", 3, 1000, 32, 4, 128, None, "ragged"),
     ("danube hd=80 G=4", 4, 512, 32, 8, 80, 300, "ragged"),
     ("G=12", 2, 700, 96, 8, 128, None, "ragged"),
+    ("G=12 in one block, window 300", 4, 2048, 96, 8, 128, 300, "ragged"),
+    ("zamba2 hd=80 G=1 ring", 8, 1024, 32, 32, 80, None, "ring"),
     ("hd=256", 2, 300, 8, 2, 256, None, "ragged"),
     ("hd=32 G=1", 3, 64, 4, 4, 32, None, "ragged"),
 ]

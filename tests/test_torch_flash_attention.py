@@ -121,6 +121,10 @@ GPU_CASES = [
     (2, 100, 4, 2, 96, False, 30, True, False, 0),
     (4, 1, 4, 2, 32, True, None, False, False, 0),
     (2, 96, 4, 1, 256, False, 40, False, False, 0),
+    (2, 300, 96, 8, 128, True, None, False, False, 0),  # G=12
+    (4, 300, 32, 4, 128, True, 20, "empty", False, 0),  # window < one tile
+    (8, 1024, 32, 4, 128, True, None, False, False, 0), # largest bucket
+    (8, 512, 32, 32, 80, True, 4096, False, False, 0),  # zamba2's block
 ]
 
 
@@ -131,13 +135,18 @@ GPU_CASES = [
 def test_kernel_matches_plain_on_gpu(cuda, B, S, H, K, hd, causal, window,
                                      ragged, strided, offset, dtype):
     """Both kernel paths: bf16 with head_dim 64/80/96/128 and aligned rows
-    takes the tensor cores, everything else the CUDA cores."""
+    takes the tensor cores (wgmma, TMA), everything else the CUDA cores.
+    ``ragged == "empty"``: ragged lengths with a row of length 0."""
     torch.backends.cuda.matmul.allow_tf32 = False
     width = (2 * hd if strided else hd) + offset
     q, k, v = (torch.from_numpy(x).to(cuda, dtype)[..., offset:offset + hd]
                for x in _inputs(B, S, H, K, width))
-    lengths = (torch.from_numpy(_lengths(B, S)).to(cuda) if ragged
-               else None)
+    lengths = None
+    if ragged:
+        lens = _lengths(B, S)
+        if ragged == "empty":       # a row that sees no key at all
+            lens[1] = 0
+        lengths = torch.from_numpy(lens).to(cuda)
     before = flash_attention.launches
     got = flash_attention(q, k, v, causal=causal, window=window,
                           lengths=lengths)

@@ -165,16 +165,18 @@ def test_rejects_bad_window_and_mixed_devices():
     (8, 4, 8, 16, 64, 128, 132),
     (4, 8, 4, 40, 16, 80, 132),
     (1, 1, 1, 7, 48, 64, 132),          # ps not a power of two
+    (2, 8, 12, 44, 16, 128, 132),       # G=12: one block per group
 ])
-def test_paged_split_plan(B, K, G, MP, ps, hd, sms):
+@pytest.mark.parametrize("tc", [True, False])
+def test_paged_split_plan(B, K, G, MP, ps, hd, sms, tc):
     """Splits start on page boundaries and cover every key; at ps = 16 the
-    plan is K2's, so K3 walks K2's keys in K2's order."""
-    nsplit, chunk = paged_split_plan(B, K, G, MP, ps, hd, sms)
+    plan is K2's, so K3 walks K2's keys in K2's order (on either kernel)."""
+    nsplit, chunk = paged_split_plan(B, K, G, MP, ps, hd, sms, tc)
     Smax = MP * ps
     assert chunk % ps == 0
     assert nsplit * chunk >= Smax > (nsplit - 1) * chunk
     if ps == 16:
-        assert (nsplit, chunk) == split_plan(B, K, G, Smax, hd, sms)
+        assert (nsplit, chunk) == split_plan(B, K, G, Smax, hd, sms, tc)
 
 
 # --- on the card ------------------------------------------------------------
@@ -197,6 +199,8 @@ GPU_CASES = [
     ("ps=64", 8, 1024, 32, 4, 128, 64, None),
     ("ps=48 (not a power of two)", 3, 480, 32, 4, 128, 48, None),
     ("hd=32 G=1", 3, 64, 4, 4, 32, 16, None),
+    ("G=12 in one block", 2, 704, 96, 8, 128, 16, None),
+    ("zamba2 hd=80 G=1", 8, 1024, 32, 32, 80, 16, None),
 ]
 
 
@@ -222,11 +226,13 @@ def test_kernel_matches_plain_on_gpu(cuda, name, B, Smax, H, K, hd, ps,
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("window", [None, 100])
-def test_kernel_is_bitwise_k2_at_page_size_16(cuda, dtype, window):
+@pytest.mark.parametrize("Smax", [1024, 32768])
+def test_kernel_is_bitwise_k2_at_page_size_16(cuda, dtype, window, Smax):
     """At ps = 16 K3 takes K2's split plan and walks the same keys in the
     same order: its output on the pool equals K2's on the gathered cache
-    bit for bit (shared pages and a vacant row included)."""
-    B, Smax, H, K, hd, ps = 8, 1024, 32, 4, 128, 16
+    bit for bit (shared pages and a vacant row included), at the tick
+    shape and at 32k keys per row."""
+    B, H, K, hd, ps = 8, 32, 4, 128, 16
     q, _, _, kp, vp, table, lengths = paged_inputs(B, Smax, H, K, hd, ps,
                                                    seed=5)
     table[1:4, :4] = table[0, :4]            # rows 0-3 share their prefix
