@@ -14,7 +14,8 @@ Phases (any failure exits non-zero and prints no final result line):
    decode_attention and K3 paged_decode_attention, one source; K4 wkv6;
    K5 ssd) is compiled from the checkout's sources with nvcc for sm_90a,
    one nvcc per source, started together.  cuobjdump's SASS must show
-   HGMMA (wgmma) in K1's library and HMMA (mma.sync) in K2/K3's.
+   HGMMA (wgmma) in K1's library and HMMA (mma.sync) in K2/K3's, K4's and
+   K5's; the counts go into the kernels line.
 3. kernels: each kernel is held against its plain PyTorch version on the
    card at the main path's shapes and at the edges.  K1: yi-9b attention,
    B=8, S=256, H=32, K=4, hd=128, bf16 and fp32, plus sliding window,
@@ -46,9 +47,14 @@ Phases (any failure exits non-zero and prints no final result line):
    continuation, extreme decay and B=1, T=16384.  K5 (fp32, y over
    max|y|+1 at 1e-4): the zamba2-2.7b bucket B=8, T=512, H=80, P=N=64,
    T=300, dt=0 pad steps (the same state check), a nonzero h0, a two-call
-   continuation and B=1, T=16384.  Both timed beside their plain versions
-   and their bounds at the bucket and at T=16384 (no single library call
-   computes either).
+   continuation and B=1, T=16384.  The buckets must take the tensor-core
+   kernels (``ops.tensor_core_path``); K4 at N=32 and with an unaligned
+   r, K5 at P=32, N=16 and with B rows 66 floats apart take the CUDA-core
+   kernels and are checked as well.  Both timed beside their plain
+   versions and two bounds at the bucket and at T=16384 (no single
+   library call computes either): the fp32 one (every operation at the
+   CUDA-core peak) and the tensor-core one (the products at a third of
+   the TF32 peak, the three-term split's three products).
 4. ensemble path: ``build_app(["yi-9b", "yi-9b"], full=True)`` — two
    members at full width and depth with random weights from a seed —
    behind ``FlexServeServer`` on an ephemeral port; /v1/infer and
@@ -80,8 +86,10 @@ Phases (any failure exits non-zero and prints no final result line):
    ticks (counts zeroed just before each run and read just after it), and
    each tick must move num_slots int32 ids to the host.  Then three greedy
    requests sharing a 64-token prefix on one slot (the followers must
-   reuse 4 pages and 64 tokens each; their streams go through the C > 0
-   plain attention, so the first divergence from dense is reported), and
+   reuse 4 pages and 64 tokens each; their prefill goes through the C > 0
+   plain attention: their first-token logits must equal the dense
+   engine's within LOGITS_TOL, and the first divergence of the streams
+   is reported), and
    a scheduler run that pauses and resumes a request mid-decode: the paged
    engine must reattach without recompute and reproduce the uninterrupted
    streams; the dense engine's recompute is reported against them (its
@@ -137,9 +145,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM data-sheet peaks (dense): bf16 tensor cores, fp32 CUDA cores,
-# device memory bandwidth.  A card below its 700 W limit runs slower.
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# H100 SXM data-sheet peaks (dense): bf16 and TF32 tensor cores, fp32 CUDA
+# cores, device memory bandwidth.  A card below its 700 W limit runs slower.
+PEAK_FLOPS = {"bfloat16": 989e12, "tf32": 495e12, "float32": 67e12}
 PEAK_BYTES_PER_S = 3.35e12
 
 ARCH = "yi-9b"
@@ -791,7 +799,7 @@ def wkv_flops(B, T, H, N, c=32):
     return B * H * nc * per
 
 
-def ssd_flops(B, T, H, P, N, c=64):
+def ssd_flops(B, T, H, P, N, c=32):
     """fp32 operations of the chunked SSD (each exp one operation): per
     (batch row, chunk) G = C B^T once (it does not depend on the head);
     per head the decay matrix, the intra-chunk product, C h^T, x dt and
@@ -804,10 +812,54 @@ def ssd_flops(B, T, H, P, N, c=64):
 
 
 def recurrent_bound(nbytes, flops):
+    """The fp32 bound: every operation at the CUDA-core peak."""
     t_bytes = nbytes / PEAK_BYTES_PER_S
     t_flops = flops / PEAK_FLOPS["float32"]
     return 1e3 * max(t_bytes, t_flops), ("bytes" if t_bytes >= t_flops
                                          else "operations")
+
+
+def wkv_tc_ops(B, T, H, N, c=32, sub=8):
+    """(product operations, other operations) of the tensor-core K4 (each
+    exp one operation), per chunk and head: the products A below the
+    diagonal sub-blocks (the 8-step sub-chunks' factored blocks), A.v over
+    s <= t, (r o exp(Lprev)) S and the state update; the rest the diagonal
+    sub-blocks on the fly (two products, a sum, a difference, an exp per
+    (t, s < t, n)), the bonus, the decay factors (an exp, a difference, a
+    product each), the cumulative sums and the state's decay."""
+    nc = -(-T // c)
+    diag_pairs = (c // sub) * sub * (sub - 1) // 2
+    off_pairs = c * (c - 1) // 2 - diag_pairs
+    factor_rows = sum(c - sub * (i + 1) for i in range(c // sub - 1))
+    products = (2 * N * off_pairs + c * (c + 1) * N + 2 * c * N * N
+                + 2 * c * N * N)
+    other = (5 * N * diag_pairs + 3 * c * N
+             + 3 * N * (factor_rows + (c // sub - 1) * sub)
+             + 2 * c * N + 3 * c * N + c * N + 2 * N * N + N)
+    return B * H * nc * products, B * H * nc * other
+
+
+def ssd_tc_ops(B, T, H, P, N, c=32):
+    """(product operations, other operations) of the tensor-core K5 (each
+    exp one operation): per (batch row, chunk) G = C B^T once in fp32 FMAs;
+    per head the products W (x dt), (exp(L) o C) h^T and the state update
+    on tensor cores, the rest (W's decay, x dt, the scales, the state's
+    decay, the scan) on the CUDA cores."""
+    nc = -(-T // c)
+    tri = c * (c + 1) // 2
+    products = 2 * tri * P + 2 * c * N * P + 2 * c * P * N
+    other = 3 * tri + 3 * c * P + c * N + 2 * P * N + 3 * c
+    return B * H * nc * products, B * nc * 2 * c * c * N + B * H * nc * other
+
+
+def tc_bound(nbytes, products, other):
+    """The tensor-core bound: the products at the TF32 peak divided by
+    three (the three-term split issues three), the rest at the fp32 peak,
+    against the bytes."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = products / (PEAK_FLOPS["tf32"] / 3) + other / PEAK_FLOPS["float32"]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
 
 
 def check_pair(failures, kernel_name, case, got, want, *, scaled=False):
@@ -828,9 +880,31 @@ def check_pair(failures, kernel_name, case, got, want, *, scaled=False):
     return {"case": case, "max_abs_err": max(errs), "ok": ok}
 
 
+def check_path(failures, name, takes_tc, want_tc):
+    """The wrapper's shape predicate on a case: the model's shapes must
+    take the tensor-core kernel."""
+    log(f"[kernels] {name}: {'tensor-core' if takes_tc else 'CUDA-core'} "
+        f"kernel")
+    if takes_tc != want_tc:
+        failures.append(f"{name}: tensor_core_path is {takes_tc}")
+
+
+def log_timed(name, t):
+    log(f"[kernels] {name} timed at {t['shape']}: kernel "
+        f"{t['kernel_ms']:.4f} ms (device {t['device_ms']:.4f} ms), plain "
+        f"{t['plain_ms']:.4f} ms, no library call; fp32 bound "
+        f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {t['bytes']} bytes, "
+        f"{t['flops']} fp32 operations), tensor-core bound "
+        f"{t['bound_tf32x3_ms']:.4f} ms ({t['bound_tf32x3_by']}: "
+        f"{t['tc_products']} operations in products at 495/3 TFLOP/s, "
+        f"{t['tc_other']} others at 67)")
+
+
 def wkv_kernel_phase(failures):
     import torch
     from repro_torch.kernels.rwkv6_wkv import wkv6, wkv6_plain
+    from repro_torch.kernels.rwkv6_wkv.ops import (KERNEL_NAMES,
+                                                   tensor_core_path)
 
     def run(name, ins):
         got = wkv6(*ins)
@@ -839,6 +913,8 @@ def wkv_kernel_phase(failures):
         return check_pair(failures, "wkv6", name, got, want)
 
     main_ins = wkv_inputs(8, 512, 32, 64)
+    check_path(failures, "wkv6 at the rwkv6 bucket",
+               tensor_core_path(*main_ins[:4]), True)
     results = [run("rwkv6 prefill B=8 T=512 H=32 N=64 fp32", main_ins)]
     results.append(run("T=300", wkv_inputs(2, 300, 32, 64, seed=1)))
     results.append(run("T=17", wkv_inputs(3, 17, 32, 64, seed=2)))
@@ -871,28 +947,39 @@ def wkv_kernel_phase(failures):
                                                    decay_shift=2.0, seed=6)))
     long_ins = wkv_inputs(1, 16384, 32, 64, seed=7)
     results.append(run("B=1 T=16384", long_ins))
+    # the other side of the shape predicate: N=32 and an unaligned view
+    small = wkv_inputs(2, 100, 4, 32, seed=8)
+    check_path(failures, "wkv6 at N=32", tensor_core_path(*small[:4]),
+               False)
+    results.append(run("N=32 (CUDA-core kernel)", small))
+    r = wkv_inputs(2, 100, 4, 64, seed=9)
+    flat = torch.empty(r[0].numel() + 1, device="cuda")[1:]
+    r[0] = flat.view(r[0].shape).copy_(r[0])
+    check_path(failures, "wkv6 with r 4 bytes off 16-byte alignment",
+               tensor_core_path(*r[:4]), False)
+    results.append(run("N=64 unaligned r (CUDA-core kernel)", r))
 
     def timed(ins):
         B, T, H, N = ins[0].shape
         kernel_ms = cuda_time_ms(lambda: wkv6(*ins))
-        dev_ms = profiled_ms(lambda: wkv6(*ins), ("wkv6_kernel",))
+        dev_ms = profiled_ms(lambda: wkv6(*ins), KERNEL_NAMES)
         plain_ms = cuda_time_ms(lambda: wkv6_plain(*ins), iters=5,
                                 warmup=1)
         nbytes = 4 * (5 * B * T * H * N + H * N + 2 * B * H * N * N)
         flops = wkv_flops(B, T, H, N)
         bound, by = recurrent_bound(nbytes, flops)
+        products, other = wkv_tc_ops(B, T, H, N)
+        tc, tc_by = tc_bound(nbytes, products, other)
         return {"shape": f"B={B} T={T} H={H} N={N} fp32", "ms": kernel_ms,
                 "kernel_ms": kernel_ms, "device_ms": dev_ms,
                 "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound,
-                "bound_by": by, "bytes": nbytes, "flops": flops}
+                "bound_by": by, "bound_tf32x3_ms": tc,
+                "bound_tf32x3_by": tc_by, "bytes": nbytes, "flops": flops,
+                "tc_products": products, "tc_other": other}
 
     main, long = timed(main_ins), timed(long_ins)
     for t in (main, long):
-        log(f"[kernels] wkv6 timed at {t['shape']}: kernel "
-            f"{t['kernel_ms']:.4f} ms (device {t['device_ms']:.4f} ms), "
-            f"plain {t['plain_ms']:.4f} ms, no library call, bound "
-            f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {t['bytes']} bytes, "
-            f"{t['flops']} fp32 operations)")
+        log_timed("wkv6", t)
     del main_ins, long_ins
     torch.cuda.empty_cache()
     return [{
@@ -912,6 +999,8 @@ def wkv_kernel_phase(failures):
 def ssd_kernel_phase(failures):
     import torch
     from repro_torch.kernels.mamba2_ssd import ssd, ssd_plain
+    from repro_torch.kernels.mamba2_ssd.ops import (KERNEL_NAMES,
+                                                    tensor_core_path)
 
     def run(name, ins):
         got = ssd(*ins)
@@ -920,6 +1009,8 @@ def ssd_kernel_phase(failures):
         return check_pair(failures, "ssd", name, got, want, scaled=True)
 
     main_ins = ssd_inputs(8, 512, 80, 64, 64)
+    check_path(failures, "ssd at the zamba2 bucket",
+               tensor_core_path(main_ins[0], main_ins[3], main_ins[4]), True)
     results = [run("zamba2 prefill B=8 T=512 H=80 P=N=64 fp32", main_ins)]
     results.append(run("T=300", ssd_inputs(2, 300, 80, 64, 64, seed=1)))
     x, dt, A, Bm, Cm, h0 = ssd_inputs(8, 512, 80, 64, 64, seed=2)
@@ -947,29 +1038,40 @@ def ssd_kernel_phase(failures):
                               scaled=True))
     long_ins = ssd_inputs(1, 16384, 80, 64, 64, seed=5)
     results.append(run("B=1 T=16384", long_ins))
+    # the other side of the shape predicate: P=32, N=16 and a view whose
+    # rows are 66 floats apart
+    small = ssd_inputs(2, 100, 8, 32, 16, seed=6)
+    check_path(failures, "ssd at P=32 N=16",
+               tensor_core_path(small[0], small[3], small[4]), False)
+    results.append(run("P=32 N=16 (CUDA-core kernel)", small))
+    odd = ssd_inputs(2, 100, 8, 64, 64, seed=7)
+    odd[3] = torch.nn.functional.pad(odd[3], (0, 2))[..., :64]
+    check_path(failures, "ssd with Bm rows 66 floats apart",
+               tensor_core_path(odd[0], odd[3], odd[4]), False)
+    results.append(run("P=N=64 Bm rows 66 apart (CUDA-core kernel)", odd))
 
     def timed(ins):
         B, T, H, P = ins[0].shape
         N = ins[3].shape[-1]
         kernel_ms = cuda_time_ms(lambda: ssd(*ins))
-        dev_ms = profiled_ms(lambda: ssd(*ins), ("ssd_kernel",))
+        dev_ms = profiled_ms(lambda: ssd(*ins), KERNEL_NAMES)
         plain_ms = cuda_time_ms(lambda: ssd_plain(*ins), iters=5, warmup=1)
         nbytes = 4 * (2 * B * T * H * P + B * T * H + H + 2 * B * T * N
                       + 2 * B * H * P * N)
         flops = ssd_flops(B, T, H, P, N)
         bound, by = recurrent_bound(nbytes, flops)
+        products, other = ssd_tc_ops(B, T, H, P, N)
+        tc, tc_by = tc_bound(nbytes, products, other)
         return {"shape": f"B={B} T={T} H={H} P={P} N={N} fp32",
                 "ms": kernel_ms, "kernel_ms": kernel_ms, "device_ms": dev_ms,
                 "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound,
-                "bound_by": by, "bytes": nbytes, "flops": flops}
+                "bound_by": by, "bound_tf32x3_ms": tc,
+                "bound_tf32x3_by": tc_by, "bytes": nbytes, "flops": flops,
+                "tc_products": products, "tc_other": other}
 
     main, long = timed(main_ins), timed(long_ins)
     for t in (main, long):
-        log(f"[kernels] ssd timed at {t['shape']}: kernel "
-            f"{t['kernel_ms']:.4f} ms (device {t['device_ms']:.4f} ms), "
-            f"plain {t['plain_ms']:.4f} ms, no library call, bound "
-            f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {t['bytes']} bytes, "
-            f"{t['flops']} fp32 operations)")
+        log_timed("ssd", t)
     del main_ins, long_ins
     torch.cuda.empty_cache()
     return [{
@@ -1604,14 +1706,27 @@ def scheduler_phase(failures, kernels, app, profile_dir):
     prefix = r.integers(0, cfg.vocab_size, PREFIX_TOKENS).tolist()
     pwork = [prefix + r.integers(0, cfg.vocab_size, 3 + i).tolist()
              for i in range(3)]
-    streams = {}
+    # each prefill's first-token logits (one request a prefill on one slot)
+    streams, firsts = {}, {}
     for name, eng in engines.items():
         s = ContinuousBatchingScheduler(eng, num_slots=1)
-        counts_reset()
-        reqs = [s.submit(p, sampling=SamplingParams(max_new_tokens=16))
-                for p in pwork]
-        s.run()
-        n = counts_read()
+        method = "paged_prefill" if name == "paged" else "prefill"
+        firsts[name] = []
+
+        def recording(*args, _inner=getattr(eng, method),
+                      _out=firsts[name]):
+            logits, state = _inner(*args)
+            _out.append(logits[0].float().cpu())
+            return logits, state
+        setattr(eng, method, recording)
+        try:
+            counts_reset()
+            reqs = [s.submit(p, sampling=SamplingParams(max_new_tokens=16))
+                    for p in pwork]
+            s.run()
+            n = counts_read()
+        finally:
+            delattr(eng, method)
         fa_n, k2_n, k3_n = (n[k] for k in K_NAMES[:3])
         streams[name] = [x.output for x in reqs]
         if name == "paged":
@@ -1628,6 +1743,25 @@ def scheduler_phase(failures, kernels, app, profile_dir):
                     or k2_n != 0):
                 failures.append(f"shared prefix: {st}, K2 {k2_n} K3 {k3_n}")
             kernels[2]["scheduler"]["prefix"] = st
+    # the followers' first-token logits: the paged engine's C > 0 prefill
+    # (suffix against the shared pages, plain attention) against the dense
+    # engine's whole-prompt prefill (K1), at LOGITS_TOL
+    diffs = []
+    for i in range(len(pwork)):
+        d, pg = firsts["dense"][i], firsts["paged"][i]
+        diffs.append(float((pg - d).abs().max()))
+        ok = bool(torch.isfinite(pg).all()) and torch.allclose(
+            pg, d, **LOGITS_TOL)
+        log(f"[scheduler] shared prefix, request {i} "
+            f"({'leader, C = 0' if i == 0 else 'follower, C > 0'}): "
+            f"first-token logits paged vs dense max abs diff {diffs[-1]:.4e} "
+            f"(|logit| <= {float(d.abs().max()):.3f}; "
+            f"{'ok' if ok else 'FAIL'} at rtol {LOGITS_TOL['rtol']}, atol "
+            f"{LOGITS_TOL['atol']}); argmax dense {int(d.argmax())}, paged "
+            f"{int(pg.argmax())}")
+        if i > 0 and not ok:
+            failures.append(f"shared prefix: follower {i}'s first-token "
+                            f"logits differ by {diffs[-1]:.4e}")
     div = first_divergence(streams["dense"], streams["paged"])
     log("[scheduler] shared-prefix streams (followers through the C > 0 "
         "plain attention), paged vs dense: "
@@ -1635,6 +1769,8 @@ def scheduler_phase(failures, kernels, app, profile_dir):
            f"first differ at request {div[0]}, token {div[1]} (reported, "
            f"not checked)"))
     kernels[2]["scheduler"]["prefix_first_divergence"] = div
+    kernels[2]["scheduler"]["prefix_follower_logits_max_abs_diff"] = max(
+        diffs[1:])
 
     # pause/resume mid-decode: dense recomputes, paged reattaches its
     # pages.  The paged streams must equal the same requests run without a
@@ -1688,9 +1824,16 @@ def scheduler_phase(failures, kernels, app, profile_dir):
 # --- phase 7: recurrent path ---------------------------------------------------
 
 RECURRENT = ["rwkv6-1.6b", "zamba2-2.7b"]
-PROFILE_KERNELS = {"wkv6": ("wkv6_kernel",), "ssd": ("ssd_kernel",),
-                   "flash_attention": ("flash_attention",),
-                   "decode_attention": K2_KERNELS}
+
+
+def profile_kernels():
+    """Device-kernel names per port kernel for the profiled breakdowns:
+    every kernel a wrapper may launch (K5's G pass and scan, both sides of
+    K4's and K5's shape predicate)."""
+    from repro_torch.kernels.mamba2_ssd import ops as ssd_ops
+    from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
+    return {"wkv6": wkv_ops.KERNEL_NAMES, "ssd": ssd_ops.KERNEL_NAMES,
+            "flash_attention": K1_KERNELS, "decode_attention": K2_KERNELS}
 
 
 def recurrent_per_call(cfg):
@@ -1857,7 +2000,7 @@ def profile_calls(fn, out_dir: Path, name: str):
         torch.cuda.synchronize()
         host = 1e3 * (time.perf_counter() - t)
     total = device_ms(prof, ())
-    parts = {k: device_ms(prof, v) for k, v in PROFILE_KERNELS.items()}
+    parts = {k: device_ms(prof, v) for k, v in profile_kernels().items()}
     parts["matmul (cuBLAS)"] = device_ms(prof, ("gemm", "Gemm", "cutlass",
                                                 "nvjet"))
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -2218,17 +2361,23 @@ def main(argv=None) -> int:
                 log(f"[build]   {entry}: {line.split(':', 1)[-1].strip()}")
 
     failures = []
-    # the bf16 paths' products: wgmma in K1, mma.sync in K2/K3
+    # the products: wgmma in K1; mma.sync in K2/K3 (bf16), K4 and K5 (TF32)
+    sass = {}
     for name, op in (("flash_attention", "HGMMA"),
-                     ("decode_attention", "HMMA")):
-        counts = sass_counts(str(common.build_log[name]["library"]))
+                     ("decode_attention", "HMMA"), ("rwkv6_wkv", "HMMA"),
+                     ("mamba2_ssd", "HMMA")):
+        sass[name] = sass_counts(str(common.build_log[name]["library"]))
         log(f"[build] {name} SASS tensor-core instructions: "
-            f"{counts or 'cuobjdump not found'}")
-        if counts and not counts[op]:
+            f"{sass[name] or 'cuobjdump not found'}")
+        if sass[name] and not sass[name][op]:
             failures.append(f"{name}: no {op} in its SASS")
     kernels = (kernel_phase(failures) + decode_kernel_phase(failures)
                + paged_decode_kernel_phase(failures)
                + wkv_kernel_phase(failures) + ssd_kernel_phase(failures))
+    for entry, lib in zip(kernels, ("flash_attention", "decode_attention",
+                                    "decode_attention", "rwkv6_wkv",
+                                    "mamba2_ssd")):
+        entry["sass"] = sass[lib]
     app = main_path_phase(failures, kernels, args.profile)
     generate_phase(failures, kernels, app, args.profile)
     scheduler_phase(failures, kernels, app, args.profile)

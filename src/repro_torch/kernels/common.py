@@ -135,6 +135,15 @@ def float_rows(t: torch.Tensor) -> torch.Tensor:
     return t if t.stride(-1) == 1 else t.contiguous()
 
 
+def rows_aligned16(t: torch.Tensor) -> bool:
+    """Whether every row of a float32 tensor with a contiguous last
+    dimension starts on a 16-byte boundary (its base and its other strides
+    in whole groups of 4 floats), as a 16-byte ``cp.async`` needs."""
+    return (t.dtype == torch.float32 and t.stride(-1) == 1
+            and t.data_ptr() % 16 == 0
+            and all(st % 4 == 0 for st in t.stride()[:-1]))
+
+
 def check_cuda_status(status: int, what: str) -> None:
     """Raise on a non-zero ``cudaError_t`` returned by a launcher."""
     if status != 0:

@@ -19,7 +19,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-CHUNK = 64          # the kernel's chunk (kChunk in csrc/mamba2_ssd.cu)
+CHUNK = 32          # the kernels' chunk (kChunk in csrc/mamba2_ssd.cu)
 
 
 def ssd_plain(x, dt, A, Bm, Cm, h0):

@@ -2,10 +2,14 @@
 s0 (B,H,N,N) -> (y (B,T,H,N), s_T (B,H,N,N)), all float32.
 
 CPU tensors take the plain version (``ref.wkv6_plain``); CUDA tensors
-launch the Hopper kernel in ``csrc/rwkv6_wkv.cu`` or raise.  The kernel
-reads the model layout through strides and treats steps past T as k=v=0,
-logw=0 itself, so there is no transpose and no padded copy (the TPU
-wrapper moved the head axis of all four inputs and padded T)."""
+launch a Hopper kernel in ``csrc/rwkv6_wkv.cu`` or raise.  The kernels
+read the model layout through strides and treat steps past T as k=v=0,
+logw=0 themselves, so there is no transpose and no padded copy (the TPU
+wrapper moved the head axis of all four inputs and padded T).
+
+``tensor_core_path`` picks the kernel by shape: N = 64 with 16-byte
+aligned rows (the model's shapes) take the tensor-core kernel
+(``wkv6_tc_fwd``), everything else the CUDA-core kernel (``wkv6_fwd``)."""
 
 from __future__ import annotations
 
@@ -16,21 +20,34 @@ import torch
 
 from repro_torch.kernels.common import (check_cuda_status, data_ptr,
                                         float_rows, is_cuda, load_library,
-                                        stream_ptr)
+                                        rows_aligned16, stream_ptr)
 from repro_torch.kernels.rwkv6_wkv.ref import wkv6_plain
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "rwkv6_wkv.cu"
 MAX_N = 64          # kMaxN in the source
+TC_N = 64           # kDim: N of the tensor-core kernel
+# the device kernels a call may launch (torch.profiler names)
+KERNEL_NAMES = ("wkv6_kernel", "wkv6_tc_kernel")
 
 
 def build() -> ctypes.CDLL:
-    """Compile (once per process, cached on disk) and bind the kernel."""
+    """Compile (once per process, cached on disk) and bind the kernels."""
     lib = load_library("rwkv6_wkv", [SOURCE])
-    fn = lib.wkv6_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
-                   + [ctypes.c_longlong] * 15 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    lib.wkv6_fwd.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+                             + [ctypes.c_longlong] * 15 + [ctypes.c_void_p])
+    lib.wkv6_tc_fwd.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
+                                + [ctypes.c_longlong] * 15
+                                + [ctypes.c_void_p])
+    lib.wkv6_fwd.restype = lib.wkv6_tc_fwd.restype = ctypes.c_int
     return lib
+
+
+def tensor_core_path(r, k, v, logw) -> bool:
+    """Whether a launch takes the tensor-core kernel: float32 inputs (as
+    the wrapper passes them) with N = TC_N and every row start 16-byte
+    aligned.  Everything else takes the CUDA-core kernel."""
+    return (r.shape[-1] == TC_N
+            and all(rows_aligned16(t) for t in (r, k, v, logw)))
 
 
 def wkv6(r, k, v, logw, u, s0):
@@ -59,11 +76,15 @@ def wkv6(r, k, v, logw, u, s0):
     y = torch.empty((B, T, H, N), dtype=torch.float32, device=r.device)
     sT = torch.empty((B, H, N, N), dtype=torch.float32, device=r.device)
     lib = build()
-    status = lib.wkv6_fwd(
-        data_ptr(r), data_ptr(k), data_ptr(v), data_ptr(logw), data_ptr(u),
-        data_ptr(s0), data_ptr(y), data_ptr(sT), B, T, H, N,
-        *r.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        *logw.stride()[:3], *y.stride()[:3], stream_ptr(r.device))
+    ptrs = [data_ptr(t) for t in (r, k, v, logw, u, s0, y, sT)]
+    strides = (*r.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+               *logw.stride()[:3], *y.stride()[:3])
+    if tensor_core_path(r, k, v, logw):
+        status = lib.wkv6_tc_fwd(*ptrs, B, T, H, *strides,
+                                 stream_ptr(r.device))
+    else:
+        status = lib.wkv6_fwd(*ptrs, B, T, H, N, *strides,
+                              stream_ptr(r.device))
     check_cuda_status(status, "wkv6")
     wkv6.launches += 1
     return y, sT

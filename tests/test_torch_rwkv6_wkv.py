@@ -6,7 +6,14 @@ CPU tensors (its plain chunked version) and its ``wkv6_ref``: the shapes of
 tests/test_kernels.py::test_wkv6 (T=50 and T=33 are not multiples of the
 chunk), its extreme-decay case, a nonzero s0 and a split-in-two
 continuation.  Tolerance 1e-4, tests/test_kernels.py's (the sides sum in
-different orders and cut the chunks at other places).
+different orders and cut the chunks at other places).  A torch mirror of
+the tensor-core kernel's blocking (8-step sub-chunks whose off-diagonal
+blocks of A are products of two decay factors with exponents <= 0; the
+products through an emulation of TF32 tensor-core operands) is held
+against the Pallas kernel and the oracle at the same tolerance, extreme
+decay included: with the three-term split it passes, with one-term TF32
+it does not.  The wrapper's shape predicate is checked on CPU tensors of
+the model's layout.
 
 GPU cases (marker ``gpu``, skipped without a CUDA device): the Hopper
 kernel against the plain version on the card at the same tolerance.  They
@@ -18,7 +25,10 @@ import pytest
 import torch
 from numpy.testing import assert_allclose
 
+from repro_torch.configs.base import get_config, reduce_for_smoke
 from repro_torch.kernels.rwkv6_wkv import wkv6, wkv6_plain, wkv6_ref
+from repro_torch.kernels.rwkv6_wkv.ops import tensor_core_path
+from repro_torch.models.rwkv6 import rwkv_dims
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 SHAPES = [(2, 64, 4, 32, 16), (1, 128, 2, 64, 32), (2, 50, 3, 16, 32),
@@ -119,6 +129,141 @@ def test_split_in_two_equals_one_call():
     assert_allclose(s2.numpy(), sT.numpy(), **TOL)
 
 
+# --- the tensor-core kernel's arithmetic, mirrored on the CPU ----------------
+
+
+def tf32(a):
+    """float32 rounded to TF32 (10 stored mantissa bits), to nearest with
+    ties away from zero, as ``cvt.rna.tf32.f32``: add half of bit 13 to
+    the int32 view and clear the 13 low bits."""
+    i = a.contiguous().view(torch.int32)
+    return ((i + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_trunc(a):
+    """float32 truncated to TF32, as the tensor cores read an operand whose
+    13 low mantissa bits are not clear."""
+    return (a.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def mm(a, b, terms):
+    """``a @ b`` as the kernel's mma.sync takes it: ``terms=3`` splits each
+    operand as hi + lo (hi rounded to TF32, lo the rest, which the tensor
+    cores truncate to TF32) and sums hi*lo + lo*hi + hi*hi; ``terms=1``
+    rounds each operand to TF32 once; ``terms=0`` is fp32."""
+    if terms == 0:
+        return a @ b
+    ah, bh = tf32(a), tf32(b)
+    if terms == 1:
+        return ah @ bh
+    return (tf32_trunc(a - ah) @ bh + ah @ tf32_trunc(b - bh)) + ah @ bh
+
+
+def wkv6_blocked(r, k, v, logw, u, s0, *, terms=3, c=32, sub=8):
+    """The tensor-core kernel's blocking, in float32 on numpy inputs.  Per
+    chunk of ``c`` steps: L the step-by-step cumulative sum of logw, Lprev
+    its previous sum; for sub-chunk i (last step e) and every later step
+    t, A[t, s in i] = (r_t o exp(Lprev_t - L_e)) . (k_s o exp(L_e - L_s))
+    through ``mm(terms)``; the diagonal sub-blocks exact, with the bonus;
+    y = [A | r o exp(Lprev)] [v ; S] and
+    S' = exp(L_c) o S + (k o exp(L_c - L))^T v through ``mm(terms)``."""
+    r, k, v, logw, u, S = (torch.from_numpy(t) for t in (r, k, v, logw, u,
+                                                          s0))
+    B, T, H, N = r.shape
+    Tp = -(-T // c) * c
+    r, k, v, logw = (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, Tp - T))
+                     .transpose(1, 2) for t in (r, k, v, logw))  # (B,H,T,N)
+    strict = torch.ones((sub, sub), dtype=torch.bool).tril(-1)[..., None]
+    ys = []
+    for j in range(Tp // c):
+        sl = slice(j * c, (j + 1) * c)
+        r_, k_, v_ = r[:, :, sl], k[:, :, sl], v[:, :, sl]
+        L = torch.cumsum(logw[:, :, sl], dim=2)
+        Lp = torch.nn.functional.pad(L[:, :, :-1], (0, 0, 1, 0))
+        A = torch.zeros((B, H, c, c))
+        for i in range(c // sub - 1):
+            e = sub * i + sub - 1
+            rows, cols = slice(e + 1, c), slice(sub * i, sub * i + sub)
+            Le = L[:, :, e:e + 1]
+            rt = r_[:, :, rows] * torch.exp(Lp[:, :, rows] - Le)
+            kt = k_[:, :, cols] * torch.exp(Le - L[:, :, cols])
+            A[:, :, rows, cols] = mm(rt, kt.transpose(-1, -2), terms)
+        for d in range(c // sub):
+            blk = slice(sub * d, sub * d + sub)
+            diff = Lp[:, :, blk, None] - L[:, :, None, blk]  # (B,H,t,s,N)
+            D = torch.exp(torch.where(strict, diff, float("-inf")))
+            Ad = (r_[:, :, blk, None] * k_[:, :, None, blk] * D).sum(-1)
+            bonus = (r_[:, :, blk] * u[:, None] * k_[:, :, blk]).sum(-1)
+            A[:, :, blk, blk] = Ad + torch.diag_embed(bonus)
+        y = mm(torch.cat([A, r_ * torch.exp(Lp)], -1),
+               torch.cat([v_, S], -2), terms)
+        Lc = L[:, :, -1:]
+        S = (torch.exp(Lc).transpose(-1, -2) * S
+             + mm((k_ * torch.exp(Lc - L)).transpose(-1, -2), v_, terms))
+        ys.append(y.transpose(1, 2))
+    return torch.cat(ys, 1)[:, :T].numpy(), S.numpy()
+
+
+MIRROR_CASES = [
+    # B, T, H, N, decay_shift, Pallas chunk: T=45 cuts the last chunk
+    # short inside a sub-chunk; decay_shift 2.0 is the extreme decay
+    (2, 45, 3, 64, -1.0, 16),
+    (1, 64, 2, 32, 2.0, 16),
+]
+
+
+@pytest.mark.parametrize("B,T,H,N,decay_shift,chunk", MIRROR_CASES)
+def test_blocked_mirror_matches_pallas_and_oracle(jax_wkv, B, T, H, N,
+                                                  decay_shift, chunk):
+    """The kernel's sub-chunk blocking at chunk 32, with the three-term
+    TF32 split and in fp32, against the Pallas kernel (interpret mode, at
+    the chunk tests/test_kernels.py runs it) and the JAX oracle."""
+    jwkv6, _, jnp = jax_wkv
+    ins = _inputs(B, T, H, N, seed=5, decay_shift=decay_shift)
+    want = [np.asarray(a) for a in jwkv6(*(jnp.asarray(t) for t in ins),
+                                         chunk=chunk)]
+    oracle = _jax_oracle(jax_wkv, *ins)
+    for terms in (3, 0):
+        got = wkv6_blocked(*ins, terms=terms)
+        assert all(np.isfinite(g).all() for g in got)
+        for ref in (want, oracle):
+            assert_allclose(got[0], ref[0], **TOL)
+            assert_allclose(got[1], ref[1], **TOL)
+
+
+def test_one_term_tf32_misses_the_tolerance(jax_wkv):
+    """The reason for the split: on the same inputs, TF32 operands rounded
+    once put y outside 1e-4 of the oracle, the three-term split inside."""
+    ins = _inputs(2, 45, 3, 64, seed=5)
+    oracle = _jax_oracle(jax_wkv, *ins)
+    err = {}
+    for terms in (1, 3):
+        got = wkv6_blocked(*ins, terms=terms)
+        err[terms] = float((np.abs(got[0] - oracle[0])
+                            / (1e-4 + 1e-4 * np.abs(oracle[0]))).max())
+    assert err[3] < 1.0 < err[1], err       # in units of the tolerance
+    assert err[1] > 10 * err[3], err
+
+
+def test_tensor_core_predicate_takes_the_model_shapes():
+    """rwkv6-1.6b's shapes (N = 64, r/k/v/logw reshaped from float32
+    projections) take the tensor-core kernel, also as views of one packed
+    tensor; the reduced config's (N = 32) and an unaligned view take the
+    CUDA-core kernel."""
+    full = get_config("rwkv6-1.6b")
+    H, N = rwkv_dims(full)
+    assert N == 64
+    t = torch.zeros((2, 5, H * N)).reshape(2, 5, H, N)
+    assert tensor_core_path(t, t, t, t)
+    packed = torch.zeros((2, 5, H, 4 * N)).split(N, dim=-1)
+    assert tensor_core_path(*packed)
+    H2, N2 = rwkv_dims(reduce_for_smoke(full))
+    small = torch.zeros((2, 5, H2, N2))
+    assert not tensor_core_path(small, small, small, small)
+    shifted = torch.zeros(t.numel() + 1)[1:].view(t.shape)
+    assert not tensor_core_path(t, shifted, t, t)
+
+
 # --- on the card ------------------------------------------------------------
 
 
@@ -130,13 +275,16 @@ def cuda():
 
 
 GPU_CASES = [
-    # B, T, H, N, decay_shift, strided
+    # B, T, H, N, decay_shift, strided; N = 64 takes the tensor-core kernel
     (8, 512, 32, 64, -1.0, False),      # the rwkv6-1.6b prefill bucket
     (2, 300, 4, 64, -1.0, False),
     (3, 17, 4, 64, -1.0, True),
     (2, 50, 3, 16, -1.0, False),
     (1, 33, 2, 32, -1.0, True),
     (1, 64, 2, 32, 2.0, False),         # extreme decay
+    (2, 45, 3, 64, -1.0, False),        # T not a multiple of 8 or 32
+    (1, 5, 2, 64, -1.0, True),          # T shorter than one sub-chunk
+    (2, 77, 4, 64, 2.0, True),          # extreme decay on tensor cores
 ]
 
 
@@ -177,6 +325,21 @@ def test_kernel_continuation_and_masked_steps_on_gpu(cuda):
     _, s60 = wkv6(r[1:, :60], k[1:, :60], v[1:, :60], logw[1:, :60], u,
                   s0[1:])
     assert_allclose(sm[1:].cpu().numpy(), s60.cpu().numpy(), **TOL)
+
+
+@pytest.mark.gpu
+def test_unaligned_rows_take_the_cuda_core_kernel_on_gpu(cuda):
+    """N = 64 with r 4 bytes off a 16-byte boundary takes the CUDA-core
+    kernel, and it matches too."""
+    ins = [torch.from_numpy(t).to(cuda) for t in _inputs(2, 70, 3, 64,
+                                                          seed=6)]
+    r = torch.empty(ins[0].numel() + 1, device=cuda)[1:].view(ins[0].shape)
+    ins[0] = r.copy_(ins[0])
+    assert not tensor_core_path(*ins[:4])
+    got, want = wkv6(*ins), wkv6_plain(*ins)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert_allclose(g.cpu().numpy(), w.cpu().numpy(), **TOL)
 
 
 @pytest.mark.gpu
