@@ -55,14 +55,15 @@ Phases (any failure exits non-zero and prints no final result line):
    library call computes either): the fp32 one (every operation at the
    CUDA-core peak) and the tensor-core one (the products at a third of
    the TF32 peak, the three-term split's three products).
-4. ensemble path: ``build_app(["yi-9b", "yi-9b"], full=True)`` — two
-   members at full width and depth with random weights from a seed —
+4. ensemble path: ``build_app(["yi-9b", "yi-9b"], full=True, max_len=1024,
+   num_slots=8)`` — two members at full width and depth with random
+   weights from a seed, and a generate plane over member 0's params —
    behind ``FlexServeServer`` on an ephemeral port; /v1/infer and
    /v1/detect at batch sizes 1, 3 and 8, some concurrent.  Every response
    must be 200 and have the paper schema; the launch counts, zeroed just
    before and read just after, must be members x layers x forwards for K1
-   and 0 for K2, and /v1/generate still answers 501.  One batch's member
-   logits are then held against the plain path on the card.
+   and 0 for K2, and /v1/traces (not ported) answers 501.  One batch's
+   member logits are then held against the plain path on the card.
 5. generate path: ``InferenceEngine`` over member yi-9b#0's params (full
    width and depth, bf16, max_len 1024, max_batch 8).  A greedy
    ``generate`` of 8 prompts of 17-300 tokens, 32 new tokens each, must
@@ -96,6 +97,28 @@ Phases (any failure exits non-zero and prints no final result line):
    re-prefilled K/V is not bitwise the decode-time K/V in bf16).  Tokens/s,
    ticks, tick times, TTFT, warm seconds and the pool's high water are
    printed.
+6b. HTTP generate path: phase 4's app (its generate plane over member 0's
+   weights, 8 slots; warmed first, "[serve] decode path warm in Ns") behind
+   ``FlexServeServer``, driven through the port's ``FlexServeClient``.
+   Run A: three requests one at a time (17, 300 and 120-token prompts, 32
+   new tokens; greedy and two seeded sampled at temperature 0.8, top_k 50,
+   top_p 0.9), each blocking and streamed: the blocking body must equal
+   ``SchedulerService.submit_and_wait`` on the same engine bit for bit,
+   the stream the blocking body, and K1 must launch 48 x prefill forwards
+   and K2 48 x ticks (from /metrics).  Run B: 12 streams at once on 8
+   slots: every one finishes with 32 tokens and "length", K1/K2 as in Run
+   A, num_slots x 4 bytes per tick; TTFT p50/p99, time per output token
+   p50/p99 and tokens/s as the client sees them, beside the card's name
+   and power limit.  Run C: a ``FlexServeApp`` over a
+   ``PagedInferenceEngine`` of the same member (page size 16): Run A's
+   requests streamed must equal Run A's streams, K3 48 x ticks.  Run D:
+   ``replicas=2`` and a fault raising once at replica 0's 8th
+   ``engine_step``: the stream fails over, finishes with 32 tokens, and
+   /metrics counts one failover; its first token that differs from the
+   unfaulted stream is reported, and there the failed-over path's logits
+   must match the unfaulted path's within LOGITS_TOL with the same argmax.
+   The decode state added per replica and the failover's extra latency
+   are printed.
 
 7. recurrent path, after the yi-9b members are freed:
    ``build_app(["rwkv6-1.6b", "zamba2-2.7b"], full=True)`` (24 and 54
@@ -122,6 +145,10 @@ Phases (any failure exits non-zero and prints no final result line):
    greedy streams from ``generate``'s is reported.  Tokens/s, tick ms,
    TTFT and prefill ms are printed per family; with ``--profile`` also a
    recurrent ensemble forward, and a prefill and a tick of each family.
+   Run E: the recurrent app's generate plane (an ``InferenceEngine`` over
+   rwkv6-1.6b#0's params) streams one seeded request over /v1/generate: it
+   must equal ``SchedulerService.submit_and_wait`` on the same engine, with
+   K4 24 per prefill forward and nothing per tick.
 
 The line before the nvidia-smi line is ``{"kernels": [...]}`` (K1-K5);
 the last line is ``{"ok": true, "device": {...}}``.
@@ -1130,8 +1157,10 @@ def main_path_phase(failures, kernels, profile_dir):
     from repro_torch.serving import FlexServeServer
 
     t0 = time.perf_counter()
+    # the generate plane (phase 6b) runs over member 0's params
     app = build_app([ARCH] * MEMBERS, full=True, num_classes=NUM_CLASSES,
-                    max_batch=8, seed=0)
+                    max_batch=8, seed=0, max_len=GEN_MAX_LEN,
+                    num_slots=SCHED_SLOTS)
     torch.cuda.synchronize()
     cfg = app.registry.get(f"{ARCH}#0").model.config
     layers = cfg.num_layers
@@ -1206,11 +1235,11 @@ def main_path_phase(failures, kernels, profile_dir):
             st, body = client.call("GET", name)
             if st != 200:
                 failures.append(f"GET {name}: {st} {body}")
-        st, body = client.call("POST", "/v1/generate", {"prompts": [[1]]})
+        st, body = client.call("GET", "/v1/traces")
         if st != 501 or body["error"]["code"] != "not_ported":
-            failures.append(f"/v1/generate: {st} {body}")
+            failures.append(f"/v1/traces: {st} {body}")
     finally:
-        server.stop()
+        stop_listener(server)
 
     # one batch's member logits: kernel path vs plain path, on the card
     ens = app.ensemble
@@ -1240,6 +1269,13 @@ def main_path_phase(failures, kernels, profile_dir):
     if profile_dir:
         profile_forward(ens, timed, Path(profile_dir))
     return app
+
+
+def stop_listener(server) -> None:
+    """Close a server's socket but not its app: the app (and its generate
+    plane) serves again behind a new ``FlexServeServer`` later on."""
+    server.httpd.shutdown()
+    server.httpd.server_close()
 
 
 def host_time_ms(fn, reps: int = 5) -> float:
@@ -1821,6 +1857,315 @@ def scheduler_phase(failures, kernels, app, profile_dir):
     torch.cuda.empty_cache()
 
 
+# --- phase 6b: HTTP generate path ----------------------------------------------
+
+FAULT_AT = 8        # Run D: the 8th decode tick of replica 0 raises
+
+
+def pctl(vals, p):
+    xs = sorted(vals)
+    return xs[min(len(xs) - 1, int(p * len(xs)))]
+
+
+def http_requests(vocab):
+    """Run A's sequential requests: one greedy, two seeded sampled
+    (temperature 0.8, top_k 50, top_p 0.9); prompts of 17, 300 and 120
+    tokens, GEN_TOKENS new tokens each.  Run D fails over the last."""
+    import numpy as np
+    r = np.random.default_rng(5)
+    samp = dict(temperature=0.8, top_k=50, top_p=0.9)
+    return [(r.integers(0, vocab, 17).tolist(), {}),
+            (r.integers(0, vocab, 300).tolist(), dict(samp, seed=300)),
+            (r.integers(0, vocab, 120).tolist(), dict(samp, seed=42))]
+
+
+def timed_stream(client, prompt, kw):
+    """One streamed /v1/generate as the client sees it: tokens, the
+    terminal event, TTFT and total seconds from the request's send."""
+    t0 = time.perf_counter()
+    first, toks, last = None, [], None
+    for ev in client.generate_stream(prompt, max_new_tokens=GEN_TOKENS,
+                                     **kw):
+        if ev["event"] == "token":
+            if first is None:
+                first = time.perf_counter()
+            toks.append(ev["token"])
+        else:
+            last = ev
+    t1 = time.perf_counter()
+    return {"tokens": toks, "done": last, "t0": t0, "t1": t1,
+            "ttft_s": (first or t1) - t0, "total_s": t1 - t0}
+
+
+def stream_ok(rec):
+    done = rec["done"] or {}
+    return (done.get("event") == "done"
+            and done.get("finish_reason") == "length"
+            and done.get("token_count") == GEN_TOKENS
+            and done.get("tokens") == rec["tokens"])
+
+
+def decode_counters(client):
+    d = client.metrics()["generate"]["decode"]
+    return d["ticks"], d["prefill_forwards"], d["transfer_bytes_total"]
+
+
+def check_http_counts(failures, where, counts, layers, fwds, ticks, paged):
+    want = dict.fromkeys(K_NAMES, 0)
+    want["flash_attention"] = layers * fwds
+    want["paged_decode_attention" if paged else "decode_attention"] = \
+        layers * ticks
+    ok = counts == want and fwds > 0 and ticks > 0
+    log(f"[http] {where}: {fwds} prefill forwards, {ticks} ticks; launches "
+        f"K1 {counts['flash_attention']} K2 {counts['decode_attention']} "
+        f"K3 {counts['paged_decode_attention']} K4 {counts['wkv6']} K5 "
+        f"{counts['ssd']} (expected {layers} per prefill forward and "
+        f"{layers} per tick) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"http {where}: launches {counts}, expected {want}")
+
+
+def teacher_logits(engine, prefix, feed, steps):
+    """Batch-1 logits: prefill ``prefix``, then ``steps`` decode steps fed
+    ``feed``; returns the logits of the last step (float32, on the host)."""
+    import torch
+    from repro_torch.core.batching import pad_sequences
+    tokens, lengths = pad_sequences([prefix], engine.seq_buckets)
+    dev = engine.device
+    logits, state = engine.prefill(
+        {"tokens": torch.from_numpy(tokens).to(dev),
+         "lengths": torch.from_numpy(lengths).to(dev)}, engine.new_state(1))
+    for t in feed[:steps]:
+        logits, state = engine.decode(
+            torch.tensor([t], dtype=torch.int32, device=dev), state)
+    return logits[0].float().cpu()
+
+
+def http_generate_phase(failures, kernels, app, profile_dir):
+    """Phase 6b: /v1/generate over HTTP on phase 4's app (member 0's
+    weights), driven through the port's stdlib client."""
+    import torch
+    from repro_torch.core import (PagedInferenceEngine, SamplingParams,
+                                  SchedulerService)
+    from repro_torch.serving import (FlexServeApp, FlexServeClient,
+                                     FlexServeServer)
+
+    t_phase = time.perf_counter()
+    smi = nvidia_smi_line()
+    member = app.registry.get(f"{ARCH}#0")
+    engine = app.generation.engine_for()
+    cfg = member.model.config
+    layers = cfg.num_layers
+    if engine.params is not member.params:
+        failures.append("http: the generate engine holds a second copy of "
+                        "member 0's weights")
+    work = http_requests(cfg.vocab_size)
+    info = {"card": smi}
+    kernels[0]["http_generate"] = info
+
+    # the reference: SchedulerService.submit_and_wait on the same engine,
+    # each request alone
+    ref_svc = SchedulerService(engine, num_slots=SCHED_SLOTS)
+    refs, ref_s = [], []
+    try:
+        for p, kw in work:
+            t = time.perf_counter()
+            refs.append(ref_svc.submit_and_wait([p], sampling=SamplingParams(
+                max_new_tokens=GEN_TOKENS, **kw)).tokens[0])
+            ref_s.append(time.perf_counter() - t)
+    finally:
+        ref_svc.close()
+
+    warm_s = app.generation.entry_for().service.warm()
+    log(f"[serve] decode path warm in {warm_s:.1f}s")
+    server = FlexServeServer(app).start(timeout=60)
+    client = FlexServeClient(*server.address, timeout=600)
+    try:
+        # Run A: sequential, blocking then streamed, counted
+        ticks0, fwds0, _ = decode_counters(client)
+        counts_reset()
+        blocking, streams = [], []
+        for prompt, kw in work:
+            t = time.perf_counter()
+            body = client.generate([prompt], max_new_tokens=GEN_TOKENS,
+                                   **kw)
+            blocking.append((body, time.perf_counter() - t))
+            streams.append(timed_stream(client, prompt, kw))
+        counts = counts_read()
+        ticks1, fwds1, _ = decode_counters(client)
+        check_http_counts(failures, "Run A (3 blocking + 3 streamed, one "
+                          "at a time)", counts, layers, fwds1 - fwds0,
+                          ticks1 - ticks0, paged=False)
+        for i, ((prompt, kw), (body, dt), rec, ref, rs) in enumerate(
+                zip(work, blocking, streams, refs, ref_s)):
+            same_ref = body["outputs"][0] == ref
+            same_stream = rec["tokens"] == body["outputs"][0]
+            log(f"[http] Run A request {i} ({len(prompt)}-token prompt, "
+                f"{'seed ' + str(kw['seed']) if kw else 'greedy'}): "
+                f"SchedulerService.submit_and_wait {1e3 * rs:.1f} ms, "
+                f"blocking /v1/generate {1e3 * dt:.1f} ms, stream TTFT "
+                f"{1e3 * rec['ttft_s']:.1f} ms, total "
+                f"{1e3 * rec['total_s']:.1f} ms; blocking == "
+                f"SchedulerService.submit_and_wait: "
+                f"{'identical' if same_ref else 'DIFFERENT'}; stream == "
+                f"blocking: {'identical' if same_stream else 'DIFFERENT'}")
+            if (not (same_ref and same_stream and stream_ok(rec))
+                    or body["finish_reasons"] != ["length"]):
+                failures.append(f"http Run A request {i}: blocking "
+                                f"{body}, stream {rec['done']}, reference "
+                                f"{ref}")
+        kernels[0]["launches_http"] = counts["flash_attention"]
+        kernels[1]["launches_http"] = counts["decode_attention"]
+        info["run_a"] = {
+            "ttft_ms": [1e3 * r["ttft_s"] for r in streams],
+            "total_ms": [1e3 * r["total_s"] for r in streams],
+            "blocking_ms": [1e3 * dt for _, dt in blocking],
+            "direct_ms": [1e3 * t for t in ref_s],
+            "launches": counts, "warm_s": warm_s}
+
+        # Run B: 12 streams at once on 8 slots
+        bwork = sched_workload(cfg.vocab_size, seed=3)
+        ticks0, fwds0, xfer0 = decode_counters(client)
+        counts_reset()
+        with concurrent.futures.ThreadPoolExecutor(len(bwork)) as ex:
+            futs = [ex.submit(timed_stream, client, p,
+                              {k: v for k, v in sp.describe().items()
+                               if k != "max_new_tokens"})
+                    for p, sp in bwork]
+            recs = [f.result() for f in futs]
+        counts = counts_read()
+        ticks1, fwds1, xfer1 = decode_counters(client)
+        ticks, fwds = ticks1 - ticks0, fwds1 - fwds0
+        check_http_counts(failures, f"Run B ({len(bwork)} concurrent "
+                          f"streams, {SCHED_SLOTS} slots)", counts, layers,
+                          fwds, ticks, paged=False)
+        bad = [i for i, r in enumerate(recs) if not stream_ok(r)]
+        if bad:
+            failures.append(f"http Run B: streams {bad} incomplete: "
+                            f"{[recs[i]['done'] for i in bad]}")
+        if xfer1 - xfer0 != 4 * SCHED_SLOTS * ticks:
+            failures.append(f"http Run B: {xfer1 - xfer0} bytes moved over "
+                            f"{ticks} ticks")
+        wall = max(r["t1"] for r in recs) - min(r["t0"] for r in recs)
+        ntok = sum(len(r["tokens"]) for r in recs)
+        ttft = [1e3 * r["ttft_s"] for r in recs]
+        tpot = [1e3 * (r["total_s"] - r["ttft_s"]) / (len(r["tokens"]) - 1)
+                for r in recs]
+        run_b = {"requests": len(recs), "tokens": ntok, "wall_s": wall,
+                 "tokens_per_s": ntok / wall,
+                 "ttft_ms_p50": pctl(ttft, 0.5), "ttft_ms_p99": pctl(ttft, 0.99),
+                 "tpot_ms_p50": pctl(tpot, 0.5), "tpot_ms_p99": pctl(tpot, 0.99),
+                 "ticks": ticks, "prefill_forwards": fwds,
+                 "transfer_bytes_per_tick": (xfer1 - xfer0) / max(ticks, 1),
+                 "launches": counts}
+        info["run_b"] = run_b
+        log(f"[http] Run B on {smi}: {len(recs)} streams, {ntok} tokens in "
+            f"{wall:.2f} s = {run_b['tokens_per_s']:.1f} tokens/s; TTFT p50 "
+            f"{run_b['ttft_ms_p50']:.1f} ms, p99 {run_b['ttft_ms_p99']:.1f} "
+            f"ms; time per output token p50 {run_b['tpot_ms_p50']:.1f} ms, "
+            f"p99 {run_b['tpot_ms_p99']:.1f} ms (client side, through "
+            f"/v1/generate); {ticks} ticks moving "
+            f"{run_b['transfer_bytes_per_tick']:.0f} bytes each")
+    finally:
+        client.close()
+        stop_listener(server)
+
+    # Run C: the paged engine (page size 16) of the same member
+    peng = PagedInferenceEngine(member.model, member.params,
+                                max_len=GEN_MAX_LEN, max_batch=GEN_BATCH,
+                                page_size=16)
+    papp = FlexServeApp(app.registry, None, peng, num_slots=SCHED_SLOTS)
+    pserver = FlexServeServer(papp).start(timeout=60)
+    pclient = FlexServeClient(*pserver.address, timeout=600)
+    try:
+        pwarm = papp.generation.entry_for().service.warm()
+        ticks0, fwds0, _ = decode_counters(pclient)
+        counts_reset()
+        precs = [timed_stream(pclient, p, kw) for p, kw in work]
+        counts = counts_read()
+        ticks1, fwds1, _ = decode_counters(pclient)
+    finally:
+        pclient.close()
+        pserver.stop()
+    check_http_counts(failures, "Run C (paged engine, 3 streams one at a "
+                      "time)", counts, layers, fwds1 - fwds0,
+                      ticks1 - ticks0, paged=True)
+    same = [r["tokens"] for r in precs] == [r["tokens"] for r in streams]
+    log(f"[http] Run C: paged streams vs Run A's dense streams: "
+        f"{'identical' if same else 'DIFFERENT'}; warm {pwarm:.1f} s; TTFT "
+        f"{[round(1e3 * r['ttft_s'], 1) for r in precs]} ms")
+    if not same or not all(stream_ok(r) for r in precs):
+        failures.append("http Run C: paged streams differ from dense or "
+                        "are incomplete")
+    kernels[2]["launches_http"] = counts["paged_decode_attention"]
+    info["run_c"] = {"ttft_ms": [1e3 * r["ttft_s"] for r in precs],
+                     "total_ms": [1e3 * r["total_s"] for r in precs],
+                     "launches": counts, "warm_s": pwarm}
+    del peng, papp
+
+    # Run D: two replicas; replica 0's FAULT_AT-th tick raises mid-stream
+    prompt, kw = work[2]
+    mem0 = torch.cuda.memory_allocated()
+    fapp = FlexServeApp(app.registry, None, engine, num_slots=SCHED_SLOTS,
+                        replicas=2, fault_config=[
+                            {"site": "engine_step", "replica": 0,
+                             "at": FAULT_AT, "count": 1,
+                             "message": "chip_smoke failover drill"}])
+    per_replica_gb = (torch.cuda.memory_allocated() - mem0) / 2 / 1e9
+    fserver = FlexServeServer(fapp).start(timeout=60)
+    fclient = FlexServeClient(*fserver.address, timeout=600)
+    try:
+        frec = timed_stream(fclient, prompt, kw)
+        reps = fclient.metrics()["replicas"]
+        pool = fapp.generation.pool_for()
+        resumed = (pool.replicas[1].service.scheduler.prefill_tokens_total
+                   - len(prompt))
+    finally:
+        fclient.close()
+        fserver.stop()
+    div = first_divergence([refs[2]], [frec["tokens"]])
+    extra_ms = 1e3 * (frec["total_s"] - streams[2]["total_s"])
+    log(f"[http] Run D (2 replicas, engine_step raises at replica 0's tick "
+        f"{FAULT_AT}): stream {frec['done'].get('finish_reason')} with "
+        f"{len(frec['tokens'])} tokens; failovers {reps['failovers']}, "
+        f"{resumed} tokens resumed on replica 1; total "
+        f"{1e3 * frec['total_s']:.1f} ms, {extra_ms:+.1f} ms against Run A's "
+        f"unfaulted stream; decode state {per_replica_gb:.3f} GB per replica; "
+        f"vs the unfaulted stream: "
+        + ("identical" if div is None else f"first differ at token {div[1]}"))
+    if not stream_ok(frec) or reps["failovers"] != 1:
+        failures.append(f"http Run D: {frec['done']}, failovers "
+                        f"{reps['failovers']}")
+    info["run_d"] = {"failovers": reps["failovers"], "resumed": resumed,
+                     "total_ms": 1e3 * frec["total_s"],
+                     "extra_ms": extra_ms, "first_divergence": div,
+                     "decode_state_gb_per_replica": per_replica_gb}
+    if div is not None:
+        # a dense re-prefill of prompt + resumed output is not bitwise the
+        # decode-time K/V in bf16: at the parting step, the failed-over
+        # path's logits must agree with the unfaulted path's within
+        # LOGITS_TOL and have the same argmax
+        j = div[1]
+        want = teacher_logits(engine, prompt, refs[2], j)
+        got = teacher_logits(engine, prompt + frec["tokens"][:resumed],
+                             frec["tokens"][resumed:], j - resumed)
+        err = float((got - want).abs().max())
+        ok = (j >= resumed and bool(torch.isfinite(got).all())
+              and torch.allclose(got, want, **LOGITS_TOL)
+              and int(got.argmax()) == int(want.argmax()))
+        log(f"[http] Run D logits at token {j}, failed over vs unfaulted: "
+            f"max abs diff {err:.4e} (|logit| <= "
+            f"{float(want.abs().max()):.3f}), argmax {int(got.argmax())} vs "
+            f"{int(want.argmax())}, tokens {frec['tokens'][j]} vs "
+            f"{refs[2][j]} ({'ok' if ok else 'FAIL'})")
+        info["run_d"]["logits_max_abs_diff"] = err
+        if not ok:
+            failures.append(f"http Run D: logits at token {j} differ by "
+                            f"{err:.4e} or in argmax")
+    info["seconds"] = time.perf_counter() - t_phase
+    log(f"[http] phase 6b in {info['seconds']:.1f} s")
+
+
 # --- phase 7: recurrent path ---------------------------------------------------
 
 RECURRENT = ["rwkv6-1.6b", "zamba2-2.7b"]
@@ -1879,8 +2224,10 @@ def recurrent_ensemble_phase(failures, kernels, profile_dir):
     from repro_torch.serving import FlexServeServer
 
     t0 = time.perf_counter()
+    # the generate plane runs over the first member, rwkv6 (Run E)
     app = build_app(RECURRENT, full=True, num_classes=NUM_CLASSES,
-                    max_batch=8, seed=0)
+                    max_batch=8, seed=0, max_len=GEN_MAX_LEN,
+                    num_slots=SCHED_SLOTS)
     torch.cuda.synchronize()
     cfgs = [app.registry.get(f"{a}#{i}").model.config
             for i, a in enumerate(RECURRENT)]
@@ -1949,6 +2296,7 @@ def recurrent_ensemble_phase(failures, kernels, profile_dir):
         log(f"[recurrent] GET /v1/models: {st}, families {fams}")
         if st != 200 or fams != ["hybrid", "ssm"]:
             failures.append(f"/v1/models: {st} {body}")
+        http_generate_rwkv6(failures, kernels, app, server, per[0])
     finally:
         server.stop()
     kernels[3]["launches"] = counts["wkv6"]
@@ -1984,6 +2332,58 @@ def recurrent_ensemble_phase(failures, kernels, profile_dir):
         profile_calls(lambda: ens.forward(timed), Path(profile_dir),
                       "recurrent_ensemble_forward")
     return app
+
+
+def http_generate_rwkv6(failures, kernels, app, server, per_prefill):
+    """Run E: one streamed /v1/generate on the recurrent app's generate
+    plane (an InferenceEngine over rwkv6-1.6b#0's params): K4 per prefill
+    forward, nothing per tick, and the stream equal to
+    ``SchedulerService.submit_and_wait`` on the same engine."""
+    import numpy as np
+    from repro_torch.core import SamplingParams, SchedulerService
+    from repro_torch.serving import FlexServeClient
+
+    engine = app.generation.engine_for()
+    member = app.registry.get(f"{RECURRENT[0]}#0")
+    if engine.params is not member.params:
+        failures.append("Run E: the generate engine is not over rwkv6's "
+                        "params")
+    prompt = np.random.default_rng(6).integers(
+        0, member.model.config.vocab_size, 120).tolist()
+    kw = dict(temperature=0.8, top_k=50, top_p=0.9, seed=7)
+    ref_svc = SchedulerService(engine, num_slots=SCHED_SLOTS)
+    try:
+        ref = ref_svc.submit_and_wait(
+            [prompt], sampling=SamplingParams(max_new_tokens=GEN_TOKENS,
+                                              **kw)).tokens[0]
+    finally:
+        ref_svc.close()
+    warm_s = app.generation.entry_for().service.warm()
+    client = FlexServeClient(*server.address, timeout=600)
+    try:
+        ticks0, fwds0, _ = decode_counters(client)
+        counts_reset()
+        rec = timed_stream(client, prompt, kw)
+        counts = counts_read()
+        ticks1, fwds1, _ = decode_counters(client)
+    finally:
+        client.close()
+    fwds = fwds1 - fwds0
+    check_counts(failures, f"Run E, /v1/generate stream on rwkv6 ({fwds} "
+                 f"prefill forwards, {ticks1 - ticks0} ticks)", counts,
+                 scaled(per_prefill, fwds))
+    same = rec["tokens"] == ref
+    log(f"[recurrent] Run E: {RECURRENT[0]} stream of {len(rec['tokens'])} "
+        f"tokens, TTFT {1e3 * rec['ttft_s']:.1f} ms, total "
+        f"{1e3 * rec['total_s']:.1f} ms, warm {warm_s:.1f} s; vs "
+        f"SchedulerService.submit_and_wait: "
+        f"{'identical' if same else 'DIFFERENT'}")
+    if not (same and stream_ok(rec)):
+        failures.append(f"Run E: stream {rec['done']} vs reference {ref}")
+    kernels[3]["launches_http"] = counts["wkv6"]
+    kernels[3]["http_generate"] = {"ttft_ms": 1e3 * rec["ttft_s"],
+                                   "total_ms": 1e3 * rec["total_s"],
+                                   "launches": counts, "warm_s": warm_s}
 
 
 def profile_calls(fn, out_dir: Path, name: str):
@@ -2381,6 +2781,8 @@ def main(argv=None) -> int:
     app = main_path_phase(failures, kernels, args.profile)
     generate_phase(failures, kernels, app, args.profile)
     scheduler_phase(failures, kernels, app, args.profile)
+    http_generate_phase(failures, kernels, app, args.profile)
+    app.close()
     del app                     # the two yi-9b members' 35 GB
     gc.collect()
     torch.cuda.empty_cache()
@@ -2388,6 +2790,7 @@ def main(argv=None) -> int:
     engines, greedy = recurrent_engine_phase(failures, kernels, app,
                                              args.profile)
     recurrent_scheduler_phase(failures, kernels, engines, greedy)
+    app.close()
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -2,6 +2,8 @@ from repro_torch.core.batching import BucketSpec, FlexibleBatcher, pad_sequences
 from repro_torch.core.engine import (GenerationResult, InferenceEngine,
                                      PagedInferenceEngine, page_kv_bytes)
 from repro_torch.core.ensemble import Ensemble, EnsembleMember
+from repro_torch.core.faults import (ZERO_FAULT_STATS, FaultInjector,
+                                     FaultSpec, InjectedFault)
 from repro_torch.core.kv_pager import (BlockAllocator, KVPager, PagerOOM,
                                        PrefixCache, pages_for_budget)
 from repro_torch.core.memory import MemoryLedger, tree_bytes
@@ -14,7 +16,8 @@ from repro_torch.core.scheduler import (ContinuousBatchingScheduler, Request,
 
 __all__ = ["BucketSpec", "FlexibleBatcher", "pad_sequences",
            "GenerationResult", "InferenceEngine", "PagedInferenceEngine",
-           "page_kv_bytes", "BlockAllocator", "KVPager", "PagerOOM",
+           "page_kv_bytes", "ZERO_FAULT_STATS", "FaultInjector", "FaultSpec",
+           "InjectedFault", "BlockAllocator", "KVPager", "PagerOOM",
            "PrefixCache", "pages_for_budget", "Ensemble", "EnsembleMember",
            "MemoryLedger", "tree_bytes", "ModelRegistry",
            "ContinuousBatchingScheduler", "Request", "SchedulerBusy",

@@ -6,8 +6,12 @@ on one CUDA device.
 
 Without ``--full`` the members are the reduced smoke variants.  Weights
 are random, drawn on the device from ``torch.Generator(seed + i)``.  The
-flags of planes not ported yet (generate, model store, tracing, SLO,
-replicas, faults) are not accepted.
+first member whose family decodes also serves /v1/generate (blocking and
+``"stream": true``) through the continuous-batching scheduler, on the
+same params; ``--replicas N`` puts N decode schedulers behind a
+health-checked pool and ``--fault-config`` arms a chaos drill.  The flags
+of planes not ported yet (model store, tracing, SLO, profiler,
+speculative decoding) are not accepted.
 """
 
 from __future__ import annotations
@@ -15,26 +19,38 @@ from __future__ import annotations
 import argparse
 import sys
 import time
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 
 from repro_torch.configs import ASSIGNED_ARCHS, get_config, reduce_for_smoke
-from repro_torch.core import Ensemble, EnsembleMember, ModelRegistry
+from repro_torch.core import (Ensemble, EnsembleMember, InferenceEngine,
+                              ModelRegistry)
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models.build import build_model
 from repro_torch.serving import FlexServeApp, FlexServeServer
 
 
+# families the port can decode (moe, vlm and encdec come with their slices)
+DECODE_FAMILIES = ("dense", "ssm", "hybrid")
+
+
 def build_app(arch_names: Sequence[str], *, full: bool = False,
-              num_classes: int = 16, max_batch: int = 8, seed: int = 0,
-              device=None, max_queue: int = 64,
-              default_deadline_ms: Optional[float] = None) -> FlexServeApp:
+              num_classes: int = 16, max_len: int = 256, max_batch: int = 8,
+              seed: int = 0, device=None, num_slots: int = 4,
+              max_queue: int = 64,
+              generate_token_budget: Optional[int] = None,
+              default_deadline_ms: Optional[float] = None,
+              client_weights: Optional[Dict[str, float]] = None,
+              replicas: int = 1, fault_config=None) -> FlexServeApp:
     """Members ``f"{name}#{i}"`` with params from seed ``seed + i`` on
-    ``device`` (CUDA unless given; raises with no GPU and no device)."""
+    ``device`` (CUDA unless given; raises with no GPU and no device).  The
+    generate plane runs an ``InferenceEngine`` over the first member whose
+    family decodes, on that member's params (no second copy)."""
     device = resolve_device(device)
     registry = ModelRegistry()
     members = []
+    engine = None
     for i, name in enumerate(arch_names):
         cfg = get_config(name)
         if not full:
@@ -49,9 +65,16 @@ def build_app(arch_names: Sequence[str], *, full: bool = False,
             return _m.forward(p, batch)[:, -1, :_c]
 
         members.append(EnsembleMember(reg_name, apply, params, num_classes))
+        if engine is None and cfg.family in DECODE_FAMILIES:
+            engine = InferenceEngine(model, params, max_len=max_len,
+                                     max_batch=max_batch)
     ensemble = Ensemble(members, max_batch=max_batch)
-    return FlexServeApp(registry, ensemble, max_queue=max_queue,
-                        default_deadline_ms=default_deadline_ms)
+    return FlexServeApp(registry, ensemble, engine, num_slots=num_slots,
+                        max_queue=max_queue,
+                        generate_token_budget=generate_token_budget,
+                        default_deadline_ms=default_deadline_ms,
+                        client_weights=client_weights,
+                        replicas=replicas, fault_config=fault_config)
 
 
 def main(argv=None) -> int:
@@ -61,38 +84,93 @@ def main(argv=None) -> int:
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8000)
     ap.add_argument("--num-classes", type=int, default=16)
+    ap.add_argument("--max-len", type=int, default=256)
     ap.add_argument("--max-batch", type=int, default=8)
+    ap.add_argument("--num-slots", type=int, default=4,
+                    help="continuous-batching decode slots per replica")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the "
                          "kernels' plain versions)")
     ap.add_argument("--max-queue", type=int, default=64,
                     help="admission budget (rows) for the infer plane; "
                          "excess load is shed as 429 + Retry-After")
+    ap.add_argument("--generate-token-budget", type=int, default=None,
+                    help="generate-plane admission budget in TOKEN units "
+                         "(prompt + requested max_new_tokens per request; "
+                         "default 32 * max-queue)")
     ap.add_argument("--default-deadline-ms", type=float, default=None,
                     help="deadline applied to requests that don't carry "
                          "one; past-deadline requests drop as 504 before "
                          "costing a forward pass")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="generate-plane scheduler replicas behind the "
+                         "endpoint; >1 enables the health-checked replica "
+                         "pool with automatic cordon/restart and "
+                         "transparent stream failover (GET /v1/replicas, "
+                         "POST /v1/replicas/{id}/cordon|uncordon)")
+    ap.add_argument("--fault-config", default=None, metavar="FILE",
+                    help="JSON fault schedule ({'faults': [...]}) for "
+                         "deterministic chaos drills: inject raises/"
+                         "stalls/drops at named sites (engine_step, "
+                         "decode_tick, prefill, engine_install, "
+                         "socket_drop, replica_kill)")
+    ap.add_argument("--client-weight", action="append", default=None,
+                    metavar="TAG=W",
+                    help="per-client-tag fair-share weight (repeatable); "
+                         "any weight enables weighted admission quotas + "
+                         "weighted fair dequeue on the generate plane "
+                         "(unlisted tags weigh 1.0)")
     ap.add_argument("--full", action="store_true",
                     help="serve the archs at their configured size")
     args = ap.parse_args(argv)
 
+    client_weights = None
+    if args.client_weight:
+        client_weights = {}
+        for spec in args.client_weight:
+            tag, sep, w = spec.partition("=")
+            if not sep or not tag:
+                ap.error(f"--client-weight needs TAG=WEIGHT, got {spec!r}")
+            try:
+                client_weights[tag] = float(w)
+            except ValueError:
+                ap.error(f"--client-weight {spec!r}: weight must be a "
+                         f"number")
+
     t0 = time.perf_counter()
     app = build_app(args.ensemble, full=args.full,
-                    num_classes=args.num_classes, max_batch=args.max_batch,
-                    device=args.device,
-                    max_queue=args.max_queue,
-                    default_deadline_ms=args.default_deadline_ms)
+                    num_classes=args.num_classes, max_len=args.max_len,
+                    max_batch=args.max_batch, device=args.device,
+                    num_slots=args.num_slots, max_queue=args.max_queue,
+                    generate_token_budget=args.generate_token_budget,
+                    default_deadline_ms=args.default_deadline_ms,
+                    client_weights=client_weights, replicas=args.replicas,
+                    fault_config=args.fault_config)
     dev = app.ensemble.members[0].params["embed"].device
     name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
             else "cpu")
     print(f"[serve] {len(app.ensemble.members)} member(s) on {dev} "
           f"({name}) in {time.perf_counter() - t0:.1f}s")
+    if app.generation is not None:
+        # run the decode data path once (prefill buckets, sampler, tick)
+        # so the first live streams never pay for kernel builds or the
+        # allocator's growth
+        warm_s = app.generation.entry_for().service.warm()
+        print(f"[serve] decode path warm in {warm_s:.1f}s")
+    if args.replicas > 1:
+        print(f"[serve] replica pool: {args.replicas} decode replicas "
+              f"(health-checked; GET /v1/replicas)")
+    if args.fault_config:
+        print(f"[serve] chaos: fault schedule armed from "
+              f"{args.fault_config}")
     server = FlexServeServer(app, host=args.host, port=args.port)
     host, port = server.address
     print(f"[serve] FlexServe endpoint on http://{host}:{port} — "
           f"{len(app.registry)} model(s): {app.registry.names()}")
-    print("[serve] routes: GET /health /healthz /metrics /v1/models; "
-          "POST /v1/infer /v1/detect")
+    print("[serve] routes: GET /health /healthz /metrics /v1/models "
+          "/v1/replicas; POST /v1/infer /v1/detect /v1/generate "
+          "(+\"stream\": true for token streaming) "
+          "/v1/replicas/{id}/cordon|uncordon")
     try:
         server.httpd.serve_forever()
     except KeyboardInterrupt:

@@ -25,26 +25,48 @@ Every non-2xx response body is the structured error taxonomy:
 GET  /v1/models    -> {"models": [{name, version, arch, family, params,
                                    source}, ...], "ensemble_size": n}
 GET  /health       -> {"status": "ok", "requests": n}
-GET  /healthz      -> 200 {"status": "ready", "models": n, "coalescing": b}
-                      | 503 {"error": ...}
+GET  /healthz      -> 200 {"status": "ready", "models": n, "coalescing": b,
+                            "replicas": {"count", "ready", "cordoned"}}
+                      | 503 {"error": ...} (also with zero ready replicas)
 GET  /metrics      -> {"uptime_s", "started_unix", "requests", "routes",
                        "coalesce": {...}, "ensemble_compiles": {...},
-                       "admission": {...}}  (JSON only)
+                       "generate": {...}, "admission": {...},
+                       "replicas": {...}, "faults": {...}}  (JSON only)
 
-The routes of planes not ported yet (/v1/generate, /v1/engines,
-/v1/replicas, /v1/models/{name}, /v1/trace, /v1/traces, /v1/usage,
-/v1/slo, /v1/debug/profile, /metrics?format=prometheus) answer 501 with
-code "not_ported".
+POST /v1/generate  {"prompts": [[...], ...], "max_new_tokens": 16,
+                    "temperature": 0.0, "top_k": 0, "top_p": 1.0,
+                    "seed": null, "stop": [], "eos_id": null}
+    -> {"outputs": [[...], ...], "steps": n, "prompt_lengths": [...],
+        "finish_reasons": ["length" | "eos" | "stop" | ...]}
+    with "stream": true (exactly one prompt): chunked
+    application/x-ndjson, one event per chunk:
+        {"event": "token", "token": t, "index": i}
+        {"event": "done", "tokens": [...], "finish_reason": ...,
+         "token_count": n, "prompt_length": ..., "ttft_ms": ...,
+         "total_ms": ..., "engine": "name@vN", "sampling": {...},
+         "speculation": {...}, "trace_id": ...}
+    or a terminal {"event": "error", "error": ...}.  The generate plane is
+    budgeted in tokens (prompt + max_new_tokens).
+
+GET  /v1/replicas  -> {"enabled", "count", "ready", ..., "per_replica"}
+POST /v1/replicas/{id}/cordon {"reason": ...} | .../uncordon
+                   -> the replica's state (409 without a replica pool)
+
+The routes of planes not ported yet (/v1/engines, /v1/models/{name},
+/v1/trace, /v1/traces, /v1/usage, /v1/slo, /v1/debug/profile,
+/metrics?format=prometheus) answer 501 with code "not_ported".
 """
 
 from __future__ import annotations
 
 import json
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Iterator, Optional
 
 import numpy as np
 
 import torch
+
+from repro_torch.core.sampling import SamplingError, SamplingParams
 
 
 # status -> (default error code, retryable) for the structured error
@@ -110,6 +132,58 @@ def error_body(err: ApiError,
     }}
 
 
+class JsonResponse:
+    """A JSON payload plus extra response headers and a status other than
+    200.  Route handlers that return a bare dict get the defaults."""
+
+    def __init__(self, payload: Dict[str, Any],
+                 headers: Optional[Dict[str, str]] = None,
+                 status: int = 200):
+        self.payload = payload
+        self.headers = headers or {}
+        self.status = status
+
+
+class PlainTextResponse:
+    """A non-JSON body."""
+
+    def __init__(self, text: str,
+                 content_type: str = "text/plain; version=0.0.4; "
+                                     "charset=utf-8",
+                 status: int = 200):
+        self.text = text
+        self.content_type = content_type
+        self.status = status
+
+
+class StreamingResponse:
+    """A route handler's signal to the HTTP layer: write ``events`` as a
+    chunked-transfer NDJSON body (one event per chunk) instead of a single
+    JSON document.  ``on_disconnect`` is invoked if the client goes away
+    mid-stream (cancels the underlying request)."""
+
+    def __init__(self, events: Iterator[Dict[str, Any]],
+                 on_disconnect: Optional[Callable[[], Any]] = None,
+                 headers: Optional[Dict[str, str]] = None):
+        self.events = events
+        self.headers: Dict[str, str] = headers or {}
+        self._on_disconnect = on_disconnect
+
+    def disconnect(self) -> None:
+        if self._on_disconnect is not None:
+            self._on_disconnect()
+
+
+def parse_sampling(req: Dict[str, Any], *,
+                   default_max_new_tokens: int = 16) -> SamplingParams:
+    """Per-request sampling params from a /v1/generate body (400 on bad)."""
+    try:
+        return SamplingParams.from_request(
+            req, default_max_new_tokens=default_max_new_tokens)
+    except SamplingError as e:
+        raise ApiError(400, str(e)) from None
+
+
 def parse_request(body: bytes) -> Dict[str, Any]:
     try:
         obj = json.loads(body or b"{}")
@@ -118,6 +192,16 @@ def parse_request(body: bytes) -> Dict[str, Any]:
     if not isinstance(obj, dict):
         raise ApiError(400, "request body must be a JSON object")
     return obj
+
+
+def opt_int(req: Dict[str, Any], key: str, default: int) -> int:
+    """Integer field with a 400 (not a 500) on malformed values."""
+    val = req.get(key, default)
+    try:
+        return int(val)
+    except (TypeError, ValueError):
+        raise ApiError(400, f"{key!r} must be an integer, "
+                            f"got {val!r}") from None
 
 
 def to_jsonable(obj):

@@ -61,7 +61,9 @@ def test_import_guard_no_jax_no_repro():
             " repro_torch.core.kv_pager, repro_torch.models.paged,"
             " repro_torch.models.rwkv6, repro_torch.models.hybrid,"
             " repro_torch.kernels.rwkv6_wkv.ops,"
-            " repro_torch.kernels.mamba2_ssd.ops;"
+            " repro_torch.kernels.mamba2_ssd.ops, repro_torch.core.faults,"
+            " repro_torch.serving.generate, repro_torch.serving.replica,"
+            " repro_torch.serving.client;"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'));"
             "print(bad); sys.exit(1 if bad else 0)")

@@ -1,9 +1,10 @@
 """The port's REST server against the JAX package's, on the CPU.
 
 Both servers hold a two-member reduced yi-9b ensemble with the same
-weights (JAX init, carried over with ``params.from_jax``) and get the same
-requests in the same order; their bodies on /health, /healthz,
-/v1/models, /v1/infer and /v1/detect must be equal.  The token batches are
+weights (JAX init, carried over with ``params.from_jax``) and a generate
+engine over member 0, and get the same requests in the same order; their
+bodies on /health, /healthz, /v1/models, /v1/infer, /v1/detect,
+/v1/generate and /v1/replicas must be equal.  The token batches are
 fixed and their decisions sit far from any tie (checked below), so
 summation order cannot flip a class.
 """
@@ -18,6 +19,7 @@ import torch
 from conftest import smoke_model
 from repro.core import Ensemble as JEnsemble
 from repro.core import EnsembleMember as JMember
+from repro.core import InferenceEngine as JEngine
 from repro.core import ModelRegistry as JRegistry
 from repro.serving import FlexServeApp as JApp
 from repro.serving import FlexServeClient
@@ -25,7 +27,9 @@ from repro.serving import FlexServeServer as JServer
 from repro.serving.client import HTTPStatusError
 from repro.training.checkpoint import _flatten
 from repro_torch.configs import get_config, reduce_for_smoke
-from repro_torch.core import Ensemble, EnsembleMember, ModelRegistry
+from repro_torch.core import (Ensemble, EnsembleMember, InferenceEngine,
+                              ModelRegistry)
+from repro_torch.launch import serve
 from repro_torch.launch.serve import build_app, main
 from repro_torch.models import build_model
 from repro_torch.params import from_jax
@@ -47,8 +51,11 @@ def _apps():
                           _m.forward(p, b)[:, -1, :C], jp, C))
         tm.append(EnsembleMember(f"yi#{i}", lambda p, b, _m=tmodel:
                                  _m.forward(p, b)[:, -1, :C], tp, C))
-    japp = JApp(jreg, JEnsemble(jm, max_batch=8), trace=False)
-    tapp = FlexServeApp(treg, Ensemble(tm, max_batch=8))
+    # the generate plane over member 0's params, as build_app does
+    jeng = JEngine(jmodel, jm[0].params, max_len=64, max_batch=8)
+    teng = InferenceEngine(tmodel, tm[0].params, max_len=64, max_batch=8)
+    japp = JApp(jreg, JEnsemble(jm, max_batch=8), jeng, trace=False)
+    tapp = FlexServeApp(treg, Ensemble(tm, max_batch=8), teng)
     return japp, tapp
 
 
@@ -86,7 +93,8 @@ def test_bodies_equal_the_jax_server(clients):
 def test_decisions_are_far_from_ties():
     """The premise of exact body equality: every member's top-2 class
     margin and detection margin on TOKENS exceed 1e-3."""
-    _, tapp = _apps()
+    japp, tapp = _apps()
+    japp.close()
     for toks in TOKENS:
         probs = tapp.ensemble.probs({"tokens": np.asarray(toks, np.int32)})
         for p in probs.values():
@@ -111,9 +119,33 @@ def test_concurrent_infers_coalesce(clients):
                       "admission"}
 
 
+def _stable(body):
+    """A body with the replica summary's wall-clock reading masked."""
+    for rep in body.get("per_replica", {}).values():
+        rep["last_tick_ms"] = None
+    return body
+
+
+@pytest.mark.parametrize("method,path,body", [
+    ("POST", "/v1/generate", {"prompts": [[1, 2, 3], [7, 8]],
+                              "max_new_tokens": 4}),
+    ("POST", "/v1/generate", {"prompts": [[5, 6, 7]], "max_new_tokens": 5,
+                              "temperature": 0.8, "top_k": 50,
+                              "top_p": 0.9, "seed": 42}),
+    ("GET", "/v1/replicas", None)])
+def test_generate_plane_bodies_equal_the_jax_server(clients, method, path,
+                                                    body):
+    """The routes that answered 501 before the generate plane was ported
+    now answer as the JAX server does."""
+    jc, tc = clients
+    want = _stable(jc._request(method, path, body))
+    got = _stable(tc._request(method, path, body))
+    assert got == want
+
+
 @pytest.mark.parametrize("method,path", [
-    ("POST", "/v1/generate"), ("GET", "/v1/engines"),
-    ("GET", "/v1/replicas"), ("GET", "/v1/models/yi%230"),
+    ("POST", "/v1/engines/x/load"), ("GET", "/v1/engines"),
+    ("GET", "/v1/models/yi%230"),
     ("GET", "/v1/traces"), ("GET", "/v1/usage"), ("GET", "/v1/slo"),
     ("POST", "/v1/debug/profile")])
 def test_not_ported_routes_answer_structured_501(clients, method, path):
@@ -149,6 +181,8 @@ def test_build_app_needs_a_device_without_a_gpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build_app(["yi-9b"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["--ensemble", "yi-9b", "--num-slots", "2"])
 
 
 def test_build_app_on_cpu_serves():
@@ -166,7 +200,45 @@ def test_build_app_on_cpu_serves():
 
 
 def test_launcher_rejects_flags_of_planes_not_ported():
-    for flag in (["--num-slots", "4"], ["--model-store", "x"],
-                 ["--replicas", "2"], ["--draft-model", "yi-9b"]):
+    for flag in (["--model-store", "x"], ["--draft-model", "yi-9b"],
+                 ["--no-trace"], ["--slo-config", "x.json"]):
         with pytest.raises(SystemExit):
             main(flag)
+
+
+def test_launcher_generate_flags_reach_build_app(monkeypatch):
+    seen = {}
+
+    def fake_build_app(names, **kw):
+        seen.update(kw, names=names)
+        raise KeyboardInterrupt
+
+    monkeypatch.setattr(serve, "build_app", fake_build_app)
+    with pytest.raises(KeyboardInterrupt):
+        main(["--ensemble", "yi-9b", "--device", "cpu", "--max-len", "96",
+              "--num-slots", "6", "--replicas", "2", "--fault-config",
+              "f.json", "--generate-token-budget", "500",
+              "--client-weight", "gold=3", "--client-weight", "bronze=1"])
+    assert seen["names"] == ["yi-9b"]
+    assert (seen["max_len"], seen["num_slots"], seen["replicas"],
+            seen["fault_config"], seen["generate_token_budget"]) == \
+        (96, 6, 2, "f.json", 500)
+    assert seen["client_weights"] == {"gold": 3.0, "bronze": 1.0}
+    with pytest.raises(SystemExit):
+        main(["--client-weight", "gold"])
+
+
+def test_build_app_generate_plane_over_member_0_on_cpu():
+    app = build_app(["yi-9b", "yi-9b"], device="cpu", num_classes=4,
+                    max_batch=4, max_len=64, num_slots=2, seed=3)
+    try:
+        eng = app.generation.engine_for()
+        member = app.registry.get("yi-9b#0")
+        assert eng.params is member.params         # no second copy
+        assert (eng.max_len, app.generation.num_slots) == (64, 2)
+        resp = app.handle("POST", "/v1/generate",
+                          b'{"prompts": [[1, 2, 3]], "max_new_tokens": 3}')
+        assert resp["finish_reasons"] == ["length"]
+        assert len(resp["outputs"][0]) == 3
+    finally:
+        app.close()
