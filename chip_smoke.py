@@ -62,8 +62,10 @@ Phases (any failure exits non-zero and prints no final result line):
    /v1/detect at batch sizes 1, 3 and 8, some concurrent.  Every response
    must be 200 and have the paper schema; the launch counts, zeroed just
    before and read just after, must be members x layers x forwards for K1
-   and 0 for K2, and /v1/traces (not ported) answers 501.  One batch's
-   member logits are then held against the plain path on the card.
+   and 0 for K2, and the flight recorder's index (/v1/traces; the app
+   traces every request, the default) must list every request by its
+   X-Request-Id.  One batch's member logits are then held against the
+   plain path on the card.
 5. generate path: ``InferenceEngine`` over member yi-9b#0's params (full
    width and depth, bf16, max_len 1024, max_batch 8).  A greedy
    ``generate`` of 8 prompts of 17-300 tokens, 32 new tokens each, must
@@ -109,7 +111,10 @@ Phases (any failure exits non-zero and prints no final result line):
    slots: every one finishes with 32 tokens and "length", K1/K2 as in Run
    A, num_slots x 4 bytes per tick; TTFT p50/p99, time per output token
    p50/p99 and tokens/s as the client sees them, beside the card's name
-   and power limit.  Run C: a ``FlexServeApp`` over a
+   and power limit, and from each stream's trace (found by the trace id
+   its terminal event carries) p50/p99 of the TTFT's parts: http_parse,
+   admission to scheduler_queued, the wait until prefill, and prefill to
+   first_token.  Run C: a ``FlexServeApp`` over a
    ``PagedInferenceEngine`` of the same member (page size 16): Run A's
    requests streamed must equal Run A's streams, K3 48 x ticks.  Run D:
    ``replicas=2`` and a fault raising once at replica 0's 8th
@@ -150,6 +155,43 @@ Phases (any failure exits non-zero and prints no final result line):
    must equal ``SchedulerService.submit_and_wait`` on the same engine, with
    K4 24 per prefill forward and nothing per tick.
 
+8. control plane, after the recurrent members are freed: yi-9b at full
+   width (bf16, seeded) with 8 layers, the depth cut that the manifest's
+   own ``num_layers`` sets (``STORE_LAYERS``: the JAX checkpoint format is
+   one msgpack map whose ``bin`` holds at most 2**32 - 1 bytes, and the
+   stacked w_gate at 48 layers is 4.33 GB; phases 4-6b drive 48), in a
+   ``ModelStore`` under a temporary directory removed at the end
+   (uncompressed).  A: the port's store publishes yi-9b#0 and yi-9b#1 v1
+   (seeds 0, 1); write, verify and load GB/s are printed.  B: /healthz is
+   503 on a manager-backed app before its first load and 200 after; then
+   ``build_store_app(["yi-9b", "yi-9b"], store, full=True, max_len=1024,
+   num_slots=8)`` finds the store seeded and serves the latest versions:
+   phase 4's requests (K1 2 x 8 x forwards, K2 0, the trace index) and
+   one batch's logits against the plain path.  C: yi-9b#0 v2 (seed 2) is
+   published to the running store and loaded (warm) and rolled back while
+   a client sends an 8-row /v1/infer every 100 ms: every response 200,
+   its trace (by X-Request-Id) names the version that served it, and its
+   body equals that version's reference forward; unloading v2 returns
+   ``torch.cuda.memory_allocated`` to within 5% of its value before the
+   load; the load-to-serving latency and the largest response latency are
+   printed.  D: the engine plane loads v2 while two streams (32 tokens)
+   are in flight: they finish with "length" equal to v1's
+   ``SchedulerService.submit_and_wait`` bit for bit, a stream after the
+   flip equals v2's, K1 8 x prefill forwards and K2 8 x ticks (the old
+   and the new scheduler's); then the engine rolls back.  E: v2 is loaded
+   under alias "canary" on both planes with an SLO policy (the
+   ``--slo-config`` format), requests target both aliases and each trace
+   names the alias's version; ``SLOController.evaluate()`` (the timer is
+   stopped) promotes the healthy canary, /v1/slo shows the decision and
+   /v1/traces lists it as an slo trace.  F: the traces of one /v1/infer
+   (http_parse, coalesce_queue, coalesce_forward) and one /v1/generate
+   (scheduler_queued, prefill, first_token, the decode counters), each
+   with its serving version; /metrics?format=prometheus parses and has a
+   sample for every numeric leaf of /metrics.  G: ``POST
+   /v1/debug/profile {"duration_ms": 1000, "mode": "torch"}`` during a
+   generate run: its kernel table names K1's and K2's kernels with
+   device time; the five largest are printed.
+
 The line before the nvidia-smi line is ``{"kernels": [...]}`` (K1-K5);
 the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -162,11 +204,13 @@ import dataclasses
 import gc
 import http.client
 import json
+import os
 import re
 import subprocess
 import sys
 import threading
 import time
+import urllib.parse
 from contextlib import nullcontext
 from pathlib import Path
 
@@ -1122,12 +1166,18 @@ class Client:
         self.host, self.port = host, port
 
     def call(self, method, path, body=None):
+        status, payload, _ = self.call_id(method, path, body)
+        return status, payload
+
+    def call_id(self, method, path, body=None):
+        """(status, JSON body, the response's X-Request-Id or None)."""
         conn = http.client.HTTPConnection(self.host, self.port, timeout=600)
         try:
             data = json.dumps(body).encode() if body is not None else None
             conn.request(method, path, body=data)
             resp = conn.getresponse()
-            return resp.status, json.loads(resp.read() or b"{}")
+            return (resp.status, json.loads(resp.read() or b"{}"),
+                    resp.getheader("X-Request-Id"))
         finally:
             conn.close()
 
@@ -1150,9 +1200,6 @@ def check_schema(status, body, n, kind):
 def main_path_phase(failures, kernels, profile_dir):
     import numpy as np
     import torch
-    from repro_torch.kernels.decode_attention import (decode_attention,
-                                                      paged_decode_attention)
-    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.launch.serve import build_app
     from repro_torch.serving import FlexServeServer
 
@@ -1174,12 +1221,46 @@ def main_path_phase(failures, kernels, profile_dir):
     log("[main] " + ledger.report().replace("\n", "\n[main] "))
 
     server = FlexServeServer(app).start()
-    host, port = server.address
-    client = Client(host, port)
+    client = Client(*server.address)
+    try:
+        requests, launches = drive_ensemble(failures, client, cfg.vocab_size,
+                                            layers, "main")
+        kernels[0]["launches"] = launches
+        for name in ("/health", "/healthz", "/v1/models"):
+            st, body = client.call("GET", name)
+            if st != 200:
+                failures.append(f"GET {name}: {st} {body}")
+    finally:
+        stop_listener(server)
+
+    # one batch's member logits: kernel path vs plain path, on the card
+    ens = app.ensemble
+    check_member_logits(failures, ens, requests[1][1], "main")
+    timed = {"tokens": np.asarray(requests[2][1], np.int32)}
+    fwd_ms = host_time_ms(lambda: ens.forward(timed))
+    with plain_kernels():
+        fwd_plain_ms = host_time_ms(lambda: ens.forward(timed))
+    log(f"[main] one ensemble forward (2 members, B=8, S=256): kernel path "
+        f"{fwd_ms:.2f} ms, plain attention path {fwd_plain_ms:.2f} ms "
+        f"(host clock around a synchronised forward, median of 5)")
+    kernels[0]["ensemble_forward_ms"] = fwd_ms
+    kernels[0]["ensemble_forward_plain_ms"] = fwd_plain_ms
+    if profile_dir:
+        profile_forward(ens, timed, Path(profile_dir))
+    return app
+
+
+def drive_ensemble(failures, client, vocab, layers, tag):
+    """/v1/infer and /v1/detect at 1, 3 and 8 rows, some concurrent, on a
+    two-member yi-9b ensemble: every response 200 with the paper schema,
+    K1 members x layers x coalesced forwards and K2/K3 0 (counts zeroed
+    just before, read just after), and the trace index lists every
+    request by its X-Request-Id.  Returns (requests, K1 launches)."""
+    import numpy as np
     rng = np.random.default_rng(0)
 
     def toks(n, s):
-        return rng.integers(0, cfg.vocab_size, (n, s)).tolist()
+        return rng.integers(0, vocab, (n, s)).tolist()
 
     requests = [("infer", toks(1, 32)), ("infer", toks(3, 64)),
                 ("infer", toks(8, 256)), ("detect", toks(3, 64)),
@@ -1192,83 +1273,76 @@ def main_path_phase(failures, kernels, profile_dir):
         if kind == "detect":
             body.update(positive_class=1, threshold=0.05, policy="or")
         t = time.perf_counter()
-        status, resp = client.call("POST", f"/v1/{kind}", body)
-        return kind, len(tokens), status, resp, time.perf_counter() - t
+        status, resp, rid = client.call_id("POST", f"/v1/{kind}", body)
+        return kind, len(tokens), status, resp, time.perf_counter() - t, rid
 
-    try:
-        # warm: the first forward per shape grows the allocator
-        status, body = client.call("POST", "/v1/infer",
-                                   {"inputs": {"tokens": toks(8, 256)}})
-        check_schema(status, body, 8, "infer")
-        status, m0 = client.call("GET", "/metrics")
-        batches0 = m0["coalesce"]["batches_formed"]
-        flash_attention.launches = 0            # the ensemble path's run
-        decode_attention.launches = 0
-        paged_decode_attention.launches = 0
-        results = [send(kind, t) for kind, t in requests]
-        with concurrent.futures.ThreadPoolExecutor(len(concurrent_reqs)) as ex:
-            futs = [ex.submit(send, kind, t) for kind, t in concurrent_reqs]
-            results += [f.result() for f in futs]
-        torch.cuda.synchronize()
-        launches = flash_attention.launches
-        decode_launches = (decode_attention.launches
-                           + paged_decode_attention.launches)
-        status, m1 = client.call("GET", "/metrics")
-        forwards = m1["coalesce"]["batches_formed"] - batches0
-        for kind, n, st, resp, dt in results:
-            check_schema(st, resp, n, kind)
-            log(f"[main] POST /v1/{kind} rows={n}: {st} in "
-                f"{1e3 * dt:.1f} ms -> {json.dumps(resp)[:120]}")
-        expected = MEMBERS * layers * forwards
-        log(f"[main] {len(results)} requests, {forwards} coalesced "
-            f"forwards; flash_attention launches {launches} (expected "
-            f"members x layers x forwards = {expected})")
-        if launches != expected or launches == 0:
-            failures.append(f"flash_attention launches {launches} != "
-                            f"{expected}")
-        if decode_launches != 0:
-            failures.append(f"decode_attention/paged_decode_attention "
-                            f"launched {decode_launches} times on the "
-                            f"ensemble path")
-        kernels[0]["launches"] = launches
-        for name in ("/health", "/healthz", "/v1/models"):
-            st, body = client.call("GET", name)
-            if st != 200:
-                failures.append(f"GET {name}: {st} {body}")
-        st, body = client.call("GET", "/v1/traces")
-        if st != 501 or body["error"]["code"] != "not_ported":
-            failures.append(f"/v1/traces: {st} {body}")
-    finally:
-        stop_listener(server)
+    # warm: the first forward per shape grows the allocator
+    status, body = client.call("POST", "/v1/infer",
+                               {"inputs": {"tokens": toks(8, 256)}})
+    check_schema(status, body, 8, "infer")
+    status, m0 = client.call("GET", "/metrics")
+    batches0 = m0["coalesce"]["batches_formed"]
+    counts_reset()                          # the ensemble path's run
+    results = [send(kind, t) for kind, t in requests]
+    with concurrent.futures.ThreadPoolExecutor(len(concurrent_reqs)) as ex:
+        futs = [ex.submit(send, kind, t) for kind, t in concurrent_reqs]
+        results += [f.result() for f in futs]
+    counts = counts_read()
+    status, m1 = client.call("GET", "/metrics")
+    forwards = m1["coalesce"]["batches_formed"] - batches0
+    for kind, n, st, resp, dt, _ in results:
+        check_schema(st, resp, n, kind)
+        log(f"[{tag}] POST /v1/{kind} rows={n}: {st} in "
+            f"{1e3 * dt:.1f} ms -> {json.dumps(resp)[:120]}")
+    launches = counts["flash_attention"]
+    expected = MEMBERS * layers * forwards
+    log(f"[{tag}] {len(results)} requests, {forwards} coalesced "
+        f"forwards; flash_attention launches {launches} (expected "
+        f"members x layers x forwards = {expected})")
+    if launches != expected or launches == 0:
+        failures.append(f"{tag}: flash_attention launches {launches} != "
+                        f"{expected}")
+    other = sum(v for k, v in counts.items() if k != "flash_attention")
+    if other:
+        failures.append(f"{tag}: {counts} on the ensemble path (only K1 "
+                        f"runs there)")
+    # the flight recorder lists every request of the run
+    st, idx = client.call("GET", f"/v1/traces?limit={4 * len(results)}")
+    listed = {r["trace_id"]: r for r in idx.get("recent", [])}
+    ids = [rid for *_, rid in results]
+    missing = [rid for rid in ids if rid is None or rid not in listed]
+    ok = (st == 200 and not missing and all(
+        listed[rid]["status"] == 200 and listed[rid]["plane"] == kind
+        for (kind, *_, rid) in results))
+    log(f"[{tag}] GET /v1/traces: {st}, lists {len(ids) - len(missing)} of "
+        f"the run's {len(ids)} requests by X-Request-Id "
+        f"({'ok' if ok else 'FAIL'})")
+    if not ok:
+        failures.append(f"{tag}: /v1/traces {st} misses {missing}")
+    return requests, launches
 
-    # one batch's member logits: kernel path vs plain path, on the card
-    ens = app.ensemble
-    batch = {"tokens": np.asarray(requests[1][1], np.int32)}
+
+def check_member_logits(failures, ens, tokens, tag):
+    """One batch's member logits: kernel path vs plain path, on the card,
+    within LOGITS_TOL."""
+    import numpy as np
+    import torch
+    batch = {"tokens": np.asarray(tokens, np.int32)}
     kern = ens.forward(batch)
-    timed = {"tokens": np.asarray(requests[2][1], np.int32)}
-    fwd_ms = host_time_ms(lambda: ens.forward(timed))
     with plain_kernels():
         plain = ens.forward(batch)
-        fwd_plain_ms = host_time_ms(lambda: ens.forward(timed))
     for name in kern:
         a, b = kern[name].float(), plain[name].float()
         err = float((a - b).abs().max())
-        ok = (tuple(a.shape) == (3, NUM_CLASSES)
+        ok = (tuple(a.shape) == (len(tokens), NUM_CLASSES)
               and bool(torch.isfinite(a).all())
               and torch.allclose(a, b, **LOGITS_TOL))
-        log(f"[main] member {name} logits {tuple(a.shape)} vs plain path: "
+        log(f"[{tag}] member {name} logits {tuple(a.shape)} vs plain path: "
             f"max_abs_err {err:.3e}, max |logit| {float(b.abs().max()):.3f} "
             f"({'ok' if ok else 'FAIL'})")
         if not ok:
-            failures.append(f"member {name} logits vs plain: err {err}")
-    log(f"[main] one ensemble forward (2 members, B=8, S=256): kernel path "
-        f"{fwd_ms:.2f} ms, plain attention path {fwd_plain_ms:.2f} ms "
-        f"(host clock around a synchronised forward, median of 5)")
-    kernels[0]["ensemble_forward_ms"] = fwd_ms
-    kernels[0]["ensemble_forward_plain_ms"] = fwd_plain_ms
-    if profile_dir:
-        profile_forward(ens, timed, Path(profile_dir))
-    return app
+            failures.append(f"{tag}: member {name} logits vs plain: err "
+                            f"{err}")
 
 
 def stop_listener(server) -> None:
@@ -1879,9 +1953,10 @@ def http_requests(vocab):
             (r.integers(0, vocab, 120).tolist(), dict(samp, seed=42))]
 
 
-def timed_stream(client, prompt, kw):
+def timed_stream(client, prompt, kw, started=None):
     """One streamed /v1/generate as the client sees it: tokens, the
-    terminal event, TTFT and total seconds from the request's send."""
+    terminal event, TTFT and total seconds from the request's send.
+    ``started`` (an Event) is set at the first token (or the end)."""
     t0 = time.perf_counter()
     first, toks, last = None, [], None
     for ev in client.generate_stream(prompt, max_new_tokens=GEN_TOKENS,
@@ -1889,10 +1964,14 @@ def timed_stream(client, prompt, kw):
         if ev["event"] == "token":
             if first is None:
                 first = time.perf_counter()
+                if started is not None:
+                    started.set()
             toks.append(ev["token"])
         else:
             last = ev
     t1 = time.perf_counter()
+    if started is not None:
+        started.set()
     return {"tokens": toks, "done": last, "t0": t0, "t1": t1,
             "ttft_s": (first or t1) - t0, "total_s": t1 - t0}
 
@@ -1923,6 +2002,49 @@ def check_http_counts(failures, where, counts, layers, fwds, ticks, paged):
         f"{layers} per tick) {'ok' if ok else 'FAIL'}")
     if not ok:
         failures.append(f"http {where}: launches {counts}, expected {want}")
+
+
+# the TTFT parts read off each stream's trace (ms): the HTTP parse, the
+# handler from admission to the scheduler's queue, the wait there until
+# the stream's prefill forward starts, and that forward to its first token
+TTFT_PARTS = ("http_parse", "admitted_to_queued", "queued_to_prefill",
+              "prefill_to_first_token")
+
+
+def trace_parts(snap):
+    """One generate trace's TTFT parts (ms) and its own TTFT."""
+    spans = {s["name"]: s for s in snap["spans"]}
+    events = {}
+    for e in snap["events"]:
+        events.setdefault(e["name"], e["t_ms"])
+    prefill = spans["prefill"]["start_ms"]
+    return {"http_parse": spans["http_parse"]["duration_ms"],
+            "admitted_to_queued": events["scheduler_queued"]
+            - events["admitted"],
+            "queued_to_prefill": prefill - events["scheduler_queued"],
+            "prefill_to_first_token": events["first_token"] - prefill,
+            "ttft_trace": events["first_token"]}
+
+
+def ttft_breakdown(failures, client, recs):
+    """p50/p99 of the TTFT parts over the streams' traces, found by the
+    trace ids their terminal events carry."""
+    rows = []
+    for rec in recs:
+        tid = (rec["done"] or {}).get("trace_id")
+        try:
+            rows.append(trace_parts(client.trace(tid)))
+        except (KeyError, TypeError, RuntimeError) as e:
+            failures.append(f"trace of stream {tid}: {e!r}")
+    out = {}
+    for part in TTFT_PARTS + ("ttft_trace",):
+        vals = [r[part] for r in rows]
+        if vals:
+            out[part] = {"p50": pctl(vals, 0.5), "p99": pctl(vals, 0.99)}
+    log("[http] Run B TTFT parts from the streams' traces (p50 / p99 ms): "
+        + ", ".join(f"{k} {v['p50']:.1f} / {v['p99']:.1f}"
+                    for k, v in out.items()))
+    return out
 
 
 def teacher_logits(engine, prefix, feed, steps):
@@ -2058,6 +2180,7 @@ def http_generate_phase(failures, kernels, app, profile_dir):
                  "ticks": ticks, "prefill_forwards": fwds,
                  "transfer_bytes_per_tick": (xfer1 - xfer0) / max(ticks, 1),
                  "launches": counts}
+        run_b["ttft_parts_ms"] = ttft_breakdown(failures, client, recs)
         info["run_b"] = run_b
         log(f"[http] Run B on {smi}: {len(recs)} streams, {ntok} tokens in "
             f"{wall:.2f} s = {run_b['tokens_per_s']:.1f} tokens/s; TTFT p50 "
@@ -2707,6 +2830,514 @@ def recurrent_scheduler_phase(failures, kernels, engines, greedy):
     torch.cuda.empty_cache()
 
 
+# --- phase 8: control plane ----------------------------------------------------
+
+# The store path's depth cut: one msgpack ``bin`` holds at most 2**32 - 1
+# bytes, and yi-9b's stacked w_gate at 48 layers is 4,328,521,728, so the
+# JAX checkpoint format cannot hold full depth; the manifest's own
+# ``num_layers`` sets 8 (3.82 GB a version).  Phases 4-6b drive 48.
+STORE_LAYERS = 8
+SWAP_PERIOD_S = 0.1         # phase 8 C: the open loop's send interval
+SLO_POLICY = {"name": "gen-canary", "alias": "canary",
+              "promote_to": "stable", "plane": "generate",
+              "success_rate": 0.9, "max_deadline_miss_rate": 0.2,
+              "fast_window_s": 30.0, "slow_window_s": 120.0,
+              "burn_threshold": 2.0, "min_requests": 4,
+              "qualify_window_s": 60.0}
+
+
+def store_meta(seed):
+    """A version's manifest fields, as the launcher writes them, plus the
+    depth cut."""
+    return {"reduced": False, "num_layers": STORE_LAYERS,
+            "num_classes": NUM_CLASSES, "init_seed": seed,
+            "max_len": GEN_MAX_LEN, "max_batch": GEN_BATCH}
+
+
+def publish_version(store, name, model, seed):
+    """Seeded weights on the card -> the store; (version, seconds, bytes)."""
+    import torch
+    params = model.init(seed, "cuda")
+    torch.cuda.synchronize()
+    nbytes = sum(v.numel() * v.element_size() for v in params.values())
+    t = time.perf_counter()
+    v = store.publish(name, params, config=ARCH, source=model.config.source,
+                      meta=store_meta(seed))
+    dt = time.perf_counter() - t
+    del params
+    torch.cuda.empty_cache()
+    log(f"[store] published {name} v{v}: {nbytes / 1e9:.3f} GB in "
+        f"{dt:.2f} s = {nbytes / 1e9 / dt:.2f} GB/s written (device -> "
+        f"host, file, sha256 in one pass)")
+    return v, dt, nbytes
+
+
+def version_label(members):
+    return ",".join(f"{n}@v{v}" for n, v in sorted(members.items()))
+
+
+def reference_ensemble(mgr, members):
+    """An Ensemble over the manager's registered tensors of ``members``
+    ({name: version}), as the manager builds an alias's."""
+    from repro_torch.core import Ensemble, EnsembleMember
+    out = []
+    for name in sorted(members):
+        rm = mgr.registry.get(name, members[name])
+        out.append(EnsembleMember(name, rm.meta["apply"], rm.params,
+                                  rm.meta["num_classes"]))
+    return Ensemble(out, max_batch=GEN_BATCH)
+
+
+def min_margin(ens, batch):
+    """The smallest top-two class-probability gap of any member or of the
+    soft vote over the batch's rows (how near the decisions sit to a
+    tie)."""
+    import numpy as np
+    stacked = np.stack(list(ens.probs(batch).values()))
+    gaps = [np.diff(np.sort(p, -1)[:, -2:], axis=-1).min()
+            for p in list(stacked) + [stacked.mean(0)]]
+    return float(min(gaps))
+
+
+def open_loop(send, period_s, stop):
+    """Send on a fixed cadence, independent of completions, until
+    ``stop`` is set; returns the futures' results."""
+    futs = []
+    with concurrent.futures.ThreadPoolExecutor(16) as ex:
+        while not stop.is_set():
+            futs.append(ex.submit(send))
+            time.sleep(period_s)
+    return [f.result() for f in futs]
+
+
+def parse_prometheus(text):
+    """Text exposition -> {sample name: value}; raises on a bad line."""
+    samples = {}
+    for line in text.splitlines():
+        if not line or line.startswith("# TYPE ") \
+                or line.startswith("# EXEMPLAR "):
+            continue
+        metric, _, value = line.rpartition(" ")
+        if not metric or line.startswith("#"):
+            raise ValueError(f"bad exposition line {line!r}")
+        samples[metric.partition("{")[0]] = float(value)
+    return samples
+
+
+def json_leaves(node, name):
+    """Sample names a /metrics document must render: one per numeric leaf,
+    a histogram family's ``_count`` for each histogram."""
+    from repro_torch.serving.telemetry import _sanitize
+    if isinstance(node, dict):
+        if {"le", "counts", "count", "sum"} <= set(node):
+            return {f"{name}_count"}
+        out = set()
+        for k, v in node.items():
+            out |= json_leaves(v, f"{name}_{_sanitize(k)}")
+        return out
+    return {name} if isinstance(node, (int, float)) else set()
+
+
+def control_plane_phase(failures, kernels, profile_dir):
+    """Phase 8: the control plane on store-loaded yi-9b versions at full
+    width (8 layers, the manifest's depth cut)."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import SamplingParams, SchedulerService
+    from repro_torch.launch.serve import build_store_app
+    from repro_torch.models.build import build_model
+    from repro_torch.serving import (FlexServeApp, FlexServeClient,
+                                     FlexServeServer, ModelManager,
+                                     ModelStore)
+    from repro_torch.training import checkpoint
+
+    t_phase = time.perf_counter()
+    smi = nvidia_smi_line()
+    info = {"card": smi, "layers": STORE_LAYERS}
+    kernels[0]["control_plane"] = info
+    root = tempfile.mkdtemp(prefix="flexserve-store-")
+    store_dir = os.path.join(root, "store")
+    free = shutil.disk_usage(root).free
+    cfg = dataclasses.replace(get_config(ARCH), num_layers=STORE_LAYERS)
+    model = build_model(cfg)
+    nbytes = sum(v.numel() * v.element_size() for v in model.like().values())
+    log(f"[store] yi-9b at full width, {STORE_LAYERS} layers (the JAX "
+        f"format's 4 GiB leaf limit: see STORE_LAYERS): {nbytes / 1e9:.3f} "
+        f"GB a version; store under {root} ({free / 1e9:.0f} GB free)")
+    if free < 4 * nbytes:
+        failures.append(f"store: {free / 1e9:.1f} GB free under {root}, "
+                        f"{4 * nbytes / 1e9:.1f} GB needed")
+        shutil.rmtree(root, ignore_errors=True)
+        return
+    app = server = None
+    try:
+        # A. publish v1 of both members; the verify rate on one
+        store = ModelStore(store_dir)
+        writes = [publish_version(store, f"{ARCH}#{i}", model, i)
+                  for i in range(MEMBERS)]
+        info["write_gb_s"] = [b / 1e9 / s for _, s, b in writes]
+        path = os.path.join(store.version_dir(f"{ARCH}#0", 1),
+                            "step_0.ckpt")
+        host, _ = checkpoint.restore(path, model.like())
+        t = time.perf_counter()
+        digest = checkpoint.param_hash(host)
+        verify_s = time.perf_counter() - t
+        del host
+        ok = digest == store.manifest(f"{ARCH}#0", 1)["param_hash"]
+        info["verify_gb_s"] = nbytes / 1e9 / verify_s
+        log(f"[store] verify {ARCH}#0 v1: sha256 of {nbytes / 1e9:.3f} GB "
+            f"in {verify_s:.2f} s = {info['verify_gb_s']:.2f} GB/s, "
+            f"{'equal to' if ok else 'DIFFERENT from'} the manifest's")
+        if not ok:
+            failures.append("store: param_hash differs from the manifest")
+
+        # B. readiness: 503 until the manager has loaded, 200 after
+        mgr0 = ModelManager(store, max_batch=GEN_BATCH)
+        srv0 = FlexServeServer(FlexServeApp(manager=mgr0)).start(
+            wait_ready=False)
+        c0 = Client(*srv0.address)
+        st_before, _ = c0.call("GET", "/healthz")
+        t = time.perf_counter()
+        mgr0.bootstrap([f"{ARCH}#0"])
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t
+        st_after, _ = c0.call("GET", "/healthz")
+        srv0.stop()
+        del mgr0, srv0, c0
+        gc.collect()
+        torch.cuda.empty_cache()
+        info["load_gb_s"] = nbytes / 1e9 / load_s
+        log(f"[store] /healthz {st_before} before the manager's first load, "
+            f"{st_after} after it; the load (read, verify, upload) took "
+            f"{load_s:.2f} s = {info['load_gb_s']:.2f} GB/s")
+        if (st_before, st_after) != (503, 200):
+            failures.append(f"store: /healthz {st_before} -> {st_after}")
+
+        # B. the store-backed app: latest versions of both members, the
+        # engine plane over member 0; the SLO timer is stopped so that E
+        # decides when to evaluate
+        slo_path = os.path.join(root, "slo.json")
+        with open(slo_path, "w") as f:
+            json.dump({"policies": [SLO_POLICY]}, f)
+        t = time.perf_counter()
+        app = build_store_app([ARCH] * MEMBERS, store_dir, full=True,
+                              max_len=GEN_MAX_LEN, num_slots=SCHED_SLOTS,
+                              profile_dir=os.path.join(root, "profiles"),
+                              slo_config=slo_path)
+        app.slo.close()
+        torch.cuda.synchronize()
+        mgr = app.manager
+        log(f"[store] build_store_app({[ARCH] * MEMBERS}, full=True): "
+            f"{time.perf_counter() - t:.1f} s, aliases "
+            f"{mgr.stats()['aliases']}, engine "
+            f"{mgr.stats()['engine_aliases']}; device memory allocated "
+            f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+        log("[store] " + mgr.memory_ledger().report().replace(
+            "\n", "\n[store] "))
+        server = FlexServeServer(app).start(timeout=60)
+        client = Client(*server.address)
+        fc = FlexServeClient(*server.address, timeout=600)
+        requests, k1 = drive_ensemble(failures, client, cfg.vocab_size,
+                                      STORE_LAYERS, "store")
+        check_member_logits(failures, app.ensemble, requests[1][1], "store")
+        info["launches_ensemble"] = k1
+
+        # C. hot swap of yi-9b#0 v1 -> v2 -> v1 under open-loop /v1/infer.
+        # Every request is one full bucket (GEN_BATCH rows), so it is never
+        # merged with another and its forward has the reference's shapes:
+        # its decisions must equal the serving version's reference forward
+        # on every row, near-ties included.
+        v2, _, _ = publish_version(store, f"{ARCH}#0", model, 2)
+        rng = np.random.default_rng(8)
+        tokens = rng.integers(0, cfg.vocab_size, (GEN_BATCH, 64)).tolist()
+
+        def send():
+            t0 = time.perf_counter()
+            st, body, rid = client.call_id(
+                "POST", "/v1/infer", {"inputs": {"tokens": tokens}})
+            return st, body, rid, t0, time.perf_counter()
+
+        stop = threading.Event()
+        name0 = urllib.parse.quote(f"{ARCH}#0", safe="")
+        torch.cuda.synchronize()
+        mem_before = torch.cuda.memory_allocated()
+        with concurrent.futures.ThreadPoolExecutor(1) as ex:
+            loop = ex.submit(open_loop, send, SWAP_PERIOD_S, stop)
+            time.sleep(0.5)
+            t_load = time.perf_counter()
+            st_load, res_load = client.call(
+                "POST", f"/v1/models/{name0}/load",
+                {"version": v2, "warm": True})
+            t_loaded = time.perf_counter()
+            time.sleep(0.8)
+            v2_members = {f"{ARCH}#0": v2, f"{ARCH}#1": 1}
+            v2_ref = reference_ensemble(mgr, v2_members)
+            st_rb, res_rb = client.call("POST",
+                                        f"/v1/models/{name0}/rollback", {})
+            time.sleep(0.5)
+            stop.set()
+            results = loop.result()
+        v1_members = {f"{ARCH}#0": 1, f"{ARCH}#1": 1}
+        batch = {"tokens": np.asarray(tokens, np.int32)}
+        refs, margins = {}, {}
+        for m, ens in ((v1_members, reference_ensemble(mgr, v1_members)),
+                       (v2_members, v2_ref)):
+            refs[version_label(m)] = ens.respond(batch)
+            margins[version_label(m)] = min_margin(ens, batch)
+        del v2_ref, ens         # nothing but the manager may hold v2 now
+        st_un, res_un = client.call("POST", f"/v1/models/{name0}/unload",
+                                    {"version": v2})
+        torch.cuda.synchronize()
+        mem_after = torch.cuda.memory_allocated()
+        served, bad = {}, []
+        for st, body, rid, t0, t1 in results:
+            tr_st, tr, _ = client.call_id("GET", f"/v1/trace/{rid}")
+            label = (tr.get("attrs") or {}).get("version")
+            served[label] = served.get(label, 0) + 1
+            same = st == 200 and tr_st == 200 and body == refs.get(label)
+            if not same:
+                bad.append((st, rid, label))
+        during = [1e3 * (t1 - t0) for _, _, _, t0, t1 in results
+                  if t0 < t_loaded and t1 > t_load]
+        info["swap"] = {
+            "requests": len(results), "served_by": served,
+            "load_to_serving_ms": 1e3 * (t_loaded - t_load),
+            "max_response_ms_during_load": max(during or [0.0]),
+            "max_response_ms": max(1e3 * (t1 - t0)
+                                   for *_, t0, t1 in results),
+            "min_margin": margins,
+            "memory_before_gb": mem_before / 1e9,
+            "memory_after_unload_gb": mem_after / 1e9}
+        log(f"[store] C: {len(results)} open-loop /v1/infer "
+            f"({GEN_BATCH} rows, one every {1e3 * SWAP_PERIOD_S:.0f} ms) "
+            f"across load v{v2} ({st_load}, warm "
+            f"{res_load.get('warm_ms', 0):.0f} ms, drained "
+            f"{res_load.get('drained')}) and rollback ({st_rb}): served by "
+            f"{served}; load-to-serving {info['swap']['load_to_serving_ms']:.1f}"
+            f" ms, largest response during the load "
+            f"{info['swap']['max_response_ms_during_load']:.1f} ms (of all "
+            f"{info['swap']['max_response_ms']:.1f} ms); every response "
+            f"equal to its serving version's reference forward: "
+            f"{'yes' if not bad else bad} (smallest top-two probability "
+            f"gap {margins}); on {smi}")
+        log(f"[store] C: unload v{v2} ({st_un}): device memory allocated "
+            f"{mem_before / 1e9:.3f} GB before the load, "
+            f"{mem_after / 1e9:.3f} GB after the unload")
+        if (st_load, st_rb, st_un) != (200, 200, 200) or bad \
+                or len(served) != 2:
+            failures.append(f"store C: load {st_load}, rollback {st_rb}, "
+                            f"unload {st_un}, served {served}, {bad[:4]}")
+        if abs(mem_after - mem_before) > 0.05 * mem_before:
+            failures.append(f"store C: memory {mem_before} before the load, "
+                            f"{mem_after} after unloading v{v2}")
+
+        # D. engine swap while two streams are in flight
+        svc_name = f"{ARCH}#0"
+        engine_v1 = app.generation.engine_for()
+        r = np.random.default_rng(9)
+        dwork = [(r.integers(0, cfg.vocab_size, 40).tolist(), {}),
+                 (r.integers(0, cfg.vocab_size, 90).tolist(),
+                  dict(temperature=0.8, top_k=50, top_p=0.9, seed=11))]
+
+        def references(engine):
+            svc = SchedulerService(engine, num_slots=SCHED_SLOTS)
+            try:
+                return [svc.submit_and_wait([p], sampling=SamplingParams(
+                    max_new_tokens=GEN_TOKENS, **kw)).tokens[0]
+                    for p, kw in dwork]
+            finally:
+                svc.close()
+
+        v1_refs = references(engine_v1)
+        old_svc = app.generation.entry_for().service
+        d0 = old_svc.stats()["decode"]
+        counts_reset()
+        firsts = [threading.Event() for _ in dwork]
+        with concurrent.futures.ThreadPoolExecutor(len(dwork)) as ex:
+            futs = []
+            for (p, kw), ev in zip(dwork, firsts):
+                futs.append(ex.submit(timed_stream, fc, p, kw, ev))
+                ev.wait(300)        # prefilled alone, as the reference
+            # no warm: every K1/K2 launch of this run is then a prefill
+            # forward or tick of the old or the new scheduler
+            t_post = time.perf_counter()
+            st_eng, res_eng = client.call(
+                "POST", f"/v1/engines/{name0}/load",
+                {"version": v2, "warm": False})
+            post_ms = 1e3 * (time.perf_counter() - t_post)
+            inflight = [f.result() for f in futs]
+        d1 = old_svc.stats()["decode"]
+        engine_v2 = app.generation.engine_for()
+        after = timed_stream(fc, dwork[0][0], dwork[0][1])
+        counts = counts_read()
+        d2 = app.generation.entry_for().service.stats()["decode"]
+        fwds = (d1["prefill_forwards"] - d0["prefill_forwards"]
+                + d2["prefill_forwards"])
+        ticks = d1["ticks"] - d0["ticks"] + d2["ticks"]
+        v2_refs = references(engine_v2)
+        # in flight at the swap: each finished after the POST was sent
+        same_inflight = [rec["tokens"] == ref and rec["t1"] > t_post
+                         and (rec["done"] or {}).get("finish_reason")
+                         == "length" for rec, ref in zip(inflight, v1_refs)]
+        same_after = after["tokens"] == v2_refs[0]
+        log(f"[store] D: engine load v{v2} ({st_eng}, {res_eng.get('engine')}"
+            f", drained {res_eng.get('drained')}; the POST returned in "
+            f"{post_ms:.0f} ms) with 2 streams in flight:"
+            f" they finish on v1 equal to its SchedulerService."
+            f"submit_and_wait bit for bit: {same_inflight}; a stream after "
+            f"the flip equals v{v2}'s: {same_after}")
+        check_http_counts(failures, "store D (engine swap)", counts,
+                          STORE_LAYERS, fwds, ticks, paged=False)
+        info["engine_swap"] = {"post_ms": post_ms,
+                               "prefill_forwards": fwds, "ticks": ticks,
+                               "launches": counts}
+        kernels[1]["launches_control_plane"] = counts["decode_attention"]
+        if st_eng != 200 or not all(same_inflight) or not same_after:
+            failures.append(f"store D: {st_eng} {res_eng}, in flight "
+                            f"{same_inflight}, after {same_after}")
+        st_erb, res_erb = client.call("POST", f"/v1/engines/{name0}/"
+                                      "rollback", {})
+        if st_erb != 200 or res_erb.get("engine") != f"{svc_name}@v1":
+            failures.append(f"store D: engine rollback {st_erb} {res_erb}")
+
+        # E. canary (model and engine planes) and the autopilot
+        st_c1, _ = client.call("POST", f"/v1/models/{name0}/load",
+                               {"version": v2, "alias": "canary"})
+        st_c2, _ = client.call("POST", f"/v1/engines/{name0}/load",
+                               {"version": v2, "alias": "canary"})
+        labels, statuses = {}, []
+        for target in ("canary", "stable", "canary", "canary", "canary",
+                       "stable"):
+            for kind in ("infer", "generate"):
+                body = ({"inputs": {"tokens": tokens[:2]}}
+                        if kind == "infer" else
+                        {"prompts": [dwork[0][0]], "max_new_tokens": 8})
+                st, _, rid = client.call_id("POST", f"/v1/{kind}",
+                                            dict(body, target=target))
+                statuses.append(st)
+                _, tr, _ = client.call_id("GET", f"/v1/trace/{rid}")
+                labels.setdefault((kind, target), set()).add(
+                    (tr.get("attrs") or {}).get("version"))
+        decisions = app.slo.evaluate()
+        st_slo, slo = client.call("GET", "/v1/slo")
+        st_idx, idx = client.call("GET", "/v1/traces?limit=200")
+        slo_rows = [row for row in idx.get("recent", [])
+                    if row["plane"] == "slo"]
+        st_en, engines = client.call("GET", "/v1/engines")
+        want_labels = {
+            ("infer", "canary"): {version_label({f"{ARCH}#0": v2,
+                                                 f"{ARCH}#1": 1})},
+            ("infer", "stable"): {version_label(v1_members)},
+            ("generate", "canary"): {f"{svc_name}@v{v2}"},
+            ("generate", "stable"): {f"{svc_name}@v1"}}
+        promoted = (len(decisions) == 1
+                    and decisions[0]["action"] == "promote"
+                    and decisions[0]["engine"] == f"{svc_name}@v{v2}"
+                    and engines["aliases"].get("stable")
+                    == f"{svc_name}@v{v2}"
+                    and any(d["trace_id"] == decisions[0]["trace_id"]
+                            for d in slo.get("decisions", []))
+                    and any(row["trace_id"] == decisions[0]["trace_id"]
+                            and row["status"] == 200 for row in slo_rows))
+        log(f"[store] E: canary loads {st_c1}/{st_c2}; per-alias versions "
+            f"{ {f'{k}->{t}': sorted(v) for (k, t), v in labels.items()} };"
+            f" SLOController.evaluate(): "
+            f"{[(d['action'], d['engine']) for d in decisions]}; /v1/slo "
+            f"{st_slo} lists {len(slo.get('decisions', []))} decision(s); "
+            f"/v1/traces lists {len(slo_rows)} slo trace(s); stable engine "
+            f"now {engines['aliases'].get('stable')}")
+        if ((st_c1, st_c2, st_slo, st_idx, st_en) != (200,) * 5
+                or set(statuses) != {200} or labels != want_labels
+                or not promoted):
+            failures.append(f"store E: {statuses}, {labels}, {decisions}, "
+                            f"{engines}")
+
+        # F. the traces of one infer and one generate request
+        r_inf = fc.infer({"tokens": tokens[:3]})
+        r_gen = fc.generate([dwork[1][0]], max_new_tokens=8)
+        t_inf, t_gen = fc.trace(r_inf.trace_id), fc.trace(r_gen.trace_id)
+
+        def names(snap):
+            return ({s["name"] for s in snap["spans"]}
+                    | {e["name"] for e in snap["events"]})
+        want_inf = {"http_parse", "coalesce_queue", "coalesce_forward"}
+        want_gen = {"http_parse", "scheduler_queued", "prefill",
+                    "first_token"}
+        gen_counters = {"decode_ticks", "decode_tokens", "decode_device_ms",
+                        "decode_host_ms", "decode_transfer_bytes"}
+        ok_f = (want_inf <= names(t_inf) and want_gen <= names(t_gen)
+                and gen_counters <= set(t_gen["counters"])
+                and t_inf.get("attrs", {}).get("version")
+                == version_label(v1_members)
+                and t_gen.get("attrs", {}).get("version")
+                == f"{svc_name}@v{v2}")
+        log(f"[store] F: infer trace {sorted(names(t_inf))} version "
+            f"{t_inf.get('attrs', {}).get('version')}; generate trace "
+            f"{sorted(names(t_gen))}, counters {t_gen['counters']}, version "
+            f"{t_gen.get('attrs', {}).get('version')} "
+            f"({'ok' if ok_f else 'FAIL'})")
+        if not ok_f:
+            failures.append(f"store F: traces {t_inf} {t_gen}")
+        doc = fc.metrics()
+        text = fc.metrics(format="prometheus")
+        try:
+            samples = parse_prometheus(text)
+            missing = json_leaves(doc, "flexserve") - set(samples)
+        except ValueError as e:
+            samples, missing = {}, {str(e)}
+        log(f"[store] F: /metrics?format=prometheus: {len(samples)} "
+            f"samples, {len(text.splitlines())} lines; every numeric leaf "
+            f"of /metrics is a sample: {not missing}")
+        if missing or not samples:
+            failures.append(f"store F: prometheus misses {sorted(missing)[:5]}")
+
+        # G. a torch.profiler capture during a generate run
+        st_p, prof = client.call("POST", "/v1/debug/profile",
+                                 {"duration_ms": 1000, "mode": "torch"})
+        time.sleep(0.15)
+        fc.generate([p for p, _ in dwork], max_new_tokens=24)
+        deadline = time.monotonic() + 300
+        while True:
+            _, pst = client.call("GET", "/v1/debug/profile")
+            if pst.get("active") is None or time.monotonic() > deadline:
+                break
+            time.sleep(0.2)
+        table = []
+        kpath = os.path.join(prof.get("artifact", ""), "kernels.json")
+        if os.path.exists(kpath):
+            with open(kpath) as f:
+                table = json.load(f)["kernels"]
+
+        def device_time(names_):
+            return sum(row["device_ms"] for row in table
+                       if any(n in row["name"] for n in names_))
+        k1_ms, k2_ms = device_time(K1_KERNELS), device_time(K2_KERNELS)
+        log(f"[store] G: POST /v1/debug/profile {st_p} -> {prof.get('mode')}"
+            f" capture, status {pst.get('last')}; {len(table)} device "
+            f"kernels; K1 {k1_ms:.3f} ms, K2 {k2_ms:.3f} ms of device time; "
+            f"top 5: " + "; ".join(f"{row['name'][:60]} {row['device_ms']:.3f}"
+                                   f" ms x{row['calls']}"
+                                   for row in table[:5]))
+        info["profile"] = {"kernels": len(table), "k1_ms": k1_ms,
+                           "k2_ms": k2_ms, "top5": table[:5]}
+        if (st_p != 202 or not (pst.get("last") or {}).get("ok")
+                or k1_ms <= 0 or k2_ms <= 0):
+            failures.append(f"store G: profile {st_p} {prof} {pst}, K1 "
+                            f"{k1_ms} ms, K2 {k2_ms} ms")
+        fc.close()
+    finally:
+        if server is not None:
+            server.stop()
+        elif app is not None:
+            app.close()
+        shutil.rmtree(root, ignore_errors=True)
+    info["seconds"] = time.perf_counter() - t_phase
+    log(f"[store] phase 8 in {info['seconds']:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", default=None, metavar="DIR",
@@ -2791,6 +3422,10 @@ def main(argv=None) -> int:
                                              args.profile)
     recurrent_scheduler_phase(failures, kernels, engines, greedy)
     app.close()
+    del app, engines            # the recurrent members
+    gc.collect()
+    torch.cuda.empty_cache()
+    control_plane_phase(failures, kernels, args.profile)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

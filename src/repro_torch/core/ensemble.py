@@ -81,13 +81,17 @@ class _EnsembleState:
             raise ValueError(f"members on several devices: {devices}")
         self.device = devices.pop()
 
+        members = self.members
+
         def _forward_all(batch):
             # ONE call spanning every member; inference_mode is
             # thread-local, so it is entered here, on the calling
-            # (coalescer dispatch) thread
+            # (coalescer dispatch) thread.  It closes over the member
+            # list, not over ``self``: no reference cycle, so a retired
+            # state's params are freed as soon as it is dropped (an
+            # unloaded version's device memory comes back at once)
             with torch.inference_mode():
-                return {m.name: m.apply(m.params, batch)
-                        for m in self.members}
+                return {m.name: m.apply(m.params, batch) for m in members}
 
         self.batcher = FlexibleBatcher(_forward_all,
                                        BucketSpec.pow2(max_batch),

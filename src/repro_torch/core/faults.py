@@ -9,8 +9,7 @@ subset of them (``at``/``every``/``count``), so a chaos run is
 reproducible from its config alone — no RNG, no wall-clock coupling on
 the decision itself.
 
-Sites (all but ``checkpoint_load``, the model store's, are wired in the
-port):
+Sites wired in the port:
 
 ========================  ====================================================
 ``engine_step``           start of a decode tick's device work

@@ -9,9 +9,18 @@ are random, drawn on the device from ``torch.Generator(seed + i)``.  The
 first member whose family decodes also serves /v1/generate (blocking and
 ``"stream": true``) through the continuous-batching scheduler, on the
 same params; ``--replicas N`` puts N decode schedulers behind a
-health-checked pool and ``--fault-config`` arms a chaos drill.  The flags
-of planes not ported yet (model store, tracing, SLO, profiler,
-speculative decoding) are not accepted.
+health-checked pool and ``--fault-config`` arms a chaos drill.
+
+With ``--model-store DIR`` the endpoint is store-backed: member params are
+published to (on first run) or loaded from a versioned on-disk model store
+with provenance manifests, and the server exposes the lifecycle admin
+surface (GET /v1/models/{name}, POST .../load /unload /rollback /gc, plus
+POST /v1/engines/{name}/load|rollback for the generation engine) for hot
+swaps under traffic.  Tracing is on unless ``--no-trace``
+(``--flight-recorder-size`` sealed traces stay queryable);
+``--profile-dir`` enables ``POST /v1/debug/profile``; ``--slo-config``
+starts the SLO autopilot.  The speculative-decoding flags are not ported
+yet and are not accepted.
 """
 
 from __future__ import annotations
@@ -24,11 +33,12 @@ from typing import Dict, Optional, Sequence
 import torch
 
 from repro_torch.configs import ASSIGNED_ARCHS, get_config, reduce_for_smoke
-from repro_torch.core import (Ensemble, EnsembleMember, InferenceEngine,
-                              ModelRegistry)
+from repro_torch.core import (Ensemble, EnsembleMember, FaultInjector,
+                              InferenceEngine, ModelRegistry)
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models.build import build_model
-from repro_torch.serving import FlexServeApp, FlexServeServer
+from repro_torch.serving import (FlexServeApp, FlexServeServer, ModelManager,
+                                 ModelStore)
 
 
 # families the port can decode (moe, vlm and encdec come with their slices)
@@ -41,6 +51,8 @@ def build_app(arch_names: Sequence[str], *, full: bool = False,
               max_queue: int = 64,
               generate_token_budget: Optional[int] = None,
               default_deadline_ms: Optional[float] = None,
+              trace: bool = True, flight_recorder_size: int = 256,
+              profile_dir: Optional[str] = None, slo_config=None,
               client_weights: Optional[Dict[str, float]] = None,
               replicas: int = 1, fault_config=None) -> FlexServeApp:
     """Members ``f"{name}#{i}"`` with params from seed ``seed + i`` on
@@ -73,8 +85,76 @@ def build_app(arch_names: Sequence[str], *, full: bool = False,
                         max_queue=max_queue,
                         generate_token_budget=generate_token_budget,
                         default_deadline_ms=default_deadline_ms,
+                        trace=trace,
+                        flight_recorder_size=flight_recorder_size,
+                        profile_dir=profile_dir, slo_policies=slo_config,
                         client_weights=client_weights,
                         replicas=replicas, fault_config=fault_config)
+
+
+def build_store_app(arch_names: Sequence[str], store_dir: str, *,
+                    full: bool = False, num_classes: int = 16,
+                    max_len: int = 256, max_batch: int = 8, seed: int = 0,
+                    device=None, num_slots: int = 4, max_queue: int = 64,
+                    generate_token_budget: Optional[int] = None,
+                    default_deadline_ms: Optional[float] = None,
+                    trace: bool = True, flight_recorder_size: int = 256,
+                    profile_dir: Optional[str] = None, slo_config=None,
+                    client_weights: Optional[Dict[str, float]] = None,
+                    replicas: int = 1, fault_config=None) -> FlexServeApp:
+    """Store-backed startup: seed the store on first run (member
+    ``f"{name}#{i}"`` from seed ``seed + i``), then serve the LATEST
+    published version of every member through a ModelManager on ``device``
+    (CUDA unless given).  The generation engine is ALSO store-versioned:
+    the first decode-capable member is loaded through the manager's engine
+    plane, so it can be hot-swapped / rolled back under live streaming
+    traffic.  A store seeded by another publisher is served as its
+    manifests describe it (``reduced``, ``num_layers``, ``num_classes``,
+    ``max_len``, ``max_batch``)."""
+    device = resolve_device(device)
+    store = ModelStore(store_dir)
+    member_names = []
+    engine_member = None
+    for i, name in enumerate(arch_names):
+        reg_name = f"{name}#{i}"
+        member_names.append(reg_name)
+        cfg = get_config(name)
+        if not full:
+            cfg = reduce_for_smoke(cfg)
+        if store.latest_version(reg_name) is None:
+            params = build_model(cfg).init(seed + i, device)
+            v = store.publish(reg_name, params, config=name,
+                              source=cfg.source,
+                              meta={"reduced": not full,
+                                    "num_classes": num_classes,
+                                    "init_seed": seed + i,
+                                    "max_len": max_len,
+                                    "max_batch": max_batch})
+            del params
+            print(f"[serve] published {reg_name} v{v} to {store_dir}")
+        if engine_member is None and cfg.family in DECODE_FAMILIES:
+            engine_member = reg_name
+    # one injector shared end-to-end: decode drivers + replica monitor
+    # (pool), the stream writer (handler) and checkpoint loads (manager)
+    # all draw from the same deterministic schedule
+    faults = FaultInjector.load(fault_config)
+    manager = ModelManager(store, max_batch=max_batch, faults=faults,
+                           device=device)
+    manager.bootstrap(member_names)
+    app = FlexServeApp(manager=manager, num_slots=num_slots,
+                       max_queue=max_queue,
+                       generate_token_budget=generate_token_budget,
+                       default_deadline_ms=default_deadline_ms,
+                       trace=trace,
+                       flight_recorder_size=flight_recorder_size,
+                       profile_dir=profile_dir, slo_policies=slo_config,
+                       client_weights=client_weights,
+                       replicas=replicas, fault_config=faults)
+    if engine_member is not None and app.generation is not None:
+        res = manager.load_engine(engine_member)
+        print(f"[serve] generation engine {res['engine']} "
+              f"(alias {res['alias']})")
+    return app
 
 
 def main(argv=None) -> int:
@@ -102,6 +182,23 @@ def main(argv=None) -> int:
                     help="deadline applied to requests that don't carry "
                          "one; past-deadline requests drop as 504 before "
                          "costing a forward pass")
+    ap.add_argument("--model-store", default=None, metavar="DIR",
+                    help="versioned model store directory; enables the "
+                         "lifecycle admin API and hot swaps")
+    ap.add_argument("--no-trace", action="store_true",
+                    help="disable per-request tracing + the flight "
+                         "recorder (GET /v1/trace/{id} 404s)")
+    ap.add_argument("--flight-recorder-size", type=int, default=256,
+                    help="completed request timelines kept queryable "
+                         "via GET /v1/trace/{id}")
+    ap.add_argument("--profile-dir", default=None, metavar="DIR",
+                    help="enable POST /v1/debug/profile; captures land "
+                         "under this directory")
+    ap.add_argument("--slo-config", default=None, metavar="FILE",
+                    help="JSON SLO policy file ({'policies': [...]}); "
+                         "enables the SLO autopilot: windowed burn-rate "
+                         "evaluation with automatic canary promotion / "
+                         "rollback, auditable at GET /v1/slo")
     ap.add_argument("--replicas", type=int, default=1,
                     help="generate-plane scheduler replicas behind the "
                          "endpoint; >1 enables the health-checked replica "
@@ -113,7 +210,7 @@ def main(argv=None) -> int:
                          "deterministic chaos drills: inject raises/"
                          "stalls/drops at named sites (engine_step, "
                          "decode_tick, prefill, engine_install, "
-                         "socket_drop, replica_kill)")
+                         "checkpoint_load, socket_drop, replica_kill)")
     ap.add_argument("--client-weight", action="append", default=None,
                     metavar="TAG=W",
                     help="per-client-tag fair-share weight (repeatable); "
@@ -137,24 +234,33 @@ def main(argv=None) -> int:
                 ap.error(f"--client-weight {spec!r}: weight must be a "
                          f"number")
 
+    kw = dict(full=args.full, num_classes=args.num_classes,
+              max_len=args.max_len, max_batch=args.max_batch,
+              device=args.device, num_slots=args.num_slots,
+              max_queue=args.max_queue,
+              generate_token_budget=args.generate_token_budget,
+              default_deadline_ms=args.default_deadline_ms,
+              trace=not args.no_trace,
+              flight_recorder_size=args.flight_recorder_size,
+              profile_dir=args.profile_dir, slo_config=args.slo_config,
+              client_weights=client_weights, replicas=args.replicas,
+              fault_config=args.fault_config)
     t0 = time.perf_counter()
-    app = build_app(args.ensemble, full=args.full,
-                    num_classes=args.num_classes, max_len=args.max_len,
-                    max_batch=args.max_batch, device=args.device,
-                    num_slots=args.num_slots, max_queue=args.max_queue,
-                    generate_token_budget=args.generate_token_budget,
-                    default_deadline_ms=args.default_deadline_ms,
-                    client_weights=client_weights, replicas=args.replicas,
-                    fault_config=args.fault_config)
+    if args.model_store:
+        app = build_store_app(args.ensemble, args.model_store, **kw)
+    else:
+        app = build_app(args.ensemble, **kw)
     dev = app.ensemble.members[0].params["embed"].device
     name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
             else "cpu")
     print(f"[serve] {len(app.ensemble.members)} member(s) on {dev} "
           f"({name}) in {time.perf_counter() - t0:.1f}s")
-    if app.generation is not None:
+    if (app.generation is not None and app.generation.ready
+            and app.manager is None):
         # run the decode data path once (prefill buckets, sampler, tick)
         # so the first live streams never pay for kernel builds or the
-        # allocator's growth
+        # allocator's growth.  Store-backed boots skip this: the manager's
+        # load_engine already warmed before flipping the alias.
         warm_s = app.generation.entry_for().service.warm()
         print(f"[serve] decode path warm in {warm_s:.1f}s")
     if args.replicas > 1:
@@ -167,10 +273,19 @@ def main(argv=None) -> int:
     host, port = server.address
     print(f"[serve] FlexServe endpoint on http://{host}:{port} — "
           f"{len(app.registry)} model(s): {app.registry.names()}")
-    print("[serve] routes: GET /health /healthz /metrics /v1/models "
-          "/v1/replicas; POST /v1/infer /v1/detect /v1/generate "
-          "(+\"stream\": true for token streaming) "
-          "/v1/replicas/{id}/cordon|uncordon")
+    print("[serve] routes: GET /health /healthz /metrics[?format="
+          "prometheus] /v1/trace/{id} /v1/traces /v1/usage /v1/slo "
+          "/v1/models /v1/models/{name} /v1/engines /v1/replicas; POST "
+          "/v1/infer /v1/detect /v1/generate (+\"stream\": true for token "
+          "streaming) /v1/replicas/{id}/cordon|uncordon"
+          + (" /v1/debug/profile" if args.profile_dir else "")
+          + (" /v1/models/{name}/load|unload|rollback|gc "
+             "/v1/engines/{name}/load|rollback"
+             if app.manager else ""))
+    if app.slo is not None:
+        print(f"[serve] SLO autopilot: "
+              f"{app.slo.stats()['policies']} policy(ies) from "
+              f"{args.slo_config} — decisions audit at GET /v1/slo")
     try:
         server.httpd.serve_forever()
     except KeyboardInterrupt:

@@ -44,6 +44,11 @@ class Model:
         """batch {"tokens": (B,S)} -> logits (B,S,V)."""
         return self.module.forward(params, batch["tokens"], self.config, **kw)
 
+    def like(self) -> Dict[str, torch.Tensor]:
+        """``init``'s keys, shapes and dtypes as meta tensors (no storage,
+        no random draws): what a checkpoint restores into."""
+        return self.init(0, "meta")
+
     def init_state(self, batch: int, max_len: int,
                    window: Optional[int] = None, *, dtype=None, device=None):
         """A zeroed decode state for ``batch`` rows of up to ``max_len``

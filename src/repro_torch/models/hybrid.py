@@ -31,7 +31,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (apply_mlp, apply_norm, apply_rope,
                                        compute_dtype, dense_init, embed_init,
-                                       init_mlp, init_norm, stack_init)
+                                       generator, init_mlp, init_norm,
+                                       stack_init)
 from repro_torch.models.mamba2 import (init_mamba2_layer, init_mamba2_state,
                                        mamba2_full, mamba2_step)
 from repro_torch.models.transformer import subtree
@@ -49,8 +50,7 @@ def _num_groups(cfg: ModelConfig) -> int:
 def init_params(seed: int, cfg: ModelConfig, device) -> Dict[str, torch.Tensor]:
     """Random params on ``device`` from a seeded ``torch.Generator`` (the
     JAX keys, shapes and dtypes; ``lora_b`` zeros, as JAX's)."""
-    gen = torch.Generator(device=torch.device(device))
-    gen.manual_seed(seed)
+    gen = generator(seed, device)
     d, hd = cfg.d_model, cfg.head_dim
     H, K = cfg.num_heads, cfg.num_kv_heads
     dt = compute_dtype(cfg)

@@ -27,6 +27,25 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
 # ---------------------------------------------------------------------------
 
 
+class _MetaGenerator(torch.Generator):
+    """A CPU generator that reports the meta device: initializers then
+    allocate meta tensors (keys, shapes, dtypes; no storage, no draws)."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
+
+
+def generator(seed: int, device) -> torch.Generator:
+    """The seeded generator ``init_params`` draws from on ``device``; on
+    the meta device the params come out as meta tensors (``Model.like``)."""
+    device = torch.device(device)
+    gen = (_MetaGenerator() if device.type == "meta"
+           else torch.Generator(device=device))
+    gen.manual_seed(seed)
+    return gen
+
+
 def dense_init(gen: torch.Generator, shape, dtype, in_axis: int = -2):
     """Truncated-normal fan-in init (stddev = 1/sqrt(fan_in)), drawn in
     float32 on the generator's device and cast to ``dtype``."""

@@ -31,8 +31,8 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.rwkv6_wkv import wkv6
 from repro_torch.models.layers import (apply_norm, compute_dtype, dense_init,
-                                       embed_init, group_norm, init_norm,
-                                       stack_init)
+                                       embed_init, generator, group_norm,
+                                       init_norm, stack_init)
 from repro_torch.models.transformer import subtree
 from repro_torch.params import flatten
 
@@ -90,8 +90,7 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, torch.Tensor
 
 def init_params(seed: int, cfg: ModelConfig, device) -> Dict[str, torch.Tensor]:
     """Random params on ``device`` from a seeded ``torch.Generator``."""
-    gen = torch.Generator(device=torch.device(device))
-    gen.manual_seed(seed)
+    gen = generator(seed, device)
     dt = compute_dtype(cfg)
     params = {"embed": embed_init(gen, (cfg.vocab_size, cfg.d_model), dt)}
     params.update(flatten({"ln_in": init_norm(cfg, gen.device),

@@ -23,8 +23,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (apply_mlp, apply_norm, compute_dtype,
-                                       dense_init, embed_init, init_mlp,
-                                       init_norm, stack_init)
+                                       dense_init, embed_init, generator,
+                                       init_mlp, init_norm, stack_init)
 from repro_torch.params import flatten, unflatten
 
 
@@ -56,8 +56,7 @@ def init_params(seed: int, cfg: ModelConfig, device) -> Dict[str, torch.Tensor]:
     """Random params on ``device`` from a seeded ``torch.Generator``;
     stacked layer tensors are filled a layer at a time (``stack_init``)."""
     check_family(cfg)
-    gen = torch.Generator(device=torch.device(device))
-    gen.manual_seed(seed)
+    gen = generator(seed, device)
     dt = compute_dtype(cfg)
     params = {"embed": embed_init(gen, (cfg.vocab_size, cfg.d_model), dt)}
     params.update(flatten({"final_norm": init_norm(cfg, gen.device)}))

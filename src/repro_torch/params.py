@@ -72,13 +72,14 @@ def state_from_jax(state: Dict[str, Any], device) -> Dict[str, Any]:
 
 def to_flat(params: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     """Tensors -> flat numpy leaves with the same keys, shapes and dtypes
-    (bfloat16 as ml_dtypes' numpy bfloat16, as the JAX package writes it)."""
+    (bfloat16 as numpy's ``"bfloat16"`` dtype, as the JAX package writes
+    it: registered with numpy by ``ml_dtypes``, which JAX imports; the
+    port itself never imports it)."""
     out = {}
     for k, t in params.items():
         t = t.detach().cpu()
         if t.dtype == torch.bfloat16:
-            import ml_dtypes
-            out[k] = t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+            out[k] = t.view(torch.int16).numpy().view(np.dtype("bfloat16"))
         else:
             out[k] = t.numpy()
     return out

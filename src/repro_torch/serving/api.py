@@ -1,15 +1,19 @@
 """REST API schema (kept byte-compatible with the paper's response format).
 
-The routes the PyTorch port serves so far; the request and response bodies
-are those of the JAX package's ``repro/serving/api.py``.
+The routes the PyTorch port serves; the request and response bodies are
+those of the JAX package's ``repro/serving/api.py``.
 
-POST /v1/infer     {"inputs": {"tokens": [[...], ...]}, "policy": "soft_vote"}
+POST /v1/infer     {"inputs": {"tokens": [[...], ...]}, "policy": "soft_vote",
+                    "target": "canary"?}
     -> {"model_0": ["class_a", ...], "model_1": [...], "ensemble": [...],
         "policy": "soft_vote"}                                  (paper §2.3)
 
 POST /v1/detect    {"inputs": {...}, "positive_class": 3, "policy": "or",
-                    "threshold": 0.5}
+                    "threshold": 0.5, "target": "stable"?}
     -> {"model_0": [true, false, ...], ..., "ensemble": [...]}   (paper §2.1)
+
+``target`` (optional) names a version alias maintained by the lifecycle
+manager; requests without one hit the default ("stable") alias.
 
 Request plane (every inference route; all fields optional): "priority"
 ("interactive" | "bulk"), "deadline_ms", "client", "trace_id", or the
@@ -30,8 +34,13 @@ GET  /healthz      -> 200 {"status": "ready", "models": n, "coalescing": b,
                       | 503 {"error": ...} (also with zero ready replicas)
 GET  /metrics      -> {"uptime_s", "started_unix", "requests", "routes",
                        "coalesce": {...}, "ensemble_compiles": {...},
-                       "generate": {...}, "admission": {...},
-                       "replicas": {...}, "faults": {...}}  (JSON only)
+                       "lifecycle": {...}, "generate": {...},
+                       "admission": {...}, "replicas": {...},
+                       "faults": {...}, "usage": {...}, "slo": {...},
+                       "telemetry": {...}}
+GET  /metrics?format=prometheus -> the same document as Prometheus text
+                      exposition (one gauge per numeric leaf, histograms as
+                      histogram families)
 
 POST /v1/generate  {"prompts": [[...], ...], "max_new_tokens": 16,
                     "temperature": 0.0, "top_k": 0, "top_p": 1.0,
@@ -52,9 +61,31 @@ GET  /v1/replicas  -> {"enabled", "count", "ready", ..., "per_replica"}
 POST /v1/replicas/{id}/cordon {"reason": ...} | .../uncordon
                    -> the replica's state (409 without a replica pool)
 
-The routes of planes not ported yet (/v1/engines, /v1/models/{name},
-/v1/trace, /v1/traces, /v1/usage, /v1/slo, /v1/debug/profile,
-/metrics?format=prometheus) answer 501 with code "not_ported".
+Every request-plane response carries ``X-Request-Id`` (tracing on):
+GET  /v1/trace/{id} -> the request's timeline: spans (http_parse,
+                      coalesce_queue, coalesce_forward, queue_wait,
+                      prefill, ...), events (admitted, scheduler_queued,
+                      first_token, ...), counters (decode_ticks, ...) and
+                      attrs (the serving "version")
+GET  /v1/traces?limit=&status=&client=&min_duration_ms=
+                   -> {"telemetry", "in_flight", "recent": [...]}
+GET  /v1/usage?client=&version= -> per-client / per-version cost rollup
+GET  /v1/slo?window_s= -> policies, live evaluation, decision audit
+GET|POST /v1/debug/profile {"duration_ms", "mode": "auto"|"torch"|"python"}
+                   -> 202 + artifact path; GET the capture's status
+                      (503 without a profile directory)
+
+Lifecycle admin (a store-backed endpoint; 503 without a manager):
+GET  /v1/models/{name}                 manifests, loaded and active versions
+POST /v1/models/{name}/load {"version", "alias", "warm"}
+POST /v1/models/{name}/unload {"version"?}
+POST /v1/models/{name}/rollback {"alias"?}
+POST /v1/models/{name}/gc {"keep_last_n"}
+GET  /v1/engines                       engine aliases
+POST /v1/engines/{name}/load {"version", "alias", "warm"}
+POST /v1/engines/{name}/rollback {"alias"?}
+A ``"draft"`` on the engine plane (a speculative pair) answers 501 with
+code "not_ported".
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Weight carry-over between the packages, and the port's independence
-from JAX: ``repro_torch`` and ``chip_smoke.py`` import neither ``jax`` nor
-anything of ``repro``."""
+from JAX: ``repro_torch`` and ``chip_smoke.py`` import none of ``jax``,
+``msgpack``, ``ml_dtypes`` and ``repro``."""
 
 import os
 import re
@@ -63,9 +63,11 @@ def test_import_guard_no_jax_no_repro():
             " repro_torch.kernels.rwkv6_wkv.ops,"
             " repro_torch.kernels.mamba2_ssd.ops, repro_torch.core.faults,"
             " repro_torch.serving.generate, repro_torch.serving.replica,"
-            " repro_torch.serving.client;"
-            "bad = sorted(m for m in sys.modules if m == 'jax' or "
-            "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'));"
+            " repro_torch.serving.client, repro_torch.serving.lifecycle,"
+            " repro_torch.serving.modelstore, repro_torch.serving.telemetry,"
+            " repro_torch.training.checkpoint, repro_torch.core.slo;"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'repro', 'msgpack', 'ml_dtypes'));"
             "print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run([sys.executable, "-c", code], env=env,
@@ -74,7 +76,8 @@ def test_import_guard_no_jax_no_repro():
 
 
 def test_source_scan_no_jax_no_repro_imports():
-    pattern = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|"
+    pattern = re.compile(r"^\s*(import\s+(jax|msgpack|ml_dtypes)\b|"
+                         r"from\s+(jax|msgpack|ml_dtypes)\b|"
                          r"from\s+repro\.|import\s+repro\.|"
                          r"from\s+repro\s+import|import\s+repro\s*$)",
                          re.MULTILINE)

@@ -4,7 +4,8 @@ Both servers hold a two-member reduced yi-9b ensemble with the same
 weights (JAX init, carried over with ``params.from_jax``) and a generate
 engine over member 0, and get the same requests in the same order; their
 bodies on /health, /healthz, /v1/models, /v1/infer, /v1/detect,
-/v1/generate and /v1/replicas must be equal.  The token batches are
+/v1/generate and /v1/replicas must be equal, and the control plane's
+routes must answer with the JAX server's status and keys.  The token batches are
 fixed and their decisions sit far from any tie (checked below), so
 summation order cannot flip a class.
 """
@@ -54,7 +55,7 @@ def _apps():
     # the generate plane over member 0's params, as build_app does
     jeng = JEngine(jmodel, jm[0].params, max_len=64, max_batch=8)
     teng = InferenceEngine(tmodel, tm[0].params, max_len=64, max_batch=8)
-    japp = JApp(jreg, JEnsemble(jm, max_batch=8), jeng, trace=False)
+    japp = JApp(jreg, JEnsemble(jm, max_batch=8), jeng)
     tapp = FlexServeApp(treg, Ensemble(tm, max_batch=8), teng)
     return japp, tapp
 
@@ -143,18 +144,51 @@ def test_generate_plane_bodies_equal_the_jax_server(clients, method, path,
     assert got == want
 
 
-@pytest.mark.parametrize("method,path", [
-    ("POST", "/v1/engines/x/load"), ("GET", "/v1/engines"),
-    ("GET", "/v1/models/yi%230"),
-    ("GET", "/v1/traces"), ("GET", "/v1/usage"), ("GET", "/v1/slo"),
-    ("POST", "/v1/debug/profile")])
-def test_not_ported_routes_answer_structured_501(clients, method, path):
-    _, tc = clients
-    with pytest.raises(HTTPStatusError) as e:
-        tc._request(method, path, {} if method == "POST" else None)
-    assert e.value.status == 501
-    assert e.value.code == "not_ported"
-    assert "not ported" in str(e.value)
+CONTROL_PLANE = [("POST", "/v1/engines/x/load"), ("GET", "/v1/engines"),
+                 ("GET", "/v1/models/yi%230"), ("GET", "/v1/traces"),
+                 ("GET", "/v1/usage"), ("GET", "/v1/slo"),
+                 ("POST", "/v1/debug/profile")]
+
+
+def _answer(client, method, path):
+    """(status, top-level keys or the error's code) of one request."""
+    try:
+        body = client._request(method, path,
+                               {} if method == "POST" else None, retries=0)
+    except HTTPStatusError as e:
+        return e.status, e.code
+    return 200, sorted(body) if isinstance(body, dict) else type(body)
+
+
+@pytest.mark.parametrize("method,path", CONTROL_PLANE)
+def test_control_plane_routes_answer_as_the_jax_server(clients, method,
+                                                       path):
+    """The routes that answered 501 before the control plane was ported
+    answer with the JAX server's status and keys (no manager and no
+    profile directory on these endpoints: 503 where JAX says so)."""
+    jc, tc = clients
+    assert _answer(tc, method, path) == _answer(jc, method, path)
+
+
+@pytest.mark.parametrize("method,path,body", [
+    ("POST", "/v1/engines/yi-9b%230/load", {"draft": "yi-9b#0"})])
+def test_not_ported_routes_answer_structured_501(tmp_path, method, path,
+                                                 body):
+    """Only the speculative pair (``draft`` on the engine plane) is left
+    unported."""
+    app = serve.build_store_app(["yi-9b"], str(tmp_path), device="cpu",
+                                num_classes=4, max_batch=2, num_slots=2)
+    srv = FlexServeServer(app).start()
+    tc = FlexServeClient(*srv.address)
+    try:
+        with pytest.raises(HTTPStatusError) as e:
+            tc._request(method, path, body)
+        assert e.value.status == 501
+        assert e.value.code == "not_ported"
+        assert "not ported" in str(e.value)
+    finally:
+        tc.close()
+        srv.stop()
 
 
 @pytest.mark.parametrize("method,path,body", [
@@ -191,7 +225,7 @@ def test_build_app_on_cpu_serves():
     try:
         assert app.registry.names() == ["yi-9b#0", "yi-9b#1"]
         resp = app.handle("POST", "/v1/infer",
-                          b'{"inputs": {"tokens": [[1, 2, 3]]}}')
+                          b'{"inputs": {"tokens": [[1, 2, 3]]}}').payload
         assert set(resp) == {"model_0", "model_1", "ensemble", "policy"}
         assert all(p.device.type == "cpu"
                    for p in app.ensemble.members[0].params.values())
@@ -200,8 +234,7 @@ def test_build_app_on_cpu_serves():
 
 
 def test_launcher_rejects_flags_of_planes_not_ported():
-    for flag in (["--model-store", "x"], ["--draft-model", "yi-9b"],
-                 ["--no-trace"], ["--slo-config", "x.json"]):
+    for flag in (["--draft-model", "yi-9b"],):
         with pytest.raises(SystemExit):
             main(flag)
 
@@ -237,7 +270,8 @@ def test_build_app_generate_plane_over_member_0_on_cpu():
         assert eng.params is member.params         # no second copy
         assert (eng.max_len, app.generation.num_slots) == (64, 2)
         resp = app.handle("POST", "/v1/generate",
-                          b'{"prompts": [[1, 2, 3]], "max_new_tokens": 3}')
+                          b'{"prompts": [[1, 2, 3]], "max_new_tokens": 3}'
+                          ).payload
         assert resp["finish_reasons"] == ["length"]
         assert len(resp["outputs"][0]) == 3
     finally:
