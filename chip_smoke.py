@@ -124,6 +124,35 @@ Phases (any failure exits non-zero and prints no final result line):
    must match the unfaulted path's within LOGITS_TOL with the same argmax.
    The decode state added per replica and the failover's extra latency
    are printed.
+6c. speculative path, while member 0 is resident (48 layers).  Pair E:
+   ``SpeculativeEngine`` of an ``InferenceEngine`` over member 0 and a
+   second one over the same tensors (the target is its own draft), dense,
+   8 slots, max_window 4, ``SchedulerService.warm(seq_lens=[16])``; 8
+   greedy requests of 17-300 tokens, 32 new, submitted at once to it and
+   to a plain ``SchedulerService`` over the same target.  A
+   ``LogitsProbe`` on each run records, per request and token, the logits
+   the token was drawn from (the verify's row, the one-token step's on a
+   plain tick, each draft step's).  Every stream must equal the plain
+   stream or part where the two runs' logits for that token agree within
+   LOGITS_TOL (a near-tie, logged with the gap and the sequential top-2
+   margin); every rejected proposal must be such a near-tie between the
+   verify's and the draft's logits; the controller must stay at window 4.
+   Pair T:
+   ``build_app([yi-9b], full=True, draft_model="yi-9b", draft_layers=8,
+   spec_window=4)`` (the draft seeded 1000) and a paged pair over its
+   params (page size 16): Run A's three requests streamed one at a time
+   over /v1/generate (the last with "speculation": false) must equal
+   phase 6b's ``SchedulerService`` references (or part at a logged
+   near-tie; the reference's logits come from rerunning the request), the
+   opted-out stream's summary is zeros, and k_hist shows level-1 ticks
+   (the controller backed off); then 8 rows at once (half sampled, row 1
+   opted out) against the plain service.  Launch counts: K1 (48 + L_d)
+   per prefill forward, K2 (K3
+   paged) W (48 + L_d) per speculative tick of window W and 48 per level-1
+   tick.  Printed: acceptance, tokens per speculative tick, the memory of
+   target and draft (``MemoryLedger``), host ms per tick at W = 2 and 4
+   and at level 1 (8 rows live; dense and paged); with ``--profile`` the
+   verify forward's device time, its K2/K3 and cuBLAS parts.
 
 7. recurrent path, after the yi-9b members are freed:
    ``build_app(["rwkv6-1.6b", "zamba2-2.7b"], full=True)`` (24 and 54
@@ -178,7 +207,12 @@ Phases (any failure exits non-zero and prints no final result line):
    are in flight: they finish with "length" equal to v1's
    ``SchedulerService.submit_and_wait`` bit for bit, a stream after the
    flip equals v2's, K1 8 x prefill forwards and K2 8 x ticks (the old
-   and the new scheduler's); then the engine rolls back.  E: v2 is loaded
+   and the new scheduler's); then the engine rolls back.  D2: a 2-layer
+   draft at full width (seed 1000) is published as "yi-9b#draft" and
+   POST /v1/engines/{name}/load {"version": 2, "draft": ...} loads the
+   speculative pair: one stream finishes with its speculation summary
+   (reported against v2's non-speculative stream), then the engine rolls
+   back to v1 without a draft.  E: v2 is loaded
    under alias "canary" on both planes with an SLO policy (the
    ``--slo-config`` format), requests target both aliases and each trace
    names the alias's version; ``SLOController.evaluate()`` (the timer is
@@ -2287,6 +2321,585 @@ def http_generate_phase(failures, kernels, app, profile_dir):
                             f"{err:.4e} or in argmax")
     info["seconds"] = time.perf_counter() - t_phase
     log(f"[http] phase 6b in {info['seconds']:.1f} s")
+    return refs
+
+
+# --- phase 6c: speculative decoding --------------------------------------------
+
+SPEC_WINDOW = 4
+DRAFT_LAYERS = 8            # Pair T: --draft-layers 8 of yi-9b
+SPEC_REQUESTS = 8           # one wave on the 8 slots
+
+
+class LogitsProbe:
+    """Records, per request and token index, the logits each emitted token
+    of a scheduler run was drawn from: the engine's one-token step on a
+    plain tick, the verify forward's row on a speculative tick (and, on a
+    speculative pair, each draft step's logits and every rejected
+    proposal).  ``tag`` names the request in flight where a run submits
+    one at a time.  Logits are kept on the device as they came (bf16 at
+    yi-9b), one row per token."""
+
+    def __init__(self, engine, scheduler, tag=None):
+        self.engine = engine
+        self.scheduler = scheduler
+        self.tag = tag
+        self.logits = {}            # (tag, req_id, token) -> (V,)
+        self.draft = {}             # the draft's logits, same keys
+        self.rejections = []        # (tag, req_id, token) of a rejection
+        self.ticks = []             # (window, tokens emitted)
+        self._steps = []
+
+    def _rows(self):
+        for b, req in enumerate(self.scheduler.slots):
+            if req is not None:
+                yield b, (self.tag, req.req_id), len(req.output)
+
+    def _wrap(self, engine, out):
+        real = engine._decode_step
+
+        def step(token, state):
+            logits, state = real(token, state)
+            out.append(logits)
+            return logits, state
+        engine._decode_step = step
+        return engine
+
+    def __enter__(self):
+        from repro_torch.core import engine as eng_mod
+        from repro_torch.models import paged, transformer
+        spec = getattr(self.engine, "speculative", False)
+        target = self.engine.target if spec else self.engine
+        self._tsteps = []
+        self._wrapped = [self._wrap(target, self._tsteps)]
+        self._saved = []
+        if spec:
+            self._wrapped.append(self._wrap(self.engine.draft, self._steps))
+            self._saved = [(transformer, "verify_decode_step"),
+                           (paged, "paged_verify_step"),
+                           (eng_mod, "speculative_accept")]
+            self._orig = {n: getattr(m, n) for m, n in self._saved}
+            transformer.verify_decode_step = self._verify(
+                "verify_decode_step")
+            paged.paged_verify_step = self._verify("paged_verify_step")
+            eng_mod.speculative_accept = self._accept
+        # a plain tick: the target's step logits are the token's
+        orig_sample = self.engine.decode_sample
+
+        def decode_sample(token, state, samp, ctr):
+            out = orig_sample(token, state, samp, ctr)
+            for b, who, n in self._rows():
+                self.logits[who + (n,)] = self._tsteps[-1][b].clone()
+            self._tsteps.clear()
+            return out
+        self.engine.decode_sample = decode_sample
+        return self
+
+    def __exit__(self, *exc):
+        for eng in self._wrapped:
+            del eng._decode_step
+        del self.engine.decode_sample
+        for m, n in self._saved:
+            setattr(m, n, self._orig[n])
+
+    def _verify(self, name):
+        def run(params, tokens, state, cfg, **kw):
+            logits, state = self._orig[name](params, tokens, state, cfg,
+                                             **kw)
+            # a later tick overwrites the positions this one did not emit
+            for b, who, n in self._rows():
+                for i in range(tokens.shape[1]):
+                    self.logits[who + (n + i,)] = logits[b, i].clone()
+                for s, lg in enumerate(self._steps):
+                    self.draft[who + (n + s,)] = lg[b].clone()
+            self._steps.clear()
+            return logits, state
+        return run
+
+    def _accept(self, logits, drafts, temperature, top_k, top_p, key, ctr,
+                *, regime=None):
+        draws, counts = self._orig["speculative_accept"](
+            logits, drafts, temperature, top_k, top_p, key, ctr,
+            regime=regime)
+        c_h = counts.cpu().numpy()
+        s, W, emitted = self.scheduler, logits.shape[1], 0
+        for b, who, n in self._rows():
+            k = int(c_h[b]) if s._spec_on[b] else 1
+            emitted += k
+            if s._spec_on[b] and k < W:
+                self.rejections.append(who + (n + k - 1,))
+        self.ticks.append((W, emitted))
+        return draws, counts
+
+    def get(self, table, who, token):
+        """The row for ``token`` of the request ``who`` (tag, request id;
+        a None part matches any)."""
+        for key, row in table.items():
+            if key[2] == token and all(w is None or w == x
+                                       for w, x in zip(who, key[:2])):
+                return row
+        return None
+
+
+def logits_gap(a, b):
+    """(max abs difference, within LOGITS_TOL, top-2 margin of ``b``,
+    max |b|) of two logit rows, in float32."""
+    import torch
+    a, b = a.float(), b.float()
+    top2 = b.topk(2).values
+    return (float((a - b).abs().max()), bool(torch.allclose(
+        a, b, **LOGITS_TOL)), float(top2[0] - top2[1]),
+        float(b.abs().max()))
+
+
+def check_partings(failures, where, spec_probe, spec_streams, spec_whos,
+                   plain_logits, plain_streams):
+    """Each speculative stream against its sequential stream.  Where one
+    parts, the two paths' logits for that token (the speculative run's,
+    recorded by ``spec_probe``, and the sequential run's, from
+    ``plain_logits(k, j)``) must agree within LOGITS_TOL: a near-tie,
+    logged with their gap and the sequential path's top-2 margin.  Returns
+    the number of streams that part."""
+    parted = 0
+    for k, (got, want, who) in enumerate(zip(spec_streams, plain_streams,
+                                             spec_whos)):
+        div = first_divergence([want], [got])
+        if div is None:
+            continue
+        parted += 1
+        j = div[1]
+        lv = spec_probe.get(spec_probe.logits, who, j)
+        ls = plain_logits(k, j)
+        if lv is None or ls is None:
+            log(f"[spec] {where}: request {k} parts at token {j} ({got[j]} "
+                f"against {want[j]}) with no recorded logits: FAIL")
+            failures.append(f"spec {where}: request {k} token {j}: no "
+                            f"recorded logits")
+            continue
+        gap, close, margin, amax = logits_gap(lv, ls)
+        log(f"[spec] {where}: request {k} parts from the sequential stream "
+            f"at token {j} ({got[j]} against {want[j]}): the two paths' "
+            f"logits differ by {gap:.4e} at |logit| <= {amax:.3f}; the "
+            f"sequential path's top-2 margin {margin:.4e}: "
+            + ("a near-tie within LOGITS_TOL" if close else
+               "NOT within LOGITS_TOL: FAIL"))
+        if not close:
+            failures.append(f"spec {where}: request {k} token {j}: logits "
+                            f"gap {gap:.4e} outside LOGITS_TOL")
+    return parted
+
+
+def recorded(probe, whos):
+    """``plain_logits`` for ``check_partings`` from a probe of the
+    sequential run (request k of the run is ``whos[k]``)."""
+    return lambda k, j: probe.get(probe.logits, whos[k], j)
+
+
+
+def spec_launch_check(failures, where, counts, layers, dlayers, k_hist,
+                      fwds, paged):
+    """K1 = (L + L_d) per prefill forward; K2 (K3 paged) = the sum over
+    speculative ticks of W (L + L_d), plus L per level-1 tick."""
+    k_attn = "paged_decode_attention" if paged else "decode_attention"
+    spec = sum(int(w) * (layers + dlayers) * n for w, n in k_hist.items()
+               if int(w) > 1)
+    want_attn = spec + layers * k_hist.get("1", 0)
+    got_attn = counts[k_attn]
+    other = "decode_attention" if paged else "paged_decode_attention"
+    ok = (counts["flash_attention"] == (layers + dlayers) * fwds
+          and got_attn == want_attn and counts[other] == 0 and fwds > 0)
+    log(f"[spec] {where}: launches K1 {counts['flash_attention']} (expected "
+        f"{layers + dlayers} x {fwds} prefill forwards), "
+        f"{'K3' if paged else 'K2'} {got_attn} (expected {want_attn}: W x "
+        f"{layers + dlayers} per speculative tick over {k_hist}, {layers} "
+        f"per level-1 tick) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"spec {where}: launches {counts}, k_hist "
+                        f"{k_hist}, {fwds} forwards")
+    return got_attn
+
+
+def spec_drive(svc, work):
+    """``drive_service`` returning the k_hist, spec counters and prefill
+    forwards of the run."""
+    s = svc.scheduler
+    hist0 = dict(s.spec_k_hist)
+    prop0, acc0, fwd0 = (s.spec_proposed_total, s.spec_accepted_total,
+                         s.prefill_forwards)
+    reqs, wall = drive_service(svc, work)
+    hist = {str(w): s.spec_k_hist[w] - hist0[w] for w in s.spec_k_hist}
+    return (reqs, wall, hist, s.spec_proposed_total - prop0,
+            s.spec_accepted_total - acc0, s.prefill_forwards - fwd0)
+
+
+def spec_tick_times(spec, prompts, reps=5):
+    """Host ms per tick with all 8 rows live (median of ``reps``, each
+    ending in the host copy the scheduler makes): a speculative step at
+    every window level and the plain level-1 tick."""
+    import numpy as np
+    import torch
+    from repro_torch.core.batching import pad_sequences
+    from repro_torch.core.engine import pad_batch_rows
+    dev = spec.device
+    tokens, lengths = pad_sequences(prompts, spec.seq_buckets)
+    B = len(prompts)
+    tokens = torch.from_numpy(pad_batch_rows(tokens, B)).to(dev)
+    lengths = torch.from_numpy(lengths.astype(np.int32)).to(dev)
+    state = spec.new_state(B)
+    if spec.paged:
+        # each row owns a contiguous run of pages (page 0 is the dump page)
+        MP, ps = spec.max_pages_per_seq, spec.page_size
+        table = torch.arange(1, 1 + B * MP, dtype=torch.int32,
+                             device=dev).reshape(B, MP)
+        nc = -(-tokens.shape[1] // ps)
+        logits, state = spec.paged_prefill(
+            state, tokens, lengths,
+            torch.zeros((B, 0), dtype=torch.int32, device=dev),
+            torch.zeros((B,), dtype=torch.int32, device=dev),
+            table[:, :nc].contiguous())
+        state["page_table"] = table
+        state["length"] = lengths
+    else:
+        logits, state = spec.prefill({"tokens": tokens,
+                                      "lengths": lengths}, state)
+    samp = {"temperature": torch.zeros((B,), device=dev),
+            "top_k": torch.zeros((B,), dtype=torch.int32, device=dev),
+            "top_p": torch.ones((B,), device=dev),
+            "key": torch.zeros((B, 2), dtype=torch.int64, device=dev),
+            "regime": "greedy"}
+    ctr = torch.ones((B,), dtype=torch.int32, device=dev)
+    on = torch.ones((B,), dtype=torch.bool, device=dev)
+    tok = spec.sample(logits, samp, ctr)
+    out = {}
+    for w in spec.spec_levels:
+        times = []
+        for _ in range(reps + 1):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            if w == 1:
+                tok, state, ctr = spec.decode_sample(tok, state, samp, ctr)
+                tok.cpu()
+            else:
+                draws, counts, tok, state, ctr = spec.speculative_step(
+                    w, tok, state, samp, ctr, on)
+                torch.cat([draws, counts[:, None]], 1).cpu()
+            times.append(1e3 * (time.perf_counter() - t))
+        out[w] = float(np.median(times[1:]))
+    return out, (tok, state, samp, ctr, on)
+
+
+def profile_verify(spec, carry, out_dir: Path, name: str):
+    """torch.profiler over one speculative step at the top window and over
+    the verify forward alone: device ms, the K2/K3 kernels' and cuBLAS's
+    parts."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import paged, transformer
+    tok, state, samp, ctr, on = carry
+    W = spec.max_window
+    out = {}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        draws, counts, tok, state, ctr = spec.speculative_step(
+            W, tok, state, samp, ctr, on)
+        torch.cuda.synchronize()
+    out["step"] = {"device_ms": device_ms(prof, ()),
+                   "attention_ms": device_ms(prof, K2_KERNELS),
+                   "matmul_ms": device_ms(prof, CUBLAS_KERNELS)}
+    window = torch.cat([tok[:, None], draws[:, :W - 1]], 1)
+    tview = {**state["target"], "length": state["length"]}
+    if spec.paged:
+        tview["page_table"] = state["page_table"]
+    cfg = spec.target.model.config
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        if spec.paged:
+            paged.paged_verify_step(spec.target.params, window, tview, cfg,
+                                    page_size=spec.page_size)
+        else:
+            transformer.verify_decode_step(spec.target.params, window,
+                                           tview, cfg)
+        torch.cuda.synchronize()
+    out["verify"] = {"device_ms": device_ms(prof, ()),
+                     "attention_ms": device_ms(prof, K2_KERNELS),
+                     "matmul_ms": device_ms(prof, CUBLAS_KERNELS)}
+    out_dir.mkdir(parents=True, exist_ok=True)
+    (out_dir / f"verify_{name}_profile.txt").write_text(
+        prof.key_averages().table(sort_by="cuda_time_total", row_limit=25))
+    v = out["verify"]
+    log(f"[profile] {name} verify forward (W={W}, B={GEN_BATCH}): device "
+        f"{v['device_ms']:.3f} ms, {'K3' if spec.paged else 'K2'} "
+        f"{v['attention_ms']:.3f} ms ({100 * v['attention_ms'] / max(v['device_ms'], 1e-9):.1f}%), "
+        f"cuBLAS {v['matmul_ms']:.3f} ms; the whole speculative step "
+        f"{out['step']['device_ms']:.3f} ms device")
+    return out
+
+
+CUBLAS_KERNELS = ("gemm", "Gemm", "cutlass", "nvjet")
+
+
+def spec_phase(failures, kernels, app, refs, profile_dir):
+    """Phase 6c: the speculative pair at yi-9b's full width and depth."""
+    import numpy as np
+    import torch
+    from repro_torch.core import (InferenceEngine, MemoryLedger,
+                                  PagedInferenceEngine, SamplingParams,
+                                  SchedulerService, SpeculativeEngine)
+    from repro_torch.launch.serve import build_app
+    from repro_torch.serving import (FlexServeApp, FlexServeClient,
+                                     FlexServeServer)
+
+    t_phase = time.perf_counter()
+    smi = nvidia_smi_line()
+    member = app.registry.get(f"{ARCH}#0")
+    cfg = member.model.config
+    layers = cfg.num_layers
+    kw = dict(max_len=GEN_MAX_LEN, max_batch=GEN_BATCH)
+    info = {"card": smi}
+    for k in kernels[:3]:
+        k["launches_speculative"] = {}
+
+    # Pair E: the target doubles as its own draft (the same tensors)
+    target = InferenceEngine(member.model, member.params, **kw)
+    pair_e = SpeculativeEngine(
+        target, InferenceEngine(member.model, member.params, **kw),
+        max_window=SPEC_WINDOW)
+    r = np.random.default_rng(11)
+    lens = r.integers(17, 301, SPEC_REQUESTS)
+    lens[0], lens[-1] = 17, 300
+    ework = [(r.integers(0, cfg.vocab_size, n).tolist(),
+              SamplingParams(max_new_tokens=GEN_TOKENS)) for n in lens]
+    plain = SchedulerService(target, num_slots=SCHED_SLOTS)
+    svc = SchedulerService(pair_e, num_slots=SCHED_SLOTS)
+    try:
+        with LogitsProbe(target, plain.scheduler) as pprobe:
+            want, _ = drive_service(plain, ework)
+        warm_s = svc.warm(seq_lens=[16])
+        counts_reset()
+        with LogitsProbe(pair_e, svc.scheduler) as probe:
+            reqs, wall, hist, prop, acc, fwds = spec_drive(svc, ework)
+        counts = counts_read()
+        st = svc.scheduler.speculation_stats()
+    finally:
+        plain.close()
+        svc.close()
+    got = [x.output for x in reqs]
+    parted = check_partings(
+        failures, "Pair E", probe, got, [(None, x.req_id) for x in reqs],
+        recorded(pprobe, [(None, x.req_id) for x in want]),
+        [x.output for x in want])
+    spec_ticks = sum(n for w, n in hist.items() if w != "1")
+    emitted = sum(e for _, e in probe.ticks)
+    # a rejected proposal of an equal draft: the verify's and the draft's
+    # logits for that token must be a near-tie
+    rejected, bad = probe.rejections, []
+    for key in rejected:
+        gap, close, margin, amax = logits_gap(probe.logits[key],
+                                              probe.draft[key])
+        log(f"[spec] Pair E: request {key[1]}'s proposal for token "
+            f"{key[2]} rejected: verify and draft logits differ by "
+            f"{gap:.4e} at |logit| <= {amax:.3f}, the draft's top-2 margin "
+            f"{margin:.4e}: " + ("a near-tie within LOGITS_TOL" if close
+                                 else "NOT within LOGITS_TOL: FAIL"))
+        if not close:
+            bad.append((key, gap))
+    log(f"[spec] Pair E (the target as its own draft, dense, "
+        f"{SPEC_REQUESTS} greedy requests of 17-300 tokens, {GEN_TOKENS} "
+        f"new): {prop} proposed, {acc} accepted = acceptance "
+        f"{acc / max(prop, 1):.4f}; {len(rejected)} rejections, each a "
+        f"logged near-tie: {not bad}; window {st['window']} of "
+        f"{st['max_window']}, k_hist {hist}; {emitted} tokens in "
+        f"{spec_ticks} speculative ticks = {emitted / max(spec_ticks, 1):.2f}"
+        f" a tick ({emitted / max(spec_ticks, 1) / SPEC_REQUESTS:.2f} a "
+        f"row); {parted} of {SPEC_REQUESTS} streams part from "
+        f"SchedulerService's non-speculative streams; warm {warm_s:.1f} s")
+    if (bad or st["window"] != SPEC_WINDOW
+            or hist.get(str(SPEC_WINDOW), 0) == 0):
+        failures.append(f"spec Pair E: rejections {rejected[:4]}, window "
+                        f"{st['window']}, k_hist {hist}")
+    if any(x.finish_reason != "length" or len(x.output) != GEN_TOKENS
+           for x in reqs):
+        failures.append("spec Pair E: a stream did not finish with "
+                        f"{GEN_TOKENS} tokens")
+    k2 = spec_launch_check(failures, "Pair E", counts, layers, layers, hist,
+                           fwds, paged=False)
+    kernels[0]["launches_speculative"]["pair_e"] = counts["flash_attention"]
+    kernels[1]["launches_speculative"]["pair_e"] = k2
+    info["pair_e"] = {"proposed": prop, "accepted": acc,
+                      "rejections": len(rejected), "parted": parted,
+                      "k_hist": hist, "tokens_per_spec_tick":
+                      emitted / max(spec_ticks, 1), "wall_s": wall}
+    del pair_e, target, svc, plain, probe, pprobe
+    torch.cuda.empty_cache()
+
+    # Pair T: an 8-layer draft seeded seed + 1000, through build_app
+    t0 = time.perf_counter()
+    app_t = build_app([ARCH], full=True, num_classes=NUM_CLASSES,
+                      max_len=GEN_MAX_LEN, max_batch=GEN_BATCH,
+                      num_slots=SCHED_SLOTS, draft_model=ARCH,
+                      draft_layers=DRAFT_LAYERS, spec_window=SPEC_WINDOW)
+    spec = app_t.generation.engine_for()
+    log(f"[spec] Pair T: build_app(draft_model={ARCH!r}, draft_layers="
+        f"{DRAFT_LAYERS}, spec_window={SPEC_WINDOW}) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    dlayers = spec.draft.model.config.num_layers
+    if not (isinstance(spec, SpeculativeEngine) and dlayers == DRAFT_LAYERS):
+        failures.append(f"spec Pair T: build_app gave {type(spec)}")
+    work = http_requests(cfg.vocab_size)
+    optout = len(work) - 1                      # the last opts out
+    tpaged = PagedInferenceEngine(spec.target.model, spec.target.params,
+                                  page_size=16, **kw)
+    pspec = SpeculativeEngine(
+        tpaged, PagedInferenceEngine(spec.draft.model, spec.draft.params,
+                                     page_size=16,
+                                     num_pages=tpaged.num_pages, **kw),
+        max_window=SPEC_WINDOW)
+    ledger = MemoryLedger(n_chips=1)
+    ledger.add_params(f"target ({layers} layers)", spec.target.params)
+    ledger.add_params(f"draft ({dlayers} layers)", spec.draft.params)
+    st8 = spec.new_state(SCHED_SLOTS)
+    ledger.add_cache("target KV, 8 x 1024", st8["target"])
+    ledger.add_cache("draft KV, 8 x 1024", st8["draft"])
+    del st8
+    info["memory"] = {e.name: e.total_bytes for e in ledger.entries}
+    log("[spec] Pair T memory (MemoryLedger): " + "; ".join(
+        f"{e.name} {e.total_bytes / 1e9:.3f} GB" for e in ledger.entries)
+        + f" on {smi}")
+    ref_engine = InferenceEngine(spec.target.model, spec.target.params,
+                                 **kw)
+
+    def ref_logits(k, j):
+        """Request k of Run A's alone through a plain service on the pair's
+        target, as phase 6b's reference ran: its logits for token j (its
+        stream must be that reference's)."""
+        one = SchedulerService(ref_engine, num_slots=SCHED_SLOTS)
+        try:
+            with LogitsProbe(ref_engine, one.scheduler, tag=k) as rp:
+                p, kwd = work[k]
+                out = one.submit_and_wait([p], sampling=SamplingParams(
+                    max_new_tokens=GEN_TOKENS, **kwd)).tokens[0]
+        finally:
+            one.close()
+        return rp.get(rp.logits, (k, None), j) if out == refs[k] else None
+
+    runs = {}
+    papp_t = FlexServeApp(app_t.registry, None, pspec,
+                          num_slots=SCHED_SLOTS)
+    for name, papp in (("dense", app_t), ("paged", papp_t)):
+        eng = papp.generation.engine_for()
+        sch = papp.generation.entry_for().service.scheduler
+        server = FlexServeServer(papp).start(timeout=60)
+        client = FlexServeClient(*server.address, timeout=600)
+        try:
+            counts_reset()
+            recs, hist0 = [], dict(sch.spec_k_hist)
+            fwd0 = sch.prefill_forwards
+            with LogitsProbe(eng, sch) as probe:
+                for k, (p, kwd) in enumerate(work):
+                    probe.tag = k
+                    recs.append(timed_stream(
+                        client, p, dict(kwd, speculation=k != optout)))
+            counts = counts_read()
+        finally:
+            client.close()
+            stop_listener(server)
+        hist = {str(w): sch.spec_k_hist[w] - hist0[w]
+                for w in sch.spec_k_hist}
+        streams = [x["tokens"] for x in recs]
+        whos = [(k, None) for k in range(len(work))]
+        parted = check_partings(failures, f"Pair T {name} over HTTP", probe,
+                                streams, whos, ref_logits, refs)
+        summaries = [(x["done"] or {}).get("speculation") for x in recs]
+        ok = (all(stream_ok(x) for x in recs)
+              and summaries[optout] == {"proposed": 0, "accepted": 0,
+                                        "acceptance_rate": 0.0}
+              and hist.get("1", 0) > 0)
+        log(f"[spec] Pair T {name} over /v1/generate ({len(work)} streams "
+            f"one at a time; the last with \"speculation\": false): "
+            f"summaries {summaries}; k_hist {hist} (level-1 ticks: the "
+            f"controller backed off); {parted} streams part from the "
+            f"non-speculative ones {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"spec Pair T {name}: {summaries}, k_hist "
+                            f"{hist}, streams ok "
+                            f"{[stream_ok(x) for x in recs]}")
+        n_attn = spec_launch_check(failures, f"Pair T {name}", counts,
+                                   layers, dlayers, hist,
+                                   sch.prefill_forwards - fwd0,
+                                   paged=name == "paged")
+        kernels[0]["launches_speculative"][f"pair_t_{name}"] = counts[
+            "flash_attention"]
+        kernels[2 if name == "paged" else 1]["launches_speculative"][
+            f"pair_t_{name}"] = n_attn
+        runs[name] = {"k_hist": hist, "parted": parted,
+                      "summaries": summaries}
+    info["pair_t"] = runs
+
+    # Pair T through SchedulerService: 8 rows at once, half sampled, one
+    # opted out, against the plain service on the same target
+    swork = []
+    for i, (p, sp) in enumerate(sched_workload(cfg.vocab_size, seed=4)[
+            :SPEC_REQUESTS]):
+        swork.append((p, dataclasses.replace(sp, speculation=i != 1)))
+    plain = SchedulerService(ref_engine, num_slots=SCHED_SLOTS)
+    svc = SchedulerService(spec, num_slots=SCHED_SLOTS)
+    try:
+        with LogitsProbe(ref_engine, plain.scheduler) as pprobe:
+            want, _ = drive_service(plain, swork)
+        counts_reset()
+        with LogitsProbe(spec, svc.scheduler) as probe:
+            reqs, wall, hist, prop, acc, fwds = spec_drive(svc, swork)
+        counts = counts_read()
+    finally:
+        plain.close()
+        svc.close()
+    parted = check_partings(
+        failures, "Pair T, 8 rows at once", probe, [x.output for x in reqs],
+        [(None, x.req_id) for x in reqs],
+        recorded(pprobe, [(None, x.req_id) for x in want]),
+        [x.output for x in want])
+    spec_ticks = sum(n for w, n in hist.items() if w != "1")
+    emitted = sum(e for _, e in probe.ticks)
+    ok = (hist.get("1", 0) > 0 and reqs[1].spec_proposed == 0
+          and all(x.finish_reason == "length" for x in reqs))
+    log(f"[spec] Pair T, {SPEC_REQUESTS} rows at once (half sampled, row 1 "
+        f"opted out): {prop} proposed, {acc} accepted = acceptance "
+        f"{acc / max(prop, 1):.4f}; k_hist {hist}; "
+        f"{emitted / max(spec_ticks, 1):.2f} tokens a speculative tick; "
+        f"row 1 proposed {reqs[1].spec_proposed}; {parted} streams part "
+        f"from the non-speculative ones {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"spec Pair T rows at once: k_hist {hist}, row 1 "
+                        f"{reqs[1].spec_proposed}")
+    spec_launch_check(failures, "Pair T, rows at once", counts, layers,
+                      dlayers, hist, fwds, paged=False)
+    info["pair_t_rows"] = {"proposed": prop, "accepted": acc,
+                           "k_hist": hist, "parted": parted,
+                           "tokens_per_spec_tick":
+                           emitted / max(spec_ticks, 1)}
+
+    # host ms per tick, all 8 rows live, at every window level
+    prompts = [p for p, _ in swork]
+    times = {}
+    for name, eng in (("dense", spec), ("paged", pspec)):
+        times[name], carry = spec_tick_times(eng, prompts)
+        log(f"[spec] Pair T {name}, host ms per tick with {SCHED_SLOTS} "
+            f"rows live (median of 5, the ids' host copy included): "
+            + ", ".join(f"W={w}: {t:.2f}" for w, t in times[name].items())
+            + f" (W=1 is the plain tick) on {smi}")
+        if profile_dir:
+            info[f"profile_{name}"] = profile_verify(
+                eng, carry, Path(profile_dir), f"pair_t_{name}")
+        del carry
+    info["tick_host_ms"] = times
+    papp_t.close()
+    app_t.close()
+    del app_t, papp_t, spec, pspec, tpaged, ref_engine, probe, pprobe
+    gc.collect()
+    torch.cuda.empty_cache()
+    info["seconds"] = time.perf_counter() - t_phase
+    log(f"[spec] phase 6c in {info['seconds']:.1f} s")
+    kernels[0]["speculative"] = info
 
 
 # --- phase 7: recurrent path ---------------------------------------------------
@@ -2837,6 +3450,7 @@ def recurrent_scheduler_phase(failures, kernels, engines, greedy):
 # JAX checkpoint format cannot hold full depth; the manifest's own
 # ``num_layers`` sets 8 (3.82 GB a version).  Phases 4-6b drive 48.
 STORE_LAYERS = 8
+STORE_DRAFT_LAYERS = 2      # phase 8 D2: the speculative pair's draft
 SWAP_PERIOD_S = 0.1         # phase 8 C: the open loop's send interval
 SLO_POLICY = {"name": "gen-canary", "alias": "canary",
               "promote_to": "stable", "plane": "generate",
@@ -3203,6 +3817,51 @@ def control_plane_phase(failures, kernels, profile_dir):
         if st_erb != 200 or res_erb.get("engine") != f"{svc_name}@v1":
             failures.append(f"store D: engine rollback {st_erb} {res_erb}")
 
+        # D2. the speculative pair on the engine plane: a 2-layer draft
+        # published through the store as "#draft" (its depth in the
+        # manifest), loaded with v2, one stream, rolled back to v1
+        draft_name = f"{ARCH}#draft"
+        dparams = build_model(dataclasses.replace(
+            cfg, num_layers=STORE_DRAFT_LAYERS)).init(1000, "cuda")
+        vd = store.publish(draft_name, dparams, config=ARCH,
+                           source=cfg.source,
+                           meta={**store_meta(1000),
+                                 "num_layers": STORE_DRAFT_LAYERS})
+        del dparams
+        st_sp, res_sp = client.call(
+            "POST", f"/v1/engines/{name0}/load",
+            {"version": v2, "draft": draft_name, "warm": False})
+        counts_reset()
+        srec = timed_stream(fc, dwork[0][0], dwork[0][1])
+        counts = counts_read()
+        sp_div = first_divergence([v2_refs[0]], [srec["tokens"]])
+        summary = (srec["done"] or {}).get("speculation") or {}
+        st_sr, res_sr = client.call("POST", f"/v1/engines/{name0}/"
+                                    "rollback", {})
+        log(f"[store] D2: engine load v{v2} + {draft_name} v{vd} "
+            f"({STORE_DRAFT_LAYERS} layers): {st_sp}, speculative "
+            f"{res_sp.get('speculative')}, draft {res_sp.get('draft')}; one "
+            f"stream: {(srec['done'] or {}).get('finish_reason')}, "
+            f"{len(srec['tokens'])} tokens, speculation {summary}, launches "
+            f"K1 {counts['flash_attention']} K2 {counts['decode_attention']}"
+            f"; against v{v2}'s non-speculative stream: "
+            + ("identical" if sp_div is None else
+               f"first differ at token {sp_div[1]} (reported)")
+            + f"; rollback {st_sr} to {res_sr.get('engine')} (speculative "
+            f"{res_sr.get('speculative')})")
+        info["speculative_pair"] = {"load": res_sp.get("draft"),
+                                    "summary": summary,
+                                    "first_divergence": sp_div,
+                                    "launches": counts}
+        if (st_sp != 200 or not res_sp.get("speculative")
+                or res_sp.get("draft") != f"{draft_name}@v{vd}"
+                or not stream_ok(srec) or summary.get("proposed", 0) <= 0
+                or st_sr != 200 or res_sr.get("speculative")
+                or res_sr.get("engine") != f"{svc_name}@v1"):
+            failures.append(f"store D2: load {st_sp} {res_sp.get('draft')}"
+                            f", stream {srec['done']}, rollback {st_sr} "
+                            f"{res_sr.get('engine')}")
+
         # E. canary (model and engine planes) and the autopilot
         st_c1, _ = client.call("POST", f"/v1/models/{name0}/load",
                                {"version": v2, "alias": "canary"})
@@ -3412,7 +4071,8 @@ def main(argv=None) -> int:
     app = main_path_phase(failures, kernels, args.profile)
     generate_phase(failures, kernels, app, args.profile)
     scheduler_phase(failures, kernels, app, args.profile)
-    http_generate_phase(failures, kernels, app, args.profile)
+    refs = http_generate_phase(failures, kernels, app, args.profile)
+    spec_phase(failures, kernels, app, refs, args.profile)
     app.close()
     del app                     # the two yi-9b members' 35 GB
     gc.collect()

@@ -1,6 +1,7 @@
 from repro_torch.core.batching import BucketSpec, FlexibleBatcher, pad_sequences
 from repro_torch.core.engine import (GenerationResult, InferenceEngine,
-                                     PagedInferenceEngine, page_kv_bytes)
+                                     PagedInferenceEngine, SpeculativeEngine,
+                                     page_kv_bytes)
 from repro_torch.core.ensemble import Ensemble, EnsembleMember
 from repro_torch.core.faults import (ZERO_FAULT_STATS, FaultInjector,
                                      FaultSpec, InjectedFault)
@@ -16,6 +17,7 @@ from repro_torch.core.scheduler import (ContinuousBatchingScheduler, Request,
 
 __all__ = ["BucketSpec", "FlexibleBatcher", "pad_sequences",
            "GenerationResult", "InferenceEngine", "PagedInferenceEngine",
+           "SpeculativeEngine",
            "page_kv_bytes", "ZERO_FAULT_STATS", "FaultInjector", "FaultSpec",
            "InjectedFault", "BlockAllocator", "KVPager", "PagerOOM",
            "PrefixCache", "pages_for_budget", "Ensemble", "EnsembleMember",

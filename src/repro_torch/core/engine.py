@@ -1,11 +1,11 @@
 """InferenceEngine: bucketed prefill + autoregressive decode with on-device
 sampling; PagedInferenceEngine: the same over a block-paged KV pool.
 
-The port of ``repro/core/engine.py`` (speculative decoding comes with its
-slice).  One engine
-serves one model.  It owns the decode state, buckets prompt lengths and
-batch sizes as the JAX engine does (so the kernels' launch shapes come
-from a bounded set), and keeps the decode data path on the device:
+The port of ``repro/core/engine.py``, with ``SpeculativeEngine``, the
+draft-propose / target-verify pair.  One engine serves one model.  It
+owns the decode state, buckets prompt lengths and batch sizes as the JAX
+engine does (so the kernels' launch shapes come from a bounded set), and
+keeps the decode data path on the device:
 ``decode_sample`` runs the model's decode step and samples the next ids
 there, so per tick only the ``(batch,)`` int32 ids cross to the host.
 
@@ -29,8 +29,8 @@ from repro_torch.core.batching import BucketSpec, pad_sequences
 from repro_torch.core.kv_pager import pages_for_budget
 from repro_torch.core.sampling import (SamplingParams, base_key,
                                        sample_tokens, samplers_for,
-                                       sampling_regime)
-from repro_torch.models import paged
+                                       sampling_regime, speculative_accept)
+from repro_torch.models import paged, transformer
 from repro_torch.models.attention import cache_dtype
 from repro_torch.models.build import Model
 
@@ -62,8 +62,9 @@ class InferenceEngine:
 
     # --- API -----------------------------------------------------------------
 
-    def new_state(self, batch: int):
-        return self.model.init_state(batch, self.max_len, device=self.device)
+    def new_state(self, batch: int, device=None):
+        return self.model.init_state(batch, self.max_len,
+                                     device=device or self.device)
 
     @torch.no_grad()
     def prefill(self, batch: Dict[str, Any], state):
@@ -132,8 +133,7 @@ class InferenceEngine:
         state's shapes at two batch sizes on the meta device (nothing is
         allocated)."""
         if self._state_axes is None:
-            s2, s3 = (self.model.init_state(n, self.max_len, device="meta")
-                      for n in (2, 3))
+            s2, s3 = (self.new_state(n, device="meta") for n in (2, 3))
             self._state_axes = _map_state(
                 lambda a, b: next((i for i, (x, y) in
                                    enumerate(zip(a.shape, b.shape))
@@ -333,11 +333,11 @@ class PagedInferenceEngine(InferenceEngine):
             return 0
         return self.ctx_buckets.bucket_for(n_ctx_pages)
 
-    def new_state(self, batch: int):
+    def new_state(self, batch: int, device=None):
         return paged.init_paged_state(self.model.config, batch,
                                       self.num_pages, self.page_size,
                                       self.max_pages_per_seq,
-                                      device=self.device)
+                                      device=device or self.device)
 
     @torch.no_grad()
     def paged_prefill(self, state, tokens, lengths, ctx_table, ctx_lens,
@@ -361,6 +361,237 @@ class PagedInferenceEngine(InferenceEngine):
             "PagedInferenceEngine has no standalone generate(): page "
             "allocation lives in the scheduler — drive it through "
             "ContinuousBatchingScheduler / SchedulerService")
+
+
+class SpeculativeEngine(InferenceEngine):
+    """Draft-propose / target-verify pair behind the one-engine contract.
+
+    Wraps a TARGET engine (whose streams are the product) and a smaller
+    DRAFT engine of the same family.  A speculative tick at window W:
+
+      1. runs the draft W greedy decode steps from the last emitted token
+         (every step writes draft K/V; the last proposal is discarded),
+      2. runs the target's verify forward over the W-token window, one
+         ``decode_attention`` (K2) or ``paged_decode_attention`` (K3) call
+         per window position and layer, committing every position's K/V,
+      3. accepts/rejects by exact match against the sequential draws
+         (``speculative_accept``); rejected positions roll back as a
+         length update alone,
+
+    and returns (draws, counts, next_token, state, ctr + counts): only the
+    (B, W) ids and (B,) counts need to reach the host.  Seeded streams
+    equal non-speculative decoding by construction (greedy exact, sampled
+    draw for draw).  It runs eagerly, like the other engines.
+
+    The combined decode state nests both engines' caches under one shared
+    ``length`` (and, when paged, one shared ``page_table``: the two pools
+    are indexed by the same pages, so prefix sharing, park pinning and
+    rollback cover the pair).  ``decode_sample`` (the plain tick, also the
+    adaptive-k level-1 backoff) runs the target alone on a view of the
+    combined state; the draft's K/V goes stale for those positions, which
+    can only lower acceptance, never change a token.
+
+    Constraints: dense GQA transformers, no sliding window, the same vocab
+    and max_len, and — when paged — the same page geometry.
+    """
+
+    def __init__(self, target: InferenceEngine, draft: InferenceEngine, *,
+                 max_window: int = 4):
+        # no super().__init__: the pair's state and programs are the
+        # sub-engines'
+        tcfg = target.model.config
+        dcfg = draft.model.config
+        for name, cfg, eng in (("target", tcfg, target),
+                               ("draft", dcfg, draft)):
+            if cfg.family != "dense" or cfg.attn_kind != "gqa":
+                raise ValueError(
+                    f"speculative {name} must be a dense GQA transformer, "
+                    f"got {cfg.family}/{cfg.attn_kind}")
+            if cfg.sliding_window is not None or eng.window is not None:
+                raise ValueError(
+                    f"speculative {name} cannot use a sliding window")
+        if tcfg.vocab_size != dcfg.vocab_size:
+            raise ValueError(
+                f"draft vocab {dcfg.vocab_size} != target vocab "
+                f"{tcfg.vocab_size}")
+        if target.max_len != draft.max_len:
+            raise ValueError(
+                f"draft max_len {draft.max_len} != target {target.max_len}")
+        self.paged = bool(getattr(target, "paged", False))
+        if self.paged != bool(getattr(draft, "paged", False)):
+            raise ValueError("draft and target must both be paged or dense")
+        if self.paged:
+            for attr in ("page_size", "num_pages", "max_pages_per_seq"):
+                if getattr(target, attr) != getattr(draft, attr):
+                    raise ValueError(
+                        f"draft {attr} {getattr(draft, attr)} != target "
+                        f"{getattr(target, attr)} (the pair shares one "
+                        f"page table)")
+            self.page_size = target.page_size
+            self.max_pages_per_seq = target.max_pages_per_seq
+            self.num_pages = target.num_pages
+            # a page's admission cost covers both pools
+            self.page_bytes = target.page_bytes + draft.page_bytes
+            self.ctx_buckets = target.ctx_buckets
+        if max_window < 2:
+            raise ValueError(f"max_window must be >= 2, got {max_window}")
+        self.target = target
+        self.draft = draft
+        self.model = target.model
+        self.params = target.params
+        self.device = target.device
+        self.max_len = target.max_len
+        self.window = None
+        self.batch_buckets = target.batch_buckets
+        self.seq_buckets = target.seq_buckets
+        self.prefill_calls = 0
+        self.decode_calls = 0
+        self._state_axes = None
+        self.speculative = True
+        # adaptive-k ladder: 1 (the plain target tick), then powers of two
+        self.spec_levels = [1]
+        w = 2
+        while w <= max_window:
+            self.spec_levels.append(w)
+            w *= 2
+        self.max_window = self.spec_levels[-1]
+        # draft/verify device-ms split estimate for telemetry: per-token
+        # work is roughly proportional to the parameter bytes read
+        t_bytes = _param_bytes(target.params)
+        d_bytes = _param_bytes(draft.params)
+        self.draft_share = d_bytes / max(t_bytes + d_bytes, 1)
+
+    # --- combined-state plumbing ---------------------------------------------
+
+    @property
+    def _shared_keys(self):
+        return ("length", "page_table") if self.paged else ("length",)
+
+    def _view(self, state, which: str):
+        return {**state[which],
+                **{k: state[k] for k in self._shared_keys}}
+
+    def _caches(self, view):
+        return {k: v for k, v in view.items() if k not in self._shared_keys}
+
+    def _combine(self, tview, dview):
+        out = {"target": self._caches(tview), "draft": self._caches(dview)}
+        for k in self._shared_keys:
+            out[k] = tview[k]
+        return out
+
+    def new_state(self, batch: int, device=None):
+        return self._combine(self.target.new_state(batch, device),
+                             self.draft.new_state(batch, device))
+
+    # --- prefill / decode ----------------------------------------------------
+
+    @torch.no_grad()
+    def prefill(self, batch: Dict[str, Any], state):
+        """Both halves prefill (the draft must see the prompt to propose);
+        the TARGET's first-token logits are the product."""
+        self.prefill_calls += 1
+        logits, new_t = self.target.prefill(batch,
+                                            self._view(state, "target"))
+        _, new_d = self.draft.prefill(batch, self._view(state, "draft"))
+        return logits, self._combine(new_t, new_d)
+
+    @torch.no_grad()
+    def paged_prefill(self, state, tokens, lengths, ctx_table, ctx_lens,
+                      dest_table):
+        """Paged pair prefill: the draft first, then the target on the
+        draft's returned length/page_table (the same tensors: both pass
+        through untouched)."""
+        self.prefill_calls += 1
+        _, new_d = self.draft.paged_prefill(
+            self._view(state, "draft"), tokens, lengths, ctx_table,
+            ctx_lens, dest_table)
+        tview = {**state["target"], "length": new_d["length"],
+                 "page_table": new_d["page_table"]}
+        logits, new_t = self.target.paged_prefill(
+            tview, tokens, lengths, ctx_table, ctx_lens, dest_table)
+        return logits, self._combine(new_t, new_d)
+
+    def _stale_draft(self, state, new_tview):
+        # plain ticks advance only the target; the draft keeps its (now
+        # stale) caches and follows the shared length
+        return {**state["draft"],
+                **{k: new_tview[k] for k in self._shared_keys}}
+
+    @torch.no_grad()
+    def decode(self, token, state):
+        self.decode_calls += 1
+        logits, new_t = self.target.decode(token,
+                                           self._view(state, "target"))
+        return logits, self._combine(new_t, self._stale_draft(state, new_t))
+
+    @torch.no_grad()
+    def decode_sample(self, token, state, samp: Dict[str, Any], ctr):
+        """The plain tick on the pair: the TARGET's decode-and-sample over
+        a view of the combined state."""
+        self.decode_calls += 1
+        toks, new_t, ctr2 = self.target.decode_sample(
+            token, self._view(state, "target"), samp, ctr)
+        return (toks, self._combine(new_t, self._stale_draft(state, new_t)),
+                ctr2)
+
+    # --- the speculative tick ------------------------------------------------
+
+    @torch.no_grad()
+    def speculative_step(self, w: int, token, state, samp: Dict[str, Any],
+                         ctr, spec_on):
+        """One draft-propose + verify + accept tick at window ``w`` (a spec
+        level >= 2).  Returns ``(draws (B, w), counts (B), next_token (B),
+        new_state, ctr + counts)``: row b emitted ``draws[b, :counts[b]]``;
+        rows with ``spec_on[b]`` False advance exactly one token, the
+        sequential one.  The caches are written in place."""
+        self.decode_calls += 1
+        cfg = self.target.model.config
+        shared = {k: state[k] for k in self._shared_keys}
+        # draft: w greedy proposals from the last emitted token; every
+        # step writes draft K/V, so a fully accepted window leaves the
+        # draft cache as the sequential steps would
+        dview = {**state["draft"], **shared}
+        tok, props = token, []
+        for _ in range(w):
+            logits, dview = self.draft._decode_step(tok, dview)
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)
+            props.append(tok)
+        drafts = torch.stack(props[:w - 1], dim=1)              # (B, w-1)
+        window = torch.cat([token.to(torch.int32)[:, None], drafts], dim=1)
+        tview = {**state["target"], **shared}
+        if self.paged:
+            vlogits, tview = paged.paged_verify_step(
+                self.target.params, window, tview, cfg,
+                page_size=self.page_size)
+        else:
+            vlogits, tview = transformer.verify_decode_step(
+                self.target.params, window, tview, cfg)
+        draws, counts = speculative_accept(
+            vlogits, drafts, samp["temperature"], samp["top_k"],
+            samp["top_p"], samp["key"], ctr, regime=samp.get("regime"))
+        counts = torch.where(spec_on.to(counts.device), counts,
+                             torch.ones_like(counts))
+        rows = torch.arange(token.shape[0], device=draws.device)
+        next_tok = draws[rows, (counts - 1).long()]
+        new_state = {"target": self._caches(tview),
+                     "draft": self._caches(dview),
+                     "length": state["length"] + counts}
+        if self.paged:
+            new_state["page_table"] = state["page_table"]
+        return draws, counts, next_tok, new_state, ctr + counts
+
+    # --- introspection --------------------------------------------------------
+
+    def ctx_bucket_for(self, n_ctx_pages: int) -> int:
+        if n_ctx_pages == 0:
+            return 0
+        return self.ctx_buckets.bucket_for(n_ctx_pages)
+
+    def generate(self, *args, **kwargs):
+        raise NotImplementedError(
+            "SpeculativeEngine has no standalone generate(): drive it "
+            "through ContinuousBatchingScheduler / SchedulerService")
 
 
 def page_kv_bytes(cfg, page_size: int) -> int:

@@ -317,3 +317,41 @@ def sample_tokens(logits, temperature, top_k, top_p, key, ctr, *,
     keys = rng.fold_in(rng.as_key(key, dev), ctr.to(dev))
     sampled = rng.categorical(keys, masked).to(torch.int32)
     return torch.where(temperature <= 0.0, argmax, sampled)
+
+
+# --- speculative accept/reject ------------------------------------------------
+
+
+def speculative_accept(logits, drafts, temperature, top_k, top_p, key, ctr,
+                       *, regime: Optional[str] = None):
+    """Batched accept/reject over one verify window.
+
+    ``logits`` (B, W, V) are the target's verify-forward logits: row
+    ``[b, i]`` is the distribution for output token ``ctr[b] + i``.
+    ``drafts`` (B, W-1) are the draft's proposals for output tokens
+    ``ctr .. ctr+W-2``.  Every row's token j is drawn with the sequential
+    contract, ``categorical(fold_in(key, ctr+j), filtered logits)``, by ONE
+    flattened ``sample_tokens`` call (a row's params repeated W times keep
+    the batch's regime, so the draws are bitwise the sequential ones).  A
+    draft survives iff it equals that draw; the first mismatch's draw is
+    the correction token.  ``regime`` is the host-chosen regime of the
+    un-repeated batch, as for ``sample_tokens``.
+
+    Returns (draws (B, W) int32 — each row's first ``counts[b]`` are the
+    emitted tokens — and counts (B,) int32 in [1, W])."""
+    B, W, V = logits.shape
+
+    def rep(a):
+        return torch.repeat_interleave(a, W, dim=0)
+
+    ctr = ctr.to(logits.device)
+    ctr_flat = (ctr[:, None] + torch.arange(W, device=ctr.device,
+                                            dtype=ctr.dtype)[None, :])
+    draws = sample_tokens(logits.reshape(B * W, V), rep(temperature),
+                          rep(top_k), rep(top_p), rep(key),
+                          ctr_flat.reshape(-1),
+                          regime=regime).reshape(B, W)
+    # leading run of draft == draw matches, +1 for the correction/bonus
+    hits = (draws[:, :W - 1] == drafts).to(torch.int32)
+    counts = torch.cumprod(hits, dim=1).sum(dim=1) + 1
+    return draws, counts.to(torch.int32)

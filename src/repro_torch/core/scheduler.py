@@ -49,8 +49,21 @@ the per-slot arrays, the page table and the prefill batches go through
 pinned staging buffers with ``non_blocking`` copies (``_Uploader``), since
 a copy from pageable memory waits for the device's queue to drain; and the
 sampling regime is chosen on the host from the per-slot numpy mirrors.
-Speculative decoding comes with its own slice: ``speculation_stats()``
-returns None and ``SchedulerService.stats()`` reports the zero schema.
+
+Speculative decoding: over a ``SpeculativeEngine`` a tick runs the draft
+scan, the verify forward and the accept step (``engine.speculative_step``)
+at the window the adaptive-k controller picks, and the host receives the
+(num_slots, w) draws and (num_slots,) accepted counts; a request's
+``SamplingParams.speculation`` opts it out (its row advances one token).
+
+``SchedulerService`` departs from the JAX service's driver on purpose: the
+JAX step waits in XLA with the interpreter lock released, so callers get
+the service lock between ticks, while the port's eager tick holds the
+interpreter and would make every caller wait for it.  Here the driver
+holds no lock across ``step()``: callers touch only the pending deques and
+the parked list, under the scheduler's short ``lock`` (which the driver
+takes only to pop, park and requeue), and ``stats()`` reads a snapshot the
+driver publishes after each tick.
 """
 
 from __future__ import annotations
@@ -110,11 +123,16 @@ class Request:
     # snapshot of the scheduler's cumulative per-slot share accumulators,
     # taken at slot ATTACH; the delta against them at slot DETACH is the
     # request's decode accounting (see step()), O(1) per request
-    share_mark: Optional[Tuple[int, float, float, float]] = None
+    share_mark: Optional[Tuple[int, float, float, float,
+                               float, float]] = None
     # paged engines only: the KV pages this request owns references to.
     # Pages stay pinned while the request parks, so resume is O(1)
     # (re-point the slot's page-table row, no recompute).
     pages: Optional[List[int]] = None
+    # speculative engines only: draft tokens proposed for / accepted by
+    # this request (the stream's end-of-stream acceptance summary)
+    spec_proposed: int = 0
+    spec_accepted: int = 0
 
     @property
     def priority(self) -> str:
@@ -150,8 +168,8 @@ ZERO_PAGER_STATS: Dict[str, Any] = {
     "prefill_tokens_forwarded": 0, "prefill_tokens_reused": 0,
 }
 
-# speculation stats schema, reported zeroed until speculative decoding is
-# ported (a stable "speculation" section either way)
+# speculation stats schema, zeroed for plain engines (a stable
+# "speculation" section either way)
 ZERO_SPECULATION_STATS: Dict[str, Any] = {
     "enabled": False, "max_window": 0, "window": 0,
     "acceptance_ema": 0.0, "spec_ticks": 0, "proposed_tokens": 0,
@@ -159,6 +177,16 @@ ZERO_SPECULATION_STATS: Dict[str, Any] = {
     "draft_ms_total": 0.0, "verify_ms_total": 0.0,
     "draft_share_estimate": 0.0,
 }
+
+# adaptive-k controller: acceptance EMA with hysteresis.  Below the low
+# water mark the window halves (down to level 1 = plain ticks); above the
+# high water mark it doubles back.  At level 1 a probe tick runs every
+# SPEC_PROBE_INTERVAL ticks so a workload that turns acceptance-friendly
+# again can climb out.
+SPEC_EMA_ALPHA = 0.2
+SPEC_LOW_WATER = 0.4
+SPEC_HIGH_WATER = 0.8
+SPEC_PROBE_INTERVAL = 64
 
 
 class _Uploader:
@@ -209,6 +237,10 @@ class ContinuousBatchingScheduler:
         self.engine = engine
         self.num_slots = num_slots
         self.max_pending = max_pending
+        # guards the pending deques and the parked list, the only state a
+        # SchedulerService's caller threads touch while a tick runs; the
+        # tick itself takes it only to pop, park and requeue
+        self.lock = threading.RLock()
         # fault-injection hook (duck-typed ``.fire(site, **info)``); fired
         # at the decode_tick / engine_step / prefill sites
         self.faults = faults
@@ -254,6 +286,26 @@ class ContinuousBatchingScheduler:
         self._samp_dev: Optional[Dict[str, Any]] = None
         self._tok_dev: Optional[torch.Tensor] = None
         self._ctr_dev: Optional[torch.Tensor] = None
+        # speculative engine pair: per-slot opt-out mask + the adaptive-k
+        # controller (a level index into engine.spec_levels; level 0 is
+        # the plain tick).  The streams do not depend on the controller:
+        # emitted tokens are always the sequential draws.
+        self.speculative = (bool(getattr(engine, "speculative", False))
+                            and device_sampling)
+        self._spec_on = np.zeros((num_slots,), bool)
+        self._spec_dev: Optional[torch.Tensor] = None
+        if self.speculative:
+            self._spec_levels: List[int] = list(engine.spec_levels)
+            self._spec_level = len(self._spec_levels) - 1
+            self._accept_ema = 1.0
+            self._spec_probe = SPEC_PROBE_INTERVAL
+            self.spec_ticks = 0
+            self.spec_proposed_total = 0
+            self.spec_accepted_total = 0
+            self.spec_draft_ms_total = 0.0
+            self.spec_verify_ms_total = 0.0
+            self.spec_k_hist: Dict[int, int] = {
+                w: 0 for w in self._spec_levels}
         # paged engine: host-side page bookkeeping.  The device only ever
         # sees the (num_slots, max_pages) int32 page table + per-slot
         # lengths, re-uploaded (~KB) only when they change.
@@ -289,6 +341,8 @@ class ContinuousBatchingScheduler:
         self._share_device_ms = 0.0
         self._share_host_ms = 0.0
         self._share_transfer = 0.0
+        self._share_draft_ms = 0.0       # speculative ticks only: the
+        self._share_verify_ms = 0.0      # device-ms draft/verify split
         # lifetime cost totals the per-request attributions conserve
         # against: decode device/host ms and token counts
         self.decode_device_ms_total = 0.0
@@ -341,6 +395,12 @@ class ContinuousBatchingScheduler:
         prefills prompt+output with the sampling counter at len(output))
         and keeps the ORIGINAL base key, so the continuation draws the
         exact tokens the failed replica would have."""
+        with self.lock:
+            return self._submit(prompt, max_new_tokens, eos_id, extras,
+                                sampling, sink, ctx, resume_output, rng_key)
+
+    def _submit(self, prompt, max_new_tokens, eos_id, extras, sampling,
+                sink, ctx, resume_output, rng_key) -> Request:
         if self.max_pending is not None and self.pending >= self.max_pending:
             raise SchedulerBusy(
                 f"pending deque at its bound ({self.pending}"
@@ -374,18 +434,26 @@ class ContinuousBatchingScheduler:
         """Abandon a request: a queued or parked one is finalized
         immediately, an active one is evicted (slot freed) at the next
         tick.  Returns whether there was anything left to cancel."""
-        if req.done:
-            return False
-        req.cancelled = True
+        with self.lock:
+            if req.done:
+                return False
+            req.cancelled = True
+            if not self._unqueue(req):
+                return True                # active in a slot: reaped in step()
+            self._finish(req, "cancelled", time.perf_counter())
+            self._notify(req, None)
+            return True
+
+    def _unqueue(self, req: Request) -> bool:
+        """Take ``req`` out of the pending deques or the parked list (the
+        caller holds ``lock``); False if it is in none of them."""
         for q in (self.queue, self.bulk_queue, self.parked):
             try:
                 q.remove(req)
             except ValueError:
                 continue
-            self._finish(req, "cancelled", time.perf_counter())
-            self._notify(req, None)
             return True
-        return True                        # active in a slot: reaped in step()
+        return False
 
     def pause(self, req: Request) -> None:
         """Request preemption: the slot is parked at the next tick (the
@@ -396,18 +464,19 @@ class ContinuousBatchingScheduler:
     def resume(self, req: Request) -> bool:
         """Un-park a preempted request: it re-enters the FRONT of its
         priority deque (it already waited) and is re-admitted."""
-        req.paused = False
-        try:
-            self.parked.remove(req)
-        except ValueError:
-            return False      # never actually parked (flag raced) or done
-        if req.done:
-            return False
-        if req.trace is not None:
-            req.trace.event("resume", req_id=req.req_id,
-                            fast=bool(req.pages))
-        self._queue_for(req).appendleft(req)
-        return True
+        with self.lock:
+            req.paused = False
+            try:
+                self.parked.remove(req)
+            except ValueError:
+                return False  # never actually parked (flag raced) or done
+            if req.done:
+                return False
+            if req.trace is not None:
+                req.trace.event("resume", req_id=req.req_id,
+                                fast=bool(req.pages))
+            self._queue_for(req).appendleft(req)
+            return True
 
     @property
     def active(self) -> int:
@@ -442,7 +511,9 @@ class ContinuousBatchingScheduler:
             self.faults.fire("engine_step", tick=self.steps)
         if self.paged:
             self._sync_paged_state()
+        spec_w = self._spec_window_for_tick()
         t_dev = time.perf_counter()
+        draws = counts = None
         if self.device_sampling:
             # decode + on-device sampling: ONLY the (num_slots,) token-id
             # vector crosses to host this tick.  Sampling params, token
@@ -459,10 +530,27 @@ class ContinuousBatchingScheduler:
                                               self._top_ps, self._vocab)}
                 self._tok_dev = up("token", self._last_token)
                 self._ctr_dev = up("ctr", self._ctr)
-            tok_dev, self.state, ctr_dev = self.engine.decode_sample(
-                self._tok_dev, self.state, self._samp_dev, self._ctr_dev)
-            tokens = tok_dev.cpu().numpy()           # blocks: device sync
-            transfer = tokens.nbytes
+                if self.speculative:
+                    self._spec_dev = up("spec_on", self._spec_on)
+            if spec_w is not None:
+                # draft scan + verify + accept: the host gets the
+                # (num_slots, w) draws and (num_slots,) counts, int32, in
+                # one copy — never logits
+                (draws_dev, counts_dev, tok_dev, self.state,
+                 ctr_dev) = self.engine.speculative_step(
+                    spec_w, self._tok_dev, self.state, self._samp_dev,
+                    self._ctr_dev, self._spec_dev)
+                both = torch.cat([draws_dev, counts_dev[:, None]], dim=1)
+                both = both.cpu().numpy()            # blocks: device sync
+                draws, counts = both[:, :spec_w], both[:, spec_w]
+                transfer = both.nbytes
+                tokens = None
+            else:
+                tok_dev, self.state, ctr_dev = self.engine.decode_sample(
+                    self._tok_dev, self.state, self._samp_dev,
+                    self._ctr_dev)
+                tokens = tok_dev.cpu().numpy()       # blocks: device sync
+                transfer = tokens.nbytes
             host = greedy = None
         else:
             token = self._up("token", self._last_token)
@@ -484,6 +572,8 @@ class ContinuousBatchingScheduler:
         self.steps += 1
         self.decode_ticks += 1
         self.decode_transfer_bytes += transfer
+        if self.speculative:
+            self._spec_account(spec_w, counts, device_s)
         self._push(self.tick_transfer_window, transfer)
         # per-request decode accounting: the tick's device/transfer cost
         # splits evenly across the slots that shared it, accumulated ONCE
@@ -492,32 +582,54 @@ class ContinuousBatchingScheduler:
         self._share_ticks += 1
         self._share_device_ms += 1e3 * device_s * inv
         self._share_transfer += transfer * inv
+        if spec_w is not None:
+            d_ms = 1e3 * device_s * self.engine.draft_share
+            self._share_draft_ms += d_ms * inv
+            self._share_verify_ms += (1e3 * device_s - d_ms) * inv
         self.decode_device_ms_total += 1e3 * device_s
         now = time.perf_counter()
         free_later: List[int] = []
         for b, req in enumerate(self.slots):
             if req is None:
                 continue
-            if tokens is not None:
-                t = int(tokens[b])
+            if draws is not None:
+                # row b emitted its accepted window (the last entry is the
+                # verify's own draw: the correction token on a rejection,
+                # the bonus token on full acceptance)
+                emitted = [int(t) for t in draws[b, :counts[b]]]
+                if self._spec_on[b]:
+                    req.spec_proposed += spec_w - 1
+                    req.spec_accepted += int(counts[b]) - 1
+                    if req.trace is not None:
+                        req.trace.bump("spec_proposed", spec_w - 1)
+                        req.trace.bump("spec_accepted", int(counts[b]) - 1)
+            elif tokens is not None:
+                emitted = [int(tokens[b])]
             else:
-                t = (int(greedy[b]) if host is None
-                     else req.sampler.sample(host[b]))
-            self._record_token(req, t, now)
-            reason = self._finish_reason(req, t)
-            if reason is not None:
-                self._finish(req, reason, now)
-                finished.append(req)
-                free_later.append(b)
-            else:
-                self._last_token[b] = t
+                emitted = [int(greedy[b]) if host is None
+                           else req.sampler.sample(host[b])]
+            reason = None
+            for t in emitted:
+                self._record_token(req, t, now)
+                reason = self._finish_reason(req, t)
+                if reason is not None:
+                    # mid-window finish: the device advanced the whole
+                    # accepted count, but the slot frees below and the
+                    # next admission re-uploads its state
+                    self._finish(req, reason, now)
+                    finished.append(req)
+                    free_later.append(b)
+                    self._notify(req, t)
+                    break
+                self._notify(req, t)
+            if reason is None:
+                self._last_token[b] = emitted[-1]
                 self._ctr[b] = len(req.output)
                 if self.paged:
                     # mirror the device's per-row length advance for
                     # continuing rows (no re-upload while nothing else
                     # changes)
-                    self._lengths[b] += 1
-            self._notify(req, t)
+                    self._lengths[b] += len(emitted)
         if self.device_sampling and self._samp_dev is not None:
             # no slot changed hands: next tick's inputs never leave the
             # device (a finish this tick clears _samp_dev via the deferred
@@ -637,7 +749,8 @@ class ContinuousBatchingScheduler:
             return self._admit_paged(finished, free)
         picked: List[Tuple[Request, int, Tuple]] = []
         while len(picked) < len(free):
-            req = self._pop_next()
+            with self.lock:
+                req = self._pop_next()
             if req is None:
                 break
             now = time.perf_counter()
@@ -716,6 +829,7 @@ class ContinuousBatchingScheduler:
         self._top_ks[b] = p.top_k
         self._top_ps[b] = p.top_p
         self._keys[b] = req.base_key
+        self._spec_on[b] = p.speculation
         self._samp_dev = None                # re-upload on the next tick
 
     def _prefill_group(self, reqs: List[Request], S: int,
@@ -805,7 +919,8 @@ class ContinuousBatchingScheduler:
         picked: List[Tuple[Request, PrefixMatch, List[int],
                            List[int], int, int]] = []
         while len(picked) < len(free):
-            req = self._pop_next()
+            with self.lock:
+                req = self._pop_next()
             if req is None:
                 break
             now = time.perf_counter()
@@ -830,7 +945,8 @@ class ContinuousBatchingScheduler:
                 new_pages = self.pager.alloc(need)
             except PagerOOM:
                 self.pager.release(match.pages)
-                self._queue_for(req).appendleft(req)
+                with self.lock:
+                    self._queue_for(req).appendleft(req)
                 break
             C = self.engine.ctx_bucket_for(len(match.pages))
             req.pages = list(match.pages) + list(new_pages)
@@ -941,18 +1057,22 @@ class ContinuousBatchingScheduler:
                             pages=len(req.pages))
 
     def _ensure_decode_pages(self) -> None:
-        """Before a decode tick, make sure every active slot owns the page
-        its next token lands in; allocate on the boundary (clamped at the
-        per-sequence table: a request finishes with reason "length" before
-        it could write past max_len).  When the pool is dry even after
-        cache eviction, RECOMPUTE-preempt the slot: release its pages and
+        """Before a decode tick, make sure every active slot owns the pages
+        its next tokens land in; allocate on the boundary.  A plain tick
+        writes one position; a speculative engine may commit up to
+        max_window positions a tick, so its slots keep the whole window
+        covered (clamped at the per-sequence table: positions past max_len
+        go to the dump page, and the request finishes with reason "length"
+        before they could matter).  When the pool is dry even after cache
+        eviction, RECOMPUTE-preempt the slot: release its pages and
         requeue it at the front (the O(1) reattach path doesn't apply —
         its pages are gone)."""
         ps = self.engine.page_size
+        lookahead = self.engine.max_window if self.speculative else 1
         for b, req in enumerate(self.slots):
             if req is None:
                 continue
-            need = min(int(self._lengths[b]) // ps + 1,
+            need = min(int(self._lengths[b] + lookahead - 1) // ps + 1,
                        self.engine.max_pages_per_seq)
             while len(req.pages) < need:
                 try:
@@ -960,7 +1080,8 @@ class ContinuousBatchingScheduler:
                 except PagerOOM:
                     self._release_pages(req)
                     self._free_slot(b)
-                    self._queue_for(req).appendleft(req)
+                    with self.lock:
+                        self._queue_for(req).appendleft(req)
                     self.preempt_recompute += 1
                     if req.trace is not None:
                         req.trace.event("preempt", req_id=req.req_id,
@@ -995,11 +1116,75 @@ class ContinuousBatchingScheduler:
                 "prefill_tokens_forwarded": self.prefill_tokens_forwarded,
                 "prefill_tokens_reused": self.prefill_tokens_reused}
 
+    # --- speculative decoding ----------------------------------------------------
+
+    def _spec_window_for_tick(self) -> Optional[int]:
+        """This tick's verify window, or None for a plain tick.  Level 0
+        is the plain tick, with a probe tick every SPEC_PROBE_INTERVAL so
+        the controller can climb back when acceptance recovers."""
+        if not self.speculative:
+            return None
+        if not any(self._spec_on[b] and self.slots[b] is not None
+                   for b in range(self.num_slots)):
+            return None                  # every active slot opted out
+        if self._spec_level == 0:
+            self._spec_probe -= 1
+            if self._spec_probe > 0:
+                return None
+            self._spec_probe = SPEC_PROBE_INTERVAL
+            return self._spec_levels[1]
+        return self._spec_levels[self._spec_level]
+
+    def _spec_account(self, spec_w: Optional[int], counts: Optional[Any],
+                      device_s: float) -> None:
+        """Per-tick speculation bookkeeping and the adaptive-k update.  The
+        draft/verify device-ms split is an ESTIMATE prorated by the pair's
+        parameter bytes (the tick's device time is measured as one)."""
+        if spec_w is None:
+            self.spec_k_hist[1] += 1
+            return
+        self.spec_ticks += 1
+        self.spec_k_hist[spec_w] += 1
+        draft_ms = 1e3 * device_s * self.engine.draft_share
+        self.spec_draft_ms_total += draft_ms
+        self.spec_verify_ms_total += 1e3 * device_s - draft_ms
+        spec_rows = [b for b in range(self.num_slots)
+                     if self.slots[b] is not None and self._spec_on[b]]
+        n = len(spec_rows)
+        proposed = n * (spec_w - 1)
+        accepted = int(counts[spec_rows].sum()) - n
+        self.spec_proposed_total += proposed
+        self.spec_accepted_total += accepted
+        if proposed > 0:
+            rate = accepted / proposed
+            self._accept_ema += SPEC_EMA_ALPHA * (rate - self._accept_ema)
+            if self._accept_ema < SPEC_LOW_WATER and self._spec_level > 0:
+                self._spec_level -= 1
+                if self._spec_level == 0:
+                    self._spec_probe = SPEC_PROBE_INTERVAL
+            elif (self._accept_ema > SPEC_HIGH_WATER
+                  and self._spec_level < len(self._spec_levels) - 1):
+                self._spec_level += 1
+
     def speculation_stats(self) -> Optional[Dict[str, Any]]:
-        """None: speculative decoding is not ported yet (stats() reports
-        ZERO_SPECULATION_STATS, as the JAX scheduler does for a plain
-        engine)."""
-        return None
+        if not self.speculative:
+            return None
+        proposed = self.spec_proposed_total
+        return {
+            "enabled": True,
+            "max_window": self.engine.max_window,
+            "window": self._spec_levels[self._spec_level],
+            "acceptance_ema": self._accept_ema,
+            "spec_ticks": self.spec_ticks,
+            "proposed_tokens": proposed,
+            "accepted_tokens": self.spec_accepted_total,
+            "acceptance_rate": (self.spec_accepted_total / proposed
+                                if proposed else 0.0),
+            "k_hist": {str(w): c for w, c in self.spec_k_hist.items()},
+            "draft_ms_total": self.spec_draft_ms_total,
+            "verify_ms_total": self.spec_verify_ms_total,
+            "draft_share_estimate": self.engine.draft_share,
+        }
 
     # --- internals -------------------------------------------------------------
 
@@ -1009,7 +1194,8 @@ class ContinuousBatchingScheduler:
         them."""
         if req.trace is not None:
             req.share_mark = (self._share_ticks, self._share_device_ms,
-                              self._share_host_ms, self._share_transfer)
+                              self._share_host_ms, self._share_transfer,
+                              self._share_draft_ms, self._share_verify_ms)
 
     def _flush_share(self, req: Request) -> None:
         """Slot DETACH hook: fold the attach->detach accumulator delta into
@@ -1025,6 +1211,10 @@ class ContinuousBatchingScheduler:
             tr.bump("decode_device_ms", self._share_device_ms - m[1])
             tr.bump("decode_host_ms", self._share_host_ms - m[2])
             tr.bump("decode_transfer_bytes", self._share_transfer - m[3])
+            draft = self._share_draft_ms - m[4]
+            if draft:                    # speculative ticks in residency
+                tr.bump("decode_draft_ms", draft)
+                tr.bump("decode_verify_ms", self._share_verify_ms - m[5])
 
     def _free_slot(self, b: int) -> None:
         """Release slot ``b`` and reset its sampling-param row to greedy,
@@ -1037,6 +1227,7 @@ class ContinuousBatchingScheduler:
         self._top_ks[b] = 0
         self._top_ps[b] = 1.0
         self._keys[b] = 0
+        self._spec_on[b] = False
         self._samp_dev = None
         if self.paged:
             # zero the table row so the vacant slot's decode-step writes
@@ -1059,18 +1250,21 @@ class ContinuousBatchingScheduler:
                 self._notify(req, None)
                 reaped.append(req)
             elif req.paused:
-                if not self.preempt_enabled:
-                    req.paused = False       # retiring: decode in place
-                else:
-                    self._free_slot(b)
-                    self.parked.append(req)
-                    req.pause_count += 1
-                    self.pauses_total += 1
-                    if req.trace is not None:
-                        req.trace.event("preempt", t=now,
-                                        req_id=req.req_id,
-                                        cause="stalled_consumer",
-                                        pause_count=req.pause_count)
+                with self.lock:      # a resume/retire may race the park
+                    if not req.paused:
+                        pass                 # resumed meanwhile
+                    elif not self.preempt_enabled:
+                        req.paused = False   # retiring: decode in place
+                    else:
+                        self._free_slot(b)
+                        self.parked.append(req)
+                        req.pause_count += 1
+                        self.pauses_total += 1
+                        if req.trace is not None:
+                            req.trace.event("preempt", t=now,
+                                            req_id=req.req_id,
+                                            cause="stalled_consumer",
+                                            pause_count=req.pause_count)
             elif req.expired(now):
                 self._free_slot(b)
                 self.deadline_total += 1
@@ -1089,17 +1283,18 @@ class ContinuousBatchingScheduler:
             return []
         now = now if now is not None else time.perf_counter()
         reaped, still = [], []
-        for req in self.parked:
-            if req.done:
-                continue                   # cancelled elsewhere
-            if req.expired(now):
-                self.deadline_total += 1
-                self._finish(req, "deadline", now)
-                self._notify(req, None)
-                reaped.append(req)
-            else:
-                still.append(req)
-        self.parked = still
+        with self.lock:
+            for req in self.parked:
+                if req.done:
+                    continue               # cancelled elsewhere
+                if req.expired(now):
+                    self.deadline_total += 1
+                    self._finish(req, "deadline", now)
+                    self._notify(req, None)
+                    reaped.append(req)
+                else:
+                    still.append(req)
+            self.parked = still
         return reaped
 
     def _finish_reason(self, req: Request, token: int) -> Optional[str]:
@@ -1145,9 +1340,23 @@ class ContinuousBatchingScheduler:
         req.last_token_at = now
 
     def _finish(self, req: Request, reason: str, now: float) -> None:
+        self._close(req, reason, now)
+        self._account(req, reason, now)
+
+    @staticmethod
+    def _close(req: Request, reason: str, now: float) -> None:
+        """The request's own side of a finish: its state and its trace's
+        ``request_finished`` event."""
         req.done = True
         req.finish_reason = reason
         req.finished_at = now
+        if req.trace is not None:
+            req.trace.event("request_finished", t=now, req_id=req.req_id,
+                            reason=reason, tokens=len(req.output))
+
+    def _account(self, req: Request, reason: str, now: float) -> None:
+        """The scheduler's side of a finish (the driver thread's): pages,
+        counters, the completed window, latency samples."""
         if self.paged:
             # every terminal path funnels through here — slot finishes,
             # cancels, deadlines (queued, active, or parked), errors —
@@ -1160,13 +1369,9 @@ class ContinuousBatchingScheduler:
         self._push(self.completed, req)
         latency = now - req.submitted_at
         self.latency_res.add(latency)
-        if req.trace is not None:
-            self.hist["request_latency_ms"].observe(1e3 * latency,
-                                                    req.trace.trace_id)
-            req.trace.event("request_finished", t=now, req_id=req.req_id,
-                            reason=reason, tokens=len(req.output))
-        else:
-            self.hist["request_latency_ms"].observe(1e3 * latency)
+        self.hist["request_latency_ms"].observe(
+            1e3 * latency, req.trace.trace_id if req.trace is not None
+            else None)
 
     def _notify(self, req: Request, token: Optional[int]) -> None:
         if req.sink is not None:
@@ -1180,15 +1385,22 @@ class ContinuousBatchingScheduler:
 
 
 class SchedulerService:
-    """Thread-safe front-end over ``ContinuousBatchingScheduler``: the
-    port's generate entry point until the ``/v1/generate`` route is ported.
+    """Thread-safe front-end over ``ContinuousBatchingScheduler``.
 
     The scheduler itself is single-threaded by design (it mutates pooled
     device state).  The service owns ONE driver thread that ticks the
     scheduler whenever work is pending, while any number of caller threads
     ``submit_and_wait`` prompts and block on a per-request event — or
     ``submit_request`` a sink-carrying streaming request whose tokens are
-    delivered as they decode."""
+    delivered as they decode.
+
+    No caller waits for a tick in flight (see the module docstring): a
+    submit appends to the pending deques under the scheduler's short
+    ``lock``; ``cancel`` finishes a queued or parked request at once (the
+    driver settles its pages and counters at the next tick boundary) and
+    flags an active one for the next tick's reap; ``begin_retire`` and
+    ``resume`` move parked requests under the same lock; ``stats()`` reads
+    the snapshot the driver publishes after each tick."""
 
     def __init__(self, engine: InferenceEngine, num_slots: int = 4, *,
                  max_pending: Optional[int] = None,
@@ -1202,20 +1414,25 @@ class SchedulerService:
             device_sampling=device_sampling,
             client_weights=client_weights,
             faults=faults)
-        self._lock = threading.Lock()
+        self._lock = self.scheduler.lock
         self._work = threading.Condition(self._lock)
         self._events: Dict[int, threading.Event] = {}
         self._errors: Dict[int, BaseException] = {}
+        # requests a caller finished (cancelled while queued or parked)
+        # whose pages and counters the driver settles at the tick boundary
+        self._owed: List[Tuple[Request, float]] = []
         self._closed = False
         self._retiring = False
-        # health signals read LOCK-FREE by a replica monitor (a stalled
-        # driver holds the service lock): driver-error scoring, last
-        # completed tick's wall time, and a monotonic heartbeat stamp
+        # True while the driver waits with nothing to do (read under _lock)
+        self._idle = False
+        # health signals read LOCK-FREE by a replica monitor: driver-error
+        # scoring, last completed tick's wall time, a monotonic heartbeat
         self.driver_errors = 0
         self.consecutive_errors = 0
         self.last_error: Optional[BaseException] = None
         self.last_tick_s = 0.0
         self.last_step_at = time.monotonic()
+        self._snap = self._snapshot()
         self._thread = threading.Thread(target=self._run, daemon=True,
                                         name="flexserve-scheduler")
         self._thread.start()
@@ -1270,7 +1487,7 @@ class SchedulerService:
         with self._lock:
             errs = [self._errors.pop(r.req_id) for r, _ in pairs
                     if r.req_id in self._errors]
-            steps = self.scheduler.steps - steps0
+        steps = self.scheduler.steps - steps0
         if errs:
             raise errs[0]
         return GenerationResult(
@@ -1306,20 +1523,28 @@ class SchedulerService:
             return req
 
     def cancel(self, req: Request) -> bool:
-        """Cancel a request (frees its decode slot at the next tick)."""
+        """Cancel a request.  A queued or parked one finishes at once (its
+        sink and waiter fire here); an active one frees its slot at the
+        next tick.  Returns whether there was anything left to cancel."""
         with self._lock:
-            live = self.scheduler.cancel(req)
-            # a QUEUED request is finalized inside cancel() and will never
-            # come back from step() — release its waiter here
-            if req.done and req.req_id in self._events:
-                self._events.pop(req.req_id).set()
+            if req.done:
+                return False
+            req.cancelled = True
+            s = self.scheduler
+            if s._unqueue(req):
+                now = time.perf_counter()
+                s._close(req, "cancelled", now)
+                self._owed.append((req, now))
+                s._notify(req, None)
+                ev = self._events.pop(req.req_id, None)
+                if ev is not None:
+                    ev.set()
             self._work.notify()
-            return live
+            return True
 
     def pause(self, req: Request) -> None:
         """Preempt a request's slot at the next tick (stalled consumer)."""
-        with self._lock:
-            self.scheduler.pause(req)
+        self.scheduler.pause(req)
 
     def resume(self, req: Request) -> bool:
         """Un-park a preempted request.  Returns whether a parked request
@@ -1336,10 +1561,12 @@ class SchedulerService:
         allocator's growth: per (seq bucket x group size) one throwaway
         scheduler over the SAME engine runs a bucketed prefill, the
         first-token sampler (filtered regime: one sampled row per group),
-        and a dense or paged decode tick.  Defaults: every sequence bucket,
-        at the largest group this pool admits in one forward.  Returns wall
-        seconds spent.  (Eager PyTorch compiles nothing per shape; what
-        this buys is measured as seconds, not compile counts.)"""
+        and a dense or paged decode tick; on a speculative pair, one
+        speculative step at every window level and one plain tick, on a
+        throwaway state.  Defaults: every sequence bucket, at the largest
+        group this pool admits in one forward.  Returns wall seconds spent.
+        (Eager PyTorch compiles nothing per shape; what this buys is
+        measured as seconds, not compile counts.)"""
         t0 = time.perf_counter()
         s = self.scheduler
         e = s.engine
@@ -1364,6 +1591,24 @@ class SchedulerService:
                     tmp.submit([1 + (i % 7)] * probe_len, sampling=samp)
                 tmp.run()
                 del tmp
+        if s.speculative:
+            n, dev = s.num_slots, e.device
+            samp = {"temperature": torch.zeros((n,), device=dev),
+                    "top_k": torch.zeros((n,), dtype=torch.int32,
+                                         device=dev),
+                    "top_p": torch.ones((n,), device=dev),
+                    "key": torch.zeros((n, 2), dtype=torch.int64,
+                                       device=dev),
+                    "regime": "greedy"}
+            tok = torch.zeros((n,), dtype=torch.int32, device=dev)
+            ctr = torch.zeros((n,), dtype=torch.int32, device=dev)
+            on = torch.ones((n,), dtype=torch.bool, device=dev)
+            st = e.new_state(n)
+            for w in e.spec_levels[1:]:
+                _, _, tok, st, ctr = e.speculative_step(w, tok, st, samp,
+                                                        ctr, on)
+            tok, st, ctr = e.decode_sample(tok, st, samp, ctr)
+            del st
         if e.device.type == "cuda":
             torch.cuda.synchronize(e.device)
         return time.perf_counter() - t0
@@ -1390,10 +1635,11 @@ class SchedulerService:
         """Block until every admitted request has finished; returns False
         on timeout."""
         deadline = None if timeout is None else time.monotonic() + timeout
+        s = self.scheduler
         while True:
             with self._lock:
-                if self._closed or (self.scheduler.idle()
-                                    and not self.scheduler.parked):
+                if self._closed or (self._idle and s.idle()
+                                    and not s.parked and not self._owed):
                     return True
             if deadline is not None and time.monotonic() >= deadline:
                 return False
@@ -1401,32 +1647,60 @@ class SchedulerService:
 
     def stats(self, lock_timeout: Optional[float] = None
               ) -> Optional[Dict[str, Any]]:
-        """Snapshot scheduler stats (the JAX service's key set).  With
-        ``lock_timeout`` set, returns ``None`` instead of blocking when the
-        driver holds the lock."""
-        if lock_timeout is None:
-            self._lock.acquire()
-        elif not self._lock.acquire(timeout=lock_timeout):
-            return None
-        try:
-            s = self.scheduler
-            lat50, lat95 = s.latency_res.percentiles(0.50, 0.95)
-            ttft50, ttft95 = s.ttft_res.percentiles(0.50, 0.95)
-            itl50, itl95 = s.itl_res.percentiles(0.50, 0.95)
-            host_ms = sorted(s.host_ms_window)
-            dev_ms = sorted(s.device_ms_window)
-            pre_ms = sorted(s.prefill_ms_window)
-            xfer = sorted(s.tick_transfer_window)
-            h = s.hist
-            decode = {
-                "device_sampling": s.device_sampling,
-                "ticks": s.decode_ticks,
-                "host_ms_p50": pctl(host_ms, 0.50),
-                "host_ms_p95": pctl(host_ms, 0.95),
-                "device_ms_p50": pctl(dev_ms, 0.50),
-                "device_ms_p95": pctl(dev_ms, 0.95),
-                "prefill_ms_p50": pctl(pre_ms, 0.50),
-                "transfer_bytes_per_tick_p50": pctl(xfer, 0.50),
+        """Scheduler stats (the JAX service's key set) from the snapshot
+        the driver published after its last tick: never waits for a tick
+        in flight (``lock_timeout`` is accepted for interface parity)."""
+        del lock_timeout
+        snap = self._snap
+        lat50, lat95 = _pctls(snap["latency"], 0.50, 0.95)
+        ttft50, ttft95 = _pctls(snap["ttft"], 0.50, 0.95)
+        itl50, itl95 = _pctls(snap["itl"], 0.50, 0.95)
+        host_ms = sorted(snap["host_ms"])
+        dev_ms = sorted(snap["device_ms"])
+        pre_ms = sorted(snap["prefill_ms"])
+        xfer = sorted(snap["transfer"])
+        h = snap["hist"]
+        decode = {
+            "device_sampling": snap["device_sampling"],
+            "ticks": snap["ticks"],
+            "host_ms_p50": pctl(host_ms, 0.50),
+            "host_ms_p95": pctl(host_ms, 0.95),
+            "device_ms_p50": pctl(dev_ms, 0.50),
+            "device_ms_p95": pctl(dev_ms, 0.95),
+            "prefill_ms_p50": pctl(pre_ms, 0.50),
+            "transfer_bytes_per_tick_p50": pctl(xfer, 0.50),
+            **snap["decode"],
+            "host_ms_hist": h["decode_host_ms"],
+            "device_ms_hist": h["decode_device_ms"],
+            "prefill_ms_hist": h["prefill_ms"],
+            "transfer_bytes_hist": h["tick_transfer_bytes"],
+        }
+        return {
+            "decode": decode,
+            "pager": dict(snap["pager"]),
+            "speculation": dict(snap["speculation"]),
+            **snap["counts"],
+            "request_latency_p50_ms": 1e3 * lat50,
+            "request_latency_p95_ms": 1e3 * lat95,
+            "ttft_p50_ms": 1e3 * ttft50,
+            "ttft_p95_ms": 1e3 * ttft95,
+            "inter_token_p50_ms": 1e3 * itl50,
+            "inter_token_p95_ms": 1e3 * itl95,
+            "request_latency_ms_hist": h["request_latency_ms"],
+            "ttft_ms_hist": h["ttft_ms"],
+            "inter_token_ms_hist": h["inter_token_ms"],
+            "queue_wait_ms_hist": h["queue_wait_ms"],
+        }
+
+    def _snapshot(self) -> Dict[str, Any]:
+        """What ``stats()`` reads, copied on the driver thread: counters,
+        copies of the windows and reservoir samples, histogram snapshots
+        (the sorting is left to the reader)."""
+        s = self.scheduler
+        return {
+            "device_sampling": s.device_sampling,
+            "ticks": s.decode_ticks,
+            "decode": {
                 "transfer_bytes_total": s.decode_transfer_bytes,
                 "prefill_transfer_bytes_total": s.prefill_transfer_bytes,
                 "prefill_forwards": s.prefill_forwards,
@@ -1436,17 +1710,8 @@ class SchedulerService:
                 "host_ms_total": s.decode_host_ms_total,
                 "decode_tokens_total": s.decode_tokens_total,
                 "prefill_tokens_total": s.prefill_tokens_total,
-                "compiled_steps": s.engine.decode_cache_size(),
-                "host_ms_hist": h["decode_host_ms"].snapshot(),
-                "device_ms_hist": h["decode_device_ms"].snapshot(),
-                "prefill_ms_hist": h["prefill_ms"].snapshot(),
-                "transfer_bytes_hist": h["tick_transfer_bytes"].snapshot(),
-            }
-            return {
-                "decode": decode,
-                "pager": s.pager_stats() or dict(ZERO_PAGER_STATS),
-                "speculation": (s.speculation_stats()
-                                or dict(ZERO_SPECULATION_STATS)),
+                "compiled_steps": s.engine.decode_cache_size()},
+            "counts": {
                 "steps": s.steps, "active_slots": s.active,
                 "pending": s.pending,
                 "pending_high_water": s.pending_high_water,
@@ -1456,21 +1721,19 @@ class SchedulerService:
                 "num_slots": s.num_slots,
                 "completed": s.completed_total,
                 "cancelled": s.cancelled_total,
-                "deadline_missed": s.deadline_total,
-                "request_latency_p50_ms": 1e3 * lat50,
-                "request_latency_p95_ms": 1e3 * lat95,
-                "ttft_p50_ms": 1e3 * ttft50,
-                "ttft_p95_ms": 1e3 * ttft95,
-                "inter_token_p50_ms": 1e3 * itl50,
-                "inter_token_p95_ms": 1e3 * itl95,
-                "request_latency_ms_hist":
-                    h["request_latency_ms"].snapshot(),
-                "ttft_ms_hist": h["ttft_ms"].snapshot(),
-                "inter_token_ms_hist": h["inter_token_ms"].snapshot(),
-                "queue_wait_ms_hist": h["queue_wait_ms"].snapshot(),
-            }
-        finally:
-            self._lock.release()
+                "deadline_missed": s.deadline_total},
+            "host_ms": list(s.host_ms_window),
+            "device_ms": list(s.device_ms_window),
+            "prefill_ms": list(s.prefill_ms_window),
+            "transfer": list(s.tick_transfer_window),
+            "latency": list(s.latency_res.samples),
+            "ttft": list(s.ttft_res.samples),
+            "itl": list(s.itl_res.samples),
+            "hist": {k: v.snapshot() for k, v in s.hist.items()},
+            "pager": s.pager_stats() or ZERO_PAGER_STATS,
+            "speculation": (s.speculation_stats()
+                            or ZERO_SPECULATION_STATS),
+        }
 
     def close(self) -> None:
         with self._lock:
@@ -1479,16 +1742,16 @@ class SchedulerService:
         self._thread.join(timeout=5.0)
 
     def abandon(self) -> None:
-        """Mark the service closed WITHOUT taking the lock (a wedged driver
-        holds it): an idle driver notices within its 100ms wait tick, and
-        a wedged one fails its in-flight requests whenever the stall
-        releases."""
+        """Mark the service closed WITHOUT taking the lock: an idle driver
+        notices within its 100ms wait tick, and a wedged one fails its
+        in-flight requests whenever the stall releases."""
         self._closed = True
         self._retiring = True
 
     def _fail_in_flight(self, err: BaseException) -> None:
         """Fail every queued/active request (driver error or close):
-        waiters get the error, streaming sinks get a terminal event."""
+        waiters get the error, streaming sinks get a terminal event.
+        Runs on the driver thread, under the lock."""
         s = self.scheduler
         now = time.perf_counter()
         for req in (list(s.queue) + list(s.bulk_queue) + list(s.parked)
@@ -1513,35 +1776,54 @@ class SchedulerService:
             s._state_dirty = True
 
     def _run(self) -> None:
+        s = self.scheduler
         while True:
             with self._lock:
-                while not self._closed and self.scheduler.idle():
+                while not self._closed and not self._owed and s.idle():
                     # parked requests keep the scheduler idle; their
                     # deadlines are still enforced on this slow tick
-                    for req in self.scheduler.reap_parked_expired():
+                    for req in s.reap_parked_expired():
                         if req.req_id in self._events:
                             self._events.pop(req.req_id).set()
+                    self._snap = self._snapshot()
+                    self._idle = True
                     self._work.wait(timeout=0.1)
+                self._idle = False
+                owed, self._owed = self._owed, []
+                for req, now in owed:
+                    s._account(req, req.finish_reason, now)
                 if self._closed:
                     self._fail_in_flight(RuntimeError(
                         "scheduler service closed with requests in flight"))
+                    self._snap = self._snapshot()
                     return
-                try:
-                    t0 = time.monotonic()
-                    finished = self.scheduler.step()
-                    now = time.monotonic()
-                    self.last_tick_s = now - t0
-                    self.last_step_at = now
-                    self.consecutive_errors = 0
-                    events = [self._events.pop(r.req_id) for r in finished
-                              if r.req_id in self._events]
-                except BaseException as err:  # noqa: BLE001 — keep driving
-                    # Fail every in-flight request but keep the driver
-                    # alive: a poisoned batch must not hang future ones.
-                    self.driver_errors += 1
-                    self.consecutive_errors += 1
-                    self.last_error = err
+            if s.idle():
+                continue
+            try:
+                t0 = time.monotonic()
+                finished = s.step()
+                now = time.monotonic()
+                self.last_tick_s = now - t0
+                self.last_step_at = now
+                self.consecutive_errors = 0
+            except BaseException as err:  # noqa: BLE001 — keep driving
+                # Fail every in-flight request but keep the driver alive:
+                # a poisoned batch must not hang future ones.
+                self.driver_errors += 1
+                self.consecutive_errors += 1
+                self.last_error = err
+                with self._lock:
                     self._fail_in_flight(err)
-                    continue
+                    self._snap = self._snapshot()
+                continue
+            self._snap = self._snapshot()
+            with self._lock:
+                events = [self._events.pop(r.req_id) for r in finished
+                          if r.req_id in self._events]
             for ev in events:
                 ev.set()
+
+
+def _pctls(samples: List[float], *ps: float) -> List[float]:
+    ordered = sorted(samples)
+    return [pctl(ordered, p) for p in ps]

@@ -19,13 +19,17 @@ POST /v1/engines/{name}/load|rollback for the generation engine) for hot
 swaps under traffic.  Tracing is on unless ``--no-trace``
 (``--flight-recorder-size`` sealed traces stay queryable);
 ``--profile-dir`` enables ``POST /v1/debug/profile``; ``--slo-config``
-starts the SLO autopilot.  The speculative-decoding flags are not ported
-yet and are not accepted.
+starts the SLO autopilot.  ``--draft-model`` (with ``--draft-layers``
+and ``--spec-window``) serves the generate plane through a speculative
+pair: the draft, seeded ``seed + 1000``, proposes and the member verifies;
+seeded outputs equal non-speculative decoding, and a request opts out
+with ``"speculation": false``.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import sys
 import time
 from typing import Dict, Optional, Sequence
@@ -34,7 +38,8 @@ import torch
 
 from repro_torch.configs import ASSIGNED_ARCHS, get_config, reduce_for_smoke
 from repro_torch.core import (Ensemble, EnsembleMember, FaultInjector,
-                              InferenceEngine, ModelRegistry)
+                              InferenceEngine, ModelRegistry,
+                              SpeculativeEngine)
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models.build import build_model
 from repro_torch.serving import (FlexServeApp, FlexServeServer, ModelManager,
@@ -43,6 +48,17 @@ from repro_torch.serving import (FlexServeApp, FlexServeServer, ModelManager,
 
 # families the port can decode (moe, vlm and encdec come with their slices)
 DECODE_FAMILIES = ("dense", "ssm", "hybrid")
+
+
+def draft_config(draft_model: str, *, full: bool, draft_layers=None):
+    """The draft's config: the arch (reduced unless ``full``), cut to
+    ``draft_layers`` layers when given."""
+    dcfg = get_config(draft_model)
+    if not full:
+        dcfg = reduce_for_smoke(dcfg)
+    if draft_layers:
+        dcfg = dataclasses.replace(dcfg, num_layers=int(draft_layers))
+    return dcfg
 
 
 def build_app(arch_names: Sequence[str], *, full: bool = False,
@@ -54,11 +70,15 @@ def build_app(arch_names: Sequence[str], *, full: bool = False,
               trace: bool = True, flight_recorder_size: int = 256,
               profile_dir: Optional[str] = None, slo_config=None,
               client_weights: Optional[Dict[str, float]] = None,
+              draft_model: Optional[str] = None,
+              draft_layers: Optional[int] = None, spec_window: int = 4,
               replicas: int = 1, fault_config=None) -> FlexServeApp:
     """Members ``f"{name}#{i}"`` with params from seed ``seed + i`` on
     ``device`` (CUDA unless given; raises with no GPU and no device).  The
     generate plane runs an ``InferenceEngine`` over the first member whose
-    family decodes, on that member's params (no second copy)."""
+    family decodes, on that member's params (no second copy); with
+    ``draft_model`` it runs a ``SpeculativeEngine`` of that engine and a
+    draft seeded ``seed + 1000``."""
     device = resolve_device(device)
     registry = ModelRegistry()
     members = []
@@ -80,6 +100,20 @@ def build_app(arch_names: Sequence[str], *, full: bool = False,
         if engine is None and cfg.family in DECODE_FAMILIES:
             engine = InferenceEngine(model, params, max_len=max_len,
                                      max_batch=max_batch)
+    if engine is not None and draft_model is not None:
+        # speculative pair: a (usually shallower) draft proposes, the
+        # target verifies — seeded output is the same either way
+        dcfg = draft_config(draft_model, full=full,
+                            draft_layers=draft_layers)
+        dmodel = build_model(dcfg)
+        engine = SpeculativeEngine(
+            engine,
+            InferenceEngine(dmodel, dmodel.init(seed + 1000, device),
+                            max_len=max_len, max_batch=max_batch),
+            max_window=spec_window)
+        print(f"[serve] speculative decoding: draft {draft_model} "
+              f"({dcfg.num_layers} layers) proposing up to "
+              f"{engine.max_window} tokens/tick")
     ensemble = Ensemble(members, max_batch=max_batch)
     return FlexServeApp(registry, ensemble, engine, num_slots=num_slots,
                         max_queue=max_queue,
@@ -101,6 +135,8 @@ def build_store_app(arch_names: Sequence[str], store_dir: str, *,
                     trace: bool = True, flight_recorder_size: int = 256,
                     profile_dir: Optional[str] = None, slo_config=None,
                     client_weights: Optional[Dict[str, float]] = None,
+                    draft_model: Optional[str] = None,
+                    draft_layers: Optional[int] = None, spec_window: int = 4,
                     replicas: int = 1, fault_config=None) -> FlexServeApp:
     """Store-backed startup: seed the store on first run (member
     ``f"{name}#{i}"`` from seed ``seed + i``), then serve the LATEST
@@ -110,7 +146,9 @@ def build_store_app(arch_names: Sequence[str], store_dir: str, *,
     plane, so it can be hot-swapped / rolled back under live streaming
     traffic.  A store seeded by another publisher is served as its
     manifests describe it (``reduced``, ``num_layers``, ``num_classes``,
-    ``max_len``, ``max_batch``)."""
+    ``max_len``, ``max_batch``).  With ``draft_model`` the draft is
+    published (first run) as ``f"{draft_model}#draft"``, its manifest
+    recording its depth, and loaded with the engine as one pair."""
     device = resolve_device(device)
     store = ModelStore(store_dir)
     member_names = []
@@ -151,9 +189,31 @@ def build_store_app(arch_names: Sequence[str], store_dir: str, *,
                        client_weights=client_weights,
                        replicas=replicas, fault_config=faults)
     if engine_member is not None and app.generation is not None:
-        res = manager.load_engine(engine_member)
+        draft_member = None
+        if draft_model is not None:
+            # the draft checkpoint is its own store model, so the pair
+            # rides the engine lifecycle: load / canary / promote /
+            # rollback move target and draft as one unit
+            draft_member = f"{draft_model}#draft"
+            if store.latest_version(draft_member) is None:
+                dcfg = draft_config(draft_model, full=full,
+                                    draft_layers=draft_layers)
+                dparams = build_model(dcfg).init(seed + 1000, device)
+                v = store.publish(draft_member, dparams, config=draft_model,
+                                  source=dcfg.source,
+                                  meta={"reduced": not full,
+                                        "num_classes": num_classes,
+                                        "num_layers": dcfg.num_layers,
+                                        "init_seed": seed + 1000,
+                                        "max_len": max_len,
+                                        "max_batch": max_batch})
+                del dparams
+                print(f"[serve] published draft {draft_member} v{v}")
+        res = manager.load_engine(engine_member, draft=draft_member,
+                                  max_window=spec_window)
         print(f"[serve] generation engine {res['engine']} "
-              f"(alias {res['alias']})")
+              f"(alias {res['alias']})"
+              + (f" + draft {res['draft']}" if res.get("draft") else ""))
     return app
 
 
@@ -217,6 +277,20 @@ def main(argv=None) -> int:
                          "any weight enables weighted admission quotas + "
                          "weighted fair dequeue on the generate plane "
                          "(unlisted tags weigh 1.0)")
+    ap.add_argument("--draft-model", default=None, metavar="ARCH",
+                    choices=list(ASSIGNED_ARCHS),
+                    help="enable speculative decoding: serve this arch as "
+                         "the draft proposer (usually with --draft-layers "
+                         "to truncate its depth); seeded outputs equal "
+                         "non-speculative decoding, and requests opt out "
+                         "per call with \"speculation\": false")
+    ap.add_argument("--draft-layers", type=int, default=None,
+                    help="truncate the draft model to this many layers "
+                         "(a shallow draft is what makes proposing cheap)")
+    ap.add_argument("--spec-window", type=int, default=4,
+                    help="max draft tokens proposed per decode tick; the "
+                         "scheduler adapts the live window to measured "
+                         "acceptance")
     ap.add_argument("--full", action="store_true",
                     help="serve the archs at their configured size")
     args = ap.parse_args(argv)
@@ -243,8 +317,9 @@ def main(argv=None) -> int:
               trace=not args.no_trace,
               flight_recorder_size=args.flight_recorder_size,
               profile_dir=args.profile_dir, slo_config=args.slo_config,
-              client_weights=client_weights, replicas=args.replicas,
-              fault_config=args.fault_config)
+              client_weights=client_weights, draft_model=args.draft_model,
+              draft_layers=args.draft_layers, spec_window=args.spec_window,
+              replicas=args.replicas, fault_config=args.fault_config)
     t0 = time.perf_counter()
     if args.model_store:
         app = build_store_app(args.ensemble, args.model_store, **kw)

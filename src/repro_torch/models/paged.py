@@ -24,6 +24,9 @@ pin-while-parked preemption.
     CUDA — harmless, since nothing valid reads page 0), then attend
     through the page table with ``paged_decode_attention`` (K3 on a CUDA
     tensor, its plain gathered-view version on a CPU one).
+  * ``paged_verify_step``  — the speculative verify window: W positions
+    written through the table (past the table: the dump page), then one
+    ``paged_decode_attention`` call per position.
   * ``paged_prefill``      — context-aware prefill: suffix tokens at
     absolute positions ``ctx_len + i`` attend to [gathered context pages ||
     suffix K/V] under a per-row mask, and the suffix K/V is committed in
@@ -128,6 +131,51 @@ def paged_decode_step(params, token, state, cfg: ModelConfig, *,
     h = apply_norm(subtree(params, "final_norm"), x, cfg)
     logits = project_logits(params, h, cfg)[:, 0]
     return logits, {**state, "length": lengths + 1}
+
+
+def paged_verify_step(params, tokens, state, cfg: ModelConfig, *,
+                      page_size: int, window: Optional[int] = None):
+    """Speculative verify through the page table: tokens (B, W) ->
+    (logits (B, W, V), new state).
+
+    Window position i of row b lands at absolute position
+    ``lengths[b] + i``; the K/V of every window position is written into
+    the row's pages first (positions past the table — a row at its
+    context ceiling mid-window — go to the dump page instead of
+    clobbering the row's last valid page), then query i attends through
+    the page table with ``lengths + i + 1`` valid keys: one
+    ``paged_decode_attention`` call per window position (K3 on CUDA), as
+    ``paged_decode_step`` makes.  Rejected positions are rolled back by the
+    caller's accepted-length update alone.  ``state["length"]`` passes
+    through untouched."""
+    window = window if window is not None else cfg.sliding_window
+    lengths = state["length"]
+    table = state["page_table"]
+    B, W = tokens.shape
+    MP = table.shape[1]
+    rows = torch.arange(B, device=table.device)[:, None]
+    positions = lengths[:, None] + torch.arange(W, device=table.device)
+    logical = (positions // page_size).long()
+    pg = torch.where(logical < MP,
+                     table[rows, torch.clamp(logical, max=MP - 1)],
+                     torch.zeros_like(table[:, :1])).long()
+    off = (positions % page_size).long()
+    pool_k, pool_v = state["cache"]["k"], state["cache"]["v"]
+    x = params["embed"][tokens.long()]                       # (B, W, D)
+    for i in range(cfg.num_layers):
+        lp = subtree(params, "layers", i)
+        h = apply_norm(lp["ln1"], x, cfg)
+        q, k, v = attn.project_qkv(lp["attn"], h, cfg, positions=positions)
+        pk, pv = pool_k[i], pool_v[i]
+        pk[pg, off] = k.to(pk.dtype)
+        pv[pg, off] = v.to(pv.dtype)
+        out = torch.stack([paged_decode_attention(q[:, j], pk, pv, table,
+                                                  lengths + j + 1,
+                                                  window=window)
+                           for j in range(W)], dim=1)
+        x = _residual(cfg, lp, x, h, _attn_out(lp, out, cfg))
+    h = apply_norm(subtree(params, "final_norm"), x, cfg)
+    return project_logits(params, h, cfg), dict(state)
 
 
 def _suffix_mask(S: int, n_ctx: int, ctx_lens, suf_lens,

@@ -5,8 +5,9 @@ Covers yi-9b, mistral-large-123b, command-r-plus-104b (LayerNorm, parallel
 block, tied embeddings) and h2o-danube-1.8b (native sliding window).  The
 layers run as a Python loop over views of the stacked ``(L, ...)`` params.
 
-The decode path (``init_state``, ``prefill``, ``decode_step``) is the port
-of the JAX module's second half.  Its state is ``{"cache": {"k", "v"}
+The decode path (``init_state``, ``prefill``, ``decode_step`` and the
+speculative ``verify_decode_step``) is the port of the JAX module's second
+half.  Its state is ``{"cache": {"k", "v"}
 (L, B, Smax, K, hd), "length": (B,) int32}``; ``prefill`` and
 ``decode_step`` write the cache IN PLACE (the JAX engine donates it) and
 return a new dict holding the same cache tensors and the new lengths.
@@ -163,6 +164,75 @@ def decode_step(params, token, state, cfg: ModelConfig, *,
     h = apply_norm(subtree(params, "final_norm"), x, cfg)
     logits = project_logits(params, h, cfg)[:, 0]
     return logits, {**state, "length": lengths + 1}
+
+
+# ---------------------------------------------------------------------------
+# Verify window (speculative decoding): W tokens against the cache, one pass
+# ---------------------------------------------------------------------------
+
+
+def window_write(cache, new, lengths):
+    """Write a W-token window per row at positions ``lengths + i``, IN
+    PLACE: cache (B, Smax, K, hd), new (B, W, K, hd).  Positions past the
+    cache's end are dropped, as JAX drops an out-of-range scatter: they are
+    aimed at the last slot with the value that slot ends up holding (the
+    window's own write there, or its old contents), so duplicate indices
+    all carry one value and nothing past the end lands anywhere."""
+    B, Smax = cache.shape[:2]
+    W = new.shape[1]
+    rows = torch.arange(B, device=cache.device)[:, None]
+    lengths = lengths.long()[:, None]
+    slots = torch.clamp(lengths + torch.arange(W, device=cache.device),
+                        max=Smax - 1)                          # (B, W)
+    src = torch.clamp(slots - lengths, min=0)                  # window index
+    vals = torch.where((lengths < Smax)[:, :, None, None],
+                       new[rows, src].to(cache.dtype),
+                       cache[:, Smax - 1][:, None])
+    cache[rows, slots] = vals
+
+
+def _layer_verify(cfg: ModelConfig, window, x, lp, cache_k, cache_v,
+                  lengths):
+    """One block over a W-token verify window, x (B, W, D).  The K/V of all
+    W positions is written first; query i then attends with
+    ``lengths + i + 1`` valid keys, the state the sequential step i saw
+    (later window positions are masked out).  Each query goes through the
+    same ``attn.decode_attention`` call with the same (B, H, hd) shapes as
+    the sequential step — K2 on CUDA — never a fused multi-query pass."""
+    B, W, _ = x.shape
+    h = apply_norm(lp["ln1"], x, cfg)
+    positions = lengths[:, None] + torch.arange(W, device=x.device)[None, :]
+    q, k, v = attn.project_qkv(lp["attn"], h, cfg, positions=positions)
+    window_write(cache_k, k, lengths)
+    window_write(cache_v, v, lengths)
+    out = torch.stack([attn.decode_attention(q[:, i], cache_k, cache_v,
+                                             lengths + i + 1, window=window)
+                       for i in range(W)], dim=1)
+    attn_out = attn._linear(out.reshape(B, W, cfg.num_heads * cfg.head_dim),
+                            lp["attn"]["wo"], lp["attn"].get("bo"))
+    return _residual(cfg, lp, x, h, attn_out)
+
+
+def verify_decode_step(params, tokens, state, cfg: ModelConfig, *,
+                       window: Optional[int] = None):
+    """Speculative verify: tokens (B, W) -> (logits (B, W, V), state).
+
+    Row [b, i] of the logits is the next-token distribution after
+    consuming ``tokens[b, :i+1]`` — what ``decode_step`` emits when fed
+    those tokens one at a time.  The K/V of every window position is
+    written in place (accepted positions are thereby committed; rejected
+    ones are masked out by the caller's accepted length).
+    ``state["length"]`` is NOT advanced: the speculative step owns the
+    accepted-length accounting.  Needs a non-ring cache."""
+    window = window if window is not None else cfg.sliding_window
+    lengths = state["length"]
+    cache = state["cache"]
+    x = params["embed"][tokens.long()]                       # (B, W, D)
+    for i in range(cfg.num_layers):
+        x = _layer_verify(cfg, window, x, subtree(params, "layers", i),
+                          cache["k"][i], cache["v"][i], lengths)
+    h = apply_norm(subtree(params, "final_norm"), x, cfg)
+    return project_logits(params, h, cfg), dict(state)
 
 
 # ---------------------------------------------------------------------------

@@ -11,7 +11,6 @@ from repro_torch.serving.coalesce import BatchCoalescer, CoalesceError
 from repro_torch.serving.generate import (GenerationError, GenerationService,
                                           GenerationStream)
 from repro_torch.serving.lifecycle import (LifecycleError, ModelManager,
-                                           NotPortedError,
                                            default_engine_factory,
                                            default_factory)
 from repro_torch.serving.modelstore import ModelStore, StoreError
@@ -27,7 +26,7 @@ __all__ = ["AdmissionController", "DeadlineError", "RequestContext",
            "QueueFullError", "UnavailableError", "DeadlineExceededError",
            "InternalServerError", "GenerationError", "GenerationService",
            "GenerationStream", "ReplicaPool", "Replica", "ModelStore",
-           "StoreError", "ModelManager", "LifecycleError", "NotPortedError",
+           "StoreError", "ModelManager", "LifecycleError",
            "default_factory", "default_engine_factory", "FlightRecorder",
            "Trace", "DeviceProfiler", "prometheus_exposition", "SLIStore",
            "SLOController", "SLOPolicy", "UsageLedger", "load_policies"]

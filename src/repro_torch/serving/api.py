@@ -44,7 +44,8 @@ GET  /metrics?format=prometheus -> the same document as Prometheus text
 
 POST /v1/generate  {"prompts": [[...], ...], "max_new_tokens": 16,
                     "temperature": 0.0, "top_k": 0, "top_p": 1.0,
-                    "seed": null, "stop": [], "eos_id": null}
+                    "seed": null, "stop": [], "eos_id": null,
+                    "speculation": true}
     -> {"outputs": [[...], ...], "steps": n, "prompt_lengths": [...],
         "finish_reasons": ["length" | "eos" | "stop" | ...]}
     with "stream": true (exactly one prompt): chunked
@@ -53,9 +54,14 @@ POST /v1/generate  {"prompts": [[...], ...], "max_new_tokens": 16,
         {"event": "done", "tokens": [...], "finish_reason": ...,
          "token_count": n, "prompt_length": ..., "ttft_ms": ...,
          "total_ms": ..., "engine": "name@vN", "sampling": {...},
-         "speculation": {...}, "trace_id": ...}
+         "speculation": {"proposed", "accepted", "acceptance_rate"},
+         "trace_id": ...}
     or a terminal {"event": "error", "error": ...}.  The generate plane is
-    budgeted in tokens (prompt + max_new_tokens).
+    budgeted in tokens (prompt + max_new_tokens).  ``"speculation": false``
+    opts a request out of speculative decoding (a no-op on a plain
+    engine); the tokens are the same either way, and the terminal
+    ``speculation`` summary is zeros for an opted-out request or a plain
+    engine.
 
 GET  /v1/replicas  -> {"enabled", "count", "ready", ..., "per_replica"}
 POST /v1/replicas/{id}/cordon {"reason": ...} | .../uncordon
@@ -82,10 +88,10 @@ POST /v1/models/{name}/unload {"version"?}
 POST /v1/models/{name}/rollback {"alias"?}
 POST /v1/models/{name}/gc {"keep_last_n"}
 GET  /v1/engines                       engine aliases
-POST /v1/engines/{name}/load {"version", "alias", "warm"}
+POST /v1/engines/{name}/load {"version", "alias", "warm", "draft"?,
+                              "draft_version"?, "max_window"?}
+                                       ("draft" loads a speculative pair)
 POST /v1/engines/{name}/rollback {"alias"?}
-A ``"draft"`` on the engine plane (a speculative pair) answers 501 with
-code "not_ported".
 """
 
 from __future__ import annotations

@@ -224,10 +224,13 @@ class GenerationStream:
               "total_ms": 1e3 * (req.latency_s or 0.0),
               "engine": self._entry.label,
               "sampling": self._sampling.describe(),
-              # speculative-decoding acceptance summary: zeros, as for a
-              # non-speculative engine (speculation has no port yet)
-              "speculation": {"proposed": 0, "accepted": 0,
-                              "acceptance_rate": 0.0}}
+              # speculative-decoding acceptance summary: zeros when the
+              # serving engine is non-speculative or the request opted out
+              "speculation": {
+                  "proposed": req.spec_proposed,
+                  "accepted": req.spec_accepted,
+                  "acceptance_rate": (req.spec_accepted / req.spec_proposed
+                                      if req.spec_proposed else 0.0)}}
         if req.ttft_s is not None:
             ev["ttft_ms"] = 1e3 * req.ttft_s
         if req.pause_count:

@@ -30,8 +30,10 @@ engine while in-flight streams drain on the old one — with
 ``rollback_engine`` returning an alias to its previous version.  ``gc``
 applies a keep-last-N retention policy to the store, never deleting a
 version any serving alias (ensemble or engine, active or rollback
-target) still references.  The speculative pair (``load_engine(...,
-draft=...)``) is not ported yet: it raises ``NotPortedError``.
+target) still references.  ``load_engine(..., draft=...)`` serves a
+speculative pair (a ``SpeculativeEngine`` over two store versions) as ONE
+engine entry, so promote/demote/rollback move the draft with its target
+and gc protects both checkpoints.
 """
 
 from __future__ import annotations
@@ -43,7 +45,7 @@ from typing import Any, Callable, Dict, Hashable, List, Optional, Tuple
 import numpy as np
 
 from repro_torch.configs import get_config, reduce_for_smoke
-from repro_torch.core.engine import InferenceEngine
+from repro_torch.core.engine import InferenceEngine, SpeculativeEngine
 from repro_torch.core.ensemble import Ensemble, EnsembleMember
 from repro_torch.core.faults import FaultInjector, InjectedFault
 from repro_torch.core.memory import MemoryLedger
@@ -55,10 +57,6 @@ from repro_torch.serving.modelstore import ModelStore
 
 class LifecycleError(RuntimeError):
     """Admin-plane failure (unknown version, conflict, empty ensemble)."""
-
-
-class NotPortedError(LifecycleError):
-    """An admin request for a plane the port does not have yet."""
 
 
 def default_factory(manifest: Dict[str, Any]):
@@ -130,6 +128,11 @@ class ModelManager:
         self.generation = None          # attach_generation() wires this
         self._engine_active: Dict[str, Tuple[str, int]] = {}
         self._engine_previous: Dict[str, Tuple[str, int]] = {}
+        # speculative pairs: alias -> (draft name, draft version).  The
+        # pair serves as ONE entry, so promote/demote/rollback move the
+        # draft with its target and gc protects both checkpoints.
+        self._engine_drafts: Dict[str, Tuple[str, int]] = {}
+        self._engine_prev_drafts: Dict[str, Optional[Tuple[str, int]]] = {}
         self._admin_lock = threading.RLock()
         # alias -> {member name -> active version}; maps are replaced
         # wholesale under the admin lock, so hot-path readers always see a
@@ -317,7 +320,9 @@ class ModelManager:
     def load_engine(self, name: str, version: Optional[int] = None, *,
                     alias: Optional[str] = None,
                     warm: bool = True,
-                    draft: Optional[str] = None) -> Dict[str, Any]:
+                    draft: Optional[str] = None,
+                    draft_version: Optional[int] = None,
+                    max_window: int = 4) -> Dict[str, Any]:
         """Materialize a store version (restore + hash verify) as an
         InferenceEngine and hot-swap it under an engine alias.  In-flight
         decode streams drain on the displaced engine before it is closed;
@@ -327,12 +332,12 @@ class ModelManager:
         never stalls live streams on kernel builds or allocator growth
         (mirrors the model plane's warm-before-publish).
 
-        ``draft`` (a speculative pair) raises ``NotPortedError``: the
-        speculative engine is not ported yet."""
-        if draft is not None:
-            raise NotPortedError(
-                "speculative decoding (load_engine draft=) is not ported to "
-                "the PyTorch package yet (see ROADMAP.md, section 1)")
+        ``draft`` names a second store model to materialize as the
+        proposer of a speculative pair: both checkpoints restore + hash
+        verify, and the alias serves ONE ``SpeculativeEngine`` wrapping
+        them — so canary/promote/demote/rollback move the pair as a unit
+        and neither checkpoint is gc-eligible while the alias lives.
+        ``max_window`` bounds the per-tick proposal window."""
         gen = self._require_generation()
         alias = alias or self.default_alias
         with self._admin_lock:
@@ -344,17 +349,46 @@ class ModelManager:
             manifest = self.store.manifest(name, version)  # raises StoreError
             rm = self._materialize(name, version, manifest)
             engine = self._engine_factory(manifest, rm.model, rm.params)
+            draft_nv: Optional[Tuple[str, int]] = None
+            if draft is not None:
+                if draft_version is None:
+                    draft_version = self.store.latest_version(draft)
+                    if draft_version is None:
+                        raise LifecycleError(
+                            f"store has no published versions of draft "
+                            f"{draft!r}")
+                dmanifest = self.store.manifest(draft, draft_version)
+                drm = self._materialize(draft, draft_version, dmanifest)
+                draft_engine = self._engine_factory(dmanifest, drm.model,
+                                                    drm.params)
+                try:
+                    engine = SpeculativeEngine(engine, draft_engine,
+                                               max_window=max_window)
+                except ValueError as e:
+                    raise LifecycleError(
+                        f"incompatible speculative pair {name} v{version} "
+                        f"+ {draft} v{draft_version}: {e}") from None
+                draft_nv = (draft, draft_version)
             swap = gen.install(name, version, engine, alias=alias,
                                warm=warm)
             old = self._engine_active.get(alias)
+            old_draft = self._engine_drafts.get(alias)
             self._engine_active[alias] = (name, version)
+            if draft_nv is not None:
+                self._engine_drafts[alias] = draft_nv
+            else:
+                self._engine_drafts.pop(alias, None)
             if old is not None and old != (name, version):
                 self._engine_previous[alias] = old
+                self._engine_prev_drafts[alias] = old_draft
             with self._stats_lock:
                 self._counters["engine_loads"] += 1
             return {"name": name, "version": version,
-                    "manifest": manifest, "speculative": False,
-                    "draft": None, **swap}
+                    "manifest": manifest,
+                    "speculative": draft_nv is not None,
+                    "draft": (f"{draft_nv[0]}@v{draft_nv[1]}"
+                              if draft_nv is not None else None),
+                    **swap}
 
     def rollback_engine(self, name: Optional[str] = None, *,
                         alias: Optional[str] = None,
@@ -370,8 +404,12 @@ class ModelManager:
                 raise LifecycleError(
                     f"alias {alias!r} previously served engine "
                     f"{prev[0]!r} v{prev[1]}, not {name!r}")
-            result = self.load_engine(prev[0], prev[1], alias=alias,
-                                      warm=warm)
+            prev_draft = self._engine_prev_drafts.get(alias)
+            result = self.load_engine(
+                prev[0], prev[1], alias=alias, warm=warm,
+                draft=prev_draft[0] if prev_draft is not None else None,
+                draft_version=(prev_draft[1] if prev_draft is not None
+                               else None))
             with self._stats_lock:
                 self._counters["engine_rollbacks"] += 1
                 self._counters["engine_loads"] -= 1   # rollback, not a load
@@ -402,9 +440,16 @@ class ModelManager:
                     f"no engine under alias {alias!r} to promote")
             swap = gen.repoint(alias, to_alias)
             old = self._engine_active.get(to_alias)
+            old_draft = self._engine_drafts.get(to_alias)
             self._engine_active[to_alias] = src
+            src_draft = self._engine_drafts.get(alias)
+            if src_draft is not None:
+                self._engine_drafts[to_alias] = src_draft
+            else:
+                self._engine_drafts.pop(to_alias, None)
             if old is not None and old != src:
                 self._engine_previous[to_alias] = old
+                self._engine_prev_drafts[to_alias] = old_draft
             with self._stats_lock:
                 self._counters["engine_promotes"] += 1
             return {"name": src[0], "version": src[1], "from_alias": alias,
@@ -426,9 +471,16 @@ class ModelManager:
                     f"{alias!r} onto")
             swap = gen.repoint(to_alias, alias)
             old = self._engine_active.get(alias)
+            old_draft = self._engine_drafts.get(alias)
             self._engine_active[alias] = src
+            src_draft = self._engine_drafts.get(to_alias)
+            if src_draft is not None:
+                self._engine_drafts[alias] = src_draft
+            else:
+                self._engine_drafts.pop(alias, None)
             if old is not None and old != src:
                 self._engine_previous[alias] = old
+                self._engine_prev_drafts[alias] = old_draft
             with self._stats_lock:
                 self._counters["engine_demotes"] += 1
             return {"name": src[0], "version": src[1],
@@ -450,6 +502,10 @@ class ModelManager:
                           if n == name}
             protected |= {v for n, v in self._engine_previous.values()
                           if n == name}
+            protected |= {v for n, v in self._engine_drafts.values()
+                          if n == name}
+            protected |= {nv[1] for nv in self._engine_prev_drafts.values()
+                          if nv is not None and nv[0] == name}
             result = self.store.gc(name, keep_last_n, protected=protected)
             with self._stats_lock:
                 self._counters["gc_runs"] += 1
@@ -581,7 +637,6 @@ class ModelManager:
         out["aliases"] = {a: dict(m) for a, m in self._active.items()}
         out["engine_aliases"] = {a: f"{n}@v{v}" for a, (n, v)
                                  in self._engine_active.items()}
-        # the speculative pairs' view (none in the port yet): kept so the
-        # section's keys are the JAX package's
-        out["engine_drafts"] = {}
+        out["engine_drafts"] = {a: f"{n}@v{v}" for a, (n, v)
+                                 in self._engine_drafts.items()}
         return out

@@ -19,8 +19,8 @@ With a ``ModelManager`` attached, the endpoint gains the lifecycle admin
 surface (GET /v1/models/{name}, POST .../load /unload /rollback /gc,
 POST /v1/engines/{name}/load|rollback) and per-request version-alias
 targeting — hot swaps happen under live traffic with zero dropped
-requests.  The speculative engine pair (``"draft"`` on the engine plane)
-answers 501 with a structured error body: it is not ported yet.
+requests.  A ``"draft"`` on the engine plane loads a speculative pair
+(``ModelManager.load_engine(draft=...)``; the JAX route drops the field).
 
 Endpoints are defined in ``repro_torch.serving.api``.
 """
@@ -49,8 +49,7 @@ from repro_torch.serving.admission import (AdmissionController, DeadlineError,
 from repro_torch.serving.client import FlexServeClient
 from repro_torch.serving.coalesce import BatchCoalescer
 from repro_torch.serving.generate import GenerationError, GenerationService
-from repro_torch.serving.lifecycle import (LifecycleError, ModelManager,
-                                           NotPortedError)
+from repro_torch.serving.lifecycle import LifecycleError, ModelManager
 from repro_torch.serving.modelstore import StoreError
 from repro_torch.serving.replica import ZERO_REPLICA_STATS
 from repro_torch.serving.telemetry import (DeviceProfiler, FlightRecorder,
@@ -643,11 +642,13 @@ class FlexServeApp:
         warm = bool(req.get("warm", True))
         try:
             if action == "load":
-                return mgr.load_engine(name, version, alias=alias,
-                                       warm=warm, draft=req.get("draft"))
+                return mgr.load_engine(
+                    name, version, alias=alias, warm=warm,
+                    draft=req.get("draft"),
+                    draft_version=api.opt_int(req, "draft_version", 0)
+                    or None,
+                    max_window=api.opt_int(req, "max_window", 4))
             return mgr.rollback_engine(name, alias=alias, warm=warm)
-        except NotPortedError as e:
-            raise api.ApiError(501, str(e), code="not_ported") from None
         except StoreError as e:
             raise api.ApiError(404, str(e)) from None
         except KeyError as e:

@@ -3,7 +3,8 @@
 under traffic, the provenance-aware admin API, the engine plane, retention
 GC, readiness; the store's own contracts are in
 ``tests/test_torch_modelstore.py``), what is the port's own (meta-device
-shapes, memory released on unload, the speculative pair refused), and the
+shapes, memory released on unload), the speculative pair's lifecycle
+against the JAX manager's decisions, and the
 slice as a whole: a JAX and a port store-backed app over ONE store
 directory take infer -> load v2 -> infer -> rollback -> infer, with equal
 decisions and versions and probabilities within 1e-4.
@@ -37,7 +38,7 @@ from repro_torch.models.build import build_model
 from repro_torch.serving import (FlexServeApp, FlexServeClient,
                                  FlexServeServer, GenerationService,
                                  LifecycleError, ModelManager, ModelStore,
-                                 NotPortedError, default_factory)
+                                 default_factory)
 
 ARCH = "yi-9b"
 
@@ -615,14 +616,102 @@ def test_unload_releases_the_versions_tensors(store_with_versions):
     assert [e.name for e in ledger.entries] == ["det@v2"]
 
 
-def test_speculative_pair_is_not_ported(store_with_versions):
+def _pair_store(store_cls, root, init):
+    """``det`` v1, v2 and a 1-layer ``det#draft`` v1, v2 (the draft's depth
+    in its manifest), params from ``init(model, seed)``."""
+    import dataclasses
+    store = store_cls(str(root))
+    cfg = reduce_for_smoke(get_config(ARCH))
+    for name, layers in (("det", None), ("det#draft", 1)):
+        for seed in range(2):
+            meta = {"reduced": True, "num_classes": 8, "max_len": 64,
+                    "max_batch": 4}
+            if layers:
+                meta["num_layers"] = layers
+            store.publish(name, init(dataclasses.replace(
+                cfg, num_layers=layers or cfg.num_layers), seed + (
+                    100 if layers else 0)), config=ARCH, source=cfg.source,
+                meta=meta)
+    return store
+
+
+def _pair_sequence(mgr, gen):
+    """load the pair, load a canary pair, promote it, gc the draft, roll
+    back, demote: the decisions each step returns."""
+    keys = ("name", "version", "speculative", "draft", "alias", "engine",
+            "previous_engine", "drained")
+    out = []
+
+    def pick(res, extra=()):
+        return {k: res.get(k) for k in keys + tuple(extra)}
+
+    out.append(pick(mgr.load_engine("det", 1, draft="det#draft",
+                                    warm=False)))
+    out.append(pick(mgr.load_engine("det", 2, alias="canary",
+                                    draft="det#draft", draft_version=1,
+                                    warm=False)))
+    out.append(pick(mgr.promote_engine("canary"), ("promoted",)))
+    out.append(dict(mgr.stats()["engine_drafts"]))
+    gc = mgr.gc("det#draft", keep_last_n=1)
+    out.append((sorted(gc["deleted"]), sorted(gc["protected"])))
+    out.append(pick(mgr.rollback_engine(warm=False), ("rolled_back_to",)))
+    out.append(dict(mgr.stats()["engine_drafts"]))
+    out.append(pick(mgr.demote_engine("canary")))
+    out.append(dict(mgr.stats()["engine_drafts"]))
+    out.append(type(gen.engine_for()).__name__)
+    return out
+
+
+def test_speculative_pair_lifecycle_matches_jax(tmp_path):
+    """The engine plane's speculative pair on both packages over stores of
+    the same shape: load, canary, promote, gc (both drafts protected),
+    rollback and demote take the same decisions, the pair moves as one
+    unit, and a stream on the rolled-back pair reports its speculation."""
+    from repro.core import SamplingParams as JSamp
+    from repro.models.build import build_model as jbuild
+    from repro.serving import GenerationService as JGen
+    from repro.serving import ModelManager as JManager
+    jstore = _pair_store(JStore, tmp_path / "jax",
+                         lambda cfg, seed: jbuild(cfg).init(
+                             jax.random.PRNGKey(seed)))
+    tstore = _pair_store(ModelStore, tmp_path / "torch",
+                         lambda cfg, seed: build_model(cfg).init(seed,
+                                                                 "cpu"))
+    got = []
+    for mgr, gen, samp in (
+            (JManager(jstore, max_batch=4), JGen(num_slots=2), JSamp),
+            (ModelManager(tstore, max_batch=4, device="cpu"),
+             GenerationService(num_slots=2), SamplingParams)):
+        mgr.attach_generation(gen)
+        try:
+            seq = _pair_sequence(mgr, gen)
+            done = list(gen.stream([1, 2, 3], samp(
+                max_new_tokens=8)).events())[-1]
+            seq.append((done["event"], done["token_count"],
+                        done["speculation"]["proposed"] > 0))
+            got.append(seq)
+        finally:
+            gen.close()
+    assert got[1] == got[0]
+    assert got[1][0]["speculative"] and got[1][0]["draft"] == "det#draft@v2"
+    assert got[1][3] == {"stable": "det#draft@v1", "canary": "det#draft@v1"}
+    assert got[1][4] == ([], [1, 2])           # both drafts protected
+    assert got[1][6]["stable"] == "det#draft@v2"
+
+
+def test_speculative_pair_refuses_an_incompatible_draft(store_with_versions):
+    """A pair that cannot be built (a window below 2) is refused before
+    the alias flips, with the pair's message, as ``LifecycleError``."""
     mgr = _manager(store_with_versions)
     gen = mgr.attach_generation(GenerationService(num_slots=2))
     try:
-        with pytest.raises(NotPortedError, match="not ported"):
-            mgr.load_engine("det", draft="det")
-        assert issubclass(NotPortedError, LifecycleError)
+        with pytest.raises(LifecycleError, match="incompatible speculative "
+                                                 "pair det v2 \\+ det v1"):
+            mgr.load_engine(
+                "det", draft="det", draft_version=1, warm=False,
+                max_window=1)
         assert not gen.ready                           # nothing installed
+        assert mgr.stats()["engine_drafts"] == {}
     finally:
         gen.close()
 

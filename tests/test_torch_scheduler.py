@@ -582,3 +582,140 @@ def test_service_under_concurrent_callers():
     assert got == want
     assert st["completed"] == len(prompts) and st["active_slots"] == 0
     assert st["pager"]["pages_used"] == st["pager"]["prefix_cached_pages"]
+
+
+# --- no caller waits for a tick in flight ----------------------------------------
+
+
+class SlowTicks:
+    """An engine over the pair's weights whose decode tick takes an extra
+    ``delay`` seconds; ``in_tick`` is set while a tick runs and ``done``
+    counts finished ticks."""
+
+    def __init__(self, delay=0.5):
+        base = pair("yi-9b", "dense").torch
+        self.engine = InferenceEngine(base.model, base.params,
+                                      max_len=base.max_len, max_batch=4)
+        self.in_tick = threading.Event()
+        self.done = 0
+        real = self.engine.decode_sample
+
+        def slow(*a, **kw):
+            self.in_tick.set()
+            time.sleep(delay)
+            out = real(*a, **kw)
+            self.in_tick.clear()
+            self.done += 1
+            return out
+
+        self.engine.decode_sample = slow
+
+
+@pytest.mark.parametrize("call", ["submit_request", "begin_retire", "cancel",
+                                  "stats"])
+def test_service_calls_do_not_wait_for_a_tick(call):
+    """With a 0.5 s tick in flight, ``submit_request``, ``begin_retire``,
+    ``cancel`` (of a queued request, which finishes at once) and ``stats``
+    each return within 0.1 s, and no tick ends meanwhile; the streams are
+    the plain scheduler's."""
+    slow = SlowTicks()
+    samp = SamplingParams(max_new_tokens=4)
+    plain = ContinuousBatchingScheduler(pair("yi-9b", "dense").torch,
+                                        num_slots=1)
+    refs = [plain.submit(p, sampling=samp) for p in ([1, 2, 3], [4, 5])]
+    plain.run()
+    svc = SchedulerService(slow.engine, num_slots=1)
+    try:
+        sink = lambda r, t, f: None                          # noqa: E731
+        a = svc.submit_request([1, 2, 3], sampling=samp, sink=sink)
+        queued = (svc.submit_request([4, 5], sampling=samp, sink=sink)
+                  if call == "cancel" else None)
+        assert slow.in_tick.wait(30)
+        ticks = slow.done
+        t0 = time.perf_counter()
+        if call == "submit_request":
+            b = svc.submit_request([4, 5], sampling=samp, sink=sink)
+        elif call == "begin_retire":
+            svc.begin_retire()
+        elif call == "cancel":
+            assert svc.cancel(queued)
+        else:
+            st = svc.stats()
+        elapsed = time.perf_counter() - t0
+        assert slow.done == ticks and slow.in_tick.is_set()
+        assert elapsed < 0.1, (call, elapsed)
+        if call == "begin_retire":
+            with pytest.raises(RuntimeError):
+                svc.submit_request([6], sampling=samp, sink=sink)
+            assert svc.drain(timeout=60)
+        elif call == "cancel":
+            assert queued.finish_reason == "cancelled" and queued.done
+        elif call == "stats":
+            assert st["num_slots"] == 1 and "speculation" in st
+        deadline = time.monotonic() + 60
+        while not a.done:
+            assert time.monotonic() < deadline
+            time.sleep(0.01)
+        assert a.output == refs[0].output
+        if call == "submit_request":
+            while not b.done:
+                assert time.monotonic() < deadline
+                time.sleep(0.01)
+            assert b.output == refs[1].output
+    finally:
+        svc.close()
+    if call == "cancel":
+        assert svc.stats()["cancelled"] == 1
+
+
+def test_install_drain_carries_the_wait_like_jax():
+    """An engine ``install`` while a 900-token stream decodes: the old
+    service's ``begin_retire`` returns at once and the wait for the
+    stream lands in ``drain_ms``, as in the JAX package (before, the
+    port's ``begin_retire`` waited on the driver's lock and ``drain_ms``
+    read ~0)."""
+    from repro.core import InferenceEngine as JEng
+    from repro.core.sampling import SamplingParams as JSamp
+    from repro.serving import GenerationService as JGen
+    from repro_torch.serving import GenerationService
+    _, jmodel, jp = smoke_model("yi-9b")
+    tmodel = build_model(reduce_for_smoke(get_config("yi-9b")))
+    tp = from_jax(_flatten(jp), "cpu")
+    out = {}
+    for name, gen_cls, samp_cls, mk in (
+            ("jax", JGen, JSamp,
+             lambda: JEng(jmodel, jp, max_len=1024, max_batch=2)),
+            ("torch", GenerationService, SamplingParams,
+             lambda: InferenceEngine(tmodel, tp, max_len=1024,
+                                     max_batch=2))):
+        gen = gen_cls(mk(), num_slots=2)
+        try:
+            stream = gen.stream([1, 2, 3], samp_cls(max_new_tokens=900))
+            it = stream.events()
+            assert next(it)["event"] == "token"
+            old = gen.entry_for().service
+            real = old.begin_retire
+            timing = {}
+
+            def timed(_real=real, _t=timing):
+                t0 = time.perf_counter()
+                _real()
+                _t["begin_retire_s"] = time.perf_counter() - t0
+
+            old.begin_retire = timed
+            t0 = time.perf_counter()
+            res = gen.install("engine", 1, mk())
+            install_s = time.perf_counter() - t0
+            done = list(it)[-1]
+            assert done["event"] == "done" and done["token_count"] == 900
+            assert res["drained"]
+            out[name] = (res["drain_ms"], 1e3 * install_s,
+                         timing["begin_retire_s"])
+        finally:
+            gen.close()
+    # both services wait in drain(), for most of a 900-token stream (the
+    # JAX one's first ticks compile, so its begin_retire can wait too)
+    for name, (drain_ms, install_ms, _) in out.items():
+        assert drain_ms > 500, (name, out)
+    drain_ms, install_ms, retire_s = out["torch"]
+    assert drain_ms >= 0.8 * install_ms and retire_s < 0.1, out

@@ -170,25 +170,69 @@ def test_control_plane_routes_answer_as_the_jax_server(clients, method,
     assert _answer(tc, method, path) == _answer(jc, method, path)
 
 
-@pytest.mark.parametrize("method,path,body", [
-    ("POST", "/v1/engines/yi-9b%230/load", {"draft": "yi-9b#0"})])
-def test_not_ported_routes_answer_structured_501(tmp_path, method, path,
-                                                 body):
-    """Only the speculative pair (``draft`` on the engine plane) is left
-    unported."""
-    app = serve.build_store_app(["yi-9b"], str(tmp_path), device="cpu",
-                                num_classes=4, max_batch=2, num_slots=2)
-    srv = FlexServeServer(app).start()
-    tc = FlexServeClient(*srv.address)
+def _draft_store(store_cls, root, init):
+    """``det`` v1 and a 1-layer ``det#draft`` v1 (its depth in the
+    manifest), params from ``init(config, seed)``."""
+    import dataclasses
+    store = store_cls(str(root))
+    cfg = reduce_for_smoke(get_config("yi-9b"))
+    meta = {"reduced": True, "num_classes": 4, "max_len": 64,
+            "max_batch": 2}
+    store.publish("det", init(cfg, 0), config="yi-9b", source=cfg.source,
+                  meta=meta)
+    store.publish("det#draft", init(dataclasses.replace(cfg, num_layers=1),
+                                    1000), config="yi-9b",
+                  source=cfg.source, meta={**meta, "num_layers": 1})
+    return store
+
+
+def test_engine_load_with_a_draft_answers_as_the_jax_server(tmp_path):
+    """``"draft"`` on POST /v1/engines/{name}/load loads the speculative
+    pair: 200 with the JAX server's keys, and the pair's ``speculative`` /
+    ``draft`` fields as the JAX manager's ``load_engine(draft=...)`` gives
+    them (the JAX route itself drops the field and loads the target
+    alone); a stream on the pair then carries its speculation summary."""
+    from repro.models.build import build_model as jbuild
+    from repro.serving import GenerationService as JGen
+    from repro.serving import ModelManager as JManager
+    from repro.serving import ModelStore as JStore
+    from repro_torch.serving import (GenerationService, ModelManager,
+                                     ModelStore)
+    jstore = _draft_store(JStore, tmp_path / "jax", lambda c, seed: jbuild(
+        c).init(jax.random.PRNGKey(seed)))
+    tstore = _draft_store(ModelStore, tmp_path / "torch",
+                          lambda c, seed: build_model(c).init(seed, "cpu"))
+    body = {"draft": "det#draft", "warm": False}
+    answers, servers = [], []
+    jmgr = JManager(jstore, max_batch=2)
+    for mgr, gen, app_cls, srv_cls in (
+            (jmgr, JGen(num_slots=2), JApp, JServer),
+            (ModelManager(tstore, max_batch=2, device="cpu"),
+             GenerationService(num_slots=2), FlexServeApp,
+             FlexServeServer)):
+        mgr.attach_generation(gen)
+        srv = srv_cls(app_cls(manager=mgr)).start()
+        servers.append(srv)
+        c = FlexServeClient(*srv.address)
+        answers.append(c._request("POST", "/v1/engines/det/load", body))
+        c.close()
     try:
-        with pytest.raises(HTTPStatusError) as e:
-            tc._request(method, path, body)
-        assert e.value.status == 501
-        assert e.value.code == "not_ported"
-        assert "not ported" in str(e.value)
+        jres, tres = answers
+        assert sorted(tres) == sorted(jres)
+        assert not jres["speculative"] and jres["draft"] is None
+        want = jmgr.load_engine("det", 1, draft="det#draft", warm=False)
+        for key in ("name", "version", "speculative", "draft", "alias",
+                    "engine"):
+            assert tres[key] == want[key], key
+        assert tres["speculative"] and tres["draft"] == "det#draft@v1"
+        c = FlexServeClient(*servers[1].address)
+        done = list(c.generate_stream([3, 1, 4], max_new_tokens=6))[-1]
+        c.close()
+        assert done["event"] == "done" and done["token_count"] == 6
+        assert done["speculation"]["proposed"] > 0
     finally:
-        tc.close()
-        srv.stop()
+        for srv in servers:
+            srv.stop()
 
 
 @pytest.mark.parametrize("method,path,body", [
@@ -233,10 +277,83 @@ def test_build_app_on_cpu_serves():
         app.close()
 
 
-def test_launcher_rejects_flags_of_planes_not_ported():
-    for flag in (["--draft-model", "yi-9b"],):
-        with pytest.raises(SystemExit):
-            main(flag)
+@pytest.mark.parametrize("store", [False, True])
+def test_launcher_draft_flags_reach_the_builders(monkeypatch, tmp_path,
+                                                 store):
+    """``--draft-model``, ``--draft-layers`` and ``--spec-window`` reach
+    ``build_app`` (or ``build_store_app`` with ``--model-store``); an arch
+    outside the catalog is refused."""
+    seen = {}
+
+    def fake(*names, **kw):
+        seen.update(kw, names=names)
+        raise KeyboardInterrupt
+
+    monkeypatch.setattr(serve, "build_store_app" if store else "build_app",
+                        fake)
+    argv = ["--ensemble", "yi-9b", "--device", "cpu", "--draft-model",
+            "yi-9b", "--draft-layers", "8", "--spec-window", "2"]
+    if store:
+        argv += ["--model-store", str(tmp_path)]
+    with pytest.raises(KeyboardInterrupt):
+        main(argv)
+    assert (seen["draft_model"], seen["draft_layers"],
+            seen["spec_window"]) == ("yi-9b", 8, 2)
+    with pytest.raises(SystemExit):
+        main(["--draft-model", "no-such-arch"])
+
+
+def test_build_app_serves_a_speculative_pair_on_cpu():
+    """``build_app(draft_model=...)``: the generate plane runs a
+    ``SpeculativeEngine`` over member 0 and a draft cut to
+    ``draft_layers``, seeded ``seed + 1000``; a seeded stream equals the
+    opted-out one and reports its speculation."""
+    import dataclasses
+    from repro_torch.core import SpeculativeEngine
+    app = build_app(["yi-9b"], device="cpu", num_classes=4, max_batch=4,
+                    max_len=64, num_slots=2, seed=3, draft_model="yi-9b",
+                    draft_layers=1, spec_window=2)
+    try:
+        eng = app.generation.engine_for()
+        assert isinstance(eng, SpeculativeEngine)
+        assert eng.max_window == 2 and eng.spec_levels == [1, 2]
+        assert eng.params is app.registry.get("yi-9b#0").params
+        dcfg = dataclasses.replace(reduce_for_smoke(get_config("yi-9b")),
+                                   num_layers=1)
+        want = build_model(dcfg).init(1003, "cpu")
+        assert eng.draft.model.config.num_layers == 1
+        assert all(torch.equal(want[k], v)
+                   for k, v in eng.draft.params.items())
+        outs = []
+        for spec in ("true", "false"):
+            resp = app.handle(
+                "POST", "/v1/generate",
+                ('{"prompts": [[1, 2, 3]], "max_new_tokens": 6, '
+                 '"temperature": 0.8, "seed": 5, "speculation": %s}'
+                 % spec).encode()).payload
+            outs.append(resp["outputs"])
+        assert outs[0] == outs[1]
+        st = app.generation.stats()["speculation"]
+        assert st["enabled"] and st["spec_ticks"] > 0
+    finally:
+        app.close()
+
+
+def test_build_store_app_publishes_the_draft(tmp_path):
+    """``build_store_app(draft_model=...)`` publishes ``{arch}#draft`` with
+    its depth in the manifest and loads the pair as one engine entry."""
+    app = serve.build_store_app(["yi-9b"], str(tmp_path), device="cpu",
+                                num_classes=4, max_batch=2, num_slots=2,
+                                max_len=64, draft_model="yi-9b",
+                                draft_layers=1)
+    try:
+        m = app.manager.store.manifest("yi-9b#draft", 1)
+        assert m["num_layers"] == 1 and m["init_seed"] == 1000
+        st = app.manager.stats()
+        assert st["engine_drafts"] == {"stable": "yi-9b#draft@v1"}
+        assert app.generation.engine_for().speculative
+    finally:
+        app.close()
 
 
 def test_launcher_generate_flags_reach_build_app(monkeypatch):
@@ -276,3 +393,63 @@ def test_build_app_generate_plane_over_member_0_on_cpu():
         assert len(resp["outputs"][0]) == 3
     finally:
         app.close()
+
+
+@pytest.fixture(scope="module")
+def spec_client():
+    """An endpoint whose generation engine is a speculative pair: the
+    reduced yi-9b target and a 1-layer draft (the JAX package's
+    ``spec_server``), on the CPU."""
+    import dataclasses
+    from repro_torch.core import SpeculativeEngine
+    from repro_torch.serving import FlexServeClient as TClient
+    cfg = reduce_for_smoke(get_config("yi-9b"))
+    model = build_model(cfg)
+    dmodel = build_model(dataclasses.replace(cfg, num_layers=1))
+    params = model.init(0, "cpu")
+    registry = ModelRegistry()
+    registry.register("yi#0", model, params)
+    engine = SpeculativeEngine(
+        InferenceEngine(model, params, max_len=64, max_batch=4),
+        InferenceEngine(dmodel, dmodel.init(11, "cpu"), max_len=64,
+                        max_batch=4),
+        max_window=4)
+    srv = FlexServeServer(FlexServeApp(registry, None, engine,
+                                       num_slots=2)).start()
+    client = TClient(*srv.address)
+    yield client
+    client.close()
+    srv.stop()
+
+
+def test_speculative_stream_summary_and_metrics(spec_client):
+    """Over HTTP: the stream's done event carries the acceptance summary,
+    ``/metrics`` exposes generate.speculation (the JAX key set), the
+    Prometheus exposition flattens it, and an opted-out request streams the
+    same tokens with zero speculative work."""
+    from repro.core.scheduler import ZERO_SPECULATION_STATS as JZERO
+    events = list(spec_client.generate_stream([3, 1, 4, 1, 5],
+                                              max_new_tokens=8, seed=13))
+    done = events[-1]
+    assert done["event"] == "done"
+    spec = done["speculation"]
+    assert spec["proposed"] > 0
+    assert 0.0 <= spec["acceptance_rate"] <= 1.0
+    assert spec["accepted"] <= spec["proposed"]
+    opt_out = list(spec_client.generate_stream([3, 1, 4, 1, 5],
+                                               max_new_tokens=8, seed=13,
+                                               speculation=False))
+    assert opt_out[-1]["event"] == "done"
+    assert opt_out[-1]["tokens"] == done["tokens"]
+    assert opt_out[-1]["speculation"] == {
+        "proposed": 0, "accepted": 0, "acceptance_rate": 0.0}
+    sp = spec_client.metrics()["generate"]["speculation"]
+    assert set(sp) == set(JZERO)
+    assert sp["enabled"] is True
+    assert sp["spec_ticks"] > 0
+    assert sp["proposed_tokens"] >= spec["proposed"]
+    assert sp["max_window"] == 4
+    text = spec_client.metrics(format="prometheus")
+    for key in ("proposed_tokens", "accepted_tokens", "acceptance_ema",
+                "spec_ticks", "window"):
+        assert f"flexserve_generate_speculation_{key}" in text
