@@ -21,24 +21,31 @@ Phases (any failure exits non-zero and prints no final result line):
    B=8, S=256, H=32, K=4, hd=128, bf16 and fp32, plus sliding window,
    ragged lengths, S not a multiple of the tile, strided inputs, other
    head dims, G=12 (96/8 heads), a window of 20 with ragged lengths and a
-   length-0 row, S=1024 (the largest prefill bucket at max_len 1024), and
-   zamba2's shared block (hd=80, G=1, window 4096, B=8, S=512).  K2: the
+   length-0 row, S=1024 (the largest prefill bucket at max_len 1024),
+   zamba2's shared block (hd=80, G=1, window 4096, B=8, S=512) and
+   qwen3-moe's attention (B=8, S=256, H=64, K=4: G=16; bf16, fp32 and
+   ragged lengths).  K2: the
    decode tick at B=8, Smax=1024, H=32, K=4, hd=128 with ragged lengths
    (bf16 and fp32), plus a window, ring-style lengths, a length-1 row,
    Smax not a multiple of the tile, a layer view of the stacked cache,
    danube's hd=80 G=4, G=12 (one block per group), hd=256 and zamba2's
-   hd=80 G=1 ring tick.  Each is then timed (CUDA events and
+   hd=80 G=1 ring tick, and qwen3-moe's tick (B=8, Smax=1024, H=64, K=4,
+   ragged; bf16 must take the tensor-core path at G=16, TC_HEADS, and fp32
+   the CUDA-core one).  Each is then timed (CUDA events and
    torch.profiler device time) beside its plain version, the PyTorch
    library call that computes the same function (SDPA, a yardstick only,
-   also with its device time) and its bound; K1 at yi-9b S=256 and 1024
-   and zamba2's shape, K2 also at B=8, Smax=32768, full lengths.  K3: the
+   also with its device time) and its bound; K1 at yi-9b S=256 and 1024,
+   zamba2's and qwen3-moe's shapes, K2 also at B=8, Smax=32768, full
+   lengths, and at qwen3-moe's tick.  K3: the
    paged tick at B=8, 64 pages of 16 per row, H=32, K=4, hd=128, ragged
    lengths 17-330, a shuffled table in which 3 rows share their first 4
    pages (bf16 and fp32), plus a window, a vacant row on the dump page,
    danube's hd=80 G=4, hd=256, G=12, zamba2's hd=80 G=1 ring, page sizes
-   32 and 64, and a layer view of a stacked pool; at page size 16 it must
-   equal K2 on the gathered cache bit for bit.  Timed at the tick shape
-   and at 2,048 pages (32k keys) per row beside K2 on the gathered cache
+   32 and 64, a layer view of a stacked pool, and qwen3-moe's tick (G=16,
+   bf16 on the tensor-core path, and fp32); at page size 16 it must equal
+   K2 on the gathered cache bit for bit.  Timed at the tick shapes (yi-9b,
+   qwen3-moe) and at 2,048 pages (32k keys) per row beside K2 on the
+   gathered cache
    (bit for bit equal there too), the plain version, a gather + SDPA
    yardstick and its bound.
    K4 (fp32, tolerance 1e-4): the rwkv6-1.6b prefill bucket B=8, T=512,
@@ -226,6 +233,42 @@ Phases (any failure exits non-zero and prints no final result line):
    generate run: its kernel table names K1's and K2's kernels with
    device time; the five largest are printed.
 
+9. the moe family, after phase 8's members are freed (device memory
+   back within 1 GiB of its value before phase 4): qwen3-moe-235b-a22b
+   at full width (d_model 4096, 64/4 heads of 128, 128 experts of d_ff
+   1536, top-8, vocab 151936), bf16, seed 0, cut to 8 of its 94 layers by
+   ``dataclasses.replace`` (``MOE_LAYERS``; 42.30 GB), in an app built
+   here from the port's parts (``ModelRegistry``, ``Ensemble``,
+   ``InferenceEngine``, ``FlexServeApp``; the store format cannot hold
+   this width: one 8-layer ``we_gate`` leaf is 12.9 GB).  A: phase 4's
+   requests through /v1/infer and /v1/detect (K1 8 per forward, the
+   trace index) and one batch's logits against the plain path; the
+   number of dropped assignments in one prefill at B=8, S=256 (T = 2048,
+   C = 160).  B: ``generate`` of 8 prompts of 17-300 tokens, 32 new (K1 8
+   per prefill, K2 8 per tick), prefill ms and tick ms; teacher-forced
+   prefill + 8 decode steps, kernels vs plain versions at LOGITS_TOL; and
+   B=1 prefill + 8 decode steps against one forward over the same 25 and
+   108 tokens (dropless) within test_decode_consistency's bf16 bound.
+   Cross-path checks replay the reference run's expert choice by token
+   (``RoutingPin``): a top-k near-tie flips under the other path's
+   rounding; the free runs are reported.  C: ``SchedulerService`` over
+   the dense and the paged engine (8 slots, 12 requests, half sampled):
+   paged streams must equal dense ones (where one parts, the two runs'
+   logits for that token must agree within LOGITS_TOL), K1 8 per prefill
+   forward, K2 8 per dense tick, K3 8 per paged tick; one tick of each
+   profiled: device time and the MoE blocks' and attention's shares.  D:
+   one seeded stream over /v1/generate must equal
+   ``SchedulerService.submit_and_wait`` bit for bit (K1 and K2 8 per
+   prefill and tick).
+9b. deepseek-v3-671b at full width (d_model 7168, 128 heads, q/kv LoRA
+   1536/512, rope 64, nope 128, v 128, 256 experts of 2048 + 1 shared,
+   top-8, vocab 129280), bf16, 4 of 61 layers (``MLA_LAYERS``: the 3
+   dense layers as published and one MoE layer; 30.23 GB), MTP off:
+   phase 4's requests, ``generate`` of 8 prompts of at most 200 tokens
+   (max_len 512) with the B=1 prefill + absorbed decode vs forward check,
+   the dense ``SchedulerService``; building a ``PagedInferenceEngine``
+   over it raises; K1-K5 launch 0 times.
+
 The line before the nvidia-smi line is ``{"kernels": [...]}`` (K1-K5);
 the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -257,6 +300,7 @@ PEAK_BYTES_PER_S = 3.35e12
 
 ARCH = "yi-9b"
 MEMBERS = 2
+QWEN_HEADS = (64, 4, 128)       # qwen3-moe-235b-a22b: H, K, hd (G = 16)
 NUM_CLASSES = 16
 # bf16 comparisons: the tolerance of the JAX kernel tests
 # (tests/test_kernels.py); fp32: the same file's fp32 tolerance.
@@ -429,6 +473,13 @@ def kernel_phase(failures):
         # zamba2's shared block: MHA (G=1), hd=80, its 4096 window
         attention_case("zamba2 hd=80 G=1 bf16 window 4096", 8, 512, 32, 32,
                        80, "bfloat16", window=4096),
+        # qwen3-moe's attention: 64 query heads on 4 (G=16)
+        attention_case("qwen3-moe G=16 bf16 causal", 8, 256, *QWEN_HEADS,
+                       "bfloat16"),
+        attention_case("qwen3-moe G=16 fp32 causal", 8, 256, *QWEN_HEADS,
+                       "float32"),
+        attention_case("qwen3-moe G=16 bf16 ragged lengths", 8, 256,
+                       *QWEN_HEADS, "bfloat16", ragged=True),
     ]
     results = []
     for c in cases:
@@ -448,8 +499,9 @@ def kernel_phase(failures):
         results.append({"case": c["name"], "max_abs_err": err, "ok": ok})
 
     main = time_flash(cases[0])
-    zamba = time_flash(cases[-1])
-    long = time_flash(cases[-2])
+    zamba = time_flash(cases[-4])
+    long = time_flash(cases[-5])
+    qwen = time_flash(cases[-3])
     entry = {
         "name": "flash_attention",
         "route": "cuda",
@@ -462,9 +514,10 @@ def kernel_phase(failures):
         **main,
         "zamba2_shape": zamba,
         "s1024": long,
+        "qwen3_moe_shape": qwen,
         "cases": results,
     }
-    for t in (main, zamba, long):
+    for t in (main, zamba, long, qwen):
         log(f"[kernels] flash_attention timed at {t['shape']}: kernel "
             f"{t['kernel_ms']:.4f} ms (device time {t['device_ms']:.4f} ms), "
             f"plain {t['plain_ms']:.4f} ms, SDPA {t['library_ms']} ms "
@@ -584,6 +637,7 @@ def decode_kernel_phase(failures):
     import torch
     from repro_torch.kernels.decode_attention import (decode_attention,
                                                       decode_attention_plain)
+    from repro_torch.kernels.decode_attention.ops import tensor_core_path
     yi = (32, 4, 128)
     cases = [
         decode_case("yi-9b bf16 ragged", 8, 1024, *yi, "bfloat16"),
@@ -606,9 +660,18 @@ def decode_kernel_phase(failures):
         # zamba2's shared block tick: MHA (G=1), hd=80, a ring of 1024
         decode_case("zamba2 hd=80 G=1 bf16 ring lengths", 8, 1024, 32, 32,
                     80, "bfloat16", lengths="ring"),
+        # qwen3-moe's tick: G=16, TC_HEADS, one tensor-core block a group
+        decode_case("qwen3-moe G=16 bf16 ragged", 8, 1024, *QWEN_HEADS,
+                    "bfloat16"),
+        decode_case("qwen3-moe G=16 fp32 ragged", 8, 1024, *QWEN_HEADS,
+                    "float32"),
     ]
     results = []
     for c in cases:
+        if c["name"].startswith("qwen3-moe"):
+            check_path(failures, f"decode_attention {c['name']}",
+                       tensor_core_path(c["q"], c["k"], c["v"]),
+                       c["dtype"] == "bfloat16")
         args = (c["q"], c["k"], c["v"], c["lengths"])
         out = decode_attention(*args, window=c["window"])
         ref = decode_attention_plain(*args, window=c["window"])
@@ -624,12 +687,13 @@ def decode_kernel_phase(failures):
         results.append({"case": c["name"], "max_abs_err": err, "ok": ok})
 
     main = time_decode(cases[0])
-    zamba = time_decode(cases[-1])
+    zamba = time_decode(cases[-3])
+    qwen = time_decode(cases[-2])
     long_case = decode_case("long cache", 8, 32768, *yi, "bfloat16",
                             lengths="full")
     long = time_decode(long_case)
     del long_case
-    for t in (main, zamba, long):
+    for t in (main, zamba, long, qwen):
         log(f"[kernels] decode_attention timed at {t['shape']}: kernel "
             f"{t['kernel_ms']:.4f} ms (device time {t['device_ms']:.4f} "
             f"ms), plain {t['plain_ms']:.4f} ms, SDPA {t['library_ms']} "
@@ -647,6 +711,7 @@ def decode_kernel_phase(failures):
         **main,
         "zamba2_shape": zamba,
         "long_cache": long,
+        "qwen3_moe_shape": qwen,
         "cases": results,
     }
     torch.cuda.empty_cache()
@@ -703,6 +768,7 @@ def paged_decode_kernel_phase(failures):
     from repro_torch.kernels.decode_attention import (
         decode_attention, paged_decode_attention,
         paged_decode_attention_plain)
+    from repro_torch.kernels.decode_attention.ops import tensor_core_path
     from repro_torch.models.paged import _gathered_view
 
     yi = (32, 4, 128)
@@ -726,9 +792,18 @@ def paged_decode_kernel_phase(failures):
         paged_case("page size 64 bf16", 8, 16, 64, *yi, "bfloat16"),
         paged_case("layer view of a stacked pool bf16", 8, 32, 16, *yi,
                    "bfloat16", stacked=True),
+        # qwen3-moe's paged tick: G=16 on the tensor-core path
+        paged_case("qwen3-moe tick G=16 bf16, 3 rows share 4 pages", 8, 64,
+                   16, *QWEN_HEADS, "bfloat16", lengths="tick", share=True),
+        paged_case("qwen3-moe tick G=16 fp32", 8, 64, 16, *QWEN_HEADS,
+                   "float32", lengths="tick"),
     ]
     results = []
     for c in cases:
+        if c["name"].startswith("qwen3-moe"):
+            check_path(failures, f"paged_decode_attention {c['name']}",
+                       tensor_core_path(c["q"], c["k"], c["v"]),
+                       c["dtype"] == "bfloat16")
         args = (c["q"], c["k"], c["v"], c["table"], c["lengths"])
         out = paged_decode_attention(*args, window=c["window"])
         ref = paged_decode_attention_plain(*args, window=c["window"])
@@ -806,6 +881,7 @@ def paged_decode_kernel_phase(failures):
                 "bytes": nbytes, "flops": flops, "bitwise_k2": bitwise}
 
     main = timed(cases[0])
+    qwen = timed(cases[-2])
     long_case = paged_case("32k keys per row", 8, 2048, 16, *yi, "bfloat16",
                            lengths="full")
     long = timed(long_case)
@@ -823,7 +899,7 @@ def paged_decode_kernel_phase(failures):
         f"(device {ordered['device_ms']:.4f} ms); K2 on the gathered cache "
         f"{ordered['k2_ms']:.4f} ms (device {ordered['k2_device_ms']:.4f} "
         f"ms)")
-    for t in (main, long):
+    for t in (main, long, qwen):
         log(f"[kernels] paged_decode_attention timed at {t['shape']}: kernel "
             f"{t['kernel_ms']:.4f} ms (device {t['device_ms']:.4f} ms); K2 on "
             f"the gathered cache {t['k2_ms']:.4f} ms (device "
@@ -846,6 +922,7 @@ def paged_decode_kernel_phase(failures):
         "max_abs_err": results[0]["max_abs_err"],
         **main,
         "long_cache": long,
+        "qwen3_moe_shape": qwen,
         "cases": results,
     }]
 
@@ -1216,10 +1293,10 @@ class Client:
             conn.close()
 
 
-def check_schema(status, body, n, kind):
+def check_schema(status, body, n, kind, members=MEMBERS):
     if status != 200:
         raise AssertionError(f"{kind}: HTTP {status}: {body}")
-    for i in range(MEMBERS):
+    for i in range(members):
         vals = body[f"model_{i}"]
         if len(vals) != n:
             raise AssertionError(f"{kind}: model_{i} has {len(vals)} rows, "
@@ -1284,12 +1361,14 @@ def main_path_phase(failures, kernels, profile_dir):
     return app
 
 
-def drive_ensemble(failures, client, vocab, layers, tag):
-    """/v1/infer and /v1/detect at 1, 3 and 8 rows, some concurrent, on a
-    two-member yi-9b ensemble: every response 200 with the paper schema,
-    K1 members x layers x coalesced forwards and K2/K3 0 (counts zeroed
-    just before, read just after), and the trace index lists every
-    request by its X-Request-Id.  Returns (requests, K1 launches)."""
+def drive_ensemble(failures, client, vocab, layers, tag, members=MEMBERS):
+    """/v1/infer and /v1/detect at 1, 3 and 8 rows, some concurrent, on an
+    ensemble of ``members`` members (two yi-9b by default): every response
+    200 with the paper schema, K1 members x layers x coalesced forwards
+    (``layers`` counts the layers whose attention is K1's: 0 for MLA) and
+    every other kernel 0 (counts zeroed just before, read just after), and
+    the trace index lists every request by its X-Request-Id.  Returns
+    (requests, K1 launches)."""
     import numpy as np
     rng = np.random.default_rng(0)
 
@@ -1313,7 +1392,7 @@ def drive_ensemble(failures, client, vocab, layers, tag):
     # warm: the first forward per shape grows the allocator
     status, body = client.call("POST", "/v1/infer",
                                {"inputs": {"tokens": toks(8, 256)}})
-    check_schema(status, body, 8, "infer")
+    check_schema(status, body, 8, "infer", members)
     status, m0 = client.call("GET", "/metrics")
     batches0 = m0["coalesce"]["batches_formed"]
     counts_reset()                          # the ensemble path's run
@@ -1325,15 +1404,15 @@ def drive_ensemble(failures, client, vocab, layers, tag):
     status, m1 = client.call("GET", "/metrics")
     forwards = m1["coalesce"]["batches_formed"] - batches0
     for kind, n, st, resp, dt, _ in results:
-        check_schema(st, resp, n, kind)
+        check_schema(st, resp, n, kind, members)
         log(f"[{tag}] POST /v1/{kind} rows={n}: {st} in "
             f"{1e3 * dt:.1f} ms -> {json.dumps(resp)[:120]}")
     launches = counts["flash_attention"]
-    expected = MEMBERS * layers * forwards
+    expected = members * layers * forwards
     log(f"[{tag}] {len(results)} requests, {forwards} coalesced "
         f"forwards; flash_attention launches {launches} (expected "
         f"members x layers x forwards = {expected})")
-    if launches != expected or launches == 0:
+    if launches != expected or forwards == 0:
         failures.append(f"{tag}: flash_attention launches {launches} != "
                         f"{expected}")
     other = sum(v for k, v in counts.items() if k != "flash_attention")
@@ -1727,6 +1806,7 @@ def drive_counted(failures, svc, work, name, layers, warm_s, rnd):
     ttft = sorted(r.ttft_s for r in reqs)
     pages_hw = (s.pager_stats() or {}).get("pages_used_high_water", 0)
     rec = {"round": rnd, "tokens_per_s": ntok / wall, "wall_s": wall,
+           "req_ids": [r.req_id for r in reqs],
            "ticks": ticks, "prefill_forwards": fwds,
            "tick_decode_ms_p50": dev[len(dev) // 2],
            "tick_bookkeeping_ms_p50": host[len(host) // 2],
@@ -3997,14 +4077,719 @@ def control_plane_phase(failures, kernels, profile_dir):
     log(f"[store] phase 8 in {info['seconds']:.1f} s")
 
 
+# --- phase 9: the moe family (qwen3-moe, then deepseek-v3 with MLA) ---------
+
+MOE_ARCH = "qwen3-moe-235b-a22b"
+MOE_LAYERS = 8          # of 94: the width is kept, the depth cut
+MLA_ARCH = "deepseek-v3-671b"
+MLA_LAYERS = 4          # of 61: first_k_dense = 3 kept, one MoE layer
+MLA_MAX_LEN = 512
+MLA_PROMPT_MAX = 200
+MEMORY_SLACK = 1 << 30  # a phase starts within 1 GiB of the baseline
+
+
+def moe_config(arch, layers, **changes):
+    """The published config at full width, cut to ``layers`` layers by
+    ``dataclasses.replace`` (as ``launch.serve.draft_config`` cuts a
+    draft)."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch), num_layers=layers,
+                               **changes)
+
+
+def moe_app(cfg, max_len, seed=0, device="cuda"):
+    """The app from the port's parts: one member (seeded random weights)
+    in a ``ModelRegistry`` and an ``Ensemble``, and an ``InferenceEngine``
+    over the same params for the generate plane (``FlexServeApp`` puts a
+    ``GenerationService`` over it)."""
+    from repro_torch.core import (Ensemble, EnsembleMember, InferenceEngine,
+                                  ModelRegistry)
+    from repro_torch.models import build_model
+    from repro_torch.serving import FlexServeApp
+    model = build_model(cfg)
+    params = model.init(seed, device)
+    name = f"{cfg.name}#0"
+    registry = ModelRegistry()
+    registry.register(name, model, params)
+
+    def apply(p, batch, _m=model):
+        return _m.forward(p, batch)[:, -1, :NUM_CLASSES]
+
+    ensemble = Ensemble([EnsembleMember(name, apply, params, NUM_CLASSES)],
+                        max_batch=8)
+    engine = InferenceEngine(model, params, max_len=max_len,
+                             max_batch=GEN_BATCH)
+    return FlexServeApp(registry, ensemble, engine, num_slots=SCHED_SLOTS)
+
+
+def param_gb(params, *prefixes):
+    return sum(t.numel() * t.element_size() for k, t in params.items()
+               if not prefixes or k.startswith(prefixes)) / 1e9
+
+
+def memory_back(failures, base_bytes, tag):
+    import torch
+    held = torch.cuda.memory_allocated()
+    log(f"[{tag}] device memory allocated before loading {held / 1e9:.3f} "
+        f"GB (baseline {base_bytes / 1e9:.3f} GB)")
+    if held - base_bytes > MEMORY_SLACK:
+        failures.append(f"{tag}: {held / 1e9:.3f} GB still allocated "
+                        f"before loading (baseline {base_bytes / 1e9:.3f})")
+
+
+class RoutingPin:
+    """Records the experts every MoE call of one run chose and replays the
+    choice in another run over the same tokens, so that two numerically
+    different paths (kernels vs plain versions; prefill + decode vs one
+    forward) are compared under one routing: a top-k near-tie that one
+    path's rounding flips swaps an expert, which is another function, not
+    an error of either path.  The replaying run recomputes the gate
+    weights, positions and capacity from its own router.  Keys: (pass,
+    MoE call, flat row) with no positions, or (MoE layer, row, absolute
+    position) under ``at(positions)``; ``at`` is entered around every
+    model pass.  Rows with no recorded choice (padding) route freely.
+    ``flips`` counts the replayed rows whose own choice differed;
+    ``dropped`` the (T, C, dropped assignments) of each recorded call."""
+
+    def __init__(self, n_moe):
+        self.n_moe = n_moe
+        self.table = {}
+        self._depth = 0
+        self.start(replay=False)
+
+    def start(self, replay):
+        self.replay = replay
+        self.passes = -1
+        self.flips = self.rows = 0
+        self.dropped = []
+        return self
+
+    def at(self, positions=None):
+        import numpy as np
+        self.positions = (None if positions is None
+                          else np.asarray(positions))
+        self.passes += 1
+        self.calls = 0
+        return self
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        if self._depth == 0:
+            self._orig = moe.route
+            moe.route = self._route
+        self._depth += 1
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        self._depth -= 1
+        if self._depth == 0:
+            moe.route = self._orig
+
+    def _keys(self, T):
+        if self.positions is None:
+            return [(self.passes, self.calls, t) for t in range(T)]
+        B, S = self.positions.shape
+        if B * S != T:
+            raise AssertionError(f"routing pin: {T} rows, positions "
+                                 f"{self.positions.shape}")
+        layer = self.calls % self.n_moe
+        return [(layer, b, int(self.positions[b, s]))
+                for b in range(B) for s in range(S)]
+
+    def _route(self, p, x2, cfg, *, capacity_factor=1.25):
+        import torch
+        from repro_torch.models import moe
+        r = self._orig(p, x2, cfg, capacity_factor=capacity_factor)
+        keys = self._keys(x2.shape[0])
+        self.calls += 1
+        top_i = r.top_i.cpu()
+        if not self.replay:
+            self.table.update(zip(keys, top_i))
+            self.dropped.append((x2.shape[0], r.capacity,
+                                 int((~r.keep).sum())))
+            return r
+        new = top_i.clone()
+        for t, key in enumerate(keys):
+            rec = self.table.get(key)
+            if rec is not None:
+                self.rows += 1
+                self.flips += set(rec.tolist()) != set(new[t].tolist())
+                new[t] = rec
+        new = new.to(r.top_i.device)
+        top_p = r.probs.gather(1, new)
+        if cfg.moe.norm_topk_prob:
+            top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True),
+                                        min=1e-9)
+        pos = moe._positions_in_expert(new.reshape(-1), cfg.moe.num_experts)
+        return moe.Routing(r.probs, top_p, new, pos, pos < r.capacity,
+                           r.capacity)
+
+
+def moe_member_logits(failures, ens, tokens, tag, n_moe):
+    """One batch's member logits, kernel path vs plain path on the card,
+    within LOGITS_TOL under the kernel run's routing (``RoutingPin``); the
+    plain path's free run (its own routing) is reported beside it."""
+    import numpy as np
+    import torch
+    batch = {"tokens": np.asarray(tokens, np.int32)}
+    pin = RoutingPin(n_moe)
+    with pin.at():
+        kern = ens.forward(batch)
+    with plain_kernels():
+        free = ens.forward(batch)
+    pin.start(replay=True)
+    with pin.at(), plain_kernels():
+        plain = ens.forward(batch)
+    out = {}
+    for name in kern:
+        a, b = kern[name].float(), plain[name].float()
+        err = float((a - b).abs().max())
+        free_err = float((a - free[name].float()).abs().max())
+        ok = (tuple(a.shape) == (len(tokens), NUM_CLASSES)
+              and bool(torch.isfinite(a).all())
+              and torch.allclose(a, b, **LOGITS_TOL))
+        log(f"[{tag}] member {name} logits {tuple(a.shape)} vs plain path "
+            f"under the kernel run's routing: max_abs_err {err:.3e}, max "
+            f"|logit| {float(b.abs().max()):.3f} ({'ok' if ok else 'FAIL'}); "
+            f"the plain path's own routing differs in {pin.flips} of "
+            f"{pin.rows} token-layer choices, max_abs_err {free_err:.3e} "
+            f"(reported)")
+        if not ok:
+            failures.append(f"{tag}: member {name} logits vs plain: err "
+                            f"{err}")
+        out[name] = {"max_abs_err": err, "free_max_abs_err": free_err,
+                     "flips": pin.flips, "rows": pin.rows}
+    return out
+
+
+def prefill_decode(engine, prompt, feed, steps, pin=None):
+    """Batch-1 prefill of ``prompt`` and ``steps`` decode steps fed
+    ``feed``; the logits of every pass (float32).  With ``pin`` the
+    passes replay its routing by position."""
+    import numpy as np
+    import torch
+    from repro_torch.core.batching import pad_sequences
+    tokens, lengths = pad_sequences([prompt], engine.seq_buckets)
+    dev = engine.device
+    pos = np.arange(tokens.shape[1])[None]
+    ctx = (pin.at(np.where(pos < len(prompt), pos, -1)) if pin
+           else nullcontext())           # padding (-1) routes freely
+    with ctx:
+        logits, state = engine.prefill(
+            {"tokens": torch.from_numpy(tokens).to(dev),
+             "lengths": torch.from_numpy(lengths).to(dev)},
+            engine.new_state(1))
+    outs = [logits[0].float()]
+    for t in range(steps):
+        ctx = pin.at([[len(prompt) + t]]) if pin else nullcontext()
+        with ctx:
+            logits, state = engine.decode(
+                torch.tensor([feed[t]], dtype=torch.int32, device=dev),
+                state)
+        outs.append(logits[0].float())
+    return outs
+
+
+def forward_consistency(failures, engine, prompts, streams, n_moe, tag):
+    """Prefill + FORCED_STEPS decode steps against one teacher-forced
+    forward over prompt + the stream's first tokens, batch 1 and at most
+    128 tokens (so every MoE call is dropless: C = T), within
+    test_decode_consistency's bf16 bound 2e-2 (max|logit| + 1), with the
+    forward's routing replayed by position; the free run is reported."""
+    import numpy as np
+    import torch
+    out = []
+    for i, (prompt, stream) in enumerate(zip(prompts, streams)):
+        seq = prompt + stream[:FORCED_STEPS]
+        if len(seq) > 128:
+            raise AssertionError(f"{tag}: row {i} has {len(seq)} tokens")
+        pin = RoutingPin(n_moe)
+        with pin.at(np.arange(len(seq))[None]):
+            full = engine.model.forward(
+                engine.params, {"tokens": torch.tensor(
+                    [seq], dtype=torch.int32, device=engine.device)}
+            )[0].float()
+        want = full[len(prompt) - 1:]
+        free = prefill_decode(engine, prompt, stream, FORCED_STEPS)
+        pin.start(replay=True)
+        pinned = prefill_decode(engine, prompt, stream, FORCED_STEPS, pin)
+        tol = 2e-2 * (float(want.abs().max()) + 1.0)
+        errs = [float((g - w).abs().max()) for g, w in zip(pinned, want)]
+        free_errs = [float((g - w).abs().max()) for g, w in zip(free, want)]
+        ok = (all(bool(torch.isfinite(g).all()) for g in pinned)
+              and max(errs) < tol)
+        log(f"[{tag}] prefill ({len(prompt)} tokens) + {FORCED_STEPS} decode "
+            f"steps vs one forward over {len(seq)} tokens (B=1, dropless): "
+            f"max_abs_err per step {[f'{e:.3e}' for e in errs]} under the "
+            f"forward's routing, bound {tol:.3e} "
+            f"({'ok' if ok else 'FAIL'}); own routing: {pin.flips} of "
+            f"{pin.rows} token-layer choices differ, max_abs_err "
+            f"{max(free_errs):.3e} (reported)")
+        if not ok:
+            failures.append(f"{tag}: prefill + decode vs forward, row {i}: "
+                            f"errs {errs}, bound {tol}")
+        out.append({"prompt": len(prompt), "max_abs_err": max(errs),
+                    "bound": tol, "free_max_abs_err": max(free_errs),
+                    "flips": pin.flips, "rows": pin.rows})
+    return out
+
+
+def moe_profile(fn, name, out_dir, attn_names):
+    """torch.profiler over one call of ``fn``: its device time, the MoE
+    blocks' (a ``record_function`` range around ``moe_block``: its
+    kernels' device time, the range's own device row left out of the
+    total) and the attention kernels'."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.models import transformer
+    orig = transformer.moe_block
+
+    def traced(*a, **kw):
+        with record_function("moe_block"):
+            return orig(*a, **kw)
+    transformer.moe_block = traced
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        transformer.moe_block = orig
+    total = device_ms(prof, ()) - device_ms(prof, ("moe_block",))
+    attn = device_ms(prof, attn_names)
+    moe_us = 0.0
+    for e in prof.events():
+        if (e.name == "moe_block"
+                and getattr(e, "device_type", None) == DeviceType.CPU):
+            us = getattr(e, "device_time_total", None)
+            moe_us += us if us is not None else e.cuda_time_total
+    moe_ms = moe_us / 1e3
+    share = 1 / total if total else 0.0
+    log(f"[moe] {name}: device time {total:.3f} ms, MoE blocks "
+        f"{moe_ms:.3f} ms ({100 * moe_ms * share:.1f}%), attention kernels "
+        f"{attn:.3f} ms ({100 * attn * share:.1f}%)")
+    if out_dir:
+        out_dir.mkdir(parents=True, exist_ok=True)
+        (out_dir / f"moe_{name.replace(' ', '_')}_profile.txt").write_text(
+            prof.key_averages().table(sort_by="cuda_time_total",
+                                      row_limit=30))
+    return {"device_ms": total, "moe_block_ms": moe_ms,
+            "attention_ms": attn}
+
+
+def moe_tick_profile(eng, work, name, out_dir):
+    """``moe_profile`` of one decode-only scheduler tick with every slot
+    live, beside the tick's host clock."""
+    import torch
+    from repro_torch.core import ContinuousBatchingScheduler
+    s = ContinuousBatchingScheduler(eng, num_slots=SCHED_SLOTS)
+    for prompt, sp in work[:SCHED_SLOTS]:
+        s.submit(prompt, sampling=sp)
+    s.step()
+    s.step()
+    torch.cuda.synchronize()
+    rec = moe_profile(s.step, f"{name} tick", out_dir, K2_KERNELS)
+    rec["tick_host_clock_ms"] = s.device_ms_window[-1] + s.host_ms_window[-1]
+    log(f"[moe] {name} tick ({SCHED_SLOTS} live slots): host clock "
+        f"{rec['tick_host_clock_ms']:.2f} ms")
+    return rec
+
+
+def moe_generate(failures, engine, prompts, layers, tag, k1=True):
+    """A greedy ``generate`` of the prompts (GEN_TOKENS new each), counted:
+    K1 ``layers`` per prefill and K2 ``layers`` per tick where
+    ``k1`` (GQA), no kernel at all otherwise; then prefill and tick ms.
+    Returns (result, record)."""
+    import torch
+    from repro_torch.core.batching import pad_sequences
+    engine.generate(prompts, max_new_tokens=2)      # warm the allocator
+    torch.cuda.synchronize()
+    engine.prefill_calls = engine.decode_calls = 0
+    counts_reset()
+    t0 = time.perf_counter()
+    res = engine.generate(prompts, max_new_tokens=GEN_TOKENS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = counts_read()
+    pre_n, dec_n = engine.prefill_calls, engine.decode_calls
+    want = dict.fromkeys(K_NAMES, 0)
+    if k1:
+        want["flash_attention"] = layers * pre_n
+        want["decode_attention"] = layers * dec_n
+    log(f"[{tag}] greedy generate of {len(prompts)} prompts: {res.steps} "
+        f"steps in {1e3 * wall:.1f} ms; prefill_calls {pre_n}, decode_calls "
+        f"{dec_n}; launches {n} (expected {want})")
+    good = (all(len(t) == GEN_TOKENS for t in res.tokens)
+            and all(0 <= x < engine.model.config.vocab_size
+                    for t in res.tokens for x in t)
+            and res.finish_reasons == ["length"] * len(prompts)
+            and res.steps == GEN_TOKENS)
+    if not good:
+        failures.append(f"{tag} generate output malformed: steps "
+                        f"{res.steps}, reasons {res.finish_reasons}")
+    if n != want or pre_n != 1 or dec_n != res.steps - 1:
+        failures.append(f"{tag} generate: launches {n}, expected {want} "
+                        f"({pre_n} prefills, {dec_n} ticks)")
+    tokens, lengths = pad_sequences(prompts, engine.seq_buckets)
+    dev = engine.device
+    batch = {"tokens": torch.from_numpy(tokens).to(dev),
+             "lengths": torch.from_numpy(lengths).to(dev)}
+    prefill_ms = host_time_ms(
+        lambda: engine.prefill(batch, engine.new_state(GEN_BATCH)))
+    samp = {"temperature": torch.zeros(GEN_BATCH, device=dev),
+            "top_k": torch.zeros(GEN_BATCH, dtype=torch.int32, device=dev),
+            "top_p": torch.ones(GEN_BATCH, device=dev),
+            "key": torch.zeros((GEN_BATCH, 2), dtype=torch.int64,
+                               device=dev),
+            "regime": "greedy"}
+    logits, state = engine.prefill(batch, engine.new_state(GEN_BATCH))
+    ctr = torch.zeros(GEN_BATCH, dtype=torch.int32, device=dev)
+    tok = engine.sample(logits, samp, ctr)
+    ticks = []
+    for _ in range(16):
+        t = time.perf_counter()
+        tok, state, ctr = engine.decode_sample(tok, state, samp, ctr)
+        tok.cpu()
+        ticks.append(1e3 * (time.perf_counter() - t))
+    del state
+    tick_ms = sorted(ticks)[len(ticks) // 2]
+    rec = {"launches": n, "generate_wall_ms": 1e3 * wall,
+           "prefill_ms": prefill_ms, "prefill_bucket": int(tokens.shape[1]),
+           "decode_tick_ms": tick_ms,
+           "decode_tokens_per_s": GEN_BATCH * 1e3 / tick_ms,
+           "generate_tokens_per_s": len(prompts) * GEN_TOKENS / wall}
+    log(f"[{tag}] B={GEN_BATCH}, prompt bucket {tokens.shape[1]}: prefill "
+        f"{prefill_ms:.2f} ms (median of 5); decode tick {tick_ms:.2f} ms "
+        f"(host clock median of 16, sampling and the ids' transfer "
+        f"included) = {rec['decode_tokens_per_s']:.1f} tokens/s; generate "
+        f"of {GEN_TOKENS} tokens {rec['generate_tokens_per_s']:.1f} tokens/s "
+        f"end to end")
+    return res, rec
+
+
+def teacher_forced_pinned(failures, engine, prompts, teacher, n_moe, tag):
+    """Phase 5's check on a MoE model: prefill + FORCED_STEPS teacher-forced
+    decode steps with the kernels and with their plain versions, the plain
+    run under the kernel run's routing, within LOGITS_TOL at every step."""
+    import torch
+    from repro_torch.core.batching import pad_sequences
+    tokens, lengths = pad_sequences(prompts, engine.seq_buckets)
+    dev = engine.device
+    batch = {"tokens": torch.from_numpy(tokens).to(dev),
+             "lengths": torch.from_numpy(lengths).to(dev)}
+    teacher = torch.tensor(teacher, dtype=torch.int32, device=dev)
+    pin = RoutingPin(n_moe)
+
+    def run():
+        with pin.at():
+            logits, state = engine.prefill(batch, engine.new_state(GEN_BATCH))
+        outs = [logits.float()]
+        for t in range(FORCED_STEPS):
+            with pin.at():
+                logits, state = engine.decode(teacher[:, t], state)
+            outs.append(logits.float())
+        return outs
+    kern = run()
+    pin.start(replay=True)
+    with plain_kernels():
+        plain = run()
+    errs = [float((a - b).abs().max()) for a, b in zip(kern, plain)]
+    ok = all(bool(torch.isfinite(a).all()) and torch.allclose(
+        a, b, **LOGITS_TOL) for a, b in zip(kern, plain))
+    log(f"[{tag}] teacher-forced logits, kernels vs plain versions under "
+        f"one routing, prefill + {FORCED_STEPS} decode steps at B="
+        f"{GEN_BATCH}: max_abs_err per step {[f'{e:.3e}' for e in errs]} "
+        f"({'ok' if ok else 'FAIL'}); the plain run's own routing differs "
+        f"in {pin.flips} of {pin.rows} token-layer choices")
+    if not ok:
+        failures.append(f"{tag}: teacher-forced logits vs plain: {errs}")
+    return {"max_abs_err": errs, "flips": pin.flips, "rows": pin.rows}
+
+
+def moe_phase(failures, kernels, profile_dir, base_bytes):
+    """Phase 9: qwen3-moe-235b-a22b at full width, 8 layers, through the
+    ensemble, the engine, the dense and paged schedulers and HTTP."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import (PagedInferenceEngine, SamplingParams,
+                                  SchedulerService)
+    from repro_torch.serving import FlexServeClient, FlexServeServer
+
+    t_phase = time.perf_counter()
+    info = {"card": nvidia_smi_line()}
+    kernels[0]["qwen3_moe"] = info
+    memory_back(failures, base_bytes, "moe")
+    cfg = moe_config(MOE_ARCH, MOE_LAYERS)
+    m = cfg.moe
+    t0 = time.perf_counter()
+    app = moe_app(cfg, GEN_MAX_LEN)
+    torch.cuda.synchronize()
+    name = f"{cfg.name}#0"
+    params = app.registry.get(name).params
+    engine = app.generation.engine_for()
+    layers = cfg.num_layers
+    sizes = {"total_gb": param_gb(params),
+             "per_layer_gb": param_gb(params, "layers/") / layers,
+             "experts_per_layer_gb": param_gb(params, "layers/moe/we_")
+             / layers,
+             "embed_head_gb": param_gb(params, "embed", "head")}
+    info["config"] = {"layers": layers, "cut_from": get_config(
+        MOE_ARCH).num_layers, **sizes}
+    log(f"[moe] {cfg.name}: cut to {layers} of "
+        f"{info['config']['cut_from']} layers (dataclasses.replace); width "
+        f"kept: d_model {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} "
+        f"heads of {cfg.head_dim}, {m.num_experts} experts of d_ff "
+        f"{m.d_ff_expert}, top-{m.top_k}, vocab {cfg.vocab_size}, "
+        f"{cfg.dtype}, seed 0; {sizes['total_gb']:.2f} GB of weights "
+        f"({sizes['per_layer_gb']:.3f} GB a layer, experts "
+        f"{sizes['experts_per_layer_gb']:.3f}; embed and head "
+        f"{sizes['embed_head_gb']:.3f}); built in "
+        f"{time.perf_counter() - t0:.1f} s; allocated "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+
+    # A: /v1/infer and /v1/detect, K1 8 per forward
+    server = FlexServeServer(app).start()
+    client = Client(*server.address)
+    try:
+        requests, k1 = drive_ensemble(failures, client, cfg.vocab_size,
+                                      layers, "moe", members=1)
+    finally:
+        stop_listener(server)
+    info["launches_ensemble"] = k1
+    info["member_logits"] = moe_member_logits(
+        failures, app.ensemble, requests[1][1], "moe", layers)
+    r = np.random.default_rng(9)
+    toks = torch.from_numpy(r.integers(0, cfg.vocab_size, (8, 256)).astype(
+        np.int32)).to(engine.device)
+    pin = RoutingPin(layers)
+    with pin.at():
+        engine.prefill({"tokens": toks, "lengths": torch.full(
+            (8,), 256, dtype=torch.int32, device=engine.device)},
+            engine.new_state(8))
+    T, C = pin.dropped[0][:2]
+    drops = [d for *_, d in pin.dropped]
+    info["prefill_profile"] = moe_profile(
+        lambda: engine.prefill({"tokens": toks, "lengths": torch.full(
+            (8,), 256, dtype=torch.int32, device=engine.device)},
+            engine.new_state(8)), "prefill B=8 S=256",
+        Path(profile_dir) if profile_dir else None, K1_KERNELS)
+    info["prefill_drops"] = {"T": T, "C": C, "per_layer": drops}
+    log(f"[moe] one prefill at B=8, S=256: T = {T} tokens x top-{m.top_k} "
+        f"= {T * m.top_k} assignments a layer, C = {C} slots per expert: "
+        f"{sum(drops)} of {T * m.top_k * layers} assignments dropped "
+        f"({100 * sum(drops) / (T * m.top_k * layers):.3f}%; per layer "
+        f"{drops})")
+    if (T, C) != (2048, 160) or len(drops) != layers:
+        failures.append(f"moe prefill routing: T {T}, C {C}, {drops}")
+
+    # B: InferenceEngine.generate, K1 8 per prefill and K2 8 per tick
+    lens = r.integers(17, 301, GEN_BATCH)
+    lens[0], lens[1], lens[-1] = 17, 100, 300
+    prompts = [r.integers(0, cfg.vocab_size, n).tolist() for n in lens]
+    res, gen = moe_generate(failures, engine, prompts, layers, "moe")
+    info["generate"] = gen
+    gen["teacher_forced"] = teacher_forced_pinned(
+        failures, engine, prompts, res.tokens, layers, "moe")
+    gen["forward_consistency"] = forward_consistency(
+        failures, engine, prompts[:2], res.tokens[:2], layers, "moe")
+
+    # C: SchedulerService over the dense and the paged engine
+    engines = {"dense": engine,
+               "paged": PagedInferenceEngine(engine.model, params,
+                                             page_size=16,
+                                             max_len=GEN_MAX_LEN,
+                                             max_batch=GEN_BATCH)}
+    work = sched_workload(cfg.vocab_size, seed=1)
+    runs, probes, ids, outs = {}, {}, {}, {}
+    for kind, eng in engines.items():
+        svc = SchedulerService(eng, num_slots=SCHED_SLOTS)
+        try:
+            warm = svc.warm()
+            with LogitsProbe(eng, svc.scheduler) as probes[kind]:
+                runs[kind], outs[kind] = drive_counted(
+                    failures, svc, work, kind, layers, warm, 0)
+            ids[kind] = runs[kind].pop("req_ids")
+        finally:
+            svc.close()
+    div = first_divergence(outs["dense"], outs["paged"])
+    log("[moe] paged vs dense streams (same prefill groups): "
+        + ("identical" if div is None else
+           f"first differ at request {div[0]}, token {div[1]}"))
+    for k, (a, b) in enumerate(zip(outs["dense"], outs["paged"])):
+        d = first_divergence([a], [b])
+        if d is None:
+            continue
+        j = d[1]
+        la = probes["dense"].get(probes["dense"].logits,
+                                 (None, ids["dense"][k]), j)
+        lb = probes["paged"].get(probes["paged"].logits,
+                                 (None, ids["paged"][k]), j)
+        if la is None or lb is None:
+            failures.append(f"moe: request {k} parts at token {j} with no "
+                            f"recorded logits")
+            continue
+        gap, close, margin, amax = logits_gap(lb, la)
+        log(f"[moe] request {k} parts at token {j} ({b[j]} against {a[j]}): "
+            f"paged and dense logits differ by {gap:.4e} at |logit| <= "
+            f"{amax:.3f}, dense top-2 margin {margin:.4e}: "
+            + ("within LOGITS_TOL" if close else "NOT within LOGITS_TOL"))
+        if not close:
+            failures.append(f"moe: request {k} token {j}: paged vs dense "
+                            f"logits gap {gap:.4e}")
+    info["scheduler"] = {"runs": runs, "first_divergence": div,
+                         "ticks": {kind: moe_tick_profile(
+                             eng, work, kind, Path(profile_dir)
+                             if profile_dir else None)
+                             for kind, eng in engines.items()}}
+    kernels[1]["qwen3_moe_launches"] = runs["dense"]["launches"][
+        "decode_attention"]
+    kernels[2]["qwen3_moe_launches"] = runs["paged"]["launches"][
+        "paged_decode_attention"]
+    kernels[0]["qwen3_moe_launches"] = (
+        k1 + sum(x["launches"]["flash_attention"] for x in runs.values()))
+    del engines["paged"]
+
+    # D: one seeded stream over /v1/generate == submit_and_wait
+    prompt, kw = http_requests(cfg.vocab_size)[2]
+    ref_svc = SchedulerService(engine, num_slots=SCHED_SLOTS)
+    try:
+        ref = ref_svc.submit_and_wait([prompt], sampling=SamplingParams(
+            max_new_tokens=GEN_TOKENS, **kw)).tokens[0]
+    finally:
+        ref_svc.close()
+    warm = app.generation.entry_for().service.warm()
+    server = FlexServeServer(app).start(timeout=60)
+    fc = FlexServeClient(*server.address, timeout=600)
+    try:
+        ticks0, fwds0, _ = decode_counters(fc)
+        counts_reset()
+        rec = timed_stream(fc, prompt, kw)
+        counts = counts_read()
+        ticks1, fwds1, _ = decode_counters(fc)
+        check_http_counts(failures, f"moe Run D ({len(prompt)}-token "
+                          f"prompt, seed {kw['seed']})", counts, layers,
+                          fwds1 - fwds0, ticks1 - ticks0, paged=False)
+        same = rec["tokens"] == ref
+        log(f"[moe] /v1/generate stream vs SchedulerService.submit_and_wait: "
+            f"{'identical' if same else 'DIFFERENT'}; TTFT "
+            f"{1e3 * rec['ttft_s']:.1f} ms, total {1e3 * rec['total_s']:.1f} "
+            f"ms; plane warm {warm:.1f} s")
+        if not (same and stream_ok(rec)):
+            failures.append(f"moe Run D: stream {rec['done']}, reference "
+                            f"{ref}")
+        info["http"] = {"ttft_ms": 1e3 * rec["ttft_s"],
+                        "total_ms": 1e3 * rec["total_s"], "warm_s": warm}
+        fc.close()
+    finally:
+        server.stop()
+    info["seconds"] = time.perf_counter() - t_phase
+    log(f"[moe] phase 9 in {info['seconds']:.1f} s")
+
+
+def mla_phase(failures, kernels, profile_dir, base_bytes):
+    """Phase 9b: deepseek-v3-671b at full width, 4 layers (3 dense, 1 MoE),
+    MLA, through the ensemble, the engine and the dense scheduler; no
+    kernel of K1-K5 runs."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import PagedInferenceEngine, SchedulerService
+    from repro_torch.serving import FlexServeServer
+
+    t_phase = time.perf_counter()
+    info = {"card": nvidia_smi_line()}
+    kernels[0]["deepseek_v3"] = info
+    memory_back(failures, base_bytes, "mla")
+    full = get_config(MLA_ARCH)
+    cfg = moe_config(MLA_ARCH, MLA_LAYERS, mtp=False)
+    m, a = cfg.moe, cfg.mla
+    t0 = time.perf_counter()
+    app = moe_app(cfg, MLA_MAX_LEN)
+    torch.cuda.synchronize()
+    params = app.registry.get(f"{cfg.name}#0").params
+    engine = app.generation.engine_for()
+    sizes = {"total_gb": param_gb(params),
+             "embed_head_gb": param_gb(params, "embed", "head"),
+             "per_dense_layer_gb": param_gb(params, "dense_layers/")
+             / m.first_k_dense,
+             "moe_layer_gb": param_gb(params, "layers/")
+             / (cfg.num_layers - m.first_k_dense)}
+    info["config"] = {"layers": cfg.num_layers, "cut_from": full.num_layers,
+                      "mtp": False, **sizes}
+    log(f"[mla] {cfg.name}: cut to {cfg.num_layers} of {full.num_layers} "
+        f"layers ({m.first_k_dense} dense, as published, and "
+        f"{cfg.num_layers - m.first_k_dense} MoE), mtp off (its head serves "
+        f"nothing); width kept: d_model {cfg.d_model}, {cfg.num_heads} "
+        f"heads, q/kv LoRA {a.q_lora_rank}/{a.kv_lora_rank}, rope "
+        f"{a.rope_head_dim}, nope {a.nope_head_dim}, v {a.v_head_dim}, "
+        f"{m.num_experts} experts of {m.d_ff_expert} + "
+        f"{m.num_shared_experts} shared, top-{m.top_k}, dense d_ff "
+        f"{m.d_ff_dense}, vocab {cfg.vocab_size}, {cfg.dtype}, seed 0; "
+        f"{sizes['total_gb']:.2f} GB (embed and head "
+        f"{sizes['embed_head_gb']:.3f}, a dense layer "
+        f"{sizes['per_dense_layer_gb']:.3f}, the MoE layer "
+        f"{sizes['moe_layer_gb']:.3f}); built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    counts_reset()          # the whole MLA path: no kernel of K1-K5
+    server = FlexServeServer(app).start()
+    client = Client(*server.address)
+    try:
+        requests, _ = drive_ensemble(failures, client, cfg.vocab_size, 0,
+                                     "mla", members=1)
+    finally:
+        stop_listener(server)
+    n_moe = cfg.num_layers - m.first_k_dense
+    info["member_logits"] = moe_member_logits(
+        failures, app.ensemble, requests[1][1], "mla", n_moe)
+
+    r = np.random.default_rng(11)
+    lens = r.integers(17, MLA_PROMPT_MAX + 1, GEN_BATCH)
+    lens[0], lens[1], lens[-1] = 17, 100, MLA_PROMPT_MAX
+    prompts = [r.integers(0, cfg.vocab_size, n).tolist() for n in lens]
+    res, gen = moe_generate(failures, engine, prompts, 0, "mla", k1=False)
+    info["generate"] = gen
+    gen["forward_consistency"] = forward_consistency(
+        failures, engine, prompts[:2], res.tokens[:2], n_moe, "mla")
+
+    svc = SchedulerService(engine, num_slots=SCHED_SLOTS)
+    try:
+        warm = svc.warm()
+        info["scheduler"], _ = drive_counted(
+            failures, svc, sched_workload(cfg.vocab_size, seed=4), "dense",
+            0, warm, 0)
+        info["scheduler"].pop("req_ids")
+    finally:
+        svc.close()
+    try:
+        PagedInferenceEngine(engine.model, params, max_len=MLA_MAX_LEN,
+                             max_batch=GEN_BATCH, page_size=16)
+        failures.append("mla: PagedInferenceEngine accepted an MLA model")
+    except ValueError as e:
+        log(f"[mla] PagedInferenceEngine over {cfg.name} raises: {e}")
+        if "no paged KV path" not in str(e):
+            failures.append(f"mla: paged refusal {e}")
+    n = counts_read()
+    log(f"[mla] launches over the whole MLA path: {n} (expected 0 each)")
+    if any(n.values()):
+        failures.append(f"mla: kernels launched on the MLA path: {n}")
+    info["launches"] = n
+    app.close()
+    info["seconds"] = time.perf_counter() - t_phase
+    log(f"[mla] phase 9b in {info['seconds']:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", default=None, metavar="DIR",
                     help="also profile one ensemble forward, one decode "
                          "tick, one dense and one paged scheduler tick, "
-                         "one recurrent ensemble forward and a prefill and "
-                         "a tick of rwkv6 and zamba2 with torch.profiler "
-                         "and write the tables under DIR")
+                         "one recurrent ensemble forward, a prefill and "
+                         "a tick of rwkv6 and zamba2, and qwen3-moe's "
+                         "prefill and ticks with torch.profiler and write "
+                         "the tables under DIR")
     args = ap.parse_args(argv)
 
     import torch
@@ -4068,6 +4853,7 @@ def main(argv=None) -> int:
                                     "decode_attention", "rwkv6_wkv",
                                     "mamba2_ssd")):
         entry["sass"] = sass[lib]
+    base_bytes = torch.cuda.memory_allocated()
     app = main_path_phase(failures, kernels, args.profile)
     generate_phase(failures, kernels, app, args.profile)
     scheduler_phase(failures, kernels, app, args.profile)
@@ -4086,6 +4872,12 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     control_plane_phase(failures, kernels, args.profile)
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_phase(failures, kernels, args.profile, base_bytes)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mla_phase(failures, kernels, args.profile, base_bytes)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -595,7 +595,9 @@ class SpeculativeEngine(InferenceEngine):
 
 
 def page_kv_bytes(cfg, page_size: int) -> int:
-    """Device bytes one KV page costs across every layer (k and v)."""
+    """Device bytes one KV page costs across every layer (k and v): a moe
+    config's ``cache_dense`` pool is indexed by the same pages, so its
+    first dense layers count with the rest in ``num_layers``."""
     itemsize = torch.empty((), dtype=cache_dtype(cfg)).element_size()
     return (cfg.num_layers * page_size * cfg.num_kv_heads * cfg.head_dim *
             itemsize * 2)

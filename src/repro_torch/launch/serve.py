@@ -46,8 +46,8 @@ from repro_torch.serving import (FlexServeApp, FlexServeServer, ModelManager,
                                  ModelStore)
 
 
-# families the port can decode (moe, vlm and encdec come with their slices)
-DECODE_FAMILIES = ("dense", "ssm", "hybrid")
+# families the port can decode (vlm and encdec come with their slices)
+DECODE_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def draft_config(draft_model: str, *, full: bool, draft_layers=None):

@@ -190,22 +190,26 @@ def _write_rows(cache, new, slots):
     cache[rows, slots] = new.to(cache.dtype)
 
 
-def cache_write(cache_k, cache_v, new_k, new_v, lengths):
-    """Write one token per row at position lengths[b], IN PLACE.
-
-    cache_k/v: (B, Smax, K, hd); new_k/v: (B, 1, K, hd); lengths: (B,).
-    A row whose position is past the cache's end keeps its cache as it
-    was, as JAX drops an out-of-range scatter: its write is aimed at the
-    last slot with that slot's own contents (masked, not clamped: no value
-    of the new token lands anywhere).  Returns (cache_k, cache_v)."""
-    Smax = cache_k.shape[1]
-    rows = torch.arange(cache_k.shape[0], device=cache_k.device)
-    inside = (lengths < Smax)[:, None, None]
+def write_token(cache, new, lengths):
+    """cache (B, Smax, ...)[b, lengths[b]] = new[b], IN PLACE.  A row whose
+    position is past the cache's end keeps its cache as it was, as JAX
+    drops an out-of-range scatter: its write is aimed at the last slot
+    with that slot's own contents (masked, not clamped: no value of the
+    new token lands anywhere)."""
+    Smax = cache.shape[1]
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    inside = (lengths < Smax).reshape((-1,) + (1,) * (new.dim() - 1))
     slots = torch.clamp(lengths, max=Smax - 1).long()
-    for cache, new in ((cache_k, new_k), (cache_v, new_v)):
-        kept = torch.where(inside, new[:, 0].to(cache.dtype),
-                           cache[rows, slots])
-        _write_rows(cache, kept, slots)
+    kept = torch.where(inside, new.to(cache.dtype), cache[rows, slots])
+    _write_rows(cache, kept, slots)
+
+
+def cache_write(cache_k, cache_v, new_k, new_v, lengths):
+    """Write one token per row at position lengths[b], IN PLACE
+    (``write_token``).  cache_k/v: (B, Smax, K, hd); new_k/v: (B, 1, K,
+    hd); lengths: (B,).  Returns (cache_k, cache_v)."""
+    write_token(cache_k, new_k[:, 0], lengths)
+    write_token(cache_v, new_v[:, 0], lengths)
     return cache_k, cache_v
 
 
@@ -257,3 +261,140 @@ def decode_attn_block(p, x1, layer_cache_k, layer_cache_v, lengths,
         out = decode_attention(q[:, 0], ck, cv, lengths + 1, window=window)
     out = out.reshape(B, 1, cfg.num_heads * cfg.head_dim)
     return _linear(out, p["wo"], p.get("bo")), ck, cv
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V3)
+# ---------------------------------------------------------------------------
+
+
+def init_mla(gen: torch.Generator, cfg: ModelConfig):
+    m = cfg.mla
+    d, H = cfg.d_model, cfg.num_heads
+    dt = compute_dtype(cfg)
+    dev = gen.device
+    qh = m.rope_head_dim + m.nope_head_dim
+    return {
+        "q_a": dense_init(gen, (d, m.q_lora_rank), dt),
+        "q_a_scale": torch.ones((m.q_lora_rank,), dtype=torch.float32,
+                                device=dev),
+        "q_b": dense_init(gen, (m.q_lora_rank, H * qh), dt),
+        "kv_a": dense_init(gen, (d, m.kv_lora_rank + m.rope_head_dim), dt),
+        "kv_a_scale": torch.ones((m.kv_lora_rank,), dtype=torch.float32,
+                                 device=dev),
+        "kv_b": dense_init(
+            gen, (m.kv_lora_rank, H * (m.nope_head_dim + m.v_head_dim)), dt),
+        "wo": dense_init(gen, (H * m.v_head_dim, d), dt),
+    }
+
+
+def _mla_q(p, x, cfg: ModelConfig, positions):
+    """q (B,S,H, nope | rope) -> (q_nope, q_rope rotated)."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    q_lat = rms_norm_simple(x @ p["q_a"], p["q_a_scale"])
+    q = (q_lat @ p["q_b"]).reshape(B, S, cfg.num_heads,
+                                   m.rope_head_dim + m.nope_head_dim)
+    q_nope, q_rope = q.split([m.nope_head_dim, m.rope_head_dim], dim=-1)
+    return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
+
+
+def _mla_ckv(p, x, cfg: ModelConfig, positions):
+    """kv_a = [c_kv (kv_lora_rank) | k_rope] -> (normed c_kv (B,S,kvr),
+    rotated k_rope (B,S,rope)), the latent cache's two halves."""
+    m = cfg.mla
+    c_kv, k_rope = (x @ p["kv_a"]).split(
+        [m.kv_lora_rank, m.rope_head_dim], dim=-1)
+    c_kv = rms_norm_simple(c_kv, p["kv_a_scale"])
+    k_rope = apply_rope(k_rope[:, :, None, :], positions,
+                        cfg.rope_theta)[:, :, 0]
+    return c_kv, k_rope
+
+
+def _mla_scale(cfg: ModelConfig) -> float:
+    """1/sqrt(nope + rope): q.k spans both halves."""
+    return (cfg.mla.nope_head_dim + cfg.mla.rope_head_dim) ** -0.5
+
+
+def mla_full(p, x, cfg: ModelConfig, *, positions=None, kv_lengths=None):
+    """Full-sequence MLA with per-head k, v materialised, scores and P.V
+    in fp32.  Returns (out (B,S,D), c_kv, k_rope): the latent halves are
+    what prefill writes into the cache."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    H = cfg.num_heads
+    if positions is None:
+        positions = torch.arange(S, device=x.device)[None, :]
+    q_nope, q_rope = _mla_q(p, x, cfg, positions)
+    c_kv, k_rope = _mla_ckv(p, x, cfg, positions)
+    kvb = (c_kv @ p["kv_b"]).reshape(B, S, H,
+                                     m.nope_head_dim + m.v_head_dim)
+    k_nope, v = kvb.split([m.nope_head_dim, m.v_head_dim], dim=-1)
+    scores = (torch.einsum("bshn,bthn->bhst", q_nope.float(),
+                           k_nope.float())
+              + torch.einsum("bshr,btr->bhst", q_rope.float(),
+                             k_rope.float())) * _mla_scale(cfg)
+    mask = make_mask(S, S, causal=True, kv_lengths=kv_lengths,
+                     device=x.device)
+    probs = torch.softmax(torch.where(mask, scores, NEG_INF), dim=-1)
+    out = torch.einsum("bhst,bthv->bshv", probs, v.float())
+    out = out.reshape(B, S, H * m.v_head_dim).to(x.dtype)
+    return out @ p["wo"], c_kv, k_rope
+
+
+def mla_attention_block(p, x, cfg: ModelConfig, *, positions=None,
+                        kv_lengths=None):
+    """Full-sequence MLA (forward / prefill). Returns (B,S,D)."""
+    return mla_full(p, x, cfg, positions=positions,
+                    kv_lengths=kv_lengths)[0]
+
+
+def init_mla_cache(num_layers: int, batch: int, max_len: int,
+                   cfg: ModelConfig, dtype=None, device=None):
+    m = cfg.mla
+    dt = dtype or cache_dtype(cfg)
+    return {
+        "ckv": torch.zeros((num_layers, batch, max_len, m.kv_lora_rank),
+                           dtype=dt, device=device),
+        "krope": torch.zeros((num_layers, batch, max_len, m.rope_head_dim),
+                             dtype=dt, device=device),
+        "length": torch.zeros((batch,), dtype=torch.int32, device=device),
+    }
+
+
+def mla_decode_block(p, x1, c_cache, r_cache, lengths, cfg: ModelConfig):
+    """Absorbed-matrix MLA decode: attention in the latent (kv_lora) space.
+
+    x1 (B,1,D); c_cache (B,Smax,kvr); r_cache (B,Smax,rope), written IN
+    PLACE at ``lengths``.  W_UK is absorbed into q (fp32), which is cast
+    to the cache dtype; products accumulate in fp32 and P is cast to the
+    cache dtype before P.C (the JAX package's default ``attn_dtype``
+    branch).  Returns (out (B,1,D), c_cache, r_cache)."""
+    m = cfg.mla
+    B = x1.shape[0]
+    H = cfg.num_heads
+    positions = lengths[:, None]
+    q_nope, q_rope = _mla_q(p, x1, cfg, positions)       # (B,1,H,n),(B,1,H,r)
+    c_kv, k_rope = _mla_ckv(p, x1, cfg, positions)       # (B,1,kvr),(B,1,r)
+    write_token(c_cache, c_kv[:, 0], lengths)
+    write_token(r_cache, k_rope[:, 0], lengths)
+    kvb = p["kv_b"].reshape(m.kv_lora_rank, H,
+                            m.nope_head_dim + m.v_head_dim)
+    w_uk = kvb[:, :, :m.nope_head_dim]                   # (kvr,H,n)
+    w_uv = kvb[:, :, m.nope_head_dim:]                   # (kvr,H,v)
+    q_abs = torch.einsum("bhn,chn->bhc", q_nope[:, 0].float(),
+                         w_uk.float())                   # (B,H,kvr)
+    cdt = c_cache.dtype
+    c32 = c_cache.float()
+    scores = (torch.einsum("bhc,btc->bht", q_abs.to(cdt).float(), c32)
+              + torch.einsum("bhr,btr->bht", q_rope[:, 0].float(),
+                             r_cache.float())) * _mla_scale(cfg)
+    Smax = c_cache.shape[1]
+    valid = (torch.arange(Smax, device=x1.device)[None, :]
+             < (lengths + 1)[:, None])
+    scores = torch.where(valid[:, None, :], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out_lat = torch.einsum("bht,btc->bhc", probs.to(cdt).float(), c32)
+    out = torch.einsum("bhc,chv->bhv", out_lat, w_uv.float())
+    out = out.reshape(B, 1, H * m.v_head_dim).to(x1.dtype)
+    return out @ p["wo"], c_cache, r_cache

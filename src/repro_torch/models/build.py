@@ -1,14 +1,15 @@
 """Uniform model API: config -> Model(config, init, forward, init_state,
 prefill, decode).
 
-The port of ``repro/models/build.py`` for the families ``dense``
-(``transformer.py``), ``ssm`` (``rwkv6.py``) and ``hybrid``
-(``hybrid.py``); ``build_model`` raises for the families no slice has
-ported yet.  Params are a flat dict of tensors keyed by the JAX checkpoint
-paths (see ``repro_torch.params``); they live on the device ``init`` was
-given.  The decode state lives where ``init_state`` puts it: CUDA unless
-the caller names another device; ``prefill`` and ``decode`` update its
-tensors in place and return the new state."""
+The port of ``repro/models/build.py`` for the families ``dense`` and
+``moe`` (``transformer.py``; GQA or MLA attention), ``ssm`` (``rwkv6.py``)
+and ``hybrid`` (``hybrid.py``); ``build_model`` raises for the families
+no slice has ported yet (vlm, encdec).  Params are a flat dict of
+tensors keyed by the JAX checkpoint paths (see ``repro_torch.params``);
+they live on the device ``init`` was given.  The decode state lives
+where ``init_state`` puts it: CUDA unless the caller names another
+device; ``prefill`` and ``decode`` update its tensors in place and return
+the new state."""
 
 from __future__ import annotations
 
@@ -21,10 +22,11 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models import hybrid, rwkv6, transformer
 
-_FAMILIES = {"dense": transformer, "ssm": rwkv6, "hybrid": hybrid}
-LATER_SLICE = ("family {fam!r} ({name}) is not ported yet: moe/MLA, vlm "
-               "and encdec come with the ROADMAP section 1 item \"Other "
-               "families: moe/MLA, vlm, encdec\"")
+_FAMILIES = {"dense": transformer, "moe": transformer, "ssm": rwkv6,
+             "hybrid": hybrid}
+LATER_SLICE = ("family {fam!r} ({name}) is not ported yet: vlm and encdec "
+               "come with the ROADMAP section 1 item \"Other families: "
+               "moe/MLA, vlm, encdec\"")
 
 
 @dataclass(frozen=True)
@@ -70,8 +72,7 @@ class Model:
 
 
 def build_model(cfg: ModelConfig) -> Model:
-    if cfg.family not in _FAMILIES or (cfg.family == "dense"
-                                       and cfg.attn_kind != "gqa"):
+    if cfg.family not in _FAMILIES:
         raise NotImplementedError(
             LATER_SLICE.format(fam=cfg.family, name=cfg.name))
     return Model(cfg)

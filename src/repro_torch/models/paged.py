@@ -38,8 +38,10 @@ pin-while-parked preemption.
 
 As with the dense engine, a state passed into ``paged_prefill`` or
 ``paged_decode_step`` is written in place and must not be reused except
-through the returned one.  Only the dense GQA family pages here; MoE pages
-with its family.
+through the returned one.  The dense and moe families page with GQA
+attention (a moe config's first dense layers get a ``cache_dense`` pool
+of their own, indexed by the same table); MLA's latent cache and the
+recurrent states do not page, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -53,14 +55,14 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.decode_attention import paged_decode_attention
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import apply_norm
-from repro_torch.models.transformer import _residual, project_logits, subtree
+from repro_torch.models.transformer import (_residual, project_logits,
+                                            stacks, subtree)
 
 
 def supports_paging(cfg: ModelConfig) -> bool:
-    """Paged KV covers the self-attention transformer with a standard
-    (k, v) cache; MLA/latent and recurrent states do not page, and MoE
-    comes with its family."""
-    return cfg.family == "dense" and cfg.attn_kind == "gqa"
+    """Paged KV covers the self-attention transformer families with a
+    standard (k, v) cache; MLA/latent and recurrent states do not page."""
+    return cfg.family in ("dense", "moe") and cfg.attn_kind == "gqa"
 
 
 def init_paged_state(cfg: ModelConfig, num_slots: int, num_pages: int,
@@ -70,16 +72,25 @@ def init_paged_state(cfg: ModelConfig, num_slots: int, num_pages: int,
         raise ValueError(f"{cfg.name}: family {cfg.family}/{cfg.attn_kind} "
                          "has no paged KV path")
     dt = dtype or attn.cache_dtype(cfg)
-    shape = (cfg.num_layers, num_pages, page_size, cfg.num_kv_heads,
-             cfg.head_dim)
-    return {
-        "cache": {"k": torch.zeros(shape, dtype=dt, device=device),
-                  "v": torch.zeros(shape, dtype=dt, device=device)},
-        "length": torch.zeros((num_slots,), dtype=torch.int32,
-                              device=device),
-        "page_table": torch.zeros((num_slots, max_pages_per_seq),
-                                  dtype=torch.int32, device=device),
-    }
+    state: Dict[str, Any] = {}
+    for _, key, n, _ in stacks(cfg):
+        shape = (n, num_pages, page_size, cfg.num_kv_heads, cfg.head_dim)
+        state[key] = {"k": torch.zeros(shape, dtype=dt, device=device),
+                      "v": torch.zeros(shape, dtype=dt, device=device)}
+    state["length"] = torch.zeros((num_slots,), dtype=torch.int32,
+                                  device=device)
+    state["page_table"] = torch.zeros((num_slots, max_pages_per_seq),
+                                      dtype=torch.int32, device=device)
+    return state
+
+
+def _layers(params, state, cfg: ModelConfig):
+    """(layer params, layer i's k pool, v pool) over every stack, in
+    order."""
+    for prefix, key, n, _ in stacks(cfg):
+        pool_k, pool_v = state[key]["k"], state[key]["v"]
+        for i in range(n):
+            yield subtree(params, prefix, i), pool_k[i], pool_v[i]
 
 
 def _gathered_view(pool_k, pool_v, table):
@@ -114,14 +125,11 @@ def paged_decode_step(params, token, state, cfg: ModelConfig, *,
     pg = table[rows, torch.clamp(lengths // page_size, max=MP - 1).long()]
     pg = pg.long()
     off = (lengths % page_size).long()
-    pool_k, pool_v = state["cache"]["k"], state["cache"]["v"]
     x = params["embed"][token.long()][:, None, :]            # (B,1,D)
     positions = lengths[:, None]
-    for i in range(cfg.num_layers):
-        lp = subtree(params, "layers", i)
+    for lp, pk, pv in _layers(params, state, cfg):
         h = apply_norm(lp["ln1"], x, cfg)
         q, k, v = attn.project_qkv(lp["attn"], h, cfg, positions=positions)
-        pk, pv = pool_k[i], pool_v[i]
         pk[pg, off] = k[:, 0].to(pk.dtype)
         pv[pg, off] = v[:, 0].to(pv.dtype)
         # K3 on CUDA, its plain gathered-view version on the CPU
@@ -160,13 +168,10 @@ def paged_verify_step(params, tokens, state, cfg: ModelConfig, *,
                      table[rows, torch.clamp(logical, max=MP - 1)],
                      torch.zeros_like(table[:, :1])).long()
     off = (positions % page_size).long()
-    pool_k, pool_v = state["cache"]["k"], state["cache"]["v"]
     x = params["embed"][tokens.long()]                       # (B, W, D)
-    for i in range(cfg.num_layers):
-        lp = subtree(params, "layers", i)
+    for lp, pk, pv in _layers(params, state, cfg):
         h = apply_norm(lp["ln1"], x, cfg)
         q, k, v = attn.project_qkv(lp["attn"], h, cfg, positions=positions)
-        pk, pv = pool_k[i], pool_v[i]
         pk[pg, off] = k.to(pk.dtype)
         pv[pg, off] = v.to(pv.dtype)
         out = torch.stack([paged_decode_attention(q[:, j], pk, pv, table,
@@ -226,12 +231,9 @@ def paged_prefill(params, tokens, lengths, state, ctx_table, ctx_lens,
     mask = (None if C == 0 else
             _suffix_mask(S, C * page_size, ctx_lens, lengths, window))
     flat = dest_table.reshape(-1).long()
-    pool_k, pool_v = state["cache"]["k"], state["cache"]["v"]
-    for i in range(cfg.num_layers):
-        lp = subtree(params, "layers", i)
+    for lp, pk, pv in _layers(params, state, cfg):
         h = apply_norm(lp["ln1"], x, cfg)
         q, k, v = attn.project_qkv(lp["attn"], h, cfg, positions=positions)
-        pk, pv = pool_k[i], pool_v[i]
         if C == 0:
             out = attn.flash_attention(q, k, v, causal=True, window=window,
                                        lengths=lengths)

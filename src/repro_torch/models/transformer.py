@@ -1,18 +1,22 @@
-"""Decoder-only transformer, family ``dense``: the port of the full-sequence
-half of ``repro/models/transformer.py``.
+"""Decoder-only transformer, families ``dense`` and ``moe``: the port of
+``repro/models/transformer.py``.
 
 Covers yi-9b, mistral-large-123b, command-r-plus-104b (LayerNorm, parallel
-block, tied embeddings) and h2o-danube-1.8b (native sliding window).  The
-layers run as a Python loop over views of the stacked ``(L, ...)`` params.
+block, tied embeddings), h2o-danube-1.8b (native sliding window),
+qwen3-moe (qk-norm + MoE) and deepseek-v3 (MLA + first-k-dense + MoE; its
+MTP params are carried, as the JAX package's train loss uses them, but
+not served).  The layers run as a Python loop over views of the stacked
+``(L, ...)`` params, a stack at a time (``stacks``).
 
 The decode path (``init_state``, ``prefill``, ``decode_step`` and the
 speculative ``verify_decode_step``) is the port of the JAX module's second
-half.  Its state is ``{"cache": {"k", "v"}
-(L, B, Smax, K, hd), "length": (B,) int32}``; ``prefill`` and
-``decode_step`` write the cache IN PLACE (the JAX engine donates it) and
-return a new dict holding the same cache tensors and the new lengths.
-MoE and MLA come with later slices; the ssm and hybrid families live in
-``rwkv6.py`` and ``hybrid.py``.
+half.  Its state is ``{"cache": {"k", "v"} (L, B, Smax, K, hd), "length":
+(B,) int32}`` for GQA, with ``{"ckv", "krope"}`` (L, B, Smax, kvr|rope)
+for MLA, and a ``cache_dense`` of the same kind for a moe config's first
+dense layers; ``prefill`` and ``decode_step`` write the caches IN PLACE
+(the JAX engine donates them) and return a new dict holding the same
+tensors and the new lengths.  The ssm and hybrid families live in
+``rwkv6.py`` and ``hybrid.py``; vlm and encdec are not ported yet.
 """
 
 from __future__ import annotations
@@ -26,16 +30,31 @@ from repro_torch.models import attention as attn
 from repro_torch.models.layers import (apply_mlp, apply_norm, compute_dtype,
                                        dense_init, embed_init, generator,
                                        init_mlp, init_norm, stack_init)
+from repro_torch.models.moe import init_moe, moe_block
 from repro_torch.params import flatten, unflatten
 
 
 def check_family(cfg: ModelConfig) -> None:
-    """This module serves dense GQA configs; ``build_model`` routes the
-    other ported families elsewhere and refuses the rest."""
-    if cfg.family != "dense" or cfg.attn_kind != "gqa":
-        raise ValueError(f"transformer.py serves family 'dense' with gqa "
-                         f"attention, not {cfg.family!r}/{cfg.attn_kind!r} "
-                         f"({cfg.name})")
+    """This module serves the dense and moe families with GQA or MLA
+    attention; ``build_model`` routes the other ported families elsewhere
+    and refuses the rest."""
+    if cfg.family not in ("dense", "moe") or cfg.attn_kind not in ("gqa",
+                                                                   "mla"):
+        raise ValueError(f"transformer.py serves families 'dense'/'moe' "
+                         f"with gqa or mla attention, not "
+                         f"{cfg.family!r}/{cfg.attn_kind!r} ({cfg.name})")
+
+
+def stacks(cfg: ModelConfig):
+    """The layer stacks in order, as (param prefix, state key, layers,
+    moe): a dense config has one; a moe config its ``first_k_dense``
+    dense layers (``dense_layers``, ``cache_dense``) before its MoE
+    layers (``layers``, ``cache``)."""
+    if cfg.moe is None:
+        return [("layers", "cache", cfg.num_layers, False)]
+    n_dense = cfg.moe.first_k_dense
+    out = [("dense_layers", "cache_dense", n_dense, False)] if n_dense else []
+    return out + [("layers", "cache", cfg.num_layers - n_dense, True)]
 
 
 # ---------------------------------------------------------------------------
@@ -43,19 +62,30 @@ def check_family(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 
-def init_layer(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
-    """One layer's params, flat-keyed (``attn/wq``, ``ln1/scale``, ...)."""
+def init_layer(gen: torch.Generator, cfg: ModelConfig,
+               moe: bool = False) -> Dict[str, torch.Tensor]:
+    """One layer's params, flat-keyed (``attn/wq``, ``ln1/scale``, ...);
+    a moe config's dense layers take ``moe.d_ff_dense``."""
     p = {"ln1": init_norm(cfg, gen.device),
-         "attn": attn.init_attention(gen, cfg)}
+         "attn": (attn.init_mla(gen, cfg) if cfg.attn_kind == "mla"
+                  else attn.init_attention(gen, cfg))}
     if not cfg.parallel_block:
         p["ln2"] = init_norm(cfg, gen.device)
-    p["mlp"] = init_mlp(gen, cfg)
+    if moe:
+        p["moe"] = init_moe(gen, cfg)
+    else:
+        d_ff = cfg.d_ff
+        if cfg.moe and cfg.moe.first_k_dense and cfg.moe.d_ff_dense:
+            d_ff = cfg.moe.d_ff_dense
+        p["mlp"] = init_mlp(gen, cfg, d_ff=d_ff)
     return flatten(p)
 
 
 def init_params(seed: int, cfg: ModelConfig, device) -> Dict[str, torch.Tensor]:
     """Random params on ``device`` from a seeded ``torch.Generator``;
-    stacked layer tensors are filled a layer at a time (``stack_init``)."""
+    stacked layer tensors are filled a layer at a time (``stack_init``).
+    The keys and shapes are the JAX ``init_params``'s, ``mtp/*`` (the
+    multi-token-prediction head, carried but not served) included."""
     check_family(cfg)
     gen = generator(seed, device)
     dt = compute_dtype(cfg)
@@ -63,8 +93,16 @@ def init_params(seed: int, cfg: ModelConfig, device) -> Dict[str, torch.Tensor]:
     params.update(flatten({"final_norm": init_norm(cfg, gen.device)}))
     if not cfg.tie_embeddings:
         params["head"] = dense_init(gen, (cfg.d_model, cfg.vocab_size), dt)
-    stacked = stack_init(gen, cfg.num_layers, init_layer, cfg)
-    params.update({f"layers/{k}": v for k, v in stacked.items()})
+    for prefix, _, n, moe in stacks(cfg):
+        stacked = stack_init(gen, n, init_layer, cfg, moe)
+        params.update({f"{prefix}/{k}": v for k, v in stacked.items()})
+    if cfg.mtp:
+        mtp = {"proj": dense_init(gen, (2 * cfg.d_model, cfg.d_model), dt),
+               "layer": stack_init(gen, 1, init_layer, cfg,
+                                   cfg.moe is not None),
+               "norm_h": init_norm(cfg, gen.device),
+               "norm_e": init_norm(cfg, gen.device)}
+        params.update(flatten(mtp, "mtp/"))
     return params
 
 
@@ -84,34 +122,44 @@ def subtree(params: Dict[str, torch.Tensor], prefix: str,
 
 
 def _residual(cfg: ModelConfig, lp, x, h, attn_out):
-    """The block around attention: parallel (x + attn + mlp(h)) or serial."""
+    """The block around attention: parallel (x + attn + mlp(h)) or serial,
+    with the MoE block in place of the MLP in a MoE layer."""
     if cfg.parallel_block:
         return x + attn_out + apply_mlp(lp["mlp"], h, cfg)
     x = x + attn_out
     h2 = apply_norm(lp["ln2"], x, cfg)
+    if "moe" in lp:
+        return x + moe_block(lp["moe"], h2, cfg)[0]
     return x + apply_mlp(lp["mlp"], h2, cfg)
 
 
 def _layer_full(cfg: ModelConfig, window, x, lp, positions, kv_lengths):
     h = apply_norm(lp["ln1"], x, cfg)
-    attn_out = attn.attention_block(lp["attn"], h, cfg, positions=positions,
-                                    causal=True, window=window,
-                                    kv_lengths=kv_lengths)
+    if cfg.attn_kind == "mla":
+        attn_out = attn.mla_attention_block(lp["attn"], h, cfg,
+                                            positions=positions,
+                                            kv_lengths=kv_lengths)
+    else:
+        attn_out = attn.attention_block(lp["attn"], h, cfg,
+                                        positions=positions, causal=True,
+                                        window=window,
+                                        kv_lengths=kv_lengths)
     return _residual(cfg, lp, x, h, attn_out)
 
 
 def forward(params, tokens, cfg: ModelConfig, *, kv_lengths=None,
             window: Optional[int] = None):
     """tokens (B,S) -> logits (B,S,V). ``window`` overrides
-    cfg.sliding_window."""
+    cfg.sliding_window (GQA only, as in the JAX package)."""
     check_family(cfg)
     B, S = tokens.shape
     window = window if window is not None else cfg.sliding_window
     x = params["embed"][tokens.long()]
     positions = torch.arange(S, device=x.device)[None, :]
-    for i in range(cfg.num_layers):
-        x = _layer_full(cfg, window, x, subtree(params, "layers", i), positions,
-                        kv_lengths)
+    for prefix, _, n, _ in stacks(cfg):
+        for i in range(n):
+            x = _layer_full(cfg, window, x, subtree(params, prefix, i),
+                            positions, kv_lengths)
     h = apply_norm(subtree(params, "final_norm"), x, cfg)
     return project_logits(params, h, cfg)
 
@@ -128,25 +176,38 @@ def project_logits(params, h, cfg: ModelConfig):
 
 def init_state(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                window: Optional[int] = None, device=None) -> Dict[str, Any]:
-    """A zeroed decode state on ``device``.  With a sliding window (the
-    config's, or ``window``) the cache is a ring of ``min(max_len,
-    window)`` slots: the JAX package's ``ring_cache`` default."""
+    """A zeroed decode state on ``device``: a ``cache`` per layer stack
+    (``cache_dense`` for a moe config's dense layers), ``{"k", "v"}`` for
+    GQA, ``{"ckv", "krope"}`` for MLA.  With a sliding window (the
+    config's, or ``window``) a GQA cache is a ring of ``min(max_len,
+    window)`` slots: the JAX package's ``ring_cache`` default.  MLA caches
+    never ring."""
     check_family(cfg)
     window = window if window is not None else cfg.sliding_window
-    if window is not None:
+    mla = cfg.attn_kind == "mla"
+    if window is not None and not mla:
         max_len = min(max_len, window)
-    c = attn.init_kv_cache(cfg.num_layers, batch, max_len, cfg, dtype,
-                           device)
-    length = c.pop("length")
-    return {"cache": c, "length": length}
+    mk_cache = attn.init_mla_cache if mla else attn.init_kv_cache
+    state: Dict[str, Any] = {}
+    for _, key, n, _ in stacks(cfg):
+        c = mk_cache(n, batch, max_len, cfg, dtype, device)
+        state[key] = c
+        length = c.pop("length")
+    state["length"] = length
+    return state
 
 
-def _layer_decode(cfg: ModelConfig, window, x, lp, cache_k, cache_v,
-                  lengths):
-    """One block of the decode step; writes this layer's cache in place."""
+def _layer_decode(cfg: ModelConfig, window, x, lp, cache, i, lengths):
+    """One block of the decode step; writes layer ``i`` of ``cache`` in
+    place."""
     h = apply_norm(lp["ln1"], x, cfg)
-    attn_out, _, _ = attn.decode_attn_block(lp["attn"], h, cache_k, cache_v,
-                                            lengths, cfg, window=window)
+    if cfg.attn_kind == "mla":
+        attn_out, _, _ = attn.mla_decode_block(
+            lp["attn"], h, cache["ckv"][i], cache["krope"][i], lengths, cfg)
+    else:
+        attn_out, _, _ = attn.decode_attn_block(
+            lp["attn"], h, cache["k"][i], cache["v"][i], lengths, cfg,
+            window=window)
     return _residual(cfg, lp, x, h, attn_out)
 
 
@@ -156,11 +217,11 @@ def decode_step(params, token, state, cfg: ModelConfig, *,
     cache is written in place."""
     window = window if window is not None else cfg.sliding_window
     lengths = state["length"]
-    cache = state["cache"]
     x = params["embed"][token.long()][:, None, :]            # (B,1,D)
-    for i in range(cfg.num_layers):
-        x = _layer_decode(cfg, window, x, subtree(params, "layers", i),
-                          cache["k"][i], cache["v"][i], lengths)
+    for prefix, key, n, _ in stacks(cfg):
+        for i in range(n):
+            x = _layer_decode(cfg, window, x, subtree(params, prefix, i),
+                              state[key], i, lengths)
     h = apply_norm(subtree(params, "final_norm"), x, cfg)
     logits = project_logits(params, h, cfg)[:, 0]
     return logits, {**state, "length": lengths + 1}
@@ -223,14 +284,19 @@ def verify_decode_step(params, tokens, state, cfg: ModelConfig, *,
     written in place (accepted positions are thereby committed; rejected
     ones are masked out by the caller's accepted length).
     ``state["length"]`` is NOT advanced: the speculative step owns the
-    accepted-length accounting.  Needs a non-ring cache."""
+    accepted-length accounting.  Needs a non-ring GQA cache (the JAX
+    function has no MLA branch either)."""
+    if cfg.attn_kind != "gqa":
+        raise ValueError(f"{cfg.name}: the verify window needs a gqa "
+                         f"cache, not {cfg.attn_kind!r}")
     window = window if window is not None else cfg.sliding_window
     lengths = state["length"]
-    cache = state["cache"]
     x = params["embed"][tokens.long()]                       # (B, W, D)
-    for i in range(cfg.num_layers):
-        x = _layer_verify(cfg, window, x, subtree(params, "layers", i),
-                          cache["k"][i], cache["v"][i], lengths)
+    for prefix, key, n, _ in stacks(cfg):
+        cache = state[key]
+        for i in range(n):
+            x = _layer_verify(cfg, window, x, subtree(params, prefix, i),
+                              cache["k"][i], cache["v"][i], lengths)
     h = apply_norm(subtree(params, "final_norm"), x, cfg)
     return project_logits(params, h, cfg), dict(state)
 
@@ -246,10 +312,12 @@ def prefill(params, tokens, state, cfg: ModelConfig, *, lengths=None,
     place.  tokens (B,S); lengths (B,) valid lengths (default: all S).
     Returns (last-valid-position logits (B,V), new state).
 
-    Attention runs through the flash kernel with ``lengths`` and
+    GQA attention runs through the flash kernel with ``lengths`` and
     ``window``, as the ensemble forward's does (the JAX prefill takes the
     materialised-scores path; the two differ only at padded query
-    positions, which nothing reads)."""
+    positions that see no valid key: a zero-length row, or a window past
+    every valid key).  MLA runs its materialised block and fills the
+    latent ``ckv``/``krope`` cache from the whole bucket."""
     B, S = tokens.shape
     window = window if window is not None else cfg.sliding_window
     if lengths is None:
@@ -257,25 +325,37 @@ def prefill(params, tokens, state, cfg: ModelConfig, *, lengths=None,
     lengths = lengths.to(torch.int32)
     x = params["embed"][tokens.long()]
     positions = torch.arange(S, device=x.device)[None, :]
-    ck_all, cv_all = state["cache"]["k"], state["cache"]["v"]
-    Smax = ck_all.shape[2]
-    ring = Smax < S or (window is not None and Smax <= window)
     H, hd = cfg.num_heads, cfg.head_dim
-    for i in range(cfg.num_layers):
-        lp = subtree(params, "layers", i)
-        h = apply_norm(lp["ln1"], x, cfg)
-        q, k, v = attn.project_qkv(lp["attn"], h, cfg, positions=positions)
-        out = attn.flash_attention(q, k, v, causal=True, window=window,
-                                   lengths=lengths)
-        attn_out = attn._linear(out.reshape(B, S, H * hd), lp["attn"]["wo"],
-                                lp["attn"].get("bo"))
-        for cache, new in ((ck_all[i], k), (cv_all[i], v)):
-            if ring:     # keep only the last Smax positions, in ring order
-                cache.copy_(attn.ring_fill(new, lengths, Smax))
+    mla = cfg.attn_kind == "mla"
+    for prefix, key, n, _ in stacks(cfg):
+        cache = state[key]
+        Smax = cache["ckv" if mla else "k"].shape[2]
+        ring = not mla and (Smax < S or (window is not None
+                                         and Smax <= window))
+        for i in range(n):
+            lp = subtree(params, prefix, i)
+            h = apply_norm(lp["ln1"], x, cfg)
+            if mla:
+                attn_out, c_kv, k_rope = attn.mla_full(
+                    lp["attn"], h, cfg, positions=positions,
+                    kv_lengths=lengths)
+                new = ((cache["ckv"][i], c_kv), (cache["krope"][i], k_rope))
             else:
-                cache[:, :S].copy_(new)
-                cache[:, S:].zero_()
-        x = _residual(cfg, lp, x, h, attn_out)
+                q, k, v = attn.project_qkv(lp["attn"], h, cfg,
+                                           positions=positions)
+                out = attn.flash_attention(q, k, v, causal=True,
+                                           window=window, lengths=lengths)
+                attn_out = attn._linear(out.reshape(B, S, H * hd),
+                                        lp["attn"]["wo"],
+                                        lp["attn"].get("bo"))
+                new = ((cache["k"][i], k), (cache["v"][i], v))
+            for c, t in new:
+                if ring:   # keep only the last Smax positions, ring order
+                    c.copy_(attn.ring_fill(t, lengths, Smax))
+                else:
+                    c[:, :S].copy_(t)
+                    c[:, S:].zero_()
+            x = _residual(cfg, lp, x, h, attn_out)
     h = apply_norm(subtree(params, "final_norm"), x, cfg)
     rows = torch.arange(B, device=h.device)
     h_last = h[rows, lengths.long() - 1]          # each row's last valid

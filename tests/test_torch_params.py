@@ -26,7 +26,9 @@ ROOT = Path(__file__).resolve().parents[1]
 @pytest.mark.parametrize("arch,dtype", [("yi-9b", "float32"),
                                         ("command-r-plus-104b", "bfloat16"),
                                         ("rwkv6-1.6b", "bfloat16"),
-                                        ("zamba2-2.7b", "float32")])
+                                        ("zamba2-2.7b", "float32"),
+                                        ("qwen3-moe-235b-a22b", "bfloat16"),
+                                        ("deepseek-v3-671b", "float32")])
 def test_from_jax_to_flat_round_trip(arch, dtype):
     import dataclasses
     cfg = dataclasses.replace(jreduce(jget_config(arch)), dtype=dtype)
@@ -59,6 +61,7 @@ def test_import_guard_no_jax_no_repro():
             " repro_torch.kernels.decode_attention.ops,"
             " repro_torch.core.engine, repro_torch.core.scheduler,"
             " repro_torch.core.kv_pager, repro_torch.models.paged,"
+            " repro_torch.models.moe,"
             " repro_torch.models.rwkv6, repro_torch.models.hybrid,"
             " repro_torch.kernels.rwkv6_wkv.ops,"
             " repro_torch.kernels.mamba2_ssd.ops, repro_torch.core.faults,"
