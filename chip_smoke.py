@@ -24,19 +24,30 @@ Phases (any failure exits non-zero and prints no final result line):
    length-0 row, S=1024 (the largest prefill bucket at max_len 1024),
    zamba2's shared block (hd=80, G=1, window 4096, B=8, S=512) and
    qwen3-moe's attention (B=8, S=256, H=64, K=4: G=16; bf16, fp32 and
-   ragged lengths).  K2: the
+   ragged lengths), and cross-attention with Skv != S: llama-3.2-vision's
+   cross blocks (B=8, S=256, Skv=1601, H=32, K=8, hd=128, non-causal, bf16
+   and fp32), whisper's (B=8, S=64, Skv=1500, H=K=8, hd=64) and its
+   encoder's self-attention (S=1500, non-causal, bf16 and fp32) and
+   strided inputs at Skv=1601, their keys shifted by KEY_SHIFT so that an
+   unmasked ragged key edge shows, Skv < S with ragged lengths and a
+   length-0 row, and causal Skv != S (top-left aligned, as the TPU
+   kernel's mask).  K1's tolerance scales atol by min(1, max|ref|)
+   (``scaled_tol``).  K2: the
    decode tick at B=8, Smax=1024, H=32, K=4, hd=128 with ragged lengths
    (bf16 and fp32), plus a window, ring-style lengths, a length-1 row,
    Smax not a multiple of the tile, a layer view of the stacked cache,
    danube's hd=80 G=4, G=12 (one block per group), hd=256 and zamba2's
    hd=80 G=1 ring tick, and qwen3-moe's tick (B=8, Smax=1024, H=64, K=4,
    ragged; bf16 must take the tensor-core path at G=16, TC_HEADS, and fp32
-   the CUDA-core one).  Each is then timed (CUDA events and
+   the CUDA-core one), and the cross step of llama-3.2-vision (B=8,
+   Smax=1601, H=32, K=8, every key valid) and whisper (Smax=1500, H=K=8,
+   hd=64).  Each is then timed (CUDA events and
    torch.profiler device time) beside its plain version, the PyTorch
    library call that computes the same function (SDPA, a yardstick only,
    also with its device time) and its bound; K1 at yi-9b S=256 and 1024,
-   zamba2's and qwen3-moe's shapes, K2 also at B=8, Smax=32768, full
-   lengths, and at qwen3-moe's tick.  K3: the
+   zamba2's and qwen3-moe's shapes and the vlm cross, whisper cross and
+   whisper encoder shapes, K2 also at B=8, Smax=32768, full lengths, at
+   qwen3-moe's tick and at the vlm cross step.  K3: the
    paged tick at B=8, 64 pages of 16 per row, H=32, K=4, hd=128, ragged
    lengths 17-330, a shuffled table in which 3 rows share their first 4
    pages (bf16 and fp32), plus a window, a vacant row on the dump page,
@@ -268,6 +279,39 @@ Phases (any failure exits non-zero and prints no final result line):
    (max_len 512) with the B=1 prefill + absorbed decode vs forward check,
    the dense ``SchedulerService``; building a ``PagedInferenceEngine``
    over it raises; K1-K5 launch 0 times.
+10. llama-3.2-vision-11b at full width and depth (40 layers: 8 groups of 4
+   self layers and a gated cross block; d_model 4096, 32/8 heads of 128,
+   d_ff 14336, vocab 128256, 1601 image tokens of 4096), bf16, seed 0,
+   the cross gates opened to 1 (at 0 no image reaches a logit), after
+   phase 9's members are freed; two float32 images of one scale from a
+   numpy seed.  A: one forward at B=8, S=256, K1 launched 40 times (32
+   causal self, 8 cross at Skv = 1601), its logits against the plain
+   path within LOGITS_TOL and within half of what each row's image
+   swapped for the other's moves them (so a kernel path reading the
+   wrong image fails); the first cross-attention's output, kernel vs
+   plain at the bf16 tolerance scaled to the output, with the other
+   image moving it beyond that tolerance; and the logits' distance from
+   a forward whose cross-attention runs in float32 on the float32 K/V,
+   as JAX's promotion runs it (a measurement).  B: ``generate`` of 8
+   prompts of 17-300 tokens with their images, 32 new (K1 40 per
+   prefill, K2 40 per tick: 32 self, 8 cross with lengths 1601);
+   teacher-forced prefill + 8 decode steps, kernels vs plain versions
+   at LOGITS_TOL; B=1 prefill + 8 decode steps vs one forward within
+   test_decode_consistency's bf16 bound.  C: the dense
+   ``SchedulerService`` (8 slots) over 12 requests, half sampled, each
+   with one of the two images (prefill groups mix them), launch counts
+   exact; each stream against ``generate``'s of the same prompt, image
+   and seed, and where one parts, the two runs' logits for that token
+   within LOGITS_TOL.  ``PagedInferenceEngine`` and ``SpeculativeEngine``
+   over it raise.  D (with ``--profile``): one prefill and one tick,
+   device time, host clock and the shares of K1's and K2's cross and
+   self launches and of the image K/V projections.
+10b. whisper-base at full width and depth (6 encoder + 6 decoder layers,
+   d_model 512, 8 heads of 64, vocab 51865, 1500 frames), bf16, float32
+   frames from a numpy seed (the encoder's stream runs in float32, as
+   JAX promotes it, so its K1 takes the fp32 path): the same A-C with
+   prompts of 4-64 tokens and max_len 448, K1 18 per forward or prefill
+   (6 encoder, 6 decoder self, 6 cross at Skv = 1500) and K2 12 per tick.
 
 The line before the nvidia-smi line is ``{"kernels": [...]}`` (K1-K5);
 the last line is ``{"ok": true, "device": {...}}``.
@@ -301,6 +345,10 @@ PEAK_BYTES_PER_S = 3.35e12
 ARCH = "yi-9b"
 MEMBERS = 2
 QWEN_HEADS = (64, 4, 128)       # qwen3-moe-235b-a22b: H, K, hd (G = 16)
+VLM_HEADS = (32, 8, 128)        # llama-3.2-vision-11b: H, K, hd
+VLM_IMAGE_TOKENS = 1601         # its image: (560 / 14)^2 + 1 tokens
+WHISPER_HEADS = (8, 8, 64)      # whisper-base
+WHISPER_FRAMES = 1500           # its 30 s of audio after the conv stem
 NUM_CLASSES = 16
 # bf16 comparisons: the tolerance of the JAX kernel tests
 # (tests/test_kernels.py); fp32: the same file's fp32 tolerance.
@@ -360,31 +408,45 @@ def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 def attention_case(name, B, S, H, K, hd, dtype, *, causal=True, window=None,
                    ragged=False, strided=False, offset=0, empty_row=False,
-                   seed=0):
+                   seed=0, Skv=None, key_shift=0.0):
+    """q (B,S,H,hd) and k/v (B,Skv,K,hd) (Skv = S unless given).
+
+    ``key_shift`` adds one constant to every element of k.  That moves
+    each query's scores by one amount (its own c * sum(q) / sqrt(hd)),
+    which leaves the true softmax as it was; but a key the kernel forgets
+    to mask past Skv (TMA zero-fills the last tile) scores 0, and where a
+    query's shift is negative it outweighs the real keys and pulls the
+    output towards 0.  With unshifted keys such a fault shrinks every
+    output at Skv = 1601 by about 2%, within the bf16 tolerance."""
     import torch
     g = torch.Generator(device="cuda").manual_seed(seed)
     dt = getattr(torch, dtype)
+    Skv = S if Skv is None else Skv
     width = (2 * hd if strided else hd) + offset
     q = torch.randn((B, S, H, width), generator=g, device="cuda").to(dt)
-    k = torch.randn((B, S, K, width), generator=g, device="cuda").to(dt)
-    v = torch.randn((B, S, K, width), generator=g, device="cuda").to(dt)
+    k = (torch.randn((B, Skv, K, width), generator=g, device="cuda")
+         + key_shift).to(dt)
+    v = torch.randn((B, Skv, K, width), generator=g, device="cuda").to(dt)
     q, k, v = (t[..., offset:offset + hd] for t in (q, k, v))
     lengths = None
     if ragged:
-        lengths = torch.randint(0, S + 1, (B,), generator=g, device="cuda",
+        lengths = torch.randint(0, Skv + 1, (B,), generator=g, device="cuda",
                                 dtype=torch.int32)
-        lengths[0] = S
+        lengths[0] = Skv
         if empty_row:
             lengths[1] = 0
     return dict(name=name, q=q, k=k, v=v, lengths=lengths, causal=causal,
                 window=window, dtype=dtype)
 
 
-def visible_pairs(S, causal, window, lengths, B):
+def visible_pairs(S, causal, window, lengths, B, Skv=None):
+    """The (query, key) pairs the mask keeps, over the batch: what a
+    call's work depends on."""
     import torch
+    Skv = S if Skv is None else Skv
     qp = torch.arange(S, device="cuda")[:, None]
-    kp = torch.arange(S, device="cuda")[None, :]
-    m = torch.ones((S, S), dtype=torch.bool, device="cuda")
+    kp = torch.arange(Skv, device="cuda")[None, :]
+    m = torch.ones((S, Skv), dtype=torch.bool, device="cuda")
     if causal:
         m &= kp <= qp
     if window is not None:
@@ -401,7 +463,7 @@ def time_flash(c):
                                                      flash_attention_plain)
     q, k, v = c["q"], c["k"], c["v"]
     B, S, H, hd = q.shape
-    K = k.shape[2]
+    Skv, K = k.shape[1], k.shape[2]
     kw = dict(causal=c["causal"], window=c["window"], lengths=None)
     kernel_ms = cuda_time_ms(lambda: flash_attention(q, k, v, **kw))
     kernel_dev_ms = profiled_ms(lambda: flash_attention(q, k, v, **kw),
@@ -409,8 +471,9 @@ def time_flash(c):
     plain_ms = cuda_time_ms(lambda: flash_attention_plain(q, k, v, **kw))
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
 
-    def library():
-        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+    def library():      # is_causal aligns top-left, as K1's mask does
+        return F.scaled_dot_product_attention(qt, kt, vt,
+                                              is_causal=c["causal"],
                                               enable_gqa=True)
     try:
         library_ms = cuda_time_ms(library)
@@ -419,10 +482,14 @@ def time_flash(c):
         library_ms = library_dev_ms = None
     nbytes = sum(t.numel() * t.element_size() for t in (q, k, v)) \
         + q.numel() * q.element_size()
-    flops = 4 * hd * H * visible_pairs(S, c["causal"], c["window"], None, B)
+    flops = 4 * hd * H * visible_pairs(S, c["causal"], c["window"], None, B,
+                                       Skv)
     t_bytes = nbytes / PEAK_BYTES_PER_S
     t_flops = flops / PEAK_FLOPS[c["dtype"]]
-    return {"shape": f"B={B} S={S} H={H} K={K} hd={hd} {c['dtype']} causal"
+    return {"shape": f"B={B} S={S}"
+                     + (f" Skv={Skv}" if Skv != S else "")
+                     + f" H={H} K={K} hd={hd} {c['dtype']} "
+                     + ("causal" if c["causal"] else "non-causal")
                      + (f" window {c['window']}" if c["window"] else ""),
             "ms": kernel_ms, "kernel_ms": kernel_ms,
             "device_ms": kernel_dev_ms, "plain_ms": plain_ms,
@@ -432,10 +499,64 @@ def time_flash(c):
             "bytes": nbytes, "flops": flops}
 
 
-def kernel_phase(failures):
+# keys shifted by this much make an unmasked ragged key edge show (see
+# attention_case); each query's scores move by N(0, KEY_SHIFT^2)
+KEY_SHIFT = 2.0
+
+
+def cross_cases(key_shift=KEY_SHIFT):
+    """K1's cases at Skv != S whose key count ends in a ragged 64-key tile
+    (1601 = 25 * 64 + 1, 1500 = 23 * 64 + 28), non-causal with every key
+    valid, keys shifted by ``key_shift``: llama-3.2-vision's cross blocks,
+    whisper's decoder cross-attention and its encoder's bidirectional
+    self-attention, bf16 and the fp32 the float32 frames give, and strided
+    inputs."""
+    kw = dict(causal=False, key_shift=key_shift)
+    return [
+        attention_case("vlm cross bf16", 8, 256, *VLM_HEADS, "bfloat16",
+                       Skv=VLM_IMAGE_TOKENS, **kw),
+        attention_case("vlm cross fp32", 8, 256, *VLM_HEADS, "float32",
+                       Skv=VLM_IMAGE_TOKENS, **kw),
+        attention_case("whisper cross bf16", 8, 64, *WHISPER_HEADS,
+                       "bfloat16", Skv=WHISPER_FRAMES, **kw),
+        attention_case("whisper encoder bf16", 8, WHISPER_FRAMES,
+                       *WHISPER_HEADS, "bfloat16", **kw),
+        attention_case("whisper encoder fp32", 8, WHISPER_FRAMES,
+                       *WHISPER_HEADS, "float32", **kw),
+        attention_case("Skv != S bf16 strided inputs", 3, 100, 32, 8, 128,
+                       "bfloat16", Skv=VLM_IMAGE_TOKENS, strided=True, **kw),
+    ]
+
+
+def scaled_tol(dtype, ref):
+    """The dtype's tolerance with atol relative to the output's scale,
+    atol * min(1, max|ref|): attention over many keys averages to small
+    outputs (|out| ~ sqrt(e / Skv) for unit scores, 0.04 at Skv = 1601),
+    where a fixed atol of 3e-2 would be as large as the values compared.
+    Never looser than ``TOL``."""
+    tol = TOL[dtype]
+    return dict(rtol=tol["rtol"],
+                atol=tol["atol"] * min(1.0, float(ref.abs().max())))
+
+
+def check_flash_case(c):
+    """K1 against its plain version at one case: (ok, max abs error, the
+    tolerance used, max |ref|)."""
     import torch
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
+    kw = dict(causal=c["causal"], window=c["window"], lengths=c["lengths"])
+    out = flash_attention(c["q"], c["k"], c["v"], **kw).float()
+    ref = flash_attention_plain(c["q"], c["k"], c["v"], **kw).float()
+    torch.cuda.synchronize()
+    tol = scaled_tol(c["dtype"], ref)
+    ok = bool(torch.isfinite(out).all()) and torch.allclose(out, ref, **tol)
+    return (ok, float((out - ref).abs().max()), tol,
+            float(ref.abs().max()))
+
+
+def kernel_phase(failures):
+    import torch
 
     cases = [
         attention_case("yi-9b bf16 causal", 8, 256, 32, 4, 128, "bfloat16"),
@@ -480,28 +601,39 @@ def kernel_phase(failures):
                        "float32"),
         attention_case("qwen3-moe G=16 bf16 ragged lengths", 8, 256,
                        *QWEN_HEADS, "bfloat16", ragged=True),
+        *cross_cases(),
+        attention_case("Skv < S bf16 ragged lengths with a length-0 row", 4,
+                       300, 32, 8, 128, "bfloat16", causal=False, Skv=130,
+                       ragged=True, empty_row=True),
+        attention_case("Skv < S fp32 ragged lengths with a length-0 row", 4,
+                       300, 32, 8, 128, "float32", causal=False, Skv=130,
+                       ragged=True, empty_row=True),
+        attention_case("causal Skv > S bf16 (top-left aligned)", 2, 200, 32,
+                       8, 128, "bfloat16", Skv=333),
+        attention_case("causal Skv < S fp32 ragged", 2, 200, 8, 2, 64,
+                       "float32", Skv=77, ragged=True),
     ]
     results = []
     for c in cases:
-        kw = dict(causal=c["causal"], window=c["window"],
-                  lengths=c["lengths"])
-        out = flash_attention(c["q"], c["k"], c["v"], **kw)
-        ref = flash_attention_plain(c["q"], c["k"], c["v"], **kw)
-        torch.cuda.synchronize()
-        err = float((out.float() - ref.float()).abs().max())
-        tol = TOL[c["dtype"]]
-        ok = bool(torch.isfinite(out.float()).all()) and torch.allclose(
-            out.float(), ref.float(), **tol)
+        ok, err, tol, amax = check_flash_case(c)
         log(f"[kernels] flash_attention {c['name']}: max_abs_err {err:.3e} "
-            f"({'ok' if ok else 'FAIL'}, rtol/atol {tol['rtol']})")
+            f"at max|ref| {amax:.3f} ({'ok' if ok else 'FAIL'}, rtol "
+            f"{tol['rtol']}, atol {tol['atol']:.3e})")
         if not ok:
             failures.append(f"flash_attention {c['name']}: err {err}")
-        results.append({"case": c["name"], "max_abs_err": err, "ok": ok})
+        results.append({"case": c["name"], "max_abs_err": err, "ok": ok,
+                        "atol": tol["atol"], "max_abs_ref": amax})
 
+    by_name = {c["name"]: c for c in cases}
     main = time_flash(cases[0])
-    zamba = time_flash(cases[-4])
-    long = time_flash(cases[-5])
-    qwen = time_flash(cases[-3])
+    zamba = time_flash(by_name["zamba2 hd=80 G=1 bf16 window 4096"])
+    long = time_flash(by_name["yi-9b bf16 causal S=1024"])
+    qwen = time_flash(by_name["qwen3-moe G=16 bf16 causal"])
+    cross = {key: time_flash(by_name[name]) for key, name in (
+        ("vlm_cross", "vlm cross bf16"), ("vlm_cross_fp32", "vlm cross fp32"),
+        ("whisper_cross", "whisper cross bf16"),
+        ("whisper_encoder", "whisper encoder bf16"),
+        ("whisper_encoder_fp32", "whisper encoder fp32"))}
     entry = {
         "name": "flash_attention",
         "route": "cuda",
@@ -515,9 +647,10 @@ def kernel_phase(failures):
         "zamba2_shape": zamba,
         "s1024": long,
         "qwen3_moe_shape": qwen,
+        **{f"{key}_shape": t for key, t in cross.items()},
         "cases": results,
     }
-    for t in (main, zamba, long, qwen):
+    for t in (main, zamba, long, qwen, *cross.values()):
         log(f"[kernels] flash_attention timed at {t['shape']}: kernel "
             f"{t['kernel_ms']:.4f} ms (device time {t['device_ms']:.4f} ms), "
             f"plain {t['plain_ms']:.4f} ms, SDPA {t['library_ms']} ms "
@@ -665,6 +798,12 @@ def decode_kernel_phase(failures):
                     "bfloat16"),
         decode_case("qwen3-moe G=16 fp32 ragged", 8, 1024, *QWEN_HEADS,
                     "float32"),
+        # the cross-attention step: one token against the fixed image K/V
+        # (llama-3.2-vision) or audio K/V (whisper), every key valid
+        decode_case("vlm cross step bf16", 8, VLM_IMAGE_TOKENS, *VLM_HEADS,
+                    "bfloat16", lengths="full"),
+        decode_case("whisper cross step bf16", 8, WHISPER_FRAMES,
+                    *WHISPER_HEADS, "bfloat16", lengths="full"),
     ]
     results = []
     for c in cases:
@@ -686,14 +825,16 @@ def decode_kernel_phase(failures):
             failures.append(f"decode_attention {c['name']}: err {err}")
         results.append({"case": c["name"], "max_abs_err": err, "ok": ok})
 
+    by_name = {c["name"]: c for c in cases}
     main = time_decode(cases[0])
-    zamba = time_decode(cases[-3])
-    qwen = time_decode(cases[-2])
+    zamba = time_decode(by_name["zamba2 hd=80 G=1 bf16 ring lengths"])
+    qwen = time_decode(by_name["qwen3-moe G=16 bf16 ragged"])
+    vlm_step = time_decode(by_name["vlm cross step bf16"])
     long_case = decode_case("long cache", 8, 32768, *yi, "bfloat16",
                             lengths="full")
     long = time_decode(long_case)
     del long_case
-    for t in (main, zamba, long, qwen):
+    for t in (main, zamba, long, qwen, vlm_step):
         log(f"[kernels] decode_attention timed at {t['shape']}: kernel "
             f"{t['kernel_ms']:.4f} ms (device time {t['device_ms']:.4f} "
             f"ms), plain {t['plain_ms']:.4f} ms, SDPA {t['library_ms']} "
@@ -712,6 +853,7 @@ def decode_kernel_phase(failures):
         "zamba2_shape": zamba,
         "long_cache": long,
         "qwen3_moe_shape": qwen,
+        "vlm_cross_step_shape": vlm_step,
         "cases": results,
     }
     torch.cuda.empty_cache()
@@ -1765,19 +1907,21 @@ class plain_kernels:
             setattr(m, n, orig)
 
 
-def drive_service(svc, work):
+def drive_service(svc, work, extras=None):
     """Submit every request (a sink per request, as ``submit_request``
-    does) and wait for all; returns (requests, wall seconds).  The 12 land
-    under the service's lock, so the driver's next tick sees all of them
-    and both engines admit the same prefill groups (a prefill's matmul
-    shapes, and so its bits, depend on the group's batch bucket)."""
+    does; ``extras``, where given, one dict per request) and wait for all;
+    returns (requests, wall seconds).  The 12 land under the service's
+    lock, so the driver's next tick sees all of them and both engines
+    admit the same prefill groups (a prefill's matmul shapes, and so its
+    bits, depend on the group's batch bucket)."""
     done = [threading.Event() for _ in work]
+    extras = extras or [None] * len(work)
     t0 = time.perf_counter()
     with svc._lock:
-        reqs = [svc.scheduler.submit(prompt, sampling=sp,
+        reqs = [svc.scheduler.submit(prompt, sampling=sp, extras=ex,
                                      sink=lambda r, t, f, ev=ev: ev.set()
                                      if f else None)
-                for (prompt, sp), ev in zip(work, done)]
+                for (prompt, sp), ex, ev in zip(work, extras, done)]
         svc._work.notify()
     for ev in done:
         if not ev.wait(900):
@@ -1785,17 +1929,19 @@ def drive_service(svc, work):
     return reqs, time.perf_counter() - t0
 
 
-def drive_counted(failures, svc, work, name, layers, warm_s, rnd):
+def drive_counted(failures, svc, work, name, layers, warm_s, rnd, *,
+                  extras=None, tick_layers=None):
     """One counted run of the 12 requests through ``svc``: the launch
-    counts are zeroed just before it and read just after it.  Returns the
-    run's record and its streams."""
+    counts are zeroed just before it and read just after it (K1 ``layers``
+    per prefill forward, K2 or K3 ``tick_layers``, default ``layers``, per
+    tick).  Returns the run's record and its streams."""
     s = svc.scheduler
     ticks0, fwd0, xfer0 = (s.decode_ticks, s.prefill_forwards,
                            s.decode_transfer_bytes)
     host0, dev0 = len(s.host_ms_window), len(s.device_ms_window)
     pre0 = s.prefill_s_total
     counts_reset()
-    reqs, wall = drive_service(svc, work)
+    reqs, wall = drive_service(svc, work, extras)
     n = counts_read()
     fa_n, k2_n, k3_n = (n[k] for k in K_NAMES[:3])
     ticks = s.decode_ticks - ticks0
@@ -1828,8 +1974,9 @@ def drive_counted(failures, svc, work, name, layers, warm_s, rnd):
     if reasons != ["length"] * SCHED_REQUESTS or any(
             len(r.output) != GEN_TOKENS for r in reqs):
         failures.append(f"scheduler {name}: reasons {reasons}")
-    want_k2, want_k3 = ((layers * ticks, 0) if name == "dense"
-                        else (0, layers * ticks))
+    per_tick = layers if tick_layers is None else tick_layers
+    want_k2, want_k3 = ((0, per_tick * ticks) if "paged" in name
+                        else (per_tick * ticks, 0))
     if (fa_n != layers * fwds or k2_n != want_k2 or k3_n != want_k3
             or ticks == 0):
         failures.append(f"scheduler {name}: launches K1 {fa_n} K2 {k2_n} "
@@ -2417,10 +2564,13 @@ class LogitsProbe:
     plain tick, the verify forward's row on a speculative tick (and, on a
     speculative pair, each draft step's logits and every rejected
     proposal).  ``tag`` names the request in flight where a run submits
-    one at a time.  Logits are kept on the device as they came (bf16 at
-    yi-9b), one row per token."""
+    one at a time.  On a dense engine it also records each request's
+    first token, from its prefill group's logits.  With no ``scheduler``
+    it records ``engine.generate``: its rows run in lockstep and each
+    row's index stands for the request id.  Logits are kept on the device
+    as they came (bf16 at yi-9b), one row per token."""
 
-    def __init__(self, engine, scheduler, tag=None):
+    def __init__(self, engine, scheduler=None, tag=None):
         self.engine = engine
         self.scheduler = scheduler
         self.tag = tag
@@ -2429,8 +2579,13 @@ class LogitsProbe:
         self.rejections = []        # (tag, req_id, token) of a rejection
         self.ticks = []             # (window, tokens emitted)
         self._steps = []
+        self._token = 1             # generate: the token a tick emits
 
     def _rows(self):
+        if self.scheduler is None:
+            for b in range(len(self._tsteps[-1])):
+                yield b, (self.tag, b), self._token
+            return
         for b, req in enumerate(self.scheduler.slots):
             if req is not None:
                 yield b, (self.tag, req.req_id), len(req.output)
@@ -2471,14 +2626,47 @@ class LogitsProbe:
             for b, who, n in self._rows():
                 self.logits[who + (n,)] = self._tsteps[-1][b].clone()
             self._tsteps.clear()
+            self._token += 1
             return out
         self.engine.decode_sample = decode_sample
+        self._firsts = not spec and not getattr(self.engine, "paged", False)
+        if self._firsts:
+            self._wrap_prefill()
         return self
+
+    def _wrap_prefill(self):
+        """A prefill group's rows are its requests in order; generate's
+        prefill emits token 0 of every row."""
+        s, eng = self.scheduler, self.engine
+        orig_prefill = eng.prefill
+        group = []
+
+        def prefill(batch, state):
+            logits, state = orig_prefill(batch, state)
+            whos = group if s is not None else [
+                (self.tag, b, 0) for b in range(len(logits))]
+            for i, who in enumerate(whos):
+                self.logits[who] = logits[i].clone()
+            group.clear()
+            return logits, state
+        eng.prefill = prefill
+        if s is not None:
+            orig_group = s._prefill_group
+
+            def prefill_group(reqs, *a, **kw):
+                group[:] = [(self.tag, r.req_id, len(r.output))
+                            for r in reqs]
+                return orig_group(reqs, *a, **kw)
+            s._prefill_group = prefill_group
 
     def __exit__(self, *exc):
         for eng in self._wrapped:
             del eng._decode_step
         del self.engine.decode_sample
+        if self._firsts:
+            del self.engine.prefill
+            if self.scheduler is not None:
+                del self.scheduler._prefill_group
         for m, n in self._saved:
             setattr(m, n, self._orig[n])
 
@@ -4263,8 +4451,9 @@ def moe_member_logits(failures, ens, tokens, tag, n_moe):
     return out
 
 
-def prefill_decode(engine, prompt, feed, steps, pin=None):
-    """Batch-1 prefill of ``prompt`` and ``steps`` decode steps fed
+def prefill_decode(engine, prompt, feed, steps, pin=None, extras=None):
+    """Batch-1 prefill of ``prompt`` (with ``extras``, device tensors of
+    one row, where the family takes them) and ``steps`` decode steps fed
     ``feed``; the logits of every pass (float32).  With ``pin`` the
     passes replay its routing by position."""
     import numpy as np
@@ -4278,7 +4467,7 @@ def prefill_decode(engine, prompt, feed, steps, pin=None):
     with ctx:
         logits, state = engine.prefill(
             {"tokens": torch.from_numpy(tokens).to(dev),
-             "lengths": torch.from_numpy(lengths).to(dev)},
+             "lengths": torch.from_numpy(lengths).to(dev), **(extras or {})},
             engine.new_state(1))
     outs = [logits[0].float()]
     for t in range(steps):
@@ -4397,19 +4586,22 @@ def moe_tick_profile(eng, work, name, out_dir):
     return rec
 
 
-def moe_generate(failures, engine, prompts, layers, tag, k1=True):
-    """A greedy ``generate`` of the prompts (GEN_TOKENS new each), counted:
-    K1 ``layers`` per prefill and K2 ``layers`` per tick where
-    ``k1`` (GQA), no kernel at all otherwise; then prefill and tick ms.
-    Returns (result, record)."""
+def moe_generate(failures, engine, prompts, layers, tag, k1=True,
+                 extras=None, tick_layers=None):
+    """A greedy ``generate`` of the prompts (GEN_TOKENS new each, with the
+    numpy ``extras`` where given), counted: K1 ``layers`` per prefill and
+    K2 ``tick_layers`` (default ``layers``) per tick where ``k1`` (GQA),
+    no kernel at all otherwise; then prefill and tick ms.  Returns
+    (result, record)."""
     import torch
     from repro_torch.core.batching import pad_sequences
-    engine.generate(prompts, max_new_tokens=2)      # warm the allocator
+    engine.generate(prompts, max_new_tokens=2,      # warm the allocator
+                    extras=extras)
     torch.cuda.synchronize()
     engine.prefill_calls = engine.decode_calls = 0
     counts_reset()
     t0 = time.perf_counter()
-    res = engine.generate(prompts, max_new_tokens=GEN_TOKENS)
+    res = engine.generate(prompts, max_new_tokens=GEN_TOKENS, extras=extras)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     n = counts_read()
@@ -4417,7 +4609,8 @@ def moe_generate(failures, engine, prompts, layers, tag, k1=True):
     want = dict.fromkeys(K_NAMES, 0)
     if k1:
         want["flash_attention"] = layers * pre_n
-        want["decode_attention"] = layers * dec_n
+        want["decode_attention"] = (layers if tick_layers is None
+                                    else tick_layers) * dec_n
     log(f"[{tag}] greedy generate of {len(prompts)} prompts: {res.steps} "
         f"steps in {1e3 * wall:.1f} ms; prefill_calls {pre_n}, decode_calls "
         f"{dec_n}; launches {n} (expected {want})")
@@ -4435,7 +4628,9 @@ def moe_generate(failures, engine, prompts, layers, tag, k1=True):
     tokens, lengths = pad_sequences(prompts, engine.seq_buckets)
     dev = engine.device
     batch = {"tokens": torch.from_numpy(tokens).to(dev),
-             "lengths": torch.from_numpy(lengths).to(dev)}
+             "lengths": torch.from_numpy(lengths).to(dev),
+             **{k: torch.from_numpy(v).to(dev)
+                for k, v in (extras or {}).items()}}
     prefill_ms = host_time_ms(
         lambda: engine.prefill(batch, engine.new_state(GEN_BATCH)))
     samp = {"temperature": torch.zeros(GEN_BATCH, device=dev),
@@ -4781,14 +4976,510 @@ def mla_phase(failures, kernels, profile_dir, base_bytes):
     log(f"[mla] phase 9b in {info['seconds']:.1f} s")
 
 
+# --- phase 10: the modality-frontend families (vlm, encdec) ----------------
+
+FRONTEND_SEED = 21
+# per family: the extras' key, the forward's length, the prompt lengths
+# and max_len (whisper's max_target_positions)
+FRONTEND = {
+    "llama-3.2-vision-11b": dict(tag="vlm", extra="image_embeds",
+                                 fwd_len=256, prompts=(17, 300),
+                                 max_len=GEN_MAX_LEN),
+    "whisper-base": dict(tag="whisper", extra="frames", fwd_len=64,
+                         prompts=(4, 64), max_len=448),
+}
+
+
+class cross_attend:
+    """Within a ``with`` block, wraps ``attention.attend`` for its cross
+    calls (keys of the cross length, queries of another): keeps the first
+    one's projected q, k and v, and with ``fp32`` runs each in float32,
+    the precision JAX's promotion gives the float32 image or audio K/V
+    (the port casts them to q's dtype at K1)."""
+
+    def __init__(self, cross_len, fp32=False):
+        self.cross_len, self.fp32 = cross_len, fp32
+        self.first = None
+
+    def __enter__(self):
+        from repro_torch.models import attention
+        self.orig = orig = attention.attend
+
+        def attend(p, q, k, v, cfg, **kw):
+            if k.shape[1] == self.cross_len != q.shape[1]:
+                if self.first is None:
+                    self.first = (q, k, v)
+                if self.fp32:
+                    q, k, v = q.float(), k.float(), v.float()
+            return orig(p, q, k, v, cfg, **kw)
+        attention.attend = attend
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import attention
+        attention.attend = self.orig
+
+
+def bound_use(got, want, tol):
+    """The largest share of allclose's bound an element uses:
+    max |got - want| / (atol + rtol |want|)."""
+    got, want = got.float(), want.float()
+    return float(((got - want).abs()
+                  / (tol["atol"] + tol["rtol"] * want.abs())).max())
+
+
+def cross_layer_check(failures, tag, extra, qkv):
+    """The first cross-attention of the forward, from its projected q, k
+    and v: K1 against its plain version at the bf16 tolerance scaled to
+    the output, and the other row's K/V (another input of the same scale)
+    must move the output beyond that tolerance, so that a cross path
+    reading the wrong input fails the first comparison."""
+    import torch
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    q, k, v = qkv
+    k, v = k.to(q.dtype), v.to(q.dtype)
+    out = flash_attention(q, k, v, causal=False).float()
+    ref = flash_attention_plain(q, k, v, causal=False).float()
+    other = flash_attention(q, k.roll(1, 0), v.roll(1, 0),
+                            causal=False).float()
+    tol = scaled_tol(str(q.dtype).split(".")[-1], ref)
+    err = float((out - ref).abs().max())
+    gap = float((other - out).abs().max())
+    ok = (bool(torch.isfinite(out).all())
+          and torch.allclose(out, ref, **tol)
+          and not torch.allclose(other, out, **tol))
+    log(f"[{tag}] first cross-attention of the forward, q {tuple(q.shape)} "
+        f"over k/v {tuple(k.shape)}: kernel vs plain max_abs_err {err:.3e} "
+        f"at max|ref| {float(ref.abs().max()):.3e} (rtol {tol['rtol']}, "
+        f"atol {tol['atol']:.3e}); the other row's {extra} moves it by "
+        f"{gap:.3e} ({'ok' if ok else 'FAIL'})")
+    if not ok:
+        failures.append(f"{tag}: first cross-attention: err {err}, another "
+                        f"{extra} moves it by {gap}, atol {tol['atol']}")
+    return {"max_abs_err": err, "other_input_gap": gap, "atol": tol["atol"],
+            "max_abs_ref": float(ref.abs().max())}
+
+
+def frontend_counts(cfg):
+    """K1 launches per forward or prefill and K2 per tick: vlm's 32 self
+    layers and 8 cross blocks, each once; whisper's 6 encoder layers and
+    its decoder's 6 self and 6 cross attentions (K2: the decoder's 12)."""
+    if cfg.vlm:
+        return cfg.num_layers, cfg.num_layers
+    return cfg.encdec.encoder_layers + 2 * cfg.num_layers, 2 * cfg.num_layers
+
+
+def range_ms(prof, name) -> float:
+    """Device time (ms) of the kernels launched inside every
+    ``record_function(name)`` range of a profile (the library kernels':
+    a launch through the kernels' ctypes libraries is not attributed to
+    the range)."""
+    from torch.autograd import DeviceType
+    us = 0.0
+    for e in prof.events():
+        if (e.name == name
+                and getattr(e, "device_type", None) == DeviceType.CPU):
+            t = getattr(e, "device_time_total", None)
+            us += t if t is not None else e.cuda_time_total
+    return us / 1e3
+
+
+class cross_calls:
+    """Within a ``with`` block, records for every K1 and K2 call, in call
+    order, whether it attends the cross K/V (keys of the cross length) or
+    the self cache, and runs ``vlm._cross_kv`` inside a ``cross_kv``
+    range."""
+
+    def __init__(self, cross_len):
+        self.cross_len = cross_len
+        self.k1, self.k2 = [], []
+
+    def __enter__(self):
+        from torch.profiler import record_function
+        from repro_torch.models import attention, vlm
+        self.saved = [(m, n, getattr(m, n)) for m, n in (
+            (attention, "flash_attention"), (attention, "decode_attention"),
+            (vlm, "_cross_kv"))]
+
+        def labelled(calls, fn):
+            def run(q, k, *a, **kw):
+                calls.append("cross" if k.shape[1] == self.cross_len
+                             else "self")
+                return fn(q, k, *a, **kw)
+            return run
+
+        def cross_kv(*a, **kw):
+            with record_function("cross_kv"):
+                return self.saved[2][2](*a, **kw)
+        attention.flash_attention = labelled(self.k1, self.saved[0][2])
+        attention.decode_attention = labelled(self.k2, self.saved[1][2])
+        vlm._cross_kv = cross_kv
+        return self
+
+    def __exit__(self, *exc):
+        for m, n, orig in self.saved:
+            setattr(m, n, orig)
+
+
+def kernel_ms_by_call(prof, names, labels):
+    """Device time (ms) of the kernels named by ``names``, summed by the
+    label of the call that launched them: the kernels in launch order,
+    each call's first kernel opening it (K2's combine kernel closes the
+    call its split kernel opened).  None where the kernels and the calls
+    do not pair up."""
+    from torch.autograd import DeviceType
+    evts = sorted((e for e in prof.events()
+                   if getattr(e, "device_type", None) == DeviceType.CUDA
+                   and any(n in e.name for n in names)),
+                  key=lambda e: e.time_range.start)
+    out = dict.fromkeys(set(labels), 0.0)
+    i = -1
+    for e in evts:
+        if "combine" not in e.name:
+            i += 1
+        if not 0 <= i < len(labels):
+            return None
+        out[labels[i]] += e.time_range.elapsed_us() / 1e3
+    return out if i + 1 == len(labels) else None
+
+
+def frontend_profile(engine, batch, cross_len, out_dir, tag):
+    """One prefill and one tick (B = 8) under torch.profiler: kernel time
+    on the device, host clock, and the device time of K1's (prefill) or
+    K2's (tick) cross and self launches and of the image K/V
+    projections."""
+    from collections import Counter
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    dev = engine.device
+    B = batch["tokens"].shape[0]
+    samp = {"temperature": torch.zeros(B, device=dev),
+            "top_k": torch.zeros(B, dtype=torch.int32, device=dev),
+            "top_p": torch.ones(B, device=dev),
+            "key": torch.zeros((B, 2), dtype=torch.int64, device=dev),
+            "regime": "greedy"}
+    ctr = torch.zeros(B, dtype=torch.int32, device=dev)
+    logits, state = engine.prefill(batch, engine.new_state(B))
+    tok = engine.sample(logits, samp, ctr)
+    tok, state, ctr = engine.decode_sample(tok, state, samp, ctr)
+    torch.cuda.synchronize()
+    out = {}
+    calls = {"prefill": lambda: engine.prefill(batch, engine.new_state(B)),
+             "tick": lambda: engine.decode_sample(tok, state, samp, ctr)}
+    for name, fn in calls.items():
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        host = 1e3 * (time.perf_counter() - t)
+        with cross_calls(cross_len) as cc, profile(
+                activities=[ProfilerActivity.CPU,
+                            ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        # the range's own device row and the launch queue's stalls are
+        # not kernel time
+        stalls = device_ms(prof, ("Command Buffer Full",))
+        total = device_ms(prof, ()) - device_ms(prof, ("cross_kv",)) - stalls
+        parts = {"cross_kv": range_ms(prof, "cross_kv")}
+        for kname, kernels_, labels in (("k1", K1_KERNELS, cc.k1),
+                                        ("k2", K2_KERNELS, cc.k2)):
+            by = kernel_ms_by_call(prof, kernels_, labels)
+            for which in ("cross", "self"):   # None: not paired
+                parts[f"{kname}_{which}"] = (None if by is None
+                                             else by.get(which, 0.0))
+        rec = {"device_ms": total, "host_clock_ms": host,
+               "launch_queue_full_ms": stalls,
+               "k1_launches": dict(Counter(cc.k1)),
+               "k2_launches": dict(Counter(cc.k2)),
+               **{f"{r}_ms": v for r, v in parts.items()}}
+
+        def part(r):
+            v = parts[r]
+            return ("not paired" if v is None else
+                    f"{v:.3f} ms ({100 * v / max(total, 1e-9):.1f}%)")
+        log(f"[{tag}] profile of one {name} (B={B}): kernel time on the "
+            f"device {total:.3f} ms (launch-queue stalls {stalls:.3f} ms "
+            f"left out), host clock {host:.2f} ms; K1 launches "
+            f"{rec['k1_launches']}: cross {part('k1_cross')}, self "
+            f"{part('k1_self')}; K2 launches {rec['k2_launches']}: cross "
+            f"{part('k2_cross')}, self {part('k2_self')}; image K/V "
+            f"projections {part('cross_kv')}")
+        if out_dir:
+            out_dir.mkdir(parents=True, exist_ok=True)
+            (out_dir / f"{tag}_{name}_profile.txt").write_text(
+                prof.key_averages().table(sort_by="cuda_time_total",
+                                          row_limit=30))
+        out[name] = rec
+    del state
+    return out
+
+
+def frontend_workload(vocab, lo, hi, seed):
+    """12 requests, prompts of lo-hi tokens: even ones greedy, odd ones
+    sampled (temperature 0.8, top_k 50, top_p 0.9) with consecutive seeds,
+    so one ``generate`` of the sampled six draws their streams; request i
+    carries image (i // 2) % 2 of the two."""
+    import numpy as np
+    from repro_torch.core import SamplingParams
+    r = np.random.default_rng(seed)
+    lens = r.integers(lo, hi + 1, SCHED_REQUESTS)
+    lens[0], lens[-1] = lo, hi
+    work = []
+    for i, n in enumerate(lens):
+        extra = ({} if i % 2 == 0 else
+                 dict(temperature=0.8, top_k=50, top_p=0.9,
+                      seed=FRONTEND_SEED + i // 2))
+        work.append((r.integers(0, vocab, n).tolist(),
+                     SamplingParams(max_new_tokens=GEN_TOKENS, **extra)))
+    return work, [(i // 2) % 2 for i in range(SCHED_REQUESTS)]
+
+
+def frontend_phase(failures, kernels, profile_dir, base_bytes, arch):
+    """Phases 10 (llama-3.2-vision-11b) and 10b (whisper-base): full width
+    and depth, bf16, seed 0, vlm's gates opened, image embeddings or frames
+    from a numpy seed, through forward, ``generate`` and the dense
+    ``SchedulerService``."""
+    import numpy as np
+    import torch
+    from repro_torch.core import (InferenceEngine, PagedInferenceEngine,
+                                  SamplingParams, SchedulerService,
+                                  SpeculativeEngine)
+    from repro_torch.core.batching import pad_sequences
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    sp = FRONTEND[arch]
+    tag, extra = sp["tag"], sp["extra"]
+    t_phase = time.perf_counter()
+    info = {"card": nvidia_smi_line()}
+    kernels[0][tag] = info
+    memory_back(failures, base_bytes, tag)
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    params = model.init(0, "cuda")
+    if cfg.vlm:     # tanh(0) would silence every cross block
+        params["cross/gate_attn"].fill_(1.0)
+        params["cross/gate_mlp"].fill_(1.0)
+    torch.cuda.synchronize()
+    k1_fwd, k2_tick = frontend_counts(cfg)
+    dims = ((cfg.vlm.image_tokens, cfg.vlm.vision_dim) if cfg.vlm
+            else (cfg.encdec.encoder_frames, cfg.d_model))
+    info["config"] = {"layers": cfg.num_layers, "params_gb": param_gb(params),
+                      "cross_len": dims[0], "extra_dim": dims[1],
+                      "k1_per_forward": k1_fwd, "k2_per_tick": k2_tick}
+    depth = (f"{cfg.num_layers} layers ({len(cfg.vlm.cross_attn_layers)} "
+             f"cross blocks)" if cfg.vlm else
+             f"{cfg.encdec.encoder_layers} encoder + {cfg.num_layers} "
+             f"decoder layers")
+    log(f"[{tag}] {cfg.name} at full width and depth: {depth}, d_model "
+        f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {extra} "
+        f"{dims} float32, {cfg.dtype}, seed 0"
+        + (", gates opened to 1" if cfg.vlm else "")
+        + f"; {info['config']['params_gb']:.2f} GB of weights, built in "
+        f"{time.perf_counter() - t0:.1f} s; K1 {k1_fwd} per forward, K2 "
+        f"{k2_tick} per tick")
+    r = np.random.default_rng(FRONTEND_SEED)
+    # two images (or recordings) of one scale
+    images = r.normal(0, 1, (2, *dims)).astype(np.float32)
+    dev = params["embed"].device
+
+    def rows(idx):
+        return images[np.asarray(idx) % 2]
+
+    # A: one forward, kernels vs plain versions, and another image
+    S = sp["fwd_len"]
+    toks = torch.from_numpy(r.integers(0, cfg.vocab_size, (
+        GEN_BATCH, S)).astype(np.int32)).to(dev)
+    ex = torch.from_numpy(rows(range(GEN_BATCH))).to(dev)
+    with torch.no_grad():
+        counts_reset()
+        with cross_attend(dims[0]) as xa:
+            kern = model.forward(params, {"tokens": toks, extra: ex})
+        n = counts_read()
+        with plain_kernels():
+            plain = model.forward(params, {"tokens": toks, extra: ex})
+        other = model.forward(params, {"tokens": toks,
+                                       extra: ex.roll(1, 0)})
+        with cross_attend(dims[0], fp32=True):
+            faithful = model.forward(params, {"tokens": toks, extra: ex})
+        layer = cross_layer_check(failures, tag, extra, xa.first)
+    want = dict.fromkeys(K_NAMES, 0)
+    want["flash_attention"] = k1_fwd
+    err = float((kern.float() - plain.float()).abs().max())
+    gap = float((kern.float() - other.float()).abs().max())
+    use = bound_use(kern, plain, LOGITS_TOL)
+    fp32_gap = float((kern.float() - faithful.float()).abs().max())
+    # a kernel path that read the wrong image would be off by about gap
+    ok = (tuple(kern.shape) == (GEN_BATCH, S, cfg.vocab_size)
+          and bool(torch.isfinite(kern.float()).all())
+          and torch.allclose(kern.float(), plain.float(), **LOGITS_TOL)
+          and err <= gap / 2)
+    log(f"[{tag}] forward B={GEN_BATCH} S={S}: logits {tuple(kern.shape)} vs "
+        f"the plain path: max_abs_err {err:.3e} at |logit| <= "
+        f"{float(plain.float().abs().max()):.3f}, {100 * use:.1f}% of "
+        f"LOGITS_TOL's bound at its worst element; each row's {extra} "
+        f"swapped for the other's (one scale) moves the logits by up to "
+        f"{gap:.3e}, {gap / max(err, 1e-30):.2f}x the kernels' error (at "
+        f"least 2x; {'ok' if ok else 'FAIL'}); launches {n} (expected "
+        f"{want}); the cross-attention in float32 on the float32 {extra}'s "
+        f"K/V, as JAX runs it, moves the logits by {fp32_gap:.3e}")
+    if not ok:
+        failures.append(f"{tag} forward vs plain: err {err}, another "
+                        f"{extra} moves the logits by {gap}")
+    if n != want:
+        failures.append(f"{tag} forward: launches {n}, expected {want}")
+    info["forward"] = {"max_abs_err": err, "image_gap": gap,
+                       "logits_tol_use": use, "launches": n,
+                       "fp32_cross_gap": fp32_gap, "cross_layer": layer}
+    del kern, plain, other, faithful, xa
+
+    # B: InferenceEngine.generate with extras
+    lo, hi = sp["prompts"]
+    lens = r.integers(lo, hi + 1, GEN_BATCH)
+    lens[0], lens[1], lens[-1] = lo, (lo + hi) // 3, hi
+    prompts = [r.integers(0, cfg.vocab_size, k).tolist() for k in lens]
+    engine = InferenceEngine(model, params, max_len=sp["max_len"],
+                             max_batch=GEN_BATCH)
+    gen_ex = {extra: rows(range(GEN_BATCH))}
+    res, gen = moe_generate(failures, engine, prompts, k1_fwd, tag,
+                            extras=gen_ex, tick_layers=k2_tick)
+    info["generate"] = gen
+    tokens, lengths = pad_sequences(prompts, engine.seq_buckets)
+    batch = {"tokens": torch.from_numpy(tokens).to(dev),
+             "lengths": torch.from_numpy(lengths).to(dev),
+             extra: torch.from_numpy(gen_ex[extra]).to(dev)}
+    teacher = torch.tensor(res.tokens, dtype=torch.int32, device=dev)
+    kern = teacher_forced(engine, batch, teacher)
+    with plain_kernels():
+        plain = teacher_forced(engine, batch, teacher)
+    errs = [float((a - b).abs().max()) for a, b in zip(kern, plain)]
+    ok = all(bool(torch.isfinite(a).all()) and torch.allclose(
+        a, b, **LOGITS_TOL) for a, b in zip(kern, plain))
+    log(f"[{tag}] teacher-forced logits, kernels vs plain versions, prefill "
+        f"+ {FORCED_STEPS} decode steps at B={GEN_BATCH}: max_abs_err per "
+        f"step {[f'{e:.3e}' for e in errs]} ({'ok' if ok else 'FAIL'})")
+    if not ok:
+        failures.append(f"{tag}: teacher-forced logits vs plain: {errs}")
+    gen["teacher_forced_max_abs_err"] = errs
+    del kern, plain
+    consistency = []
+    for i in range(2):
+        prompt, stream = prompts[i], res.tokens[i]
+        seq = prompt + stream[:FORCED_STEPS]
+        one = {extra: torch.from_numpy(rows([i])).to(dev)}
+        with torch.no_grad():
+            full = model.forward(params, {"tokens": torch.tensor(
+                [seq], dtype=torch.int32, device=dev), **one})[0].float()
+        want_l = full[len(prompt) - 1:]
+        got = prefill_decode(engine, prompt, stream, FORCED_STEPS,
+                             extras=one)
+        tol = 2e-2 * (float(want_l.abs().max()) + 1.0)
+        e = [float((g - w).abs().max()) for g, w in zip(got, want_l)]
+        ok = all(bool(torch.isfinite(g).all()) for g in got) and max(e) < tol
+        log(f"[{tag}] B=1 prefill ({len(prompt)} tokens) + {FORCED_STEPS} "
+            f"decode steps vs one forward over {len(seq)} tokens: max_abs_err "
+            f"per step {[f'{x:.3e}' for x in e]}, bound {tol:.3e} "
+            f"({'ok' if ok else 'FAIL'})")
+        if not ok:
+            failures.append(f"{tag}: prefill + decode vs forward, row {i}: "
+                            f"errs {e}, bound {tol}")
+        consistency.append({"prompt": len(prompt), "max_abs_err": max(e),
+                            "bound": tol})
+    gen["forward_consistency"] = consistency
+
+    # C: the dense SchedulerService, every request with its image
+    work, which = frontend_workload(cfg.vocab_size, lo, hi,
+                                    FRONTEND_SEED + 1)
+    greedy = [i for i in range(SCHED_REQUESTS) if i % 2 == 0]
+    sampled = [i for i in range(SCHED_REQUESTS) if i % 2 == 1]
+    refs, ref_rows = {}, {}
+    for idx, sampling in ((greedy, None), (sampled, SamplingParams(
+            max_new_tokens=GEN_TOKENS, temperature=0.8, top_k=50, top_p=0.9,
+            seed=FRONTEND_SEED))):
+        with LogitsProbe(engine) as gprobe:
+            out = engine.generate([work[i][0] for i in idx],
+                                  max_new_tokens=GEN_TOKENS,
+                                  sampling=sampling, extras={
+                                      extra: rows([which[i] for i in idx])})
+        for row, i in enumerate(idx):
+            refs[i] = out.tokens[row]
+            ref_rows[i] = (gprobe, row)
+    svc = SchedulerService(engine, num_slots=SCHED_SLOTS)
+    try:
+        with LogitsProbe(engine, svc.scheduler) as probe:
+            rec, outs = drive_counted(
+                failures, svc, work, f"{tag} dense", k1_fwd, 0.0, 0,
+                extras=[{extra: images[w]} for w in which],
+                tick_layers=k2_tick)
+    finally:
+        svc.close()
+    ids = rec.pop("req_ids")
+    parted = 0
+    for k in range(SCHED_REQUESTS):
+        d = first_divergence([refs[k]], [outs[k]])
+        if d is None:
+            continue
+        parted += 1
+        j = d[1]
+        ls = probe.get(probe.logits, (None, ids[k]), j)
+        gprobe, row = ref_rows[k]
+        lg = gprobe.get(gprobe.logits, (None, row), j)
+        if ls is None or lg is None:
+            failures.append(f"{tag}: request {k} parts from generate's at "
+                            f"token {j} with no recorded logits")
+            continue
+        gap, close, margin, amax = logits_gap(ls, lg)
+        log(f"[{tag}] request {k} parts from generate's stream at token {j} "
+            f"({outs[k][j]} against {refs[k][j]}): the two runs' logits "
+            f"differ by {gap:.4e} at |logit| <= {amax:.3f}, generate's top-2 "
+            f"margin {margin:.4e}: "
+            + ("within LOGITS_TOL" if close else "NOT within LOGITS_TOL"))
+        if not close:
+            failures.append(f"{tag}: request {k} token {j}: scheduler vs "
+                            f"generate logits gap {gap:.4e}")
+    log(f"[{tag}] SchedulerService streams vs generate's (the same "
+        f"prompts, images and seeds): {SCHED_REQUESTS - parted} of "
+        f"{SCHED_REQUESTS} identical")
+    rec["parted_from_generate"] = parted
+    info["scheduler"] = rec
+    kernels[1][f"{tag}_launches"] = rec["launches"]["decode_attention"]
+    kernels[0][f"{tag}_launches"] = (
+        n["flash_attention"] + rec["launches"]["flash_attention"])
+
+    # neither family pages or speculates, in JAX or here
+    for what, build in (
+            ("PagedInferenceEngine", lambda: PagedInferenceEngine(
+                model, params, max_len=sp["max_len"] // 16 * 16,
+                max_batch=GEN_BATCH, page_size=16)),
+            ("SpeculativeEngine", lambda: SpeculativeEngine(engine,
+                                                            engine))):
+        try:
+            build()
+            failures.append(f"{tag}: {what} accepted {cfg.name}")
+        except ValueError as e:
+            log(f"[{tag}] {what} over {cfg.name} raises: {e}")
+
+    # D (vlm): where a prefill and a tick spend their time
+    if profile_dir and cfg.vlm:
+        info["profile"] = frontend_profile(engine, batch, dims[0],
+                                           Path(profile_dir), tag)
+    del engine, params, model
+    info["seconds"] = time.perf_counter() - t_phase
+    log(f"[{tag}] phase {'10' if cfg.vlm else '10b'} in "
+        f"{info['seconds']:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", default=None, metavar="DIR",
                     help="also profile one ensemble forward, one decode "
                          "tick, one dense and one paged scheduler tick, "
                          "one recurrent ensemble forward, a prefill and "
-                         "a tick of rwkv6 and zamba2, and qwen3-moe's "
-                         "prefill and ticks with torch.profiler and write "
+                         "a tick of rwkv6 and zamba2, qwen3-moe's "
+                         "prefill and ticks, and a llama-3.2-vision "
+                         "prefill and tick with torch.profiler and write "
                          "the tables under DIR")
     args = ap.parse_args(argv)
 
@@ -4878,6 +5569,10 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     mla_phase(failures, kernels, args.profile, base_bytes)
+    for arch in FRONTEND:
+        gc.collect()
+        torch.cuda.empty_cache()
+        frontend_phase(failures, kernels, args.profile, base_bytes, arch)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -5,14 +5,16 @@
 // (the Pallas TPU kernel; pl.pallas_call at kernel.py:97).
 //
 // What it computes (the same function as the TPU kernel): softmax attention
-// over a full sequence with causal masking, an optional sliding window
-// (key kp is visible to query qp iff qp - window < kp), per-row ragged
-// valid lengths, and GQA (query head h reads KV head h / G).  Scores are
+// of S queries over Skv keys (Skv != S is cross-attention), with causal
+// masking, an optional sliding window (key kp is visible to query qp iff
+// qp - window < kp), per-row ragged valid key counts, and GQA (query head h
+// reads KV head h / G).  Query and key positions both count from 0, as in
+// the TPU kernel's mask, so causal with Skv != S keeps kp <= qp.  Scores are
 // scaled by 1/sqrt(head_dim); the softmax is the fp32 online softmax
 // (running max m, running sum l, fp32 accumulator).  A row with no visible
 // key produces zeros.
 //
-// Layout: q (B,S,H,hd), k/v (B,S,K,hd) and o (B,S,H,hd), read and written
+// Layout: q (B,S,H,hd), k/v (B,Skv,K,hd) and o (B,S,H,hd), read and written
 // in model layout through (batch, seq, head) element strides; the last
 // dimension must be contiguous.  Nothing is transposed or padded in device
 // memory: the ragged sequence edge and head dims beyond hd are masked here.
@@ -29,9 +31,12 @@
 // latency, and at S = 1024 the rate at which the tensor cores are fed.
 // What the design does about it:
 //  * tensor cores through wgmma (the only way to their full rate on this
-//    card) for both products, fp32 accumulators in registers; the online
-//    softmax keeps m on the raw scores and folds log2(e)/sqrt(hd) into the
-//    FFMA before each ex2;
+//    card) for both products, fp32 accumulators in registers; P enters
+//    P V as two bf16 operands, bf16(p) and its remainder (a second wgmma
+//    on the same V tile), so P V keeps the TPU kernel's fp32 precision (a
+//    single bf16 P would round each p to 8 bits and move many outputs by
+//    an ulp); the online softmax keeps m on the raw scores and folds
+//    log2(e)/sqrt(hd) into the FFMA before each ex2;
 //  * TMA loads into a 4-stage K/V ring on mbarriers, issued by a producer
 //    warp that runs ahead of the two consumer warpgroups;
 //  * persistent blocks, one per SM, each walking a static list of work
@@ -119,9 +124,9 @@ template <typename T, int HD_PAD>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o,
-                       const int* __restrict__ lengths, int S, int G, int hd,
-                       Strides qs, Strides ks, Strides vs, Strides os,
-                       int causal, int window, float scale) {
+                       const int* __restrict__ lengths, int S, int Skv,
+                       int G, int hd, Strides qs, Strides ks, Strides vs,
+                       Strides os, int causal, int window, float scale) {
   constexpr int TPR = HD_PAD / kDimsPerThread;  // lanes per query row
   constexpr int BQ = kThreads / TPR;            // query rows per block
   constexpr int VEC = kDimsPerThread / 4;       // float4 chunks per lane
@@ -140,8 +145,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int sub = tid % TPR;
   const int qpos = q0 + row;
 
-  int L = lengths != nullptr ? lengths[b] : S;
-  L = min(max(L, 0), S);
+  int L = lengths != nullptr ? lengths[b] : Skv;
+  L = min(max(L, 0), Skv);
   // keys that at least one row of this tile can see: [lo, hi)
   const int lo = window > 0 ? max(0, q0 - window + 1) : 0;
   const int hi = causal ? min(L, q0 + BQ) : L;
@@ -254,7 +259,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // dims of 128 bytes, 128B-swizzled, so a head dim of 80, 96 or 128 is two
 // such boxes and TMA zero-fills the columns past hd.  S = Q K^T is
 // wgmma.m64n64k16 with both operands K-major in shared memory; O += P V is
-// wgmma.m64nNk16 with P converted to bf16 in registers as the A operand and
+// two wgmma.m64nNk16, P split into bf16 hi and lo parts in registers as
+// the A operands (pack_bf16_split), and
 // V read MN-major (transposed) from the same swizzled tile, N = 64 for
 // hd 64 and 128 otherwise (the columns past hd are zeros and are dropped).
 // ---------------------------------------------------------------------------
@@ -443,6 +449,19 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// Two probabilities as the bf16 pair hi = bf16(p) and the pair of their
+// remainders lo = bf16(p - hi): hi + lo holds about 16 bits of each p, so
+// P V taken as hi V + lo V comes within about 2^-16 of the TPU kernel's
+// fp32 P V, where hi V alone would round every p to 8 bits.
+__device__ __forceinline__ void pack_bf16_split(float a, float b,
+                                                uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const __nv_bfloat162 r =
+      __floats2bfloat162_rn(a - __low2float(h), b - __high2float(h));
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&r);
+}
+
 // Shared-memory plan of the tensor-core kernel for NC 64-dim boxes per row.
 template <int NC>
 struct FaTiles {
@@ -457,13 +476,14 @@ struct FaTiles {
 };
 
 // One work item: 128 query rows (block mb) of query head h of batch row b,
-// and the key tiles [tfirst, tfirst + ntiles * kFaBKV) some row can see.
+// and the key tiles [tfirst, tfirst + ntiles * kFaBKV) some row can see:
+// L = min(lengths[b], Skv) keys at most, fewer under causality or a window.
 struct FaItem {
   int b, h, q0, L, tfirst, ntiles;
 };
 
 __device__ __forceinline__ FaItem fa_item(int t, int nmb, int B, int H,
-                                          int S, const int* lengths,
+                                          int Skv, const int* lengths,
                                           int causal, int window) {
   FaItem it;
   const int per_mb = H * B;
@@ -474,8 +494,8 @@ __device__ __forceinline__ FaItem fa_item(int t, int nmb, int B, int H,
   it.h = rest % H;
   it.b = rest / H;
   it.q0 = mb * kFaM;
-  int L = lengths != nullptr ? lengths[it.b] : S;
-  it.L = min(max(L, 0), S);
+  int L = lengths != nullptr ? lengths[it.b] : Skv;
+  it.L = min(max(L, 0), Skv);
   const int lo = window > 0 ? max(0, it.q0 - window + 1) : 0;
   const int hi = causal ? min(it.L, it.q0 + kFaM) : it.L;
   it.tfirst = (lo / kFaBKV) * kFaBKV;
@@ -494,8 +514,8 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                              const __grid_constant__ CUtensorMap tm_v,
                              __nv_bfloat16* __restrict__ o,
                              const int* __restrict__ lengths, int B, int S,
-                             int H, int G, int hd, Strides os, int causal,
-                             int window, float scale_log2) {
+                             int Skv, int H, int G, int hd, Strides os,
+                             int causal, int window, float scale_log2) {
   using T = FaTiles<NC>;
   constexpr int KSTEPS = 4 * NC;             // 16 head dims a step
   extern __shared__ unsigned char fa_smem_raw[];
@@ -530,7 +550,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       int seq = 0;                           // ring tiles issued so far
       int n = 0;                             // items of this block so far
       for (int t = blockIdx.x; t < items; t += gridDim.x, ++n) {
-        const FaItem it = fa_item(t, nmb, B, H, S, lengths, causal, window);
+        const FaItem it = fa_item(t, nmb, B, H, Skv, lengths, causal, window);
         const int qb = n & 1;
         if (n >= 2) mbar_wait(&qempty[qb], ((n >> 1) - 1) & 1);
         mbar_expect_tx(&qfull[qb], T::QBYTES);
@@ -567,12 +587,12 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   float oacc[T::NPV / 2];
   float m[2], l[2];      // row maxima of the raw scores, partial row sums
   float sacc[32];
-  uint32_t pf[2][4][4];                      // P of two tiles as A fragments
+  uint32_t pf[2][8][4];  // P of two tiles as A fragments: hi [0,4), lo [4,8)
   float alpha[2];
   int seq = 0;                               // ring tiles consumed so far
   int n = 0;
   for (int t = blockIdx.x; t < items; t += gridDim.x, ++n) {
-    const FaItem it = fa_item(t, nmb, B, H, S, lengths, causal, window);
+    const FaItem it = fa_item(t, nmb, B, H, Skv, lengths, causal, window);
     const int L = it.L;
     const int r0 = it.q0 + wg * 64;
     const int rows[2] = {r0 + (warp % 4) * 16 + g,
@@ -617,7 +637,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       wgmma_commit();
     };
     // O += P V of tile i with P fragments p, issued
-    auto issue_pv = [&](int i, const uint32_t (&p)[4][4]) {
+    auto issue_pv = [&](int i, const uint32_t (&p)[8][4]) {
       const unsigned char* vt = stage_of(i) + T::TBYTES;
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
@@ -625,17 +645,20 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         // apart (LBO), 8-row groups 1024 bytes apart (SBO)
         const uint64_t dv = gmma_desc(vt + kk * 16 * kBoxBytes,
                                       kFaBKV * kBoxBytes, 1024);
-        if constexpr (NC == 1)
+        if constexpr (NC == 1) {
           wgmma_rs_n64(oacc, p[kk], dv);
-        else
+          wgmma_rs_n64(oacc, p[4 + kk], dv);
+        } else {
           wgmma_rs_n128(oacc, p[kk], dv);
+          wgmma_rs_n128(oacc, p[4 + kk], dv);
+        }
       }
       wgmma_commit();
     };
     // The online softmax of tile i's scores: updates m and l, writes P into
     // p and the factor the output accumulator must be scaled by into alpha.
     // m is kept on the raw scores; the scale goes into the exponent's FFMA.
-    auto softmax = [&](int i, uint32_t (&p)[4][4]) {
+    auto softmax = [&](int i, uint32_t (&p)[8][4]) {
       const int t0 = it.tfirst + i * kFaBKV;
       // masks only on tiles that straddle the length, the diagonal or the
       // window edge of some row of the warpgroup
@@ -687,12 +710,11 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       // the S accumulators of n-tiles 2kk and 2kk+1 are the A layout of
       // rows g, g+8 for keys 16kk..16kk+15
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        p[kk][0] = pack_bf16(sacc[8 * kk], sacc[8 * kk + 1]);
-        p[kk][1] = pack_bf16(sacc[8 * kk + 2], sacc[8 * kk + 3]);
-        p[kk][2] = pack_bf16(sacc[8 * kk + 4], sacc[8 * kk + 5]);
-        p[kk][3] = pack_bf16(sacc[8 * kk + 6], sacc[8 * kk + 7]);
-      }
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int x = 0; x < 4; ++x)
+          pack_bf16_split(sacc[8 * kk + 2 * x], sacc[8 * kk + 2 * x + 1],
+                          p[kk][x], p[4 + kk][x]);
     };
     auto rescale = [&]() {
 #pragma unroll
@@ -708,8 +730,8 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     // softmax of tile i (into pout) runs while P V does, and O is rescaled
     // once P V is done.  pin/pout alternate between pf[0] and pf[1] at
     // fixed indices.
-    auto step = [&](int i, int prev, const uint32_t (&pin)[4][4],
-                    uint32_t (&pout)[4][4]) {
+    auto step = [&](int i, int prev, const uint32_t (&pin)[8][4],
+                    uint32_t (&pout)[8][4]) {
       full_wait(i);
       fence_regs(oacc);
       wgmma_fence();
@@ -723,7 +745,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       release(prev);
       rescale();
     };
-    auto finish = [&](int prev, const uint32_t (&pin)[4][4]) {
+    auto finish = [&](int prev, const uint32_t (&pin)[8][4]) {
       fence_regs(oacc);
       wgmma_fence();
       issue_pv(prev, pin);
@@ -822,9 +844,10 @@ EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A 4-d map of a bf16 (B, S, heads, hd) tensor in model layout, through its
-// element strides: boxes of 64 head dims x 1 head x `rows` positions x 1
-// batch row, 128B-swizzled, zeros outside the tensor.
+// A 4-d map of a bf16 (B, S, heads, hd) tensor in model layout (S is the
+// query or the key length), through its element strides: boxes of 64 head
+// dims x 1 head x `rows` positions x 1 batch row, 128B-swizzled, zeros
+// outside the tensor.
 bool make_map(CUtensorMap* map, const void* base, int B, int S, int heads,
               int hd, const Strides& st, int rows) {
   const EncodeTiledFn enc = encode_tiled();
@@ -857,14 +880,16 @@ int sm_count() {
 
 template <int NC>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
-                         const int* lengths, int B, int S, int H, int K,
-                         int hd, Strides qs, Strides ks, Strides vs,
+                         const int* lengths, int B, int S, int Skv, int H,
+                         int K, int hd, Strides qs, Strides ks, Strides vs,
                          Strides os, int causal, int window, float scale,
                          cudaStream_t stream) {
+  // Q over S query positions, K and V over Skv keys: TMA zero-fills a box
+  // past either edge, and the kernel masks keys at or past min(len, Skv)
   CUtensorMap tq, tk, tv;
   if (!make_map(&tq, q, B, S, H, hd, qs, kFaM) ||
-      !make_map(&tk, k, B, S, K, hd, ks, kFaBKV) ||
-      !make_map(&tv, v, B, S, K, hd, vs, kFaBKV))
+      !make_map(&tk, k, B, Skv, K, hd, ks, kFaBKV) ||
+      !make_map(&tv, v, B, Skv, K, hd, vs, kFaBKV))
     return cudaErrorInvalidValue;
   auto kern = flash_attention_wgmma_kernel<NC>;
   constexpr int smem = FaTiles<NC>::SMEM;
@@ -876,8 +901,8 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
   if (sms < 1 || items > (1ll << 31) - 1) return cudaErrorInvalidValue;
   const unsigned grid = (unsigned)(items < sms ? items : sms);
   kern<<<grid, kFaThreads, smem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lengths, B, S, H, H / K,
-      hd, os, causal, window, scale * kLog2e);
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lengths, B, S, Skv, H,
+      H / K, hd, os, causal, window, scale * kLog2e);
   return cudaGetLastError();
 }
 
@@ -889,9 +914,9 @@ bool mma_aligned(const void* p, const Strides& st) {
 
 template <typename T, int HD_PAD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   const int* lengths, int B, int S, int H, int G, int hd,
-                   Strides qs, Strides ks, Strides vs, Strides os, int causal,
-                   int window, float scale, cudaStream_t stream) {
+                   const int* lengths, int B, int S, int Skv, int H, int G,
+                   int hd, Strides qs, Strides ks, Strides vs, Strides os,
+                   int causal, int window, float scale, cudaStream_t stream) {
   constexpr int BQ = kThreads / (HD_PAD / kDimsPerThread);
   const size_t smem = 2 * kBlockKV * HD_PAD * sizeof(float);
   auto kern = flash_attention_kernel<T, HD_PAD>;
@@ -903,43 +928,46 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((S + BQ - 1) / BQ, H, B);
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lengths, S, G, hd, qs, ks,
-      vs, os, causal, window, scale);
+      static_cast<const T*>(v), static_cast<T*>(o), lengths, S, Skv, G, hd,
+      qs, ks, vs, os, causal, window, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch_hd(const void* q, const void* k, const void* v, void* o,
-                        const int* lengths, int B, int S, int H, int G, int hd,
-                        Strides qs, Strides ks, Strides vs, Strides os,
+                        const int* lengths, int B, int S, int Skv, int H,
+                        int G, int hd, Strides qs, Strides ks, Strides vs,
+                        Strides os,
                         int causal, int window, float scale,
                         cudaStream_t stream) {
   if (hd <= 32)
-    return launch<T, 32>(q, k, v, o, lengths, B, S, H, G, hd, qs, ks, vs, os,
-                         causal, window, scale, stream);
+    return launch<T, 32>(q, k, v, o, lengths, B, S, Skv, H, G, hd, qs, ks,
+                         vs, os, causal, window, scale, stream);
   if (hd <= 64)
-    return launch<T, 64>(q, k, v, o, lengths, B, S, H, G, hd, qs, ks, vs, os,
-                         causal, window, scale, stream);
+    return launch<T, 64>(q, k, v, o, lengths, B, S, Skv, H, G, hd, qs, ks,
+                         vs, os, causal, window, scale, stream);
   if (hd <= 128)
-    return launch<T, 128>(q, k, v, o, lengths, B, S, H, G, hd, qs, ks, vs, os,
-                          causal, window, scale, stream);
-  return launch<T, 256>(q, k, v, o, lengths, B, S, H, G, hd, qs, ks, vs, os,
-                        causal, window, scale, stream);
+    return launch<T, 128>(q, k, v, o, lengths, B, S, Skv, H, G, hd, qs, ks,
+                          vs, os, causal, window, scale, stream);
+  return launch<T, 256>(q, k, v, o, lengths, B, S, Skv, H, G, hd, qs, ks,
+                        vs, os, causal, window, scale, stream);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Strides are in elements.  lengths may
-// be null (every row has S valid keys).  window <= 0 means no window.
+// dtype: 0 = float32, 1 = bfloat16.  S queries, Skv keys.  Strides are in
+// elements.  lengths may be null (every row has Skv valid keys); a length
+// is read as min(lengths[b], Skv).  window <= 0 means no window.
 // Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, const int* lengths,
-    int dtype, int B, int S, int H, int K, int hd, long long q_sb,
+    int dtype, int B, int S, int Skv, int H, int K, int hd, long long q_sb,
     long long q_ss, long long q_sh, long long k_sb, long long k_ss,
     long long k_sh, long long v_sb, long long v_ss, long long v_sh,
     long long o_sb, long long o_ss, long long o_sh, int causal, int window,
     float scale, void* stream) {
-  if (B < 1 || S < 1 || K < 1 || H % K != 0 || hd < 1 || hd > 256)
+  if (B < 1 || S < 1 || Skv < 1 || K < 1 || H % K != 0 || hd < 1 ||
+      hd > 256)
     return (int)cudaErrorInvalidValue;
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh},
       vs{v_sb, v_ss, v_sh}, os{o_sb, o_ss, o_sh};
@@ -947,19 +975,19 @@ extern "C" int flash_attention_fwd(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (dtype == 0)
-    e = dispatch_hd<float>(q, k, v, o, lengths, B, S, H, G, hd, qs, ks, vs,
-                           os, causal, window, scale, st);
+    e = dispatch_hd<float>(q, k, v, o, lengths, B, S, Skv, H, G, hd, qs, ks,
+                           vs, os, causal, window, scale, st);
   else if (dtype == 1 && mma_aligned(q, qs) && mma_aligned(k, ks) &&
            mma_aligned(v, vs) && mma_aligned(o, os) &&
            (hd == 64 || hd == 80 || hd == 96 || hd == 128)) {
     // one 64-dim box (hd 64) or two, TMA zero-filling the dims past hd
-    e = hd == 64 ? launch_wgmma<1>(q, k, v, o, lengths, B, S, H, K, hd, qs,
-                                   ks, vs, os, causal, window, scale, st)
-                 : launch_wgmma<2>(q, k, v, o, lengths, B, S, H, K, hd, qs,
-                                   ks, vs, os, causal, window, scale, st);
+    e = hd == 64 ? launch_wgmma<1>(q, k, v, o, lengths, B, S, Skv, H, K, hd,
+                                   qs, ks, vs, os, causal, window, scale, st)
+                 : launch_wgmma<2>(q, k, v, o, lengths, B, S, Skv, H, K, hd,
+                                   qs, ks, vs, os, causal, window, scale, st);
   } else if (dtype == 1)
-    e = dispatch_hd<__nv_bfloat16>(q, k, v, o, lengths, B, S, H, G, hd, qs,
-                                   ks, vs, os, causal, window, scale, st);
+    e = dispatch_hd<__nv_bfloat16>(q, k, v, o, lengths, B, S, Skv, H, G, hd,
+                                   qs, ks, vs, os, causal, window, scale, st);
   else
     e = cudaErrorInvalidValue;
   return (int)e;

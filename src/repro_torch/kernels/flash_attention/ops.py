@@ -1,4 +1,4 @@
-"""Flash attention wrapper in model layout: q (B,S,H,hd), k/v (B,S,K,hd).
+"""Flash attention wrapper in model layout: q (B,S,H,hd), k/v (B,Skv,K,hd).
 
 CPU tensors take the plain version (``ref.flash_attention_plain``); CUDA
 tensors launch the Hopper kernel in ``csrc/flash_attention.cu`` or raise.
@@ -27,7 +27,7 @@ def build() -> ctypes.CDLL:
     """Compile (once per process, cached on disk) and bind the kernel."""
     lib = load_library("flash_attention", [SOURCE])
     fn = lib.flash_attention_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
                    + [ctypes.c_longlong] * 12
                    + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
                       ctypes.c_void_p])
@@ -37,11 +37,15 @@ def build() -> ctypes.CDLL:
 
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: Optional[int] = None, lengths=None):
-    """Attention over a full sequence; see ``csrc/flash_attention.cu``.
+    """Attention of q (B,S,H,hd) over k/v (B,Skv,K,hd); see
+    ``csrc/flash_attention.cu``.  S and Skv are independent (Skv != S is
+    cross-attention), as in the TPU kernel.
 
-    ``lengths`` (B,) gives each row's valid key count (ragged right-padded
-    batches); ``window`` keeps keys with ``qpos - window < kpos``.
-    Returns (B,S,H,hd) in q's dtype."""
+    ``lengths`` (B,) gives each row's valid key count, read as
+    ``min(lengths[b], Skv)`` (ragged right-padded batches); query and key
+    positions both count from 0, so ``causal`` keeps ``kpos <= qpos`` and
+    ``window`` keeps ``qpos - window < kpos``.  Returns (B,S,H,hd) in q's
+    dtype."""
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
     tensors = (q, k, v) if lengths is None else (q, k, v, lengths)
@@ -50,13 +54,12 @@ def flash_attention(q, k, v, *, causal: bool = True,
                                      lengths=lengths)
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention takes 4-d q (B,S,H,hd) and "
-                         "k/v (B,S,K,hd)")
+                         "k/v (B,Skv,K,hd)")
     B, S, H, hd = q.shape
-    K = k.shape[2]
-    if k.shape != (B, S, K, hd) or v.shape != k.shape:
+    Skv, K = k.shape[1], k.shape[2]
+    if k.shape != (B, Skv, K, hd) or v.shape != k.shape or Skv < 1:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, "
-                         f"k {tuple(k.shape)}, v {tuple(v.shape)} "
-                         f"(self-attention only)")
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
     if H % K:
         raise ValueError(f"{H} query heads not divisible by {K} kv heads")
     if hd > MAX_HEAD_DIM:
@@ -78,7 +81,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
     lib = build()
     status = lib.flash_attention_fwd(
         data_ptr(q), data_ptr(k), data_ptr(v), data_ptr(out),
-        data_ptr(lengths), _DTYPES[q.dtype], B, S, H, K, hd,
+        data_ptr(lengths), _DTYPES[q.dtype], B, S, Skv, H, K, hd,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         *out.stride()[:3], int(causal), int(window or 0),
         1.0 / (hd ** 0.5), stream_ptr(q.device))

@@ -17,7 +17,10 @@ NEG_INF = -1e30
 def flash_attention_ref(q, k, v, *, causal: bool = True,
                         window: Optional[int] = None,
                         seq_len: Optional[int] = None, lengths=None):
-    """q (B,H,Sq,hd); k/v (B,K,Skv,hd). Naive masked softmax attention."""
+    """q (B,H,Sq,hd); k/v (B,K,Skv,hd), Sq and Skv independent.  Naive
+    masked softmax attention; query and key positions both count from 0
+    (``kpos <= qpos`` under ``causal``), and ``lengths`` (B,) masks
+    ``kpos >= lengths[b]``."""
     B, H, Sq, hd = q.shape
     K, Skv = k.shape[1], k.shape[2]
     G = H // K
@@ -44,7 +47,8 @@ def flash_attention_ref(q, k, v, *, causal: bool = True,
 
 def flash_attention_plain(q, k, v, *, causal: bool = True,
                           window: Optional[int] = None, lengths=None):
-    """Model layout: q (B,S,H,hd), k/v (B,S,K,hd) -> (B,S,H,hd)."""
+    """Model layout: q (B,S,H,hd), k/v (B,Skv,K,hd) -> (B,S,H,hd); Skv
+    may differ from S (cross-attention)."""
     out = flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
                               v.transpose(1, 2), causal=causal,
                               window=window, lengths=lengths)

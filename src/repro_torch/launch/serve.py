@@ -46,7 +46,9 @@ from repro_torch.serving import (FlexServeApp, FlexServeServer, ModelManager,
                                  ModelStore)
 
 
-# families the port can decode (vlm and encdec come with their slices)
+# the families the launcher gives a generate plane, as the JAX launcher
+# does: vlm and encdec decode only with image or audio extras, which no
+# route passes
 DECODE_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 

@@ -1,22 +1,27 @@
 """GQA attention (full / causal / sliding-window / cross): the port of the
 full-sequence half of ``repro/models/attention.py``.
 
-Shapes: x (B, S, D); q (B, S, H, hd); k/v (B, S, K, hd); GQA groups G=H/K.
+Shapes: x (B, S, D); q (B, S, H, hd); k/v (B, Skv, K, hd); GQA groups
+G=H/K.
 
-Self-attention always goes through ``kernels.flash_attention``: on a CUDA
-tensor that launches the Hopper kernel (any S >= 1; a shape the kernel
-cannot take raises), on a CPU tensor it runs the kernel's plain version.
-``gqa_attention`` stays the materialised-scores path for cross-attention
-and the reference the tests hold both against.
+Full-sequence attention, self and cross (Skv != S), always goes through
+``kernels.flash_attention``: on a CUDA tensor that launches the Hopper
+kernel (a shape the kernel cannot take raises), on a CPU tensor it runs
+the kernel's plain version.  ``gqa_attention`` stays the
+materialised-scores reference the tests hold it against.  Cross K/V
+projected from float32 frames or image embeddings keep JAX's promotion to
+float32 (``layers.matmul``) and are cast to q's dtype where they enter a
+kernel, which takes one dtype.
 
 The decode half (``init_kv_cache`` .. ``decode_attn_block``) keeps one
 cache per layer as a (B, Smax, K, hd) view of the stacked
 (L, B, Smax, K, hd) cache, and writes each tick's K/V into it IN PLACE:
 the JAX package donates the state to get the same effect, and a copy of
 the cache per tick would move gigabytes at serving sizes.  One-token
-attention goes through ``kernels.decode_attention``.  The fp8 e4m3 cache
-(``kv_cache_f8``, off by default in the JAX package) and MLA come with
-later slices.
+attention goes through ``kernels.decode_attention``, against the cache or,
+in ``cross_decode_attn_block``, a fixed image or audio K/V.  The fp8 e4m3
+cache (``kv_cache_f8``, off by default in the JAX package) comes with a
+later slice.
 """
 
 from __future__ import annotations
@@ -30,7 +35,7 @@ from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_plain)
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.layers import (apply_rope, compute_dtype, dense_init,
-                                       rms_norm_simple)
+                                       matmul, rms_norm_simple)
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
@@ -67,7 +72,7 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig,
 
 
 def _linear(x, w, b=None):
-    y = x @ w
+    y = matmul(x, w)
     return y if b is None else y + b
 
 
@@ -142,20 +147,22 @@ def gqa_attention(q, k, v, mask=None, logit_cap: Optional[float] = None):
 def attention_block(p, x, cfg: ModelConfig, *, positions=None, kv_x=None,
                     causal: bool = True, window: Optional[int] = None,
                     kv_lengths=None, rope: bool = True):
-    """Full-sequence attention (prefill / ensemble forward / cross).
-    Returns (B,S,D)."""
-    B, S, _ = x.shape
+    """Full-sequence attention (prefill / ensemble forward / cross, where
+    ``kv_x`` (B, Skv, Dkv) feeds k/v).  Returns (B,S,D)."""
     q, k, v = project_qkv(p, x, cfg, kv_x=kv_x, positions=positions,
                           rope=rope)
-    if kv_x is None:
-        out = flash_attention(q, k, v, causal=causal, window=window,
-                              lengths=kv_lengths)
-    else:
-        mask = None
-        if causal or window is not None or kv_lengths is not None:
-            mask = make_mask(S, k.shape[1], causal=causal, window=window,
-                             kv_lengths=kv_lengths, device=x.device)
-        out = gqa_attention(q, k, v, mask)
+    return attend(p, q, k, v, cfg, causal=causal, window=window,
+                  lengths=kv_lengths)
+
+
+def attend(p, q, k, v, cfg: ModelConfig, *, causal: bool,
+           window: Optional[int] = None, lengths=None):
+    """Projected q (B,S,H,hd) over k/v (B,Skv,K,hd) through
+    ``flash_attention``, then the output projection: (B,S,D).  k/v are
+    cast to q's dtype, the one dtype the kernel takes."""
+    B, S = q.shape[:2]
+    out = flash_attention(q, k.to(q.dtype), v.to(q.dtype), causal=causal,
+                          window=window, lengths=lengths)
     out = out.reshape(B, S, cfg.num_heads * cfg.head_dim)
     return _linear(out, p["wo"], p.get("bo"))
 
@@ -240,6 +247,17 @@ def ring_fill(k_full, lengths, window: int):
     return k_full[rows, t]
 
 
+def fill_cache(cache, new, lengths, ring: bool) -> None:
+    """Prefill's cache write, IN PLACE: cache (B, Smax, ...) takes new
+    (B, S, ...), as a ring of the last Smax positions (``ring_fill``) or
+    at positions [0, S) with the slots past S zeroed."""
+    if ring:
+        cache.copy_(ring_fill(new, lengths, cache.shape[1]))
+    else:
+        cache[:, :new.shape[1]].copy_(new)
+        cache[:, new.shape[1]:].zero_()
+
+
 def decode_attn_block(p, x1, layer_cache_k, layer_cache_v, lengths,
                       cfg: ModelConfig, *, window: Optional[int] = None,
                       rope: bool = True):
@@ -261,6 +279,25 @@ def decode_attn_block(p, x1, layer_cache_k, layer_cache_v, lengths,
         out = decode_attention(q[:, 0], ck, cv, lengths + 1, window=window)
     out = out.reshape(B, 1, cfg.num_heads * cfg.head_dim)
     return _linear(out, p["wo"], p.get("bo")), ck, cv
+
+
+def cross_decode_attn_block(p, x1, kv_k, kv_v, cfg: ModelConfig,
+                            kv_lengths=None):
+    """Single-token cross-attention against a FIXED K/V (image or audio),
+    kv_k/v (B, T, K, hd) filled at prefill; every row attends all T keys
+    unless ``kv_lengths`` says otherwise.  x1 (B, 1, D).  Returns
+    (B, 1, D)."""
+    B = x1.shape[0]
+    h, hd = cfg.num_heads, cfg.head_dim
+    q = _linear(x1, p["wq"], p.get("bq")).reshape(B, 1, h, hd)
+    if cfg.use_qk_norm:
+        q = rms_norm_simple(q, p["qnorm"])
+    T = kv_k.shape[1]
+    lengths = (kv_lengths if kv_lengths is not None else
+               torch.full((B,), T, dtype=torch.int32, device=x1.device))
+    out = decode_attention(q[:, 0], kv_k, kv_v, lengths)
+    out = out.reshape(B, 1, h * hd)
+    return _linear(out, p["wo"], p.get("bo"))
 
 
 # ---------------------------------------------------------------------------

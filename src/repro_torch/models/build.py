@@ -2,9 +2,10 @@
 prefill, decode).
 
 The port of ``repro/models/build.py`` for the families ``dense`` and
-``moe`` (``transformer.py``; GQA or MLA attention), ``ssm`` (``rwkv6.py``)
-and ``hybrid`` (``hybrid.py``); ``build_model`` raises for the families
-no slice has ported yet (vlm, encdec).  Params are a flat dict of
+``moe`` (``transformer.py``; GQA or MLA attention), ``ssm`` (``rwkv6.py``),
+``hybrid`` (``hybrid.py``), ``vlm`` (``vlm.py``, with ``image_embeds``)
+and ``encdec`` (``encdec.py``, with ``frames``); ``build_model`` raises
+for any other family.  Params are a flat dict of
 tensors keyed by the JAX checkpoint paths (see ``repro_torch.params``);
 they live on the device ``init`` was given.  The decode state lives
 where ``init_state`` puts it: CUDA unless the caller names another
@@ -20,13 +21,13 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.common import resolve_device
-from repro_torch.models import hybrid, rwkv6, transformer
+from repro_torch.models import encdec, hybrid, rwkv6, transformer, vlm
 
 _FAMILIES = {"dense": transformer, "moe": transformer, "ssm": rwkv6,
-             "hybrid": hybrid}
-LATER_SLICE = ("family {fam!r} ({name}) is not ported yet: vlm and encdec "
-               "come with the ROADMAP section 1 item \"Other families: "
-               "moe/MLA, vlm, encdec\"")
+             "hybrid": hybrid, "vlm": vlm, "encdec": encdec}
+# the frontend stub's input a family takes beside the tokens, as the JAX
+# Model passes it
+_EXTRAS = {"vlm": "image_embeds", "encdec": "frames"}
 
 
 @dataclass(frozen=True)
@@ -42,9 +43,18 @@ class Model:
         """Random params on ``device`` from a seeded torch.Generator."""
         return self.module.init_params(seed, self.config, device)
 
+    def _inputs(self, batch: Dict[str, Any]):
+        """The tokens, and the image embeddings or frames where the
+        family takes them."""
+        extra = _EXTRAS.get(self.config.family)
+        return ((batch["tokens"],) if extra is None
+                else (batch["tokens"], batch[extra]))
+
     def forward(self, params, batch: Dict[str, Any], **kw) -> torch.Tensor:
-        """batch {"tokens": (B,S)} -> logits (B,S,V)."""
-        return self.module.forward(params, batch["tokens"], self.config, **kw)
+        """batch {"tokens": (B,S)} (with "image_embeds" (B,T,Dv) for vlm,
+        "frames" (B,F,D) for encdec) -> logits (B,S,V)."""
+        return self.module.forward(params, *self._inputs(batch), self.config,
+                                   **kw)
 
     def like(self) -> Dict[str, torch.Tensor]:
         """``init``'s keys, shapes and dtypes as meta tensors (no storage,
@@ -60,8 +70,9 @@ class Model:
                                       window, resolve_device(device))
 
     def prefill(self, params, batch: Dict[str, Any], state, **kw):
-        """batch {"tokens": (B,S), "lengths": (B,)} -> (logits (B,V), state)."""
-        return self.module.prefill(params, batch["tokens"], state,
+        """batch {"tokens": (B,S), "lengths": (B,)} (and the family's
+        extras, as ``forward``) -> (logits (B,V), state)."""
+        return self.module.prefill(params, *self._inputs(batch), state,
                                    self.config, lengths=batch.get("lengths"),
                                    **kw)
 
@@ -73,6 +84,5 @@ class Model:
 
 def build_model(cfg: ModelConfig) -> Model:
     if cfg.family not in _FAMILIES:
-        raise NotImplementedError(
-            LATER_SLICE.format(fam=cfg.family, name=cfg.name))
+        raise ValueError(f"unknown family {cfg.family!r} ({cfg.name})")
     return Model(cfg)

@@ -143,6 +143,23 @@ def _rope_freqs_on(head_dim: int, theta: float,
     return torch.from_numpy(rope_freqs(head_dim, theta)).to(device)
 
 
+@functools.lru_cache(maxsize=32)
+def _sinusoidal_on(num: int, d: int, device: torch.device) -> torch.Tensor:
+    pos = np.arange(num)[:, None]
+    dim = np.arange(d // 2)[None, :]
+    inv = 1.0 / (10000 ** (dim / max(d // 2 - 1, 1)))
+    ang = pos * inv
+    table = np.concatenate([np.sin(ang), np.cos(ang)], axis=-1)
+    return torch.from_numpy(table.astype(np.float32)).to(device)
+
+
+def sinusoidal_positions(num: int, d: int, device) -> torch.Tensor:
+    """Whisper-style sinusoidal embeddings (num, d), float32 on
+    ``device`` (computed in float64 with numpy, as the JAX package's, and
+    copied there once; callers must not modify the tensor)."""
+    return _sinusoidal_on(num, d, torch.device(device))
+
+
 def apply_rope(x, positions, theta: float):
     """x: (..., seq, heads, head_dim); positions: (..., seq) integer."""
     if theta <= 0.0:
@@ -160,6 +177,17 @@ def apply_rope(x, positions, theta: float):
 # ---------------------------------------------------------------------------
 # MLPs
 # ---------------------------------------------------------------------------
+
+
+def matmul(x, w):
+    """``x @ w`` with JAX's type promotion: operands of two float dtypes
+    compute in the wider one (float32 @ bfloat16 -> float32), where
+    torch's matmul raises.  The encoder-decoder's float32 frames and the
+    VLM's float32 image embeddings meet bf16 weights this way."""
+    if x.dtype != w.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
+    return x @ w
 
 
 def init_mlp(gen: torch.Generator, cfg: ModelConfig,
@@ -183,16 +211,16 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig,
 
 def apply_mlp(p, x, cfg: ModelConfig):
     if cfg.act == "swiglu":
-        h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
+        h = F.silu(matmul(x, p["w_gate"])) * matmul(x, p["w_up"])
     else:
-        u = x @ p["w_up"]
+        u = matmul(x, p["w_up"])
         if "b_up" in p:
             u = u + p["b_up"]
         if cfg.act == "relu_sq":
             h = F.relu(u).square()
         else:  # gelu, tanh approximation as jax.nn.gelu's default
             h = F.gelu(u, approximate="tanh")
-    out = h @ p["w_down"]
+    out = matmul(h, p["w_down"])
     if "b_down" in p:
         out = out + p["b_down"]
     return out

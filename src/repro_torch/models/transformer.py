@@ -15,8 +15,8 @@ half.  Its state is ``{"cache": {"k", "v"} (L, B, Smax, K, hd), "length":
 for MLA, and a ``cache_dense`` of the same kind for a moe config's first
 dense layers; ``prefill`` and ``decode_step`` write the caches IN PLACE
 (the JAX engine donates them) and return a new dict holding the same
-tensors and the new lengths.  The ssm and hybrid families live in
-``rwkv6.py`` and ``hybrid.py``; vlm and encdec are not ported yet.
+tensors and the new lengths.  The ssm, hybrid, vlm and encdec families
+live in ``rwkv6.py``, ``hybrid.py``, ``vlm.py`` and ``encdec.py``.
 """
 
 from __future__ import annotations
@@ -306,6 +306,32 @@ def verify_decode_step(params, tokens, state, cfg: ModelConfig, *,
 # ---------------------------------------------------------------------------
 
 
+def prefill_rings(Smax: int, S: int, window: Optional[int]) -> bool:
+    """Whether prefill fills a GQA cache of ``Smax`` slots as a ring (the
+    last Smax positions): when the bucket overflows it or it is a sliding
+    window's ring."""
+    return Smax < S or (window is not None and Smax <= window)
+
+
+def _layer_prefill(cfg: ModelConfig, window, x, lp, positions, lengths,
+                   cache, i, ring):
+    """One block of the prefill; fills layer ``i`` of ``cache`` in place
+    (a ring keeps the last Smax positions)."""
+    h = apply_norm(lp["ln1"], x, cfg)
+    if cfg.attn_kind == "mla":
+        attn_out, c_kv, k_rope = attn.mla_full(
+            lp["attn"], h, cfg, positions=positions, kv_lengths=lengths)
+        new = ((cache["ckv"][i], c_kv), (cache["krope"][i], k_rope))
+    else:
+        q, k, v = attn.project_qkv(lp["attn"], h, cfg, positions=positions)
+        attn_out = attn.attend(lp["attn"], q, k, v, cfg, causal=True,
+                               window=window, lengths=lengths)
+        new = ((cache["k"][i], k), (cache["v"][i], v))
+    for c, t in new:
+        attn.fill_cache(c, t, lengths, ring)
+    return _residual(cfg, lp, x, h, attn_out)
+
+
 def prefill(params, tokens, state, cfg: ModelConfig, *, lengths=None,
             window: Optional[int] = None):
     """Process a (right-padded) prompt batch, filling the decode cache in
@@ -325,37 +351,13 @@ def prefill(params, tokens, state, cfg: ModelConfig, *, lengths=None,
     lengths = lengths.to(torch.int32)
     x = params["embed"][tokens.long()]
     positions = torch.arange(S, device=x.device)[None, :]
-    H, hd = cfg.num_heads, cfg.head_dim
     mla = cfg.attn_kind == "mla"
     for prefix, key, n, _ in stacks(cfg):
         cache = state[key]
-        Smax = cache["ckv" if mla else "k"].shape[2]
-        ring = not mla and (Smax < S or (window is not None
-                                         and Smax <= window))
+        ring = not mla and prefill_rings(cache["k"].shape[2], S, window)
         for i in range(n):
-            lp = subtree(params, prefix, i)
-            h = apply_norm(lp["ln1"], x, cfg)
-            if mla:
-                attn_out, c_kv, k_rope = attn.mla_full(
-                    lp["attn"], h, cfg, positions=positions,
-                    kv_lengths=lengths)
-                new = ((cache["ckv"][i], c_kv), (cache["krope"][i], k_rope))
-            else:
-                q, k, v = attn.project_qkv(lp["attn"], h, cfg,
-                                           positions=positions)
-                out = attn.flash_attention(q, k, v, causal=True,
-                                           window=window, lengths=lengths)
-                attn_out = attn._linear(out.reshape(B, S, H * hd),
-                                        lp["attn"]["wo"],
-                                        lp["attn"].get("bo"))
-                new = ((cache["k"][i], k), (cache["v"][i], v))
-            for c, t in new:
-                if ring:   # keep only the last Smax positions, ring order
-                    c.copy_(attn.ring_fill(t, lengths, Smax))
-                else:
-                    c[:, :S].copy_(t)
-                    c[:, S:].zero_()
-            x = _residual(cfg, lp, x, h, attn_out)
+            x = _layer_prefill(cfg, window, x, subtree(params, prefix, i),
+                               positions, lengths, cache, i, ring)
     h = apply_norm(subtree(params, "final_norm"), x, cfg)
     rows = torch.arange(B, device=h.device)
     h_last = h[rows, lengths.long() - 1]          # each row's last valid

@@ -65,8 +65,10 @@ def state_from_jax(state: Dict[str, Any], device) -> Dict[str, Any]:
     leaves (bf16, float32 and int32 kept) -> the same nesting of tensors
     on ``device``, ready for the port's ``prefill``/``decode``: the dense
     KV cache (``{"cache": {"k", "v"}, "length"}``), rwkv6's recurrent state
-    (``tm_shift``, ``cm_shift``, ``wkv``, ``length``) or the hybrid's
-    (``conv``, ``ssd``, ``shared_k``, ``shared_v``, ``length``)."""
+    (``tm_shift``, ``cm_shift``, ``wkv``, ``length``), the hybrid's
+    (``conv``, ``ssd``, ``shared_k``, ``shared_v``, ``length``), or the
+    vlm's and encdec's self caches and fixed cross K/V (``k``, ``v``,
+    ``xk``, ``xv``, ``length``)."""
     return unflatten(from_jax(flatten(state), device))
 
 

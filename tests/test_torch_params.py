@@ -28,7 +28,9 @@ ROOT = Path(__file__).resolve().parents[1]
                                         ("rwkv6-1.6b", "bfloat16"),
                                         ("zamba2-2.7b", "float32"),
                                         ("qwen3-moe-235b-a22b", "bfloat16"),
-                                        ("deepseek-v3-671b", "float32")])
+                                        ("deepseek-v3-671b", "float32"),
+                                        ("llama-3.2-vision-11b", "bfloat16"),
+                                        ("whisper-base", "float32")])
 def test_from_jax_to_flat_round_trip(arch, dtype):
     import dataclasses
     cfg = dataclasses.replace(jreduce(jget_config(arch)), dtype=dtype)

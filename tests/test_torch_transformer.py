@@ -216,10 +216,34 @@ def test_init_is_seeded():
     assert not torch.equal(a["layers/attn/wq"], c["layers/attn/wq"])
 
 
-@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "whisper-base"])
-def test_other_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(reduce_for_smoke(get_config(arch)))
+@pytest.mark.parametrize("arch,extra", [
+    ("llama-3.2-vision-11b", "image_embeds"), ("whisper-base", "frames")])
+def test_frontend_families_build_like_jax(arch, extra):
+    """build_model builds the vlm and encdec families (tests/test_torch_vlm.py
+    and test_torch_encdec.py hold them to JAX): init's keys, shapes and
+    dtypes are the JAX init's, and a forward with the family's extras runs
+    to finite (B, S, V) logits."""
+    jcfg, tcfg = _cfgs(arch)
+    shapes = jax.eval_shape(lambda: jbuild_model(jcfg).init(
+        jax.random.PRNGKey(0)))
+    want = {"/".join(str(getattr(p, "key", p)) for p in path): leaf
+            for path, leaf in
+            jax.tree_util.tree_flatten_with_path(shapes)[0]}
+    model = build_model(tcfg)
+    params = model.init(0, "cpu")
+    assert set(params) == set(want)
+    for k, v in params.items():
+        assert tuple(v.shape) == tuple(want[k].shape), k
+        assert str(v.dtype).removeprefix("torch.") == str(want[k].dtype), k
+    dims = ((tcfg.vlm.image_tokens, tcfg.vlm.vision_dim) if tcfg.vlm
+            else (tcfg.encdec.encoder_frames, tcfg.d_model))
+    logits = model.forward(params, {
+        "tokens": torch.ones((2, 5), dtype=torch.int32),
+        extra: torch.from_numpy(_x((2, *dims), scale=0.1))})
+    assert logits.shape == (2, 5, tcfg.vocab_size)
+    assert bool(torch.isfinite(logits).all())
+    with pytest.raises(ValueError, match="unknown family"):
+        build_model(dataclasses.replace(tcfg, family="audio"))
 
 
 @pytest.mark.parametrize("arch", ["rwkv6-1.6b", "zamba2-2.7b",
