@@ -59,6 +59,20 @@ Phases (any failure exits non-zero and prints no final result line):
    gathered cache
    (bit for bit equal there too), the plain version, a gather + SDPA
    yardstick and its bound.
+   K2/K3 on the fp8 e4m3 cache (bf16 q; the cache cast by the port's
+   ``attention.to_cache``, with values near +-448 and e4m3 subnormals
+   planted): K2 at the yi-9b tick, a window, danube's hd=80 G=4, qwen3-moe's
+   G=16, a length-1 row and a layer view of a stacked cache (tensor-core
+   kernel), hd=256 and rows 8 bytes off 16 (CUDA-core kernel; the path
+   asserted), and 32k keys; K3 at the tick with shared pages, a window with
+   a vacant row, danube, hd=256, page size 32, a layer view and qwen3-moe.
+   Each is held against the plain version (which dequantizes to bf16) at
+   the bf16 tolerance and bit for bit against the same kernel on the
+   cache's bf16 copy; K3 at page size 16 also bit for bit against K2 on
+   the gathered e4m3 cache.  Timed (K2 at the tick, qwen3-moe, danube,
+   hd=256 and 32k keys; K3 at the tick and 32k keys) in turns beside the
+   same kernel on the bf16 copy, the plain version, an upcast-to-bf16 +
+   SDPA yardstick and the bound at 1 byte per cache element.
    K4 (fp32, tolerance 1e-4): the rwkv6-1.6b prefill bucket B=8, T=512,
    H=32, N=64, T=300 and T=17, masked pad steps (the masked row's state
    must equal the unpadded call's), a nonzero s0 with k=v=0, a two-call
@@ -171,6 +185,29 @@ Phases (any failure exits non-zero and prints no final result line):
    target and draft (``MemoryLedger``), host ms per tick at W = 2 and 4
    and at level 1 (8 rows live; dense and paged); with ``--profile`` the
    verify forward's device time, its K2/K3 and cuBLAS parts.
+11. the fp8 e4m3 KV cache, while member 0 is resident (run after 6c): a
+   dense and a paged engine over member 0 (full width and depth) built
+   under ``repro_torch.opt.flags(kv_cache_f8=True)``, beside the same two
+   with the bf16 cache.  The cache cast (``attention.to_cache``) must give
+   the CPU's bytes for all 65,536 bf16 patterns.  Every cache leaf of their
+   states must be
+   float8_e4m3fn (bf16 without the flag); a page must cost half
+   (``page_bytes``, equal to ``page_kv_bytes`` at bf16 over two),
+   ``pages_for_budget`` at 8 GiB must double and a state's
+   ``torch.cuda.memory_allocated`` delta must halve (within 1%).  A greedy
+   ``generate`` of phase 5's 8 prompts (32 new) on each cache: K1 48 per
+   prefill, K2 48 per tick exactly, K3 0; teacher-forced prefill + 8
+   steps on the e4m3 cache, kernels vs plain versions (on the same e4m3
+   cache) within LOGITS_TOL; how many rows part from the bf16-cache
+   streams is reported, with the logit gap at the first parting (both
+   engines teacher-forced to it).  ``SchedulerService`` rounds (8 slots,
+   12 requests, half sampled) on the dense and paged e4m3 engines and the
+   two bf16 ones: launch counts exact as in phase 6, paged streams equal
+   to dense ones on the e4m3 cache; the shared-prefix run of phase 6 on
+   the e4m3 engines: the leader's streams equal bit for bit, the
+   followers' first-token logits (the C > 0 plain path reads the pool
+   dequantized) within LOGITS_TOL.  With ``--profile``: one tick of each
+   of the four engines, K2's and K3's share of its device time.
 
 7. recurrent path, after the yi-9b members are freed:
    ``build_app(["rwkv6-1.6b", "zamba2-2.7b"], full=True)`` (24 and 54
@@ -840,6 +877,7 @@ def decode_kernel_phase(failures):
             f"ms), plain {t['plain_ms']:.4f} ms, SDPA {t['library_ms']} "
             f"ms (device time {t['library_device_ms']} ms), bound "
             f"{t['bound_ms']:.4f} ms ({t['bound_by']}, {t['bytes']} bytes)")
+    e4m3 = decode_e4m3_cases(failures)
     entry = {
         "name": "decode_attention",
         "route": "cuda",
@@ -855,10 +893,228 @@ def decode_kernel_phase(failures):
         "qwen3_moe_shape": qwen,
         "vlm_cross_step_shape": vlm_step,
         "cases": results,
+        "e4m3": e4m3,
     }
     torch.cuda.empty_cache()
     return [entry]
 
+
+
+# --- phase 3, K2/K3 on the fp8 e4m3 cache ---------------------------------------
+
+
+def to_e4m3(x):
+    """The port's cache cast (``attention.to_cache``) of a float tensor,
+    after planting the format's edges: a share of values near +-448 and of
+    e4m3 subnormals (|x| < 2^-6), so that a wrong conversion shows."""
+    import torch
+    from repro_torch.models.attention import to_cache
+    flat = x.reshape(-1)
+    flat[::97] = 440.0
+    flat[1::89] = -448.0
+    flat[2::7] *= 2 ** -9
+    return to_cache(x.to(torch.bfloat16), torch.float8_e4m3fn)
+
+
+def e4m3_copy(c):
+    """A decode or paged case with its k/v turned into an e4m3 cache (a
+    layer view stays a view of its stacked cache) and q kept bf16; the
+    bf16 copy of the same cache rides along."""
+    import torch
+    k, v = c["k"], c["v"]
+    kb, vb = (t._base if t._base is not None else t for t in (k, v))
+    k8b, v8b = to_e4m3(kb.float() * 3.0), to_e4m3(vb.float() * 3.0)
+    k8 = k8b.as_strided(k.shape, k.stride(), k.storage_offset())
+    v8 = v8b.as_strided(v.shape, v.stride(), v.storage_offset())
+    return dict(c, name=c["name"] + " e4m3", k=k8, v=v8,
+                k_bf16=k8.to(torch.bfloat16), v_bf16=v8.to(torch.bfloat16),
+                dtype="float8_e4m3fn", q=c["q"].to(torch.bfloat16))
+
+
+def check_e4m3(failures, kernel_name, c, out, ref, copy):
+    """An e4m3 case: finite, within the bf16 tolerance of the plain version
+    (which dequantizes to bf16) and bit for bit the kernel on the bf16 copy
+    of the same cache (e4m3 -> bf16 is exact)."""
+    import torch
+    err = float((out.float() - ref.float()).abs().max())
+    tol = TOL["bfloat16"]
+    bitwise = bool(torch.equal(out, copy))
+    ok = (bool(torch.isfinite(out.float()).all())
+          and torch.allclose(out.float(), ref.float(), **tol) and bitwise)
+    log(f"[kernels] {kernel_name} {c['name']}: max_abs_err {err:.3e} (rtol/"
+        f"atol {tol['rtol']}), bitwise equal to the kernel on the cache's "
+        f"bf16 copy: {bitwise} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"{kernel_name} {c['name']}: err {err}, bitwise vs "
+                        f"the bf16 copy {bitwise}")
+    return {"case": c["name"], "max_abs_err": err, "ok": ok,
+            "bitwise_bf16_copy": bitwise}
+
+
+def unaligned_copy(t):
+    """A copy of ``t`` whose rows start 8 bytes off 16 (so a bf16 copy
+    takes the CUDA-core kernel, as its e4m3 original does)."""
+    import torch
+    pad = 8 // t.element_size()
+    buf = torch.empty(t.shape[:-1] + (t.shape[-1] + pad,), dtype=t.dtype,
+                      device=t.device)
+    out = buf[..., pad:]
+    out.copy_(t)
+    return out
+
+
+def e4m3_bytes(keys, K, hd, q_bytes, table_bytes=0):
+    """The bytes an e4m3 launch must move: the valid K/V at 1 byte per
+    element, q and the output (bf16), and K3's table entries."""
+    return 2 * keys * K * hd + 2 * q_bytes + table_bytes
+
+
+def time_decode_e4m3(c):
+    """K2 on an e4m3 cache beside K2 on its bf16 copy (same shape, same
+    call), the plain version, an upcast-to-bf16 + SDPA yardstick and the
+    1-byte bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_plain)
+    q, k, v, lens = c["q"], c["k"], c["v"], c["lengths"]
+    kb, vb = c["k_bf16"], c["v_bf16"]
+    B, H, hd = q.shape
+    Smax, K = k.shape[1], k.shape[2]
+    t = {}
+    # in turns: e4m3, bf16, bf16, e4m3
+    for name, kk, vv in (("e4m3", k, v), ("bf16", kb, vb),
+                         ("bf16_again", kb, vb), ("e4m3_again", k, v)):
+        t[name] = cuda_time_ms(lambda: decode_attention(q, kk, vv, lens))
+    dev = profiled_ms(lambda: decode_attention(q, k, v, lens), K2_KERNELS)
+    dev_bf16 = profiled_ms(lambda: decode_attention(q, kb, vb, lens),
+                           K2_KERNELS)
+    plain_ms = cuda_time_ms(lambda: decode_attention_plain(q, k, v, lens))
+    mask = (torch.arange(Smax, device="cuda")[None, :]
+            < lens[:, None])[:, None, None, :]
+
+    def library():                  # dequantize, then the library call
+        return F.scaled_dot_product_attention(
+            q[:, :, None, :], k.transpose(1, 2).to(torch.bfloat16),
+            v.transpose(1, 2).to(torch.bfloat16), attn_mask=mask,
+            enable_gqa=True)
+    try:
+        library_ms = cuda_time_ms(library)
+        library_dev_ms = profiled_ms(library, ())
+    except TypeError:                   # torch without enable_gqa
+        library_ms = library_dev_ms = None
+    keys = int(torch.clamp(lens, max=Smax).sum())
+    nbytes = e4m3_bytes(keys, K, hd, q.numel() * q.element_size())
+    flops = 4 * hd * H * keys
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_flops = flops / PEAK_FLOPS["bfloat16"]
+    return {"shape": f"B={B} Smax={Smax} H={H} K={K} hd={hd} e4m3 cache, "
+                     f"bf16 q, valid keys {keys}",
+            "ms": min(t["e4m3"], t["e4m3_again"]),
+            "kernel_ms": min(t["e4m3"], t["e4m3_again"]),
+            "kernel_ms_runs": [t["e4m3"], t["e4m3_again"]],
+            "device_ms": dev,
+            "bf16_kernel_ms": min(t["bf16"], t["bf16_again"]),
+            "bf16_kernel_ms_runs": [t["bf16"], t["bf16_again"]],
+            "bf16_device_ms": dev_bf16, "plain_ms": plain_ms,
+            "library_ms": library_ms, "library_device_ms": library_dev_ms,
+            "bound_ms": 1e3 * max(t_bytes, t_flops),
+            "bound_by": "bytes" if t_bytes >= t_flops else "operations",
+            "bytes": nbytes, "flops": flops}
+
+
+def log_e4m3_timed(name, t, extra=""):
+    log(f"[kernels] {name} e4m3 timed at {t['shape']}: kernel "
+        f"{t['kernel_ms']:.4f} ms (runs {t['kernel_ms_runs'][0]:.4f}, "
+        f"{t['kernel_ms_runs'][1]:.4f}; device {t['device_ms']:.4f} ms); the "
+        f"same kernel on the bf16 copy {t['bf16_kernel_ms']:.4f} ms (device "
+        f"{t['bf16_device_ms']:.4f} ms); plain {t['plain_ms']:.4f} ms; "
+        f"upcast to bf16 + SDPA {t['library_ms']} ms (device "
+        f"{t['library_device_ms']} ms); bound {t['bound_ms']:.4f} ms "
+        f"({t['bound_by']}, {t['bytes']} bytes at 1 byte per cache "
+        f"element){extra}")
+
+
+def decode_e4m3_cases(failures):
+    """K2 on e4m3 caches at the shapes that exist: each held against the
+    plain version and bit for bit against K2 on the bf16 copy; the path
+    (tensor-core or CUDA-core) asserted; timed at the tick, 32k keys,
+    qwen3-moe's G=16, danube and hd=256 beside K2 on the bf16 copy."""
+    import torch
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_plain)
+    from repro_torch.kernels.decode_attention.ops import tensor_core_path
+    yi = (32, 4, 128)
+    bf = "bfloat16"
+    cases = [(e4m3_copy(c), tc) for c, tc in (
+        (decode_case("yi-9b tick ragged", 8, 1024, *yi, bf), True),
+        (decode_case("yi-9b window 100", 8, 1024, *yi, bf, window=100),
+         True),
+        (decode_case("danube hd=80 G=4 window 300", 4, 512, 32, 8, 80, bf,
+                     window=300), True),
+        (decode_case("qwen3-moe G=16 ragged", 8, 1024, *QWEN_HEADS, bf),
+         True),
+        (decode_case("hd=256", 2, 300, 8, 2, 256, bf), False),
+        (decode_case("length-1 row", 8, 1024, *yi, bf, lengths="one"),
+         True),
+        (decode_case("layer view of a stacked cache", 8, 512, *yi, bf,
+                     stacked=True), True))]
+    # a strided row: head dims 8..72 of a 128-wide e4m3 cache (8 bytes off
+    # 16): the CUDA-core kernel
+    base = e4m3_copy(decode_case("strided rows hd=64", 4, 600, 16, 2, 128,
+                                 bf))
+    strided = dict(base, q=base["q"][..., :64].contiguous(),
+                   k=base["k"][..., 8:72], v=base["v"][..., 8:72],
+                   k_bf16=base["k_bf16"][..., 8:72],
+                   v_bf16=base["v_bf16"][..., 8:72])
+    cases.append((strided, False))
+    results = []
+    for c, want_tc in cases:
+        check_path(failures, f"decode_attention {c['name']}",
+                   tensor_core_path(c["q"], c["k"], c["v"]), want_tc)
+        args = (c["q"], c["k"], c["v"], c["lengths"])
+        out = decode_attention(*args, window=c["window"])
+        ref = decode_attention_plain(*args, window=c["window"])
+        kb, vb = c["k_bf16"], c["v_bf16"]
+        if not want_tc and tensor_core_path(c["q"], kb, vb):
+            kb, vb = unaligned_copy(kb), unaligned_copy(vb)   # CUDA cores too
+        check_path(failures, f"decode_attention {c['name']} bf16 copy",
+                   tensor_core_path(c["q"], kb, vb), want_tc)
+        copy = decode_attention(c["q"], kb, vb, c["lengths"],
+                                window=c["window"])
+        torch.cuda.synchronize()
+        results.append(check_e4m3(failures, "decode_attention", c, out, ref,
+                                  copy))
+    by_name = {c["name"]: c for c, _ in cases}
+    timed = {}
+    for key, name in (("tick", "yi-9b tick ragged e4m3"),
+                      ("qwen3_moe", "qwen3-moe G=16 ragged e4m3"),
+                      ("danube", "danube hd=80 G=4 window 300 e4m3"),
+                      ("hd256_cuda_core", "hd=256 e4m3")):
+        timed[key] = time_decode_e4m3(by_name[name])
+        log_e4m3_timed("decode_attention", timed[key])
+    del cases, by_name, base, strided
+    long_case = e4m3_copy(decode_case("32k keys", 8, 32768, *yi, bf,
+                                      lengths="full"))
+    out = decode_attention(long_case["q"], long_case["k"], long_case["v"],
+                           long_case["lengths"])
+    ref = decode_attention_plain(long_case["q"], long_case["k"],
+                                 long_case["v"], long_case["lengths"])
+    copy = decode_attention(long_case["q"], long_case["k_bf16"],
+                            long_case["v_bf16"], long_case["lengths"])
+    results.append(check_e4m3(failures, "decode_attention", long_case, out,
+                              ref, copy))
+    timed["long_cache"] = time_decode_e4m3(long_case)
+    t = timed["long_cache"]
+    log_e4m3_timed("decode_attention", t, f"; e4m3 / bf16 kernel time "
+                   f"{t['kernel_ms'] / t['bf16_kernel_ms']:.3f}")
+    if t["kernel_ms"] > t["bf16_kernel_ms"]:
+        log(f"[kernels] decode_attention e4m3 at 32k keys is SLOWER than "
+            f"the bf16 kernel on the same cache ({t['kernel_ms']:.4f} vs "
+            f"{t['bf16_kernel_ms']:.4f} ms); recorded in PERF.md")
+    del long_case
+    torch.cuda.empty_cache()
+    return {"cases": results, "timed": timed}
 
 
 def paged_case(name, B, MP, ps, H, K, hd, dtype, *, window=None,
@@ -1053,6 +1309,7 @@ def paged_decode_kernel_phase(failures):
             failures.append(f"paged_decode_attention at {t['shape']}: not "
                             f"bitwise equal to K2 on the gathered cache")
     torch.cuda.empty_cache()
+    e4m3 = paged_e4m3_cases(failures)
     return [{
         "name": "paged_decode_attention",
         "route": "cuda",
@@ -1066,7 +1323,143 @@ def paged_decode_kernel_phase(failures):
         "long_cache": long,
         "qwen3_moe_shape": qwen,
         "cases": results,
+        "e4m3": e4m3,
     }]
+
+
+def paged_e4m3_cases(failures):
+    """K3 on e4m3 pools: each case held against the plain version, bit for
+    bit against K3 on the pool's bf16 copy and, at page size 16, against
+    K2 on the gathered e4m3 cache; timed at the tick and at 32k keys per
+    row beside K3 on the bf16 copy, K2 on the gathered e4m3 cache, a
+    gather + upcast + SDPA yardstick and the 1-byte bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import (
+        decode_attention, paged_decode_attention,
+        paged_decode_attention_plain)
+    from repro_torch.kernels.decode_attention.ops import tensor_core_path
+    from repro_torch.models.paged import _gathered_view
+
+    yi = (32, 4, 128)
+    bf = "bfloat16"
+    cases = [(e4m3_copy(c), tc) for c, tc in (
+        (paged_case("yi-9b tick, 3 rows share 4 pages", 8, 64, 16, *yi, bf,
+                    lengths="tick", share=True), True),
+        (paged_case("yi-9b window 100, a vacant row", 8, 64, 16, *yi, bf,
+                    window=100, vacant=True), True),
+        (paged_case("danube hd=80 G=4 window 300", 4, 32, 16, 32, 8, 80, bf,
+                    window=300), True),
+        (paged_case("hd=256", 2, 20, 16, 8, 2, 256, bf), False),
+        (paged_case("page size 32", 8, 32, 32, *yi, bf), True),
+        (paged_case("layer view of a stacked pool", 8, 32, 16, *yi, bf,
+                    stacked=True), True),
+        (paged_case("qwen3-moe tick G=16, 3 rows share 4 pages", 8, 64, 16,
+                    *QWEN_HEADS, bf, lengths="tick", share=True), True))]
+    results = []
+    for c, want_tc in cases:
+        check_path(failures, f"paged_decode_attention {c['name']}",
+                   tensor_core_path(c["q"], c["k"], c["v"]), want_tc)
+        args = (c["q"], c["k"], c["v"], c["table"], c["lengths"])
+        out = paged_decode_attention(*args, window=c["window"])
+        ref = paged_decode_attention_plain(*args, window=c["window"])
+        copy = paged_decode_attention(c["q"], c["k_bf16"], c["v_bf16"],
+                                      c["table"], c["lengths"],
+                                      window=c["window"])
+        k2 = None
+        if c["ps"] == 16:            # K2's split plan: K2's bits
+            gk, gv = _gathered_view(c["k"], c["v"], c["table"])
+            k2 = bool(torch.equal(out, decode_attention(
+                c["q"], gk, gv, c["lengths"], window=c["window"])))
+        torch.cuda.synchronize()
+        rec = check_e4m3(failures, "paged_decode_attention", c, out, ref,
+                         copy)
+        rec["bitwise_k2"] = k2
+        if k2 is False:
+            failures.append(f"paged_decode_attention {c['name']}: not "
+                            f"bitwise K2 on the gathered e4m3 cache")
+        log(f"[kernels] paged_decode_attention {c['name']}: bitwise equal to "
+            f"K2 on the gathered e4m3 cache: {k2}")
+        results.append(rec)
+
+    def timed(c):
+        q, kp, vp, table, lens = (c[k] for k in ("q", "k", "v", "table",
+                                                 "lengths"))
+        kb, vb = c["k_bf16"], c["v_bf16"]
+        B, H, hd = q.shape
+        ps, K = kp.shape[1], kp.shape[2]
+        Smax = table.shape[1] * ps
+        gk, gv = _gathered_view(kp, vp, table)
+        t = {}
+        for name, kk, vv in (("e4m3", kp, vp), ("bf16", kb, vb),
+                             ("bf16_again", kb, vb), ("e4m3_again", kp, vp)):
+            t[name] = cuda_time_ms(
+                lambda: paged_decode_attention(q, kk, vv, table, lens))
+        dev = profiled_ms(
+            lambda: paged_decode_attention(q, kp, vp, table, lens),
+            K2_KERNELS)
+        k2_ms = cuda_time_ms(lambda: decode_attention(q, gk, gv, lens))
+        plain_ms = cuda_time_ms(
+            lambda: paged_decode_attention_plain(q, kp, vp, table, lens))
+        bitwise = bool(torch.equal(
+            paged_decode_attention(q, kp, vp, table, lens),
+            decode_attention(q, gk, gv, lens)))
+        mask = (torch.arange(Smax, device="cuda")[None, :]
+                < lens[:, None])[:, None, None, :]
+
+        def library():        # gather, dequantize, then the library call
+            ck, cv = _gathered_view(kp, vp, table)
+            return F.scaled_dot_product_attention(
+                q[:, :, None, :], ck.transpose(1, 2).to(torch.bfloat16),
+                cv.transpose(1, 2).to(torch.bfloat16), attn_mask=mask,
+                enable_gqa=True)
+        try:
+            library_ms = cuda_time_ms(library)
+        except TypeError:                   # torch without enable_gqa
+            library_ms = None
+        del gk, gv
+        keys = int(torch.clamp(lens, max=Smax).sum())
+        pages = int(((torch.clamp(lens, max=Smax) + ps - 1) // ps).sum())
+        nbytes = e4m3_bytes(keys, K, hd, q.numel() * q.element_size(),
+                            4 * pages)
+        flops = 4 * hd * H * keys
+        t_bytes = nbytes / PEAK_BYTES_PER_S
+        t_flops = flops / PEAK_FLOPS["bfloat16"]
+        rec = {"shape": f"B={B} pages/row={table.shape[1]} ps={ps} H={H} "
+                        f"K={K} hd={hd} e4m3 pool, bf16 q, valid keys {keys}",
+               "ms": min(t["e4m3"], t["e4m3_again"]),
+               "kernel_ms": min(t["e4m3"], t["e4m3_again"]),
+               "kernel_ms_runs": [t["e4m3"], t["e4m3_again"]],
+               "device_ms": dev,
+               "bf16_kernel_ms": min(t["bf16"], t["bf16_again"]),
+               "bf16_kernel_ms_runs": [t["bf16"], t["bf16_again"]],
+               "k2_ms": k2_ms, "plain_ms": plain_ms,
+               "library_ms": library_ms,
+               "bound_ms": 1e3 * max(t_bytes, t_flops),
+               "bound_by": "bytes" if t_bytes >= t_flops else "operations",
+               "bytes": nbytes, "flops": flops, "bitwise_k2": bitwise}
+        log(f"[kernels] paged_decode_attention e4m3 timed at {rec['shape']}: "
+            f"kernel {rec['kernel_ms']:.4f} ms (runs "
+            f"{t['e4m3']:.4f}, {t['e4m3_again']:.4f}; device {dev:.4f} ms); "
+            f"the same kernel on the bf16 copy {rec['bf16_kernel_ms']:.4f} "
+            f"ms; K2 on the gathered e4m3 cache {k2_ms:.4f} ms; plain "
+            f"{plain_ms:.4f} ms; gather + upcast + SDPA {library_ms} ms; "
+            f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}, {nbytes} "
+            f"bytes at 1 byte per pool element); bitwise equal to K2 on the "
+            f"gathered cache: {bitwise}")
+        if not bitwise:
+            failures.append(f"paged_decode_attention e4m3 at {rec['shape']}: "
+                            f"not bitwise K2 on the gathered cache")
+        return rec
+
+    tick = timed(cases[0][0])
+    del cases
+    long_case = e4m3_copy(paged_case("32k keys per row", 8, 2048, 16, *yi,
+                                     bf, lengths="full"))
+    long = timed(long_case)
+    del long_case
+    torch.cuda.empty_cache()
+    return {"cases": results, "timed": {"tick": tick, "long_cache": long}}
 
 # --- phase 3: K4 (WKV-6) and K5 (SSD) ------------------------------------------
 
@@ -1651,11 +2044,11 @@ def first_divergence(a, b):
     return None
 
 
-def teacher_forced(engine, batch, teacher):
-    """Prefill logits, then FORCED_STEPS decode steps fed ``teacher``."""
+def teacher_forced(engine, batch, teacher, steps=FORCED_STEPS):
+    """Prefill logits, then ``steps`` decode steps fed ``teacher``."""
     logits, state = engine.prefill(batch, engine.new_state(GEN_BATCH))
     outs = [logits.float()]
-    for t in range(FORCED_STEPS):
+    for t in range(steps):
         logits, state = engine.decode(teacher[:, t], state)
         outs.append(logits.float())
     return outs
@@ -2020,6 +2413,86 @@ def profile_scheduler_tick(eng, work, out_dir: Path, name: str):
             + s.host_ms_window[-1]}
 
 
+def shared_prefix_run(failures, engines, cfg, layers, r, tag):
+    """Three greedy requests sharing a PREFIX_TOKENS prefix on one slot,
+    through the dense and the paged engine: the followers must reuse the
+    leader's 4 pages and 64 tokens each (their prefill takes the C > 0
+    plain attention), K3 must launch ``layers`` a paged tick, and each
+    follower's first-token logits must equal the dense engine's within
+    LOGITS_TOL.  Returns the pager's stats, the streams, the first-token
+    logit differences and the streams' first divergence."""
+    import torch
+    from repro_torch.core import ContinuousBatchingScheduler, SamplingParams
+    prefix = r.integers(0, cfg.vocab_size, PREFIX_TOKENS).tolist()
+    pwork = [prefix + r.integers(0, cfg.vocab_size, 3 + i).tolist()
+             for i in range(3)]
+    # each prefill's first-token logits (one request a prefill on one slot)
+    streams, firsts, pager = {}, {}, None
+    for name, eng in engines.items():
+        s = ContinuousBatchingScheduler(eng, num_slots=1)
+        method = "paged_prefill" if name == "paged" else "prefill"
+        firsts[name] = []
+
+        def recording(*args, _inner=getattr(eng, method),
+                      _out=firsts[name]):
+            logits, state = _inner(*args)
+            _out.append(logits[0].float().cpu())
+            return logits, state
+        setattr(eng, method, recording)
+        try:
+            counts_reset()
+            reqs = [s.submit(p, sampling=SamplingParams(max_new_tokens=16))
+                    for p in pwork]
+            s.run()
+            n = counts_read()
+        finally:
+            delattr(eng, method)
+        fa_n, k2_n, k3_n = (n[k] for k in K_NAMES[:3])
+        streams[name] = [x.output for x in reqs]
+        if name == "paged":
+            st = s.pager_stats()
+            followers = len(pwork) - 1
+            log(f"[{tag}] shared {PREFIX_TOKENS}-token prefix, 1 slot: "
+                f"prefix_hits {st['prefix_hits']}, prefill_tokens_reused "
+                f"{st['prefill_tokens_reused']} (expected "
+                f"{4 * followers} and {PREFIX_TOKENS * followers}); "
+                f"launches K1 {fa_n} K3 {k3_n} over {s.decode_ticks} ticks")
+            if (st["prefix_hits"] != 4 * followers
+                    or st["prefill_tokens_reused"] != PREFIX_TOKENS
+                    * followers or k3_n != layers * s.decode_ticks
+                    or k2_n != 0):
+                failures.append(f"{tag} shared prefix: {st}, K2 {k2_n} K3 "
+                                f"{k3_n}")
+            pager = st
+    # the followers' first-token logits: the paged engine's C > 0 prefill
+    # (suffix against the shared pages, plain attention) against the dense
+    # engine's whole-prompt prefill (K1), at LOGITS_TOL
+    diffs = []
+    for i in range(len(pwork)):
+        d, pg = firsts["dense"][i], firsts["paged"][i]
+        diffs.append(float((pg - d).abs().max()))
+        ok = bool(torch.isfinite(pg).all()) and torch.allclose(
+            pg, d, **LOGITS_TOL)
+        log(f"[{tag}] shared prefix, request {i} "
+            f"({'leader, C = 0' if i == 0 else 'follower, C > 0'}): "
+            f"first-token logits paged vs dense max abs diff {diffs[-1]:.4e} "
+            f"(|logit| <= {float(d.abs().max()):.3f}; "
+            f"{'ok' if ok else 'FAIL'} at rtol {LOGITS_TOL['rtol']}, atol "
+            f"{LOGITS_TOL['atol']}); argmax dense {int(d.argmax())}, paged "
+            f"{int(pg.argmax())}")
+        if i > 0 and not ok:
+            failures.append(f"{tag} shared prefix: follower {i}'s "
+                            f"first-token logits differ by {diffs[-1]:.4e}")
+    div = first_divergence(streams["dense"], streams["paged"])
+    log(f"[{tag}] shared-prefix streams (followers through the C > 0 "
+        "plain attention), paged vs dense: "
+        + ("identical" if div is None else
+           f"first differ at request {div[0]}, token {div[1]} (reported, "
+           f"not checked)"))
+    return {"pager": pager, "streams": streams, "first_token_diffs": diffs,
+            "first_divergence": div}
+
+
 def scheduler_phase(failures, kernels, app, profile_dir):
     import numpy as np
     import torch
@@ -2074,74 +2547,12 @@ def scheduler_phase(failures, kernels, app, profile_dir):
 
     # shared prefix: one slot, so each follower finds the leader's pages
     r = np.random.default_rng(2)
-    prefix = r.integers(0, cfg.vocab_size, PREFIX_TOKENS).tolist()
-    pwork = [prefix + r.integers(0, cfg.vocab_size, 3 + i).tolist()
-             for i in range(3)]
-    # each prefill's first-token logits (one request a prefill on one slot)
-    streams, firsts = {}, {}
-    for name, eng in engines.items():
-        s = ContinuousBatchingScheduler(eng, num_slots=1)
-        method = "paged_prefill" if name == "paged" else "prefill"
-        firsts[name] = []
-
-        def recording(*args, _inner=getattr(eng, method),
-                      _out=firsts[name]):
-            logits, state = _inner(*args)
-            _out.append(logits[0].float().cpu())
-            return logits, state
-        setattr(eng, method, recording)
-        try:
-            counts_reset()
-            reqs = [s.submit(p, sampling=SamplingParams(max_new_tokens=16))
-                    for p in pwork]
-            s.run()
-            n = counts_read()
-        finally:
-            delattr(eng, method)
-        fa_n, k2_n, k3_n = (n[k] for k in K_NAMES[:3])
-        streams[name] = [x.output for x in reqs]
-        if name == "paged":
-            st = s.pager_stats()
-            followers = len(pwork) - 1
-            log(f"[scheduler] shared {PREFIX_TOKENS}-token prefix, 1 slot: "
-                f"prefix_hits {st['prefix_hits']}, prefill_tokens_reused "
-                f"{st['prefill_tokens_reused']} (expected "
-                f"{4 * followers} and {PREFIX_TOKENS * followers}); "
-                f"launches K1 {fa_n} K3 {k3_n} over {s.decode_ticks} ticks")
-            if (st["prefix_hits"] != 4 * followers
-                    or st["prefill_tokens_reused"] != PREFIX_TOKENS
-                    * followers or k3_n != layers * s.decode_ticks
-                    or k2_n != 0):
-                failures.append(f"shared prefix: {st}, K2 {k2_n} K3 {k3_n}")
-            kernels[2]["scheduler"]["prefix"] = st
-    # the followers' first-token logits: the paged engine's C > 0 prefill
-    # (suffix against the shared pages, plain attention) against the dense
-    # engine's whole-prompt prefill (K1), at LOGITS_TOL
-    diffs = []
-    for i in range(len(pwork)):
-        d, pg = firsts["dense"][i], firsts["paged"][i]
-        diffs.append(float((pg - d).abs().max()))
-        ok = bool(torch.isfinite(pg).all()) and torch.allclose(
-            pg, d, **LOGITS_TOL)
-        log(f"[scheduler] shared prefix, request {i} "
-            f"({'leader, C = 0' if i == 0 else 'follower, C > 0'}): "
-            f"first-token logits paged vs dense max abs diff {diffs[-1]:.4e} "
-            f"(|logit| <= {float(d.abs().max()):.3f}; "
-            f"{'ok' if ok else 'FAIL'} at rtol {LOGITS_TOL['rtol']}, atol "
-            f"{LOGITS_TOL['atol']}); argmax dense {int(d.argmax())}, paged "
-            f"{int(pg.argmax())}")
-        if i > 0 and not ok:
-            failures.append(f"shared prefix: follower {i}'s first-token "
-                            f"logits differ by {diffs[-1]:.4e}")
-    div = first_divergence(streams["dense"], streams["paged"])
-    log("[scheduler] shared-prefix streams (followers through the C > 0 "
-        "plain attention), paged vs dense: "
-        + ("identical" if div is None else
-           f"first differ at request {div[0]}, token {div[1]} (reported, "
-           f"not checked)"))
-    kernels[2]["scheduler"]["prefix_first_divergence"] = div
+    pre = shared_prefix_run(failures, engines, cfg, layers, r, "scheduler")
+    kernels[2]["scheduler"]["prefix"] = pre["pager"]
+    kernels[2]["scheduler"]["prefix_first_divergence"] = pre[
+        "first_divergence"]
     kernels[2]["scheduler"]["prefix_follower_logits_max_abs_diff"] = max(
-        diffs[1:])
+        pre["first_token_diffs"][1:])
 
     # pause/resume mid-decode: dense recomputes, paged reattaches its
     # pages.  The paged streams must equal the same requests run without a
@@ -2189,6 +2600,240 @@ def scheduler_phase(failures, kernels, app, profile_dir):
         failures.append(f"pause/resume: {resumed}")
     kernels[2]["scheduler"]["pause_resume_dense_first_divergence"] = div
     del engines
+    torch.cuda.empty_cache()
+
+
+# --- phase 11: yi-9b on the fp8 e4m3 KV cache ----------------------------------
+
+E4M3_BUDGET = 8 << 30       # the budget pages_for_budget is read at: 8 GiB
+E4M3_SEED = 11              # the scheduler round's workload
+
+
+def cache_dtypes(state):
+    """{leaf path: dtype} of a dense or paged decode state's caches."""
+    return {f"{key}/{kv}": t.dtype for key, c in state.items()
+            if isinstance(c, dict) for kv, t in c.items()}
+
+
+def parting_gap(engines, batch, streams, div):
+    """At the first token where the e4m3-cache stream parts from the
+    bf16-cache one: both engines teacher-forced along the bf16 stream up
+    to that token, and the parting row's logits compared (max abs gap,
+    each engine's argmax and the bf16 side's top-2 margin)."""
+    import torch
+    row, j = div
+    teacher = torch.tensor(streams["bf16"], dtype=torch.int32,
+                           device=batch["tokens"].device)
+    last = {name: teacher_forced(eng, batch, teacher, steps=j)[j][row]
+            for name, eng in engines.items()}
+    top2 = last["bf16"].topk(2).values
+    return {"row": row, "token": j,
+            "max_abs_gap": float((last["e4m3"] - last["bf16"]).abs().max()),
+            "argmax": {k: int(v.argmax()) for k, v in last.items()},
+            "bf16_top2_margin": float(top2[0] - top2[1]),
+            "max_abs_logit": float(last["bf16"].abs().max())}
+
+
+def e4m3_phase(failures, kernels, app, profile_dir):
+    """Phase 11: member yi-9b#0 (full width and depth) served with
+    engines built under ``opt.flags(kv_cache_f8=True)``, beside engines of
+    the same params with the bf16 cache."""
+    import numpy as np
+    import torch
+    from repro_torch import opt
+    from repro_torch.core import (InferenceEngine, PagedInferenceEngine,
+                                  SchedulerService, page_kv_bytes)
+    from repro_torch.core.batching import pad_sequences
+    from repro_torch.core.kv_pager import pages_for_budget
+    from repro_torch.models.attention import to_cache
+
+    member = app.registry.get(f"{ARCH}#0")        # no second copy of weights
+    cfg = member.model.config
+    layers = cfg.num_layers
+    kw = dict(max_len=GEN_MAX_LEN, max_batch=GEN_BATCH)
+
+    def build():
+        return {"dense": InferenceEngine(member.model, member.params, **kw),
+                "paged": PagedInferenceEngine(member.model, member.params,
+                                              page_size=16, **kw)}
+    with opt.flags(kv_cache_f8=True):
+        f8 = build()
+    bf = build()
+    out = {}
+
+    # the cast on the card gives the CPU's bytes (which the CPU tests hold
+    # to the JAX package's) for every bf16 bit pattern
+    x = torch.arange(-2 ** 15, 2 ** 15, dtype=torch.int32).to(
+        torch.int16).view(torch.bfloat16)
+    on_cpu = to_cache(x, torch.float8_e4m3fn).view(torch.uint8)
+    on_card = to_cache(x.cuda(), torch.float8_e4m3fn).view(torch.uint8)
+    same = bool(torch.equal(on_card.cpu(), on_cpu))
+    log(f"[e4m3] the cache cast over all 65536 bf16 patterns, card vs CPU: "
+        f"{'equal' if same else 'DIFFERENT'}")
+    if not same:
+        failures.append("e4m3 cast: the card's bytes differ from the CPU's")
+
+    # every GQA cache leaf is e4m3 (and bf16 without the flag); a page and
+    # the pool cost half
+    for cache, engs in (("e4m3", f8), ("bf16", bf)):
+        want = torch.float8_e4m3fn if cache == "e4m3" else torch.bfloat16
+        for name, eng in engs.items():
+            torch.cuda.synchronize()
+            m0 = torch.cuda.memory_allocated()
+            st = eng.new_state(SCHED_SLOTS)
+            torch.cuda.synchronize()
+            delta = torch.cuda.memory_allocated() - m0
+            dts = cache_dtypes(st)
+            del st
+            out[f"{name}_{cache}_state_bytes"] = delta
+            log(f"[e4m3] {name} engine, {cache} cache: leaves "
+                f"{sorted((k, str(v)) for k, v in dts.items())}; a "
+                f"{SCHED_SLOTS}-slot state allocates {delta} bytes")
+            if not dts or set(dts.values()) != {want}:
+                failures.append(f"e4m3 phase: {name} {cache} state dtypes "
+                                f"{dts}")
+    pb8, pb16 = f8["paged"].page_bytes, bf["paged"].page_bytes
+    n8, n16 = (pages_for_budget(E4M3_BUDGET, b) for b in (pb8, pb16))
+    ratios = {name: out[f"{name}_bf16_state_bytes"]
+              / max(out[f"{name}_e4m3_state_bytes"], 1)
+              for name in ("dense", "paged")}
+    log(f"[e4m3] page_bytes {pb8} (bf16 {pb16}; page_kv_bytes "
+        f"{page_kv_bytes(cfg, 16)}); pages_for_budget at "
+        f"{E4M3_BUDGET} bytes: {n8} (bf16 {n16}); state bytes bf16 / e4m3: "
+        f"dense {ratios['dense']:.4f}, paged pool {ratios['paged']:.4f}")
+    if (2 * pb8 != pb16 or pb16 != page_kv_bytes(cfg, 16) or n8 != 2 * n16
+            or any(abs(r - 2) > 0.01 for r in ratios.values())):
+        failures.append(f"e4m3 phase: page bytes {pb8}/{pb16}, pages "
+                        f"{n8}/{n16}, state ratios {ratios}")
+    out.update(page_bytes=pb8, page_bytes_bf16=pb16,
+               pages_for_budget=n8, pages_for_budget_bf16=n16,
+               budget_bytes=E4M3_BUDGET, state_bytes_ratio=ratios)
+
+    # generate: K1 48 a prefill, K2 48 a tick, exactly
+    r = np.random.default_rng(0)
+    lens = r.integers(17, 301, GEN_BATCH)
+    lens[0], lens[-1] = 17, 300
+    prompts = [r.integers(0, cfg.vocab_size, n).tolist() for n in lens]
+    gen = {"e4m3": f8["dense"], "bf16": bf["dense"]}
+    res = {}
+    for cache, eng in gen.items():
+        eng.generate(prompts, max_new_tokens=2)      # warm the allocator
+        eng.prefill_calls = eng.decode_calls = 0
+        counts_reset()
+        t0 = time.perf_counter()
+        res[cache] = eng.generate(prompts, max_new_tokens=GEN_TOKENS)
+        n = counts_read()
+        wall = time.perf_counter() - t0
+        fa_n, k2_n, k3_n = (n[k] for k in K_NAMES[:3])
+        pre_n, dec_n = eng.prefill_calls, eng.decode_calls
+        steps = res[cache].steps
+        log(f"[e4m3] greedy generate, {cache} cache: {steps} steps in "
+            f"{1e3 * wall:.1f} ms ({GEN_BATCH * GEN_TOKENS / wall:.1f} "
+            f"tokens/s); prefill_calls {pre_n}, decode_calls {dec_n}; "
+            f"launches K1 {fa_n} (expected {layers} x {pre_n}), K2 {k2_n} "
+            f"(expected {layers} x {dec_n}), K3 {k3_n}")
+        if (fa_n != layers * pre_n or pre_n != 1 or k2_n != layers * dec_n
+                or dec_n != steps - 1 or k2_n == 0 or k3_n
+                or res[cache].finish_reasons != ["length"] * GEN_BATCH):
+            failures.append(f"e4m3 phase generate ({cache}): K1 {fa_n} K2 "
+                            f"{k2_n} K3 {k3_n}, {pre_n} prefills, {dec_n} "
+                            f"ticks, {steps} steps")
+        out[f"generate_{cache}"] = {"wall_ms": 1e3 * wall,
+                                    "tokens_per_s": GEN_BATCH * GEN_TOKENS
+                                    / wall, "launches_k2": k2_n,
+                                    "ticks": dec_n}
+        if cache == "e4m3":
+            kernels[1]["launches_e4m3_generate"] = k2_n
+            kernels[1]["launches_per_tick_e4m3"] = k2_n // max(dec_n, 1)
+
+    # teacher-forced: kernels vs plain versions on the same e4m3 cache
+    tokens, lengths = pad_sequences(prompts, f8["dense"].seq_buckets)
+    dev = f8["dense"].device
+    batch = {"tokens": torch.from_numpy(tokens).to(dev),
+             "lengths": torch.from_numpy(lengths).to(dev)}
+    teacher = torch.tensor(res["e4m3"].tokens, dtype=torch.int32,
+                           device=dev)
+    kern = teacher_forced(f8["dense"], batch, teacher)
+    with plain_kernels():
+        plain = teacher_forced(f8["dense"], batch, teacher)
+    errs = []
+    for step, (a, b) in enumerate(zip(kern, plain)):
+        errs.append(float((a - b).abs().max()))
+        if not (bool(torch.isfinite(a).all())
+                and torch.allclose(a, b, **LOGITS_TOL)):
+            failures.append(f"e4m3 teacher-forced logits step {step} vs "
+                            f"plain: err {errs[-1]}")
+    log(f"[e4m3] teacher-forced logits on the e4m3 cache, kernels vs plain "
+        f"versions, prefill + {FORCED_STEPS} steps: max_abs_err per step "
+        f"{[f'{e:.3e}' for e in errs]} (LOGITS_TOL rtol "
+        f"{LOGITS_TOL['rtol']}, atol {LOGITS_TOL['atol']})")
+    out["teacher_forced_max_abs_err"] = errs
+
+    # e4m3 vs bf16 cache streams: partings reported, not failed
+    streams = {k: v.tokens for k, v in res.items()}
+    parted = [i for i in range(GEN_BATCH)
+              if streams["e4m3"][i] != streams["bf16"][i]]
+    div = first_divergence(streams["bf16"], streams["e4m3"])
+    gap = parting_gap(gen, batch, streams, div) if div else None
+    log(f"[e4m3] greedy streams, e4m3 vs bf16 cache: {len(parted)} of "
+        f"{GEN_BATCH} rows part (reported, not checked)"
+        + ("" if gap is None else
+           f"; first parting row {gap['row']}, token {gap['token']}: logit "
+           f"gap {gap['max_abs_gap']:.4e} at |logit| <= "
+           f"{gap['max_abs_logit']:.3f}, argmax {gap['argmax']}, bf16 top-2 "
+           f"margin {gap['bf16_top2_margin']:.4e}"))
+    out["streams_parted_rows"] = parted
+    out["first_parting"] = gap
+
+    # dense and paged SchedulerService rounds, e4m3 and bf16 in turns
+    work = sched_workload(cfg.vocab_size, seed=E4M3_SEED)
+    services = {f"{name} {cache}": SchedulerService(eng,
+                                                    num_slots=SCHED_SLOTS)
+                for name in ("dense", "paged")
+                for cache, eng in (("e4m3", f8[name]), ("bf16", bf[name]))}
+    rounds, sched_streams = {}, {}
+    try:
+        warm_s = {name: svc.warm() for name, svc in services.items()}
+        for name, svc in services.items():
+            rounds[name], sched_streams[name] = drive_counted(
+                failures, svc, work, name, layers, warm_s[name], 0)
+    finally:
+        for svc in services.values():
+            svc.close()
+    same = sched_streams["paged e4m3"] == sched_streams["dense e4m3"]
+    parted = sum(a != b for a, b in zip(sched_streams["dense e4m3"],
+                                        sched_streams["dense bf16"]))
+    log(f"[e4m3] scheduler round, e4m3 cache: paged vs dense streams "
+        f"{'identical' if same else 'DIFFERENT'}; {parted} of "
+        f"{SCHED_REQUESTS} streams part from the bf16 cache's (reported)")
+    if not same:
+        failures.append("e4m3 phase: paged streams differ from dense")
+    kernels[2]["launches_e4m3_scheduler"] = rounds["paged e4m3"][
+        "launches"]["paged_decode_attention"]
+    out["scheduler"] = rounds
+    out["scheduler_streams_parted_from_bf16"] = parted
+
+    # shared prefix on the e4m3 engines: the leader bit for bit, the
+    # followers (C > 0: the plain path reads the pool dequantized) within
+    # LOGITS_TOL
+    pre = shared_prefix_run(failures, f8, cfg, layers,
+                            np.random.default_rng(2), "e4m3")
+    lead = pre["streams"]["paged"][0] == pre["streams"]["dense"][0]
+    log(f"[e4m3] shared prefix: the leader's streams paged vs dense "
+        f"{'identical' if lead else 'DIFFERENT'}")
+    if not lead:
+        failures.append("e4m3 shared prefix: the leader's paged stream "
+                        "differs from its dense one")
+    out["prefix"] = {k: pre[k] for k in ("pager", "first_token_diffs",
+                                         "first_divergence")}
+    if profile_dir:
+        out["tick_profile"] = {
+            f"{name} {cache}": profile_scheduler_tick(
+                engs[name], work, Path(profile_dir), f"{name}_{cache}")
+            for name in ("dense", "paged")
+            for cache, engs in (("e4m3", f8), ("bf16", bf))}
+    kernels[1]["e4m3_phase"] = out
+    del f8, bf, gen
     torch.cuda.empty_cache()
 
 
@@ -5537,19 +6182,39 @@ def main(argv=None) -> int:
             f"{sass[name] or 'cuobjdump not found'}")
         if sass[name] and not sass[name][op]:
             failures.append(f"{name}: no {op} in its SASS")
-    kernels = (kernel_phase(failures) + decode_kernel_phase(failures)
-               + paged_decode_kernel_phase(failures)
-               + wkv_kernel_phase(failures) + ssd_kernel_phase(failures))
+    t_start = time.perf_counter()
+    clock = [t_start]
+
+    def lap(name):
+        now = time.perf_counter()
+        log(f"[timing] {name} in {now - clock[0]:.1f} s ({now - t_start:.1f} "
+            f"s since the build)")
+        clock[0] = now
+
+    kernels = kernel_phase(failures)
+    lap("phase 3, K1")
+    kernels += decode_kernel_phase(failures)
+    lap("phase 3, K2")
+    kernels += paged_decode_kernel_phase(failures)
+    lap("phase 3, K3")
+    kernels += wkv_kernel_phase(failures) + ssd_kernel_phase(failures)
+    lap("phase 3, K4 and K5")
     for entry, lib in zip(kernels, ("flash_attention", "decode_attention",
                                     "decode_attention", "rwkv6_wkv",
                                     "mamba2_ssd")):
         entry["sass"] = sass[lib]
     base_bytes = torch.cuda.memory_allocated()
     app = main_path_phase(failures, kernels, args.profile)
+    lap("phase 4")
     generate_phase(failures, kernels, app, args.profile)
+    lap("phase 5")
     scheduler_phase(failures, kernels, app, args.profile)
+    lap("phase 6")
     refs = http_generate_phase(failures, kernels, app, args.profile)
     spec_phase(failures, kernels, app, refs, args.profile)
+    lap("phases 6b and 6c")
+    e4m3_phase(failures, kernels, app, args.profile)
+    lap("phase 11")
     app.close()
     del app                     # the two yi-9b members' 35 GB
     gc.collect()
@@ -5562,17 +6227,21 @@ def main(argv=None) -> int:
     del app, engines            # the recurrent members
     gc.collect()
     torch.cuda.empty_cache()
+    lap("phase 7")
     control_plane_phase(failures, kernels, args.profile)
     gc.collect()
     torch.cuda.empty_cache()
+    lap("phase 8")
     moe_phase(failures, kernels, args.profile, base_bytes)
     gc.collect()
     torch.cuda.empty_cache()
     mla_phase(failures, kernels, args.profile, base_bytes)
+    lap("phases 9 and 9b")
     for arch in FRONTEND:
         gc.collect()
         torch.cuda.empty_cache()
         frontend_phase(failures, kernels, args.profile, base_bytes, arch)
+    lap("phases 10 and 10b")
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

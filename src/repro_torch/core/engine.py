@@ -9,6 +9,12 @@ keeps the decode data path on the device:
 ``decode_sample`` runs the model's decode step and samples the next ids
 there, so per tick only the ``(batch,)`` int32 ids cross to the host.
 
+The flags that shape a decode state (``STATE_FLAGS`` of
+``repro_torch.opt``: the e4m3 cache, the ring cache) are read when an
+engine is built, and every state it allocates later is made under them,
+whichever thread asks (a scheduler's service thread sees no flag set in
+its builder's thread).
+
 Where the JAX engine jits and donates, this one runs eagerly under
 ``torch.no_grad`` and the model writes each tick's K/V into the state's
 cache in place; a state passed to ``prefill`` or ``decode`` must not be
@@ -25,13 +31,14 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch import opt
 from repro_torch.core.batching import BucketSpec, pad_sequences
 from repro_torch.core.kv_pager import pages_for_budget
 from repro_torch.core.sampling import (SamplingParams, base_key,
                                        sample_tokens, samplers_for,
                                        sampling_regime, speculative_accept)
 from repro_torch.models import paged, transformer
-from repro_torch.models.attention import cache_dtype
+from repro_torch.models.attention import cache_dtype, raw, to_cache
 from repro_torch.models.build import Model
 
 
@@ -43,9 +50,14 @@ class GenerationResult:
     finish_reasons: Optional[List[Optional[str]]] = None
 
 
+# the flags that decide a decode state's layout and dtype
+STATE_FLAGS = ("kv_cache_f8", "ring_cache")
+
+
 class InferenceEngine:
     def __init__(self, model: Model, params, *, max_len: int = 2048,
                  max_batch: int = 8, window: Optional[int] = None):
+        self.state_flags = {k: opt.enabled(k) for k in STATE_FLAGS}
         self.model = model
         self.params = params
         self.device = params["embed"].device
@@ -63,8 +75,9 @@ class InferenceEngine:
     # --- API -----------------------------------------------------------------
 
     def new_state(self, batch: int, device=None):
-        return self.model.init_state(batch, self.max_len,
-                                     device=device or self.device)
+        with opt.flags(**self.state_flags):
+            return self.model.init_state(batch, self.max_len,
+                                         device=device or self.device)
 
     @torch.no_grad()
     def prefill(self, batch: Dict[str, Any], state):
@@ -111,7 +124,8 @@ class InferenceEngine:
         """Slot scatter: copy selected rows of a freshly prefilled GROUP
         state into selected slots of a pooled decode state.  Slot b takes
         group row ``src_rows[b]`` iff ``write_mask[b]``.  Returns a new
-        state; the pool's tensors are left as they were."""
+        state; the pool's tensors are left as they were.  An e4m3 leaf
+        moves as bytes."""
         axes = self.state_batch_axes()
         dev = self.device
         src_rows = torch.as_tensor(src_rows, device=dev).long()
@@ -120,11 +134,12 @@ class InferenceEngine:
         def one(pool, sub, axis):
             if axis is None:
                 return pool
-            pool_m = pool.movedim(axis, 0)
-            picked = sub.movedim(axis, 0).index_select(0, src_rows)
+            pool_m = raw(pool).movedim(axis, 0)
+            picked = raw(to_cache(sub, pool.dtype)).movedim(
+                axis, 0).index_select(0, src_rows)
             mask = write_mask.reshape((-1,) + (1,) * (pool_m.ndim - 1))
-            out = torch.where(mask, picked.to(pool_m.dtype), pool_m)
-            return out.movedim(0, axis)
+            out = torch.where(mask, picked, pool_m)
+            return out.movedim(0, axis).view(pool.dtype)
 
         return _map_state(one, pool_state, group_state, axes)
 
@@ -334,10 +349,11 @@ class PagedInferenceEngine(InferenceEngine):
         return self.ctx_buckets.bucket_for(n_ctx_pages)
 
     def new_state(self, batch: int, device=None):
-        return paged.init_paged_state(self.model.config, batch,
-                                      self.num_pages, self.page_size,
-                                      self.max_pages_per_seq,
-                                      device=device or self.device)
+        with opt.flags(**self.state_flags):
+            return paged.init_paged_state(self.model.config, batch,
+                                          self.num_pages, self.page_size,
+                                          self.max_pages_per_seq,
+                                          device=device or self.device)
 
     @torch.no_grad()
     def paged_prefill(self, state, tokens, lengths, ctx_table, ctx_lens,

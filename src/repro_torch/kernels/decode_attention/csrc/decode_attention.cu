@@ -30,8 +30,12 @@
 // the same way (the TPU wrapper transposed the whole pool to (P,K,ps,hd) on
 // every call); page_table (B,MP) is int32 and contiguous, and page 0 is the
 // dump page that vacant rows point at.  Page offsets are 64-bit.  The last
-// dimension must be contiguous.  fp32 and bf16; q, k and v share one dtype
-// and o has q's dtype.
+// dimension must be contiguous.  q and o share one dtype; the cache (k and
+// v) takes q's dtype (fp32 or bf16) or, with a bf16 q, float8 e4m3fn (the
+// fp8 KV cache; the TPU kernels take it through k_ref[...].astype(float32),
+// kernel.py:42-44 and :135-137).  An e4m3fn value converts to bf16 exactly
+// (subnormals and NaN included), so K2 on an e4m3 cache computes what it
+// computes on the bf16 copy of that cache, bit for bit.
 //
 // What bounds it on an H100: one decode tick reads every valid K/V byte of
 // the layer once and does 4*hd FLOP per (query head, key), i.e. 2*G FLOP
@@ -69,10 +73,20 @@
 // keys, a lane owns HD_PAD/32 head dims, and a q.k dot product is reduced
 // across the warp with shuffles.  TMA is not used: a paged row is found
 // through the page table, one 16-key tile at a time.
-// Not yet done (later work): the fp8 e4m3 cache.
+// The e4m3 cache halves the bytes, and so the bound (0.080 ms at 32k keys
+// for yi-9b's B=8).  Both kernels take it: the CUDA-core kernel converts a
+// lane's span of each row to floats as it loads it; the tensor-core kernel
+// keeps its cp.async ring, now of e4m3 rows (a 16-byte copy holds 16 of a
+// key's dims), and each warp converts a tile it has received into a bf16
+// staging tile in shared memory (cvt.rn.f16x2.e4m3x2, then to bf16: both
+// exact), from which the bf16 fragments are loaded by ldmatrix as before
+// (ldmatrix on sm_90 moves 16-bit elements only).  The products stay bf16
+// mma.sync: an fp16 product would round q.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -103,6 +117,9 @@ __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_float(__nv_fp8_e4m3 x) {
+  return static_cast<float>(x);
+}
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
@@ -115,6 +132,8 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
 
 template <int BYTES>
 struct Chunk;
+template <>
+struct Chunk<1> { using type = unsigned char; };
 template <>
 struct Chunk<2> { using type = unsigned short; };
 template <>
@@ -252,10 +271,11 @@ struct Span {
 // One block per (KV split, KV head x head group, batch row).  The block's
 // GB query heads are g0 .. g0+GB-1 of KV head kh (those >= G are padding).
 // Writes the split's unnormalised accumulator to part_acc (B,H,nsplit,hd)
-// and its (max, sum) to part_ml (B,H,nsplit,2).
-template <typename T, int HD_PAD, int GB, typename KV>
+// and its (max, sum) to part_ml (B,H,nsplit,2).  TQ is q's type, TC the
+// cache's (KV's element type).
+template <typename TQ, typename TC, int HD_PAD, int GB, typename KV>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
-decode_split_kernel(const T* __restrict__ q, KV kv,
+decode_split_kernel(const TQ* __restrict__ q, KV kv,
                     const int* __restrict__ lengths,
                     float* __restrict__ part_acc, float* __restrict__ part_ml,
                     int Smax, int H, int G, int hd, int ngroups, int chunk,
@@ -292,8 +312,8 @@ decode_split_kernel(const T* __restrict__ q, KV kv,
   for (int gi = 0; gi < GB; ++gi) {
     const int g = g0 + gi;
     if (g < G) {
-      load_dims<T, VEC>(q + b * q_sb + (long long)(kh * G + g) * q_sh, d0,
-                        hd, qv[gi]);
+      load_dims<TQ, VEC>(q + b * q_sb + (long long)(kh * G + g) * q_sh, d0,
+                         hd, qv[gi]);
     } else {
 #pragma unroll
       for (int e = 0; e < VEC; ++e) qv[gi][e] = 0.f;
@@ -305,12 +325,12 @@ decode_split_kernel(const T* __restrict__ q, KV kv,
   }
 
   for (int j0 = begin + warp * U; j0 < end; j0 += kWarps * U) {
-    Span<T, VEC> kraw[U], vraw[U];
+    Span<TC, VEC> kraw[U], vraw[U];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int j = min(j0 + u, end - 1);   // past the end: a valid row, unused
-      const T* krow;
-      const T* vrow;
+      const TC* krow;
+      const TC* vrow;
       cur.rows(j, krow, vrow);
       kraw[u].load(krow, d0, hd);
       vraw[u].load(vrow, d0, hd);
@@ -399,8 +419,8 @@ decode_split_kernel(const T* __restrict__ q, KV kv,
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core split kernel: bf16, head_dim 32/64/80/96/128, 16-byte aligned
-// rows, G <= 16.  One block of 4 warps per (KV split, KV head, batch row);
+// Tensor-core split kernel: bf16 q, a bf16 or e4m3 cache, head_dim
+// 32/64/80/96/128, 16-byte aligned rows, G <= 16.  One block of 4 warps per (KV split, KV head, batch row);
 // the G query heads of the KV head are the rows of one mma.sync m16n8k16 A
 // tile (padded to 16 rows with zeros), held in registers for the whole
 // split.  Each warp walks its own 16-key tiles (warp w takes tiles w, w+4,
@@ -411,7 +431,9 @@ decode_split_kernel(const T* __restrict__ q, KV kv,
 // the A operand of O += P V (V by ldmatrix.trans).  The warps' (m, l, acc)
 // are merged through shared memory at the end.  Keys of a tile outside the
 // split's [begin, end) load the nearest row inside it (so K3 stays on its
-// staged pages) and are masked.
+// staged pages) and are masked.  With an e4m3 cache the ring holds e4m3
+// rows, unpadded, and a tile is converted into the warp's bf16 staging tile
+// (padded as the bf16 ring's) before the products read it.
 // ---------------------------------------------------------------------------
 
 constexpr int kTcWarps = 4;
@@ -456,6 +478,15 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// Two e4m3 values (low byte first) as a bf16x2 word (low half first):
+// e4m3 -> f16 in hardware, then f16 -> f32 -> bf16, every step exact.
+__device__ __forceinline__ uint32_t e4m3x2_to_bf16x2(uint32_t two) {
+  const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(
+      static_cast<__nv_fp8x2_storage_t>(two & 0xFFFFu), __NV_E4M3);
+  const float2 f = __half22float2(__half2(h));
+  return pack_bf16(f.x, f.y);
+}
+
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(a),
@@ -472,14 +503,52 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Bytes of the ring (all warps) at head_dim HD; K3's page entries come
-// first, at offset 0, and the ring starts at `ring_off` (128-aligned).
+// The shared memory of the tensor-core kernel at head_dim HD with cache
+// element TC: K3's page entries first, at offset 0; from `ring_off`
+// (128-aligned) each warp's ring of kTcStages (K, V) tile pairs; with an
+// e4m3 cache then each warp's bf16 staging pair.
+template <int HD, typename TC>
+struct TcSmem {
+  static constexpr bool kF8 = sizeof(TC) == 1;
+  static constexpr int LDS = HD + 8;      // bf16 tile row: ldmatrix conflict-free
+  static constexpr int TILE = kTcKeys * LDS;  // elements of a bf16 K (or V) tile
+  static constexpr int ROW = kF8 ? HD : LDS;  // ring row, in TC elements
+  static constexpr int RTILE = kTcKeys * ROW; // ring elements of one tile
+  static constexpr int RING_WARP = kTcStages * 2 * RTILE * (int)sizeof(TC);
+  static constexpr int STAGE_WARP = kF8 ? 2 * TILE * 2 : 0;
+  static constexpr int BYTES = kTcWarps * (RING_WARP + STAGE_WARP);
+  // a warp's ring holds its (m, l, acc) for the final merge
+  static_assert(RING_WARP >= (32 + 16 * HD) * 4, "merge scratch");
+};
+
+// An e4m3 (K, V) tile pair of the ring (rows of HD bytes, K's 16 then V's
+// 16) into the warp's bf16 staging pair (rows of HD + 8 elements).
 template <int HD>
-constexpr int tc_ring_bytes() {
-  return kTcWarps * kTcStages * 2 * kTcKeys * (HD + 8) * 2;
+__device__ __forceinline__ void stage_e4m3_tiles(
+    const __nv_fp8_e4m3* src, __nv_bfloat16* dst, int lane) {
+  constexpr int CH = HD / 16;           // 16-byte chunks of an e4m3 row
+  constexpr int LDS = HD + 8;
+#pragma unroll
+  for (int c = lane; c < 2 * kTcKeys * CH; c += 32) {
+    const int j = c / CH;
+    const int col = (c % CH) * 16;
+    const uint4 w = *reinterpret_cast<const uint4*>(src + j * HD + col);
+    uint4 lo, hi;
+    lo.x = e4m3x2_to_bf16x2(w.x);
+    lo.y = e4m3x2_to_bf16x2(w.x >> 16);
+    lo.z = e4m3x2_to_bf16x2(w.y);
+    lo.w = e4m3x2_to_bf16x2(w.y >> 16);
+    hi.x = e4m3x2_to_bf16x2(w.z);
+    hi.y = e4m3x2_to_bf16x2(w.z >> 16);
+    hi.z = e4m3x2_to_bf16x2(w.w);
+    hi.w = e4m3x2_to_bf16x2(w.w >> 16);
+    __nv_bfloat16* d = dst + j * LDS + col;
+    *reinterpret_cast<uint4*>(d) = lo;
+    *reinterpret_cast<uint4*>(d + 8) = hi;
+  }
 }
 
-template <int HD, typename KV>
+template <int HD, typename TC, typename KV>
 __global__ void __launch_bounds__(kTcThreads, kTcBlocksPerSM)
 decode_split_mma_kernel(const __nv_bfloat16* __restrict__ q, KV kv,
                         const int* __restrict__ lengths,
@@ -488,11 +557,14 @@ decode_split_mma_kernel(const __nv_bfloat16* __restrict__ q, KV kv,
                         int chunk, int nsplit, int window, float scale_log2,
                         long long q_sb, long long q_sh, int ring_off) {
   static_assert(HD % 16 == 0 && HD <= 128, "head_dim");
-  constexpr int LDS = HD + 8;  // padded smem row: ldmatrix conflict-free
+  using SM = TcSmem<HD, TC>;
+  constexpr int LDS = SM::LDS;
   constexpr int KSTEPS = HD / 16;
   constexpr int NT_O = HD / 8;
-  constexpr int CH = HD / 8;           // 16-byte chunks per row
-  constexpr int TILE = kTcKeys * LDS;  // elements of one K (or V) tile
+  constexpr int PER = 16 / (int)sizeof(TC);   // elements of a 16-byte copy
+  constexpr int CH = HD / PER;                // 16-byte copies per row
+  constexpr int ROW = SM::ROW;
+  constexpr int RTILE = SM::RTILE;
   extern __shared__ __align__(128) unsigned char tc_smem[];
   int* sm_pages = reinterpret_cast<int*>(tc_smem);
 
@@ -504,8 +576,10 @@ decode_split_mma_kernel(const __nv_bfloat16* __restrict__ q, KV kv,
   const int g = lane / 4;
   const int t4 = lane % 4;
   const int mi = lane >> 3;            // ldmatrix: which 8x8 matrix
-  __nv_bfloat16* wring = reinterpret_cast<__nv_bfloat16*>(tc_smem + ring_off)
-                         + warp * kTcStages * 2 * TILE;
+  unsigned char* wring_b = tc_smem + ring_off + warp * SM::RING_WARP;
+  TC* wring = reinterpret_cast<TC*>(wring_b);
+  __nv_bfloat16* wstage = reinterpret_cast<__nv_bfloat16*>(
+      tc_smem + ring_off + kTcWarps * SM::RING_WARP + warp * SM::STAGE_WARP);
 
   const int L = min(max(lengths[b], 0), Smax);
   const int lo = window > 0 ? max(0, L - window) : 0;
@@ -544,18 +618,18 @@ decode_split_mma_kernel(const __nv_bfloat16* __restrict__ q, KV kv,
 
   auto issue = [&](int i) {            // this warp's i-th tile -> stage i % S
     const int t0 = tbase + (warp + i * kTcWarps) * kTcKeys;
-    __nv_bfloat16* ks = wring + (i % kTcStages) * 2 * TILE;
-    __nv_bfloat16* vs = ks + TILE;
+    TC* ks = wring + (i % kTcStages) * 2 * RTILE;
+    TC* vs = ks + RTILE;
 #pragma unroll
     for (int c = lane; c < kTcKeys * CH; c += 32) {
       const int j = c / CH;
-      const int col = (c % CH) * 8;
+      const int col = (c % CH) * PER;
       const int t = min(max(t0 + j, begin), end - 1);
-      const __nv_bfloat16* kr;
-      const __nv_bfloat16* vr;
+      const TC* kr;
+      const TC* vr;
       cur.rows(t, kr, vr);
-      cp_async16(ks + j * LDS + col, kr + col);
-      cp_async16(vs + j * LDS + col, vr + col);
+      cp_async16(ks + j * ROW + col, kr + col);
+      cp_async16(vs + j * ROW + col, vr + col);
     }
   };
 
@@ -569,8 +643,16 @@ decode_split_mma_kernel(const __nv_bfloat16* __restrict__ q, KV kv,
     cp_async_commit();
     cp_async_wait<kTcStages - 1>();
     __syncwarp();
-    const __nv_bfloat16* ks = wring + (i % kTcStages) * 2 * TILE;
-    const __nv_bfloat16* vs = ks + TILE;
+    const TC* kring = wring + (i % kTcStages) * 2 * RTILE;
+    const __nv_bfloat16* ks;
+    if constexpr (SM::kF8) {
+      stage_e4m3_tiles<HD>(kring, wstage, lane);
+      __syncwarp();
+      ks = wstage;
+    } else {
+      ks = kring;
+    }
+    const __nv_bfloat16* vs = ks + SM::TILE;
     const int t0 = tbase + (warp + i * kTcWarps) * kTcKeys;
 
     // S = Q K^T: 16 heads x 16 keys, two n-tiles of 8 keys
@@ -648,14 +730,14 @@ decode_split_mma_kernel(const __nv_bfloat16* __restrict__ q, KV kv,
       mma_bf16(acc[d], pf, bf[0], bf[1]);
       mma_bf16(acc[d + 1], pf, bf[2], bf[3]);
     }
-    __syncwarp();                      // the stage may be refilled next
+    __syncwarp();                      // stage and staging refill next
   }
   cp_async_wait<0>();
   __syncwarp();
 
   // merge the four warps' states through each warp's own ring region:
   // [16] m, [16] l, [16][HD] acc (fp32); an empty warp has m = -inf, l = 0
-  float* wm = reinterpret_cast<float*>(wring);
+  float* wm = reinterpret_cast<float*>(wring_b);
   float* wl = wm + 16;
   float* wacc = wl + 16;
 #pragma unroll
@@ -675,7 +757,7 @@ decode_split_mma_kernel(const __nv_bfloat16* __restrict__ q, KV kv,
   __syncthreads();
   const float* base = reinterpret_cast<const float*>(
       tc_smem + ring_off);
-  constexpr int WSTRIDE = kTcStages * 2 * TILE / 2;   // floats per warp ring
+  constexpr int WSTRIDE = SM::RING_WARP / 4;   // floats per warp ring
   for (int idx = threadIdx.x; idx < G * HD; idx += kTcThreads) {
     const int gi = idx / HD;
     const int d = idx % HD;
@@ -758,26 +840,27 @@ cudaError_t launch_combine(const Common& a) {
   return cudaGetLastError();
 }
 
-template <typename T, int HD_PAD, int GB, typename KV>
+template <typename TQ, typename TC, int HD_PAD, int GB, typename KV>
 cudaError_t launch(const Common& a, KV kv) {
   const int G = a.H / a.K;
   const int ngroups = (G + GB - 1) / GB;
   const dim3 grid(a.nsplit, a.K * ngroups, a.B);
-  decode_split_kernel<T, HD_PAD, GB, KV>
+  decode_split_kernel<TQ, TC, HD_PAD, GB, KV>
       <<<grid, kThreads, a.smem_pages * sizeof(int), a.stream>>>(
-      static_cast<const T*>(a.q), kv, a.lengths, a.part_acc, a.part_ml,
+      static_cast<const TQ*>(a.q), kv, a.lengths, a.part_acc, a.part_ml,
       a.Smax, a.H, G, a.hd, ngroups, a.chunk, a.nsplit, a.window, a.scale,
       a.q_sb, a.q_sh);
   const cudaError_t e = cudaGetLastError();
-  return e != cudaSuccess ? e : launch_combine<T>(a);
+  return e != cudaSuccess ? e : launch_combine<TQ>(a);
 }
 
-// The tensor-core kernel: K3's table entries, then the warps' rings.
-template <int HD, typename KV>
+// The tensor-core kernel: K3's table entries, then the warps' rings (and,
+// for an e4m3 cache, their staging tiles).
+template <int HD, typename TC, typename KV>
 cudaError_t launch_tc(const Common& a, KV kv) {
   const int ring_off = (a.smem_pages * (int)sizeof(int) + 127) / 128 * 128;
-  const int smem = ring_off + tc_ring_bytes<HD>();
-  auto kern = decode_split_mma_kernel<HD, KV>;
+  const int smem = ring_off + TcSmem<HD, TC>::BYTES;
+  auto kern = decode_split_mma_kernel<HD, TC, KV>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
@@ -791,47 +874,50 @@ cudaError_t launch_tc(const Common& a, KV kv) {
 }
 
 // gb == kTcHeads selects the tensor-core kernel (the whole GQA group in one
-// block); the wrapper picks it for bf16, these head dims, G <= 16 and
-// 16-byte aligned rows, and the entries check the same.
+// block); the wrapper picks it for a bf16 q, a bf16 or e4m3 cache, these
+// head dims, G <= 16 and 16-byte aligned rows, and the entries check the
+// same.
 constexpr int kTcHeads = 16;
 
-template <typename KV>
+template <typename TC, typename KV>
 cudaError_t dispatch_tc(const Common& a, KV kv) {
   switch (a.hd) {
-    case 32: return launch_tc<32>(a, kv);
-    case 64: return launch_tc<64>(a, kv);
-    case 80: return launch_tc<80>(a, kv);
-    case 96: return launch_tc<96>(a, kv);
-    case 128: return launch_tc<128>(a, kv);
+    case 32: return launch_tc<32, TC>(a, kv);
+    case 64: return launch_tc<64, TC>(a, kv);
+    case 80: return launch_tc<80, TC>(a, kv);
+    case 96: return launch_tc<96, TC>(a, kv);
+    case 128: return launch_tc<128, TC>(a, kv);
   }
   return cudaErrorInvalidValue;
 }
 
-bool aligned16(const void* p, long long s0, long long s1, long long s2) {
-  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0 && s0 % 8 == 0 &&
-         s1 % 8 == 0 && s2 % 8 == 0;
+// A row start and its strides (in elements of `esize` bytes) on 16 bytes.
+bool aligned16(const void* p, int esize, long long s0, long long s1,
+               long long s2) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0 && s0 * esize % 16 == 0
+         && s1 * esize % 16 == 0 && s2 * esize % 16 == 0;
 }
 
-template <typename T, int HD_PAD, typename KV>
+template <typename TQ, typename TC, int HD_PAD, typename KV>
 cudaError_t dispatch_gb(int gb, const Common& a, KV kv) {
   switch (gb) {
-    case 1: return launch<T, HD_PAD, 1>(a, kv);
-    case 2: return launch<T, HD_PAD, 2>(a, kv);
-    case 4: return launch<T, HD_PAD, 4>(a, kv);
+    case 1: return launch<TQ, TC, HD_PAD, 1>(a, kv);
+    case 2: return launch<TQ, TC, HD_PAD, 2>(a, kv);
+    case 4: return launch<TQ, TC, HD_PAD, 4>(a, kv);
     default:
       if constexpr (HD_PAD <= 128) {
-        return launch<T, HD_PAD, 8>(a, kv);
+        return launch<TQ, TC, HD_PAD, 8>(a, kv);
       }
   }
   return cudaErrorInvalidValue;   // 8 heads per block only up to hd 128
 }
 
-template <typename T, typename KV>
+template <typename TQ, typename TC, typename KV>
 cudaError_t dispatch_hd(int gb, const Common& a, KV kv) {
-  if (a.hd <= 32) return dispatch_gb<T, 32>(gb, a, kv);
-  if (a.hd <= 64) return dispatch_gb<T, 64>(gb, a, kv);
-  if (a.hd <= 128) return dispatch_gb<T, 128>(gb, a, kv);
-  return dispatch_gb<T, 256>(gb, a, kv);
+  if (a.hd <= 32) return dispatch_gb<TQ, TC, 32>(gb, a, kv);
+  if (a.hd <= 64) return dispatch_gb<TQ, TC, 64>(gb, a, kv);
+  if (a.hd <= 128) return dispatch_gb<TQ, TC, 128>(gb, a, kv);
+  return dispatch_gb<TQ, TC, 256>(gb, a, kv);
 }
 
 bool bad_common(const Common& a) {
@@ -840,45 +926,84 @@ bool bad_common(const Common& a) {
          (long long)a.nsplit * a.chunk < a.Smax;
 }
 
+// The cache codes: 0 = float32, 1 = bfloat16, 2 = float8 e4m3fn.  Valid
+// (q, cache) pairs: (0, 0), (1, 1), (1, 2).
+constexpr int kF32 = 0, kBF16 = 1, kE4M3 = 2;
+
+// How K2 and K3 build their KV addressing from the cache pointers, once
+// the cache's element type T is known.
+struct MakeContig {
+  Strides ks, vs;
+  template <typename T>
+  ContigKV<T> make(const void* k, const void* v) const {
+    return {static_cast<const T*>(k), static_cast<const T*>(v), ks, vs};
+  }
+};
+
+struct MakePaged {
+  Strides ks, vs;
+  const int* table;
+  int MP, ps;
+  unsigned magic, shift;
+  template <typename T>
+  PagedKV<T> make(const void* k, const void* v) const {
+    return {static_cast<const T*>(k), static_cast<const T*>(v), ks, vs,
+            table, MP, ps, magic, shift};
+  }
+};
+
+// Runs the tensor-core (gb == kTcHeads) or the CUDA-core kernel on the
+// (q, cache) element types that the codes name.
+template <typename Make>
+cudaError_t dispatch(int dtype, int cache_dtype, int gb, const Common& a,
+                     const void* k, const void* v, const Make& m) {
+  if (gb == kTcHeads) {
+    const int esize = cache_dtype == kE4M3 ? 1 : 2;
+    if (dtype != kBF16 || (cache_dtype != kBF16 && cache_dtype != kE4M3) ||
+        a.H / a.K > kTcHeads || !aligned16(a.q, 2, a.q_sb, a.q_sh, 0) ||
+        !aligned16(k, esize, m.ks.b, m.ks.s, m.ks.h) ||
+        !aligned16(v, esize, m.vs.b, m.vs.s, m.vs.h))
+      return cudaErrorInvalidValue;
+    if (cache_dtype == kE4M3)
+      return dispatch_tc<__nv_fp8_e4m3>(
+          a, m.template make<__nv_fp8_e4m3>(k, v));
+    return dispatch_tc<__nv_bfloat16>(a, m.template make<__nv_bfloat16>(k, v));
+  }
+  if (dtype == kF32 && cache_dtype == kF32)
+    return dispatch_hd<float, float>(gb, a, m.template make<float>(k, v));
+  if (dtype == kBF16 && cache_dtype == kBF16)
+    return dispatch_hd<__nv_bfloat16, __nv_bfloat16>(
+        gb, a, m.template make<__nv_bfloat16>(k, v));
+  if (dtype == kBF16 && cache_dtype == kE4M3)
+    return dispatch_hd<__nv_bfloat16, __nv_fp8_e4m3>(
+        gb, a, m.template make<__nv_fp8_e4m3>(k, v));
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Strides are in elements.  lengths is
-// int32 (B,).  part_acc (B,H,nsplit,hd) and part_ml (B,H,nsplit,2) are fp32
-// scratch the caller allocates; `chunk` keys per split (nsplit * chunk >=
-// Smax).  gb: query heads per block (1, 2, 4, or 8 for head_dim <= 128).
+// dtype: q's (and o's) code, cache_dtype: k's and v's (0 = float32, 1 =
+// bfloat16, 2 = float8 e4m3fn; an e4m3 cache takes a bf16 q).  Strides
+// are in elements.  lengths is int32 (B,).  part_acc (B,H,nsplit,hd) and
+// part_ml (B,H,nsplit,2) are fp32 scratch the caller allocates; `chunk`
+// keys per split (nsplit * chunk >= Smax).  gb: query heads per block (1,
+// 2, 4, or 8 for head_dim <= 128; kTcHeads for the tensor-core kernel).
 // Every row start of q/k/v must be aligned to a lane's span of head dims
 // (HD_PAD/32 elements) and hd a multiple of it.  window <= 0: no window.
 // Returns cudaGetLastError() after the launches (0 on success).
 extern "C" int decode_attention_fwd(
     const void* q, const void* k, const void* v, void* o, const int* lengths,
-    float* part_acc, float* part_ml, int dtype, int B, int Smax, int H, int K,
-    int hd, long long q_sb, long long q_sh, long long k_sb, long long k_ss,
-    long long k_sh, long long v_sb, long long v_ss, long long v_sh,
-    long long o_sb, long long o_sh, int nsplit, int chunk, int gb, int window,
-    float scale, void* stream) {
+    float* part_acc, float* part_ml, int dtype, int cache_dtype, int B,
+    int Smax, int H, int K, int hd, long long q_sb, long long q_sh,
+    long long k_sb, long long k_ss, long long k_sh, long long v_sb,
+    long long v_ss, long long v_sh, long long o_sb, long long o_sh,
+    int nsplit, int chunk, int gb, int window, float scale, void* stream) {
   const Common a{0, q, o, lengths, part_acc, part_ml, B, Smax, H, K, hd,
                  q_sb, q_sh, o_sb, o_sh, nsplit, chunk, window, scale,
                  static_cast<cudaStream_t>(stream)};
   if (bad_common(a)) return (int)cudaErrorInvalidValue;
-  const Strides ks{k_sb, k_ss, k_sh}, vs{v_sb, v_ss, v_sh};
-  cudaError_t e;
-  if (gb == kTcHeads) {
-    if (dtype != 1 || H / K > kTcHeads || !aligned16(q, q_sb, q_sh, 0) ||
-        !aligned16(k, k_sb, k_ss, k_sh) || !aligned16(v, v_sb, v_ss, v_sh))
-      return (int)cudaErrorInvalidValue;
-    e = dispatch_tc(a, ContigKV<__nv_bfloat16>{
-        static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), ks, vs});
-  } else if (dtype == 0)
-    e = dispatch_hd<float>(gb, a, ContigKV<float>{
-        static_cast<const float*>(k), static_cast<const float*>(v), ks, vs});
-  else if (dtype == 1)
-    e = dispatch_hd<__nv_bfloat16>(gb, a, ContigKV<__nv_bfloat16>{
-        static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), ks, vs});
-  else
-    e = cudaErrorInvalidValue;
-  return (int)e;
+  const MakeContig m{{k_sb, k_ss, k_sh}, {v_sb, v_ss, v_sh}};
+  return (int)dispatch(dtype, cache_dtype, gb, a, k, v, m);
 }
 
 // K3.  As decode_attention_fwd, with k/v the pool layer (P,ps,K,hd) through
@@ -889,11 +1014,11 @@ extern "C" int decode_attention_fwd(
 extern "C" int paged_decode_attention_fwd(
     const void* q, const void* k, const void* v, void* o,
     const int* page_table, const int* lengths, float* part_acc,
-    float* part_ml, int dtype, int B, int MP, int ps, int H, int K, int hd,
-    long long q_sb, long long q_sh, long long k_sp, long long k_ss,
-    long long k_sh, long long v_sp, long long v_ss, long long v_sh,
-    long long o_sb, long long o_sh, int nsplit, int chunk, int gb, int window,
-    float scale, void* stream) {
+    float* part_ml, int dtype, int cache_dtype, int B, int MP, int ps, int H,
+    int K, int hd, long long q_sb, long long q_sh, long long k_sp,
+    long long k_ss, long long k_sh, long long v_sp, long long v_ss,
+    long long v_sh, long long o_sb, long long o_sh, int nsplit, int chunk,
+    int gb, int window, float scale, void* stream) {
   const Common a{ps > 0 ? chunk / ps : 0, q, o, lengths, part_acc, part_ml,
                  B, MP * ps, H, K, hd, q_sb, q_sh, o_sb, o_sh, nsplit, chunk,
                  window, scale, static_cast<cudaStream_t>(stream)};
@@ -904,26 +1029,7 @@ extern "C" int paged_decode_attention_fwd(
   while ((1u << shift) < (unsigned)ps) ++shift;
   const unsigned magic = (unsigned)(
       ((1ull << 32) * ((1ull << shift) - ps)) / ps + 1);
-  const Strides ks{k_sp, k_ss, k_sh}, vs{v_sp, v_ss, v_sh};
-  cudaError_t e;
-  if (gb == kTcHeads) {
-    if (dtype != 1 || H / K > kTcHeads || !aligned16(q, q_sb, q_sh, 0) ||
-        !aligned16(k, k_sp, k_ss, k_sh) || !aligned16(v, v_sp, v_ss, v_sh))
-      return (int)cudaErrorInvalidValue;
-    e = dispatch_tc(a, PagedKV<__nv_bfloat16>{
-        static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), ks, vs, page_table, MP, ps,
-        magic, shift});
-  } else if (dtype == 0)
-    e = dispatch_hd<float>(gb, a, PagedKV<float>{
-        static_cast<const float*>(k), static_cast<const float*>(v), ks, vs,
-        page_table, MP, ps, magic, shift});
-  else if (dtype == 1)
-    e = dispatch_hd<__nv_bfloat16>(gb, a, PagedKV<__nv_bfloat16>{
-        static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), ks, vs, page_table, MP, ps,
-        magic, shift});
-  else
-    e = cudaErrorInvalidValue;
-  return (int)e;
+  const MakePaged m{{k_sp, k_ss, k_sh}, {v_sp, v_ss, v_sh}, page_table, MP,
+                    ps, magic, shift};
+  return (int)dispatch(dtype, cache_dtype, gb, a, k, v, m);
 }

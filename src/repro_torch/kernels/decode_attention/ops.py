@@ -10,7 +10,9 @@ Hopper kernels in ``csrc/decode_attention.cu`` or raise.  The kernels read
 the cache and the pool through their strides, so a layer view of the
 stacked (L,B,Smax,K,hd) cache or (L,P,ps,K,hd) pool costs no copy (the TPU
 wrappers moved the head axis, and K2's padded Smax, a copy of the whole
-layer or pool on every call)."""
+layer or pool on every call).  The cache takes q's dtype (float32 or
+bfloat16) or, with a bfloat16 q, float8_e4m3fn (the fp8 KV cache), which
+both kernels read directly."""
 
 from __future__ import annotations
 
@@ -39,12 +41,17 @@ MAX_SPLIT_PAGES = 8192
 # its 104 KB of cp.async ring at head_dim 128).
 BLOCKS_PER_SM = 3
 TC_BLOCKS_PER_SM = 2
-# The tensor-core split kernel (decode_split_mma_kernel) takes bf16 at these
-# head dims with 16-byte aligned rows and serves a whole GQA group of up to
-# TC_HEADS query heads in one block (the rows of one m16 A tile).
+# The tensor-core split kernel (decode_split_mma_kernel) takes a bf16 q and a
+# bf16 or e4m3 cache at these head dims with 16-byte aligned rows and serves
+# a whole GQA group of up to TC_HEADS query heads in one block (the rows of
+# one m16 A tile).
 TC_HEAD_DIMS = (32, 64, 80, 96, 128)
 TC_HEADS = 16
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the C entries' dtype codes (q's, and the cache's)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2}
+# the cache dtypes each q dtype takes
+_CACHE_DTYPES = {torch.float32: (torch.float32,),
+                 torch.bfloat16: (torch.bfloat16, torch.float8_e4m3fn)}
 _sm_count: Dict[int, int] = {}
 
 
@@ -52,12 +59,12 @@ def build() -> ctypes.CDLL:
     """Compile (once per process, cached on disk) and bind both kernels."""
     lib = load_library("decode_attention", [SOURCE])
     fn = lib.decode_attention_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
                    + [ctypes.c_longlong] * 10
                    + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     fn = lib.paged_decode_attention_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
                    + [ctypes.c_longlong] * 10
                    + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -80,15 +87,18 @@ def heads_per_block(G: int, hd: int, tensor_cores: bool) -> int:
 
 
 def tensor_core_path(q, k, v) -> bool:
-    """Whether a launch takes the tensor-core split kernel: bf16, a head
-    dim of TC_HEAD_DIMS, G <= TC_HEADS and every row start of q and the
-    cache 16-byte aligned (the model's always are).  Everything else takes
-    the CUDA-core kernel."""
+    """Whether a launch takes the tensor-core split kernel: a bf16 q, a
+    bf16 or e4m3 cache, a head dim of TC_HEAD_DIMS, G <= TC_HEADS and every
+    row start of q and the cache 16-byte aligned, each in its own element
+    size (the model's always are).  Everything else takes the CUDA-core
+    kernel."""
     hd, G = q.shape[-1], q.shape[1] // k.shape[2]
-    return (q.dtype == torch.bfloat16 and hd in TC_HEAD_DIMS
-            and G <= TC_HEADS
+    return (q.dtype == torch.bfloat16
+            and k.dtype in _CACHE_DTYPES[torch.bfloat16]
+            and hd in TC_HEAD_DIMS and G <= TC_HEADS
             and all(t.data_ptr() % 16 == 0
-                    and all(st % 8 == 0 for st in t.stride()[:-1])
+                    and all(st * t.element_size() % 16 == 0
+                            for st in t.stride()[:-1])
                     for t in (q, k, v)))
 
 
@@ -130,30 +140,37 @@ def paged_split_plan(B: int, K: int, G: int, MP: int, ps: int, hd: int,
 def _check_aligned(hd: int, *tensors) -> None:
     """The kernel reads a lane's span of head dims (its padded head dim /
     32 elements) with vector loads: every row start must be aligned to the
-    span, and hd a multiple of it.  The model's q and cache always are."""
+    span, in each tensor's own element size, and hd a multiple of it.  The
+    model's q and cache always are."""
     vec = _head_dim_pad(hd) // 32
-    span = vec * tensors[0].element_size()
-    if hd % vec or any(t.data_ptr() % span or
-                       any(s % vec for s in t.stride()[:-1])
-                       for t in tensors):
+    if hd % vec:
         raise ValueError(f"decode_attention needs head_dim a multiple of "
-                         f"{vec} and rows aligned to {span} bytes")
+                         f"{vec}")
+    for t in tensors:
+        span = vec * t.element_size()
+        if t.data_ptr() % span or any(s % vec for s in t.stride()[:-1]):
+            raise ValueError(f"decode_attention needs {t.dtype} rows "
+                             f"aligned to {span} bytes")
 
 
 def _check_common(name: str, q, k, v, lengths, B: int, K: int,
                   hd: int) -> bool:
-    """The checks K2 and K3 share: heads, head_dim, dtypes, contiguity of
-    the head dimension, lengths, row alignment and the grid's size.
-    Returns whether the launch takes the tensor-core kernel."""
+    """The checks K2 and K3 share: heads, head_dim, dtypes (a float32 q
+    with a float32 cache, or a bfloat16 q with a bfloat16 or e4m3 cache),
+    contiguity of the head dimension, lengths, row alignment and the
+    grid's size.  Returns whether the launch takes the tensor-core
+    kernel."""
     H = q.shape[1]
     if H % K:
         raise ValueError(f"{H} query heads not divisible by {K} kv heads")
     if hd > MAX_HEAD_DIM:
         raise ValueError(f"head_dim {hd} exceeds the kernel's "
                          f"{MAX_HEAD_DIM}")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"{name} takes float32 or bfloat16 q and cache of "
-                        f"one dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
+    if (k.dtype != v.dtype
+            or k.dtype not in _CACHE_DTYPES.get(q.dtype, ())):
+        raise TypeError(f"{name} takes a float32 q and cache, or a bfloat16 "
+                        f"q and a bfloat16 or float8_e4m3fn cache, got "
+                        f"{q.dtype}/{k.dtype}/{v.dtype}")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("the head dimension of q and the cache must be "
                          "contiguous")
@@ -210,7 +227,8 @@ def decode_attention(q, cache_k, cache_v, lengths, *,
     status = lib.decode_attention_fwd(
         data_ptr(q), data_ptr(cache_k), data_ptr(cache_v), data_ptr(out),
         data_ptr(lengths), data_ptr(part_acc), data_ptr(part_ml),
-        _DTYPES[q.dtype], B, Smax, H, K, hd, *q.stride()[:2],
+        _DTYPES[q.dtype], _DTYPES[cache_k.dtype], B, Smax, H, K, hd,
+        *q.stride()[:2],
         *cache_k.stride()[:3], *cache_v.stride()[:3], *out.stride()[:2],
         nsplit, chunk, gb, int(window or 0), 1.0 / (hd ** 0.5),
         stream_ptr(q.device))
@@ -265,7 +283,8 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
     status = lib.paged_decode_attention_fwd(
         data_ptr(q), data_ptr(k_pages), data_ptr(v_pages), data_ptr(out),
         data_ptr(page_table), data_ptr(lengths), data_ptr(part_acc),
-        data_ptr(part_ml), _DTYPES[q.dtype], B, MP, ps, H, K, hd,
+        data_ptr(part_ml), _DTYPES[q.dtype], _DTYPES[k_pages.dtype], B, MP,
+        ps, H, K, hd,
         *q.stride()[:2], *k_pages.stride()[:3], *v_pages.stride()[:3],
         *out.stride()[:2], nsplit, chunk, gb, int(window or 0),
         1.0 / (hd ** 0.5), stream_ptr(q.device))

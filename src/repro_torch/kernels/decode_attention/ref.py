@@ -1,11 +1,13 @@
 """Plain PyTorch flash-decode: the oracle the kernel is held against.
 
 ``decode_attention_plain`` ports ``repro/models/attention.py::
-decode_attention_ref`` with the JAX package's default ``attn_dtype`` path:
-scores from cache-dtype operands with float32 accumulation (a bf16 value
-is exact in float32, so the products are taken in float32), a float32
-softmax, and P cast to the cache dtype before P.V.  It materialises the
-(B, K, G, Smax) score matrix.  ``paged_decode_attention_plain`` is K3's
+decode_attention_ref``: an e4m3 cache is dequantized to bf16 first (exact:
+every e4m3fn value is a bf16 value); scores from cache-dtype operands with
+float32 accumulation (a bf16 value is exact in float32, so the products are
+taken in float32), a float32 softmax, and, under ``attn_dtype`` (the JAX
+package's default), P cast to the dequantized cache dtype before P.V; with
+``attn_dtype`` off P and V stay float32.  It materialises the (B, K, G,
+Smax) score matrix.  ``paged_decode_attention_plain`` is K3's
 plain version: the gathered-view oracle of the paged kernel."""
 
 from __future__ import annotations
@@ -13,6 +15,8 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from repro_torch import opt
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
@@ -27,6 +31,9 @@ def decode_attention_plain(q, cache_k, cache_v, lengths, *,
     B, H, hd = q.shape
     Smax, K = cache_k.shape[1], cache_k.shape[2]
     G = H // K
+    if cache_k.dtype == torch.float8_e4m3fn:     # dequantize, as JAX does
+        cache_k = cache_k.to(torch.bfloat16)
+        cache_v = cache_v.to(torch.bfloat16)
     scale = 1.0 / (hd ** 0.5)
     qr = q.reshape(B, K, G, hd).float()
     scores = torch.einsum("bkgh,btkh->bkgt", qr, cache_k.float()) * scale
@@ -36,7 +43,9 @@ def decode_attention_plain(q, cache_k, cache_v, lengths, *,
     if window is not None:
         valid &= pos > (lengths - 1 - window)
     scores = torch.where(valid[:, None, None, :], scores, NEG_INF)
-    probs = torch.softmax(scores, dim=-1).to(cache_v.dtype).float()
+    probs = torch.softmax(scores, dim=-1)
+    if opt.enabled("attn_dtype"):
+        probs = probs.to(cache_v.dtype).float()
     out = torch.einsum("bkgt,btkh->bkgh", probs, cache_v.float())
     return out.reshape(B, H, hd).to(q.dtype)
 
@@ -51,6 +60,18 @@ def paged_decode_attention_plain(q, k_pages, v_pages, page_table, lengths, *,
     B, MP = page_table.shape
     _, ps, K, hd = k_pages.shape
     idx = page_table.to(k_pages.device).long()
-    ck = k_pages[idx].reshape(B, MP * ps, K, hd)
-    cv = v_pages[idx].reshape(B, MP * ps, K, hd)
+    ck, cv = (take(p, idx).reshape(B, MP * ps, K, hd)
+              for p in (k_pages, v_pages))
     return decode_attention_plain(q, ck, cv, lengths, window=window)
+
+
+def raw(t):
+    """An e4m3 tensor as a uint8 view of the same storage (torch lacks some
+    fp8 indexing kernels, ``index_copy_`` on the CPU among them); any other
+    tensor as it is."""
+    return t.view(torch.uint8) if t.dtype == torch.float8_e4m3fn else t
+
+
+def take(t, index):
+    """``t[index]``, gathered as bytes for an e4m3 tensor."""
+    return raw(t)[index].view(t.dtype)

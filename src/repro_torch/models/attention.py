@@ -19,9 +19,15 @@ cache per layer as a (B, Smax, K, hd) view of the stacked
 the JAX package donates the state to get the same effect, and a copy of
 the cache per tick would move gigabytes at serving sizes.  One-token
 attention goes through ``kernels.decode_attention``, against the cache or,
-in ``cross_decode_attn_block``, a fixed image or audio K/V.  The fp8 e4m3
-cache (``kv_cache_f8``, off by default in the JAX package) comes with a
-later slice.
+in ``cross_decode_attn_block``, a fixed image or audio K/V.
+
+Under ``kv_cache_f8`` (``repro_torch.opt``, off by default as in the JAX
+package) a bfloat16 config's GQA cache is float8_e4m3fn.  Every write into
+a cache goes through ``to_cache``, which gives the reference's bytes (NaN,
+not saturation, above the e4m3 overflow edge), and moves the bytes through
+a uint8 view (``raw``), since not every indexing kernel of torch takes
+fp8.  K2 reads the e4m3 cache directly; the plain paths dequantize it to
+bf16 first, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -30,9 +36,11 @@ from typing import Optional
 
 import torch
 
+from repro_torch import opt
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_plain)
+from repro_torch.kernels.decode_attention.ref import raw
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.layers import (apply_rope, compute_dtype, dense_init,
                                        matmul, rms_norm_simple)
@@ -125,9 +133,10 @@ def make_mask(S: int, Skv: int, *, causal: bool, window: Optional[int] = None,
 
 
 def gqa_attention(q, k, v, mask=None, logit_cap: Optional[float] = None):
-    """q (B,S,H,hd), k/v (B,Skv,K,hd) -> (B,S,H,hd). fp32 softmax; K/V stay
-    in the model dtype and products accumulate in fp32 (the JAX package's
-    default ``attn_dtype`` path)."""
+    """q (B,S,H,hd), k/v (B,Skv,K,hd) -> (B,S,H,hd). fp32 softmax, products
+    in fp32 (a bf16 product is exact in fp32); P is cast to v's dtype
+    before P.V under ``attn_dtype`` (the JAX package's default) and stays
+    fp32 without it."""
     B, S, H, hd = q.shape
     K = k.shape[2]
     G = H // K
@@ -139,8 +148,9 @@ def gqa_attention(q, k, v, mask=None, logit_cap: Optional[float] = None):
     if mask is not None:
         scores = torch.where(mask[:, :, None], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bkgst,btkh->bskgh", probs.to(v.dtype).float(),
-                       v.float())
+    if opt.enabled("attn_dtype"):
+        probs = probs.to(v.dtype).float()
+    out = torch.einsum("bkgst,btkh->bskgh", probs, v.float())
     return out.reshape(B, S, H, hd).to(q.dtype)
 
 
@@ -175,9 +185,37 @@ def attend(p, q, k, v, cfg: ModelConfig, *, causal: bool,
 decode_attention_ref = decode_attention_plain
 
 
+E4M3 = torch.float8_e4m3fn
+# |x| above this rounds past e4m3fn's largest finite value, 448 (464 is the
+# midpoint to the next step and rounds to even, 448)
+E4M3_EDGE = 464.0
+
+
 def cache_dtype(cfg: ModelConfig) -> torch.dtype:
-    """The cache keeps the compute dtype (bf16 or fp32)."""
+    """float8_e4m3fn under ``kv_cache_f8`` for a bfloat16 config, else the
+    compute dtype (bf16 or fp32)."""
+    if opt.enabled("kv_cache_f8") and cfg.dtype == "bfloat16":
+        return E4M3
     return compute_dtype(cfg)
+
+
+def to_cache(x, dtype: torch.dtype):
+    """``x`` cast to a cache's dtype.  For e4m3 these are the reference's
+    bytes (``jnp.astype(float8_e4m3fn)``): round to nearest even, and NaN
+    keeping x's sign for |x| > 464, inf and NaN.  torch's own cast
+    saturates there to +-448 (0x7E / 0xFE), one bit short of the NaN
+    bytes (0x7F / 0xFF), so that bit is set where |x| > 464: four
+    elementwise kernels a call, a few hundred a tick."""
+    if dtype != E4M3 or x.dtype == E4M3:
+        return x.to(dtype)
+    y = x.to(E4M3).view(torch.uint8)
+    return (y | (x.abs() > E4M3_EDGE).view(torch.uint8)).view(E4M3)
+
+
+def store(cache, index, new) -> None:
+    """``cache[index] = new`` in the cache's dtype (``to_cache``), IN PLACE,
+    moving bytes for an e4m3 cache (``raw``)."""
+    raw(cache)[index] = raw(to_cache(new, cache.dtype))
 
 
 def init_kv_cache(num_layers: int, batch: int, max_len: int,
@@ -194,7 +232,7 @@ def init_kv_cache(num_layers: int, batch: int, max_len: int,
 def _write_rows(cache, new, slots):
     """cache[b, slots[b]] = new[b] for every row b, in place."""
     rows = torch.arange(cache.shape[0], device=cache.device)
-    cache[rows, slots] = new.to(cache.dtype)
+    store(cache, (rows, slots), new)
 
 
 def write_token(cache, new, lengths):
@@ -207,8 +245,9 @@ def write_token(cache, new, lengths):
     rows = torch.arange(cache.shape[0], device=cache.device)
     inside = (lengths < Smax).reshape((-1,) + (1,) * (new.dim() - 1))
     slots = torch.clamp(lengths, max=Smax - 1).long()
-    kept = torch.where(inside, new.to(cache.dtype), cache[rows, slots])
-    _write_rows(cache, kept, slots)
+    kept = torch.where(inside, raw(to_cache(new, cache.dtype)),
+                       raw(cache)[rows, slots])
+    raw(cache)[rows, slots] = kept
 
 
 def cache_write(cache_k, cache_v, new_k, new_v, lengths):
@@ -249,13 +288,15 @@ def ring_fill(k_full, lengths, window: int):
 
 def fill_cache(cache, new, lengths, ring: bool) -> None:
     """Prefill's cache write, IN PLACE: cache (B, Smax, ...) takes new
-    (B, S, ...), as a ring of the last Smax positions (``ring_fill``) or
-    at positions [0, S) with the slots past S zeroed."""
+    (B, S, ...) in its dtype (``to_cache``), as a ring of the last Smax
+    positions (``ring_fill``) or at positions [0, S) with the slots past S
+    zeroed."""
+    new, dst = raw(to_cache(new, cache.dtype)), raw(cache)
     if ring:
-        cache.copy_(ring_fill(new, lengths, cache.shape[1]))
+        dst.copy_(ring_fill(new, lengths, cache.shape[1]))
     else:
-        cache[:, :new.shape[1]].copy_(new)
-        cache[:, new.shape[1]:].zero_()
+        dst[:, :new.shape[1]].copy_(new)
+        dst[:, new.shape[1]:].zero_()
 
 
 def decode_attn_block(p, x1, layer_cache_k, layer_cache_v, lengths,
@@ -388,8 +429,10 @@ def mla_attention_block(p, x, cfg: ModelConfig, *, positions=None,
 
 def init_mla_cache(num_layers: int, batch: int, max_len: int,
                    cfg: ModelConfig, dtype=None, device=None):
+    """The latent cache keeps the compute dtype, ``kv_cache_f8`` or not
+    (the JAX package's ``init_mla_cache``)."""
     m = cfg.mla
-    dt = dtype or cache_dtype(cfg)
+    dt = dtype or compute_dtype(cfg)
     return {
         "ckv": torch.zeros((num_layers, batch, max_len, m.kv_lora_rank),
                            dtype=dt, device=device),
@@ -403,10 +446,10 @@ def mla_decode_block(p, x1, c_cache, r_cache, lengths, cfg: ModelConfig):
     """Absorbed-matrix MLA decode: attention in the latent (kv_lora) space.
 
     x1 (B,1,D); c_cache (B,Smax,kvr); r_cache (B,Smax,rope), written IN
-    PLACE at ``lengths``.  W_UK is absorbed into q (fp32), which is cast
-    to the cache dtype; products accumulate in fp32 and P is cast to the
-    cache dtype before P.C (the JAX package's default ``attn_dtype``
-    branch).  Returns (out (B,1,D), c_cache, r_cache)."""
+    PLACE at ``lengths``.  W_UK is absorbed into q (fp32); under
+    ``attn_dtype`` (the JAX package's default) q_abs and P are cast to the
+    cache dtype before their products, which accumulate in fp32; without
+    it both stay fp32.  Returns (out (B,1,D), c_cache, r_cache)."""
     m = cfg.mla
     B = x1.shape[0]
     H = cfg.num_heads
@@ -423,7 +466,10 @@ def mla_decode_block(p, x1, c_cache, r_cache, lengths, cfg: ModelConfig):
                          w_uk.float())                   # (B,H,kvr)
     cdt = c_cache.dtype
     c32 = c_cache.float()
-    scores = (torch.einsum("bhc,btc->bht", q_abs.to(cdt).float(), c32)
+    lowp = opt.enabled("attn_dtype")
+    if lowp:
+        q_abs = q_abs.to(cdt).float()
+    scores = (torch.einsum("bhc,btc->bht", q_abs, c32)
               + torch.einsum("bhr,btr->bht", q_rope[:, 0].float(),
                              r_cache.float())) * _mla_scale(cfg)
     Smax = c_cache.shape[1]
@@ -431,7 +477,9 @@ def mla_decode_block(p, x1, c_cache, r_cache, lengths, cfg: ModelConfig):
              < (lengths + 1)[:, None])
     scores = torch.where(valid[:, None, :], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
-    out_lat = torch.einsum("bht,btc->bhc", probs.to(cdt).float(), c32)
+    if lowp:
+        probs = probs.to(cdt).float()
+    out_lat = torch.einsum("bht,btc->bhc", probs, c32)
     out = torch.einsum("bhc,chv->bhv", out_lat, w_uv.float())
     out = out.reshape(B, 1, H * m.v_head_dim).to(x1.dtype)
     return out @ p["wo"], c_cache, r_cache

@@ -16,9 +16,11 @@ scores and ``decode_attention_ref``); the backbone's scan goes through K5
 The state is ``{"conv": (L, B, K-1, C), "ssd": (L, B, H, P, N) float32,
 "shared_k", "shared_v": (napp, B, Smax, Kv, hd), "length": (B,) int32}``,
 batch on axis 1 of every per-layer leaf.  The shared caches keep
-``min(max_len, window)`` slots, a ring (the JAX package's ``ring_cache``
-default).  ``prefill`` and ``decode_step`` write the state's tensors IN
-PLACE and return a new dict holding the same tensors.
+``min(max_len, window)`` slots, a ring, under ``ring_cache`` (the JAX
+package's default) and ``max_len`` slots without it; they keep the
+compute dtype under ``kv_cache_f8``, as the JAX package's do.
+``prefill`` and ``decode_step`` write the state's tensors IN PLACE and
+return a new dict holding the same tensors.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from repro_torch import opt
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (apply_mlp, apply_norm, apply_rope,
@@ -155,15 +158,16 @@ def shared_block_step(sp, cfg: ModelConfig, x1, e0_1, lora_a, lora_b,
 
 def init_state(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                window: Optional[int] = None, device=None) -> Dict[str, Any]:
-    """A zeroed state on ``device``; the shared caches keep
-    ``min(max_len, window)`` slots (the shared block is windowed by
+    """A zeroed state on ``device``; under ``ring_cache`` the shared caches
+    keep ``min(max_len, window)`` slots (the shared block is windowed by
     design)."""
     napp = _num_groups(cfg)
     st = init_mamba2_state(cfg, cfg.num_layers, batch, device)
     dt = dtype or compute_dtype(cfg)
     window = window if window is not None else cfg.hybrid.shared_window
-    shape = (napp, batch, min(max_len, window), cfg.num_kv_heads,
-             cfg.head_dim)
+    if opt.enabled("ring_cache"):
+        max_len = min(max_len, window)
+    shape = (napp, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
     st["shared_k"] = torch.zeros(shape, dtype=dt, device=device)
     st["shared_v"] = torch.zeros(shape, dtype=dt, device=device)
     st["length"] = torch.zeros((batch,), dtype=torch.int32, device=device)
@@ -230,11 +234,7 @@ def prefill(params, tokens, state, cfg: ModelConfig, *, lengths=None,
 
     def capture(j, k, v):
         for cache, new in ((ck_all[j], k), (cv_all[j], v)):
-            if ring:    # keep only the last Smax positions, in ring order
-                cache.copy_(attn.ring_fill(new, lengths, Smax))
-            else:
-                cache[:, :S].copy_(new)
-                cache[:, S:].zero_()
+            attn.fill_cache(cache, new, lengths, ring)
 
     h = _run(params, tokens, cfg, state, lengths, window, capture)
     rows = torch.arange(B, device=h.device)

@@ -36,6 +36,12 @@ pin-while-parked preemption.
     identical for fresh prompts.  With C > 0 the attention is the
     materialised-scores ``gqa_attention``, as in the JAX package.
 
+The pool takes the dense cache's dtype (``attention.cache_dtype``:
+float8_e4m3fn under ``kv_cache_f8`` for a bfloat16 config); every write goes
+through ``attention.store`` and every gather through ``take`` (bytes),
+and the C > 0 prefill reads the context pages dequantized to the K/V's
+dtype, as the JAX package does.
+
 As with the dense engine, a state passed into ``paged_prefill`` or
 ``paged_decode_step`` is written in place and must not be reused except
 through the returned one.  The dense and moe families page with GQA
@@ -53,6 +59,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.decode_attention import paged_decode_attention
+from repro_torch.kernels.decode_attention.ref import take
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import apply_norm
 from repro_torch.models.transformer import (_residual, project_logits,
@@ -94,12 +101,13 @@ def _layers(params, state, cfg: ModelConfig):
 
 
 def _gathered_view(pool_k, pool_v, table):
-    """Page-table gather -> the contiguous (B, MP*ps, K, hd) cache view."""
+    """Page-table gather -> the contiguous (B, MP*ps, K, hd) cache view, in
+    the pool's dtype."""
     B, MP = table.shape
     _, ps, K, hd = pool_k.shape
     idx = table.long()
-    return (pool_k[idx].reshape(B, MP * ps, K, hd),
-            pool_v[idx].reshape(B, MP * ps, K, hd))
+    return (take(pool_k, idx).reshape(B, MP * ps, K, hd),
+            take(pool_v, idx).reshape(B, MP * ps, K, hd))
 
 
 def _attn_out(lp, out, cfg: ModelConfig):
@@ -130,8 +138,8 @@ def paged_decode_step(params, token, state, cfg: ModelConfig, *,
     for lp, pk, pv in _layers(params, state, cfg):
         h = apply_norm(lp["ln1"], x, cfg)
         q, k, v = attn.project_qkv(lp["attn"], h, cfg, positions=positions)
-        pk[pg, off] = k[:, 0].to(pk.dtype)
-        pv[pg, off] = v[:, 0].to(pv.dtype)
+        attn.store(pk, (pg, off), k[:, 0])
+        attn.store(pv, (pg, off), v[:, 0])
         # K3 on CUDA, its plain gathered-view version on the CPU
         out = paged_decode_attention(q[:, 0], pk, pv, table, lengths + 1,
                                      window=window)
@@ -172,8 +180,8 @@ def paged_verify_step(params, tokens, state, cfg: ModelConfig, *,
     for lp, pk, pv in _layers(params, state, cfg):
         h = apply_norm(lp["ln1"], x, cfg)
         q, k, v = attn.project_qkv(lp["attn"], h, cfg, positions=positions)
-        pk[pg, off] = k.to(pk.dtype)
-        pv[pg, off] = v.to(pv.dtype)
+        attn.store(pk, (pg, off), k)
+        attn.store(pv, (pg, off), v)
         out = torch.stack([paged_decode_attention(q[:, j], pk, pv, table,
                                                   lengths + j + 1,
                                                   window=window)
@@ -246,8 +254,8 @@ def paged_prefill(params, tokens, lengths, state, ctx_table, ctx_lens,
         # (dump-page duplicates across rows/padding are harmless)
         for pool, new in ((pk, k), (pv, v)):
             padded = F.pad(new, (0, 0, 0, 0, 0, pad_s))
-            pool[flat] = padded.reshape(B * nc, page_size,
-                                        *new.shape[2:]).to(pool.dtype)
+            attn.store(pool, flat, padded.reshape(B * nc, page_size,
+                                                  *new.shape[2:]))
         x = _residual(cfg, lp, x, h, attn_out)
     h = apply_norm(subtree(params, "final_norm"), x, cfg)
     rows = torch.arange(B, device=h.device)

@@ -25,6 +25,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from repro_torch import opt
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (apply_mlp, apply_norm, compute_dtype,
@@ -179,13 +180,16 @@ def init_state(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
     """A zeroed decode state on ``device``: a ``cache`` per layer stack
     (``cache_dense`` for a moe config's dense layers), ``{"k", "v"}`` for
     GQA, ``{"ckv", "krope"}`` for MLA.  With a sliding window (the
-    config's, or ``window``) a GQA cache is a ring of ``min(max_len,
-    window)`` slots: the JAX package's ``ring_cache`` default.  MLA caches
-    never ring."""
+    config's, or ``window``) and ``ring_cache`` (the JAX package's default)
+    a GQA cache is a ring of ``min(max_len, window)`` slots; without it a
+    full ``max_len`` cache, the window a mask.  MLA caches never ring.  A
+    GQA cache is float8_e4m3fn under ``kv_cache_f8`` for a bfloat16
+    config (``attention.cache_dtype``); an MLA cache keeps the compute
+    dtype."""
     check_family(cfg)
     window = window if window is not None else cfg.sliding_window
     mla = cfg.attn_kind == "mla"
-    if window is not None and not mla:
+    if window is not None and not mla and opt.enabled("ring_cache"):
         max_len = min(max_len, window)
     mk_cache = attn.init_mla_cache if mla else attn.init_kv_cache
     state: Dict[str, Any] = {}
@@ -234,11 +238,12 @@ def decode_step(params, token, state, cfg: ModelConfig, *,
 
 def window_write(cache, new, lengths):
     """Write a W-token window per row at positions ``lengths + i``, IN
-    PLACE: cache (B, Smax, K, hd), new (B, W, K, hd).  Positions past the
-    cache's end are dropped, as JAX drops an out-of-range scatter: they are
-    aimed at the last slot with the value that slot ends up holding (the
-    window's own write there, or its old contents), so duplicate indices
-    all carry one value and nothing past the end lands anywhere."""
+    PLACE: cache (B, Smax, K, hd), new (B, W, K, hd), cast to the cache's
+    dtype by ``attention.to_cache``.  Positions past the cache's end are
+    dropped, as JAX drops an out-of-range scatter: they are aimed at the
+    last slot with the value that slot ends up holding (the window's own
+    write there, or its old contents), so duplicate indices all carry one
+    value and nothing past the end lands anywhere."""
     B, Smax = cache.shape[:2]
     W = new.shape[1]
     rows = torch.arange(B, device=cache.device)[:, None]
@@ -246,10 +251,11 @@ def window_write(cache, new, lengths):
     slots = torch.clamp(lengths + torch.arange(W, device=cache.device),
                         max=Smax - 1)                          # (B, W)
     src = torch.clamp(slots - lengths, min=0)                  # window index
+    dst = attn.raw(cache)
     vals = torch.where((lengths < Smax)[:, :, None, None],
-                       new[rows, src].to(cache.dtype),
-                       cache[:, Smax - 1][:, None])
-    cache[rows, slots] = vals
+                       attn.raw(attn.to_cache(new, cache.dtype))[rows, src],
+                       dst[:, Smax - 1][:, None])
+    dst[rows, slots] = vals
 
 
 def _layer_verify(cfg: ModelConfig, window, x, lp, cache_k, cache_v,

@@ -32,6 +32,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from repro_torch import opt
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import transformer as tfm
@@ -177,13 +178,14 @@ def forward(params, tokens, image_embeds, cfg: ModelConfig, *,
 def init_state(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                window: Optional[int] = None, device=None) -> Dict[str, Any]:
     """A zeroed decode state on ``device`` (the meta device too).  With a
-    sliding window the self caches are rings of ``min(max_len, window)``
-    slots (the JAX package's ``ring_cache`` default)."""
+    sliding window and ``ring_cache`` (the JAX package's default) the self
+    caches are rings of ``min(max_len, window)`` slots.  Every cache keeps
+    the compute dtype under ``kv_cache_f8``, as the JAX package's do."""
     ngroups, nself = _layout(cfg)
     dt = dtype or compute_dtype(cfg)
     K, hd = cfg.num_kv_heads, cfg.head_dim
     window = window if window is not None else cfg.sliding_window
-    if window is not None:
+    if window is not None and opt.enabled("ring_cache"):
         max_len = min(max_len, window)
     T = cfg.vlm.image_tokens
 

@@ -39,11 +39,17 @@ def unflatten(flat: Dict[str, Any]) -> Dict[str, Any]:
     return tree
 
 
+# ml_dtypes' numpy types (registered by name, never imported here) and the
+# integer views that carry their bits
+_BIT_VIEWS = {"bfloat16": (np.int16, torch.int16, torch.bfloat16),
+              "float8_e4m3fn": (np.uint8, torch.uint8, torch.float8_e4m3fn)}
+
+
 def _to_tensor(arr: np.ndarray) -> torch.Tensor:
     arr = np.asarray(arr)
-    if arr.dtype.name == "bfloat16":          # ml_dtypes' numpy bfloat16
-        return torch.from_numpy(np.array(arr).view(np.int16)).view(
-            torch.bfloat16)
+    if arr.dtype.name in _BIT_VIEWS:
+        np_int, _, dt = _BIT_VIEWS[arr.dtype.name]
+        return torch.from_numpy(np.array(arr).view(np_int)).view(dt)
     return torch.from_numpy(np.array(arr))       # a writable copy
 
 
@@ -62,8 +68,9 @@ def from_jax(flat: Dict[str, np.ndarray], device,
 
 def state_from_jax(state: Dict[str, Any], device) -> Dict[str, Any]:
     """A JAX decode state of any ported family, nested, with numpy or JAX
-    leaves (bf16, float32 and int32 kept) -> the same nesting of tensors
-    on ``device``, ready for the port's ``prefill``/``decode``: the dense
+    leaves (bf16, float8_e4m3fn, float32 and int32 kept) -> the same
+    nesting of tensors on ``device``, ready for the port's
+    ``prefill``/``decode``: the dense
     KV cache (``{"cache": {"k", "v"}, "length"}``), rwkv6's recurrent state
     (``tm_shift``, ``cm_shift``, ``wkv``, ``length``), the hybrid's
     (``conv``, ``ssd``, ``shared_k``, ``shared_v``, ``length``), or the
@@ -74,14 +81,17 @@ def state_from_jax(state: Dict[str, Any], device) -> Dict[str, Any]:
 
 def to_flat(params: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     """Tensors -> flat numpy leaves with the same keys, shapes and dtypes
-    (bfloat16 as numpy's ``"bfloat16"`` dtype, as the JAX package writes
-    it: registered with numpy by ``ml_dtypes``, which JAX imports; the
-    port itself never imports it)."""
+    (bfloat16 and float8_e4m3fn as numpy's ``"bfloat16"`` and
+    ``"float8_e4m3fn"`` dtypes, as the JAX package writes them: registered
+    with numpy by ``ml_dtypes``, which JAX imports; the port itself never
+    imports it)."""
     out = {}
     for k, t in params.items():
         t = t.detach().cpu()
-        if t.dtype == torch.bfloat16:
-            out[k] = t.view(torch.int16).numpy().view(np.dtype("bfloat16"))
+        name = str(t.dtype).removeprefix("torch.")
+        if name in _BIT_VIEWS:
+            _, int_dt, _ = _BIT_VIEWS[name]
+            out[k] = t.view(int_dt).numpy().view(np.dtype(name))
         else:
             out[k] = t.numpy()
     return out

@@ -10,8 +10,9 @@ of length >= 1 are compared: a length-0 row gets zeros from the kernels
 and a uniform average from the masked-softmax references.
 
 GPU cases (marker ``gpu``, skipped without a CUDA device): the Hopper
-kernel against the plain version on the card at the same tolerances.
-They need no JAX.
+kernel against the plain version on the card at the same tolerances; on
+an e4m3 cache (bf16 q) within 3e-2 of the plain version and bit for bit
+the kernel on the cache's bf16 copy.  They need no JAX.
 """
 
 import numpy as np
@@ -255,3 +256,69 @@ def test_kernel_rejects_what_it_cannot_take(cuda):
         qb = torch.zeros((1, 2, 129), dtype=torch.bfloat16, device=cuda)
         cb = torch.zeros((1, 8, 1, 129), dtype=torch.bfloat16, device=cuda)
         decode_attention(qb[..., 1:], cb[..., 1:], cb[..., 1:], lengths)
+
+
+# --- the e4m3 cache on the card ----------------------------------------------
+
+
+def e4m3_cache(x, device):
+    """An e4m3 cache from numpy values scaled to reach the format's edges
+    (a share of keys near +-448, some e4m3 subnormals), cast as the port's
+    cache writes cast (``attention.to_cache``)."""
+    x = x * 3.0
+    x.reshape(-1)[::97] = 440.0
+    x.reshape(-1)[1::89] = -448.0
+    x.reshape(-1)[2::7] *= 2 ** -9
+    return tattn.to_cache(torch.from_numpy(x).bfloat16(),
+                          torch.float8_e4m3fn).to(device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,B,Smax,H,K,hd,window,kind", GPU_CASES)
+def test_e4m3_kernel_matches_plain_and_its_bf16_copy_on_gpu(
+        cuda, name, B, Smax, H, K, hd, window, kind):
+    """K2 reads an e4m3 cache directly: within TOL16 of the plain version
+    (which dequantizes to bf16), and bit for bit K2 on the bf16 copy of
+    the same cache (every e4m3 value is a bf16 value; same path, same
+    split plan)."""
+    q, ck, cv, _ = _inputs(B, Smax, H, K, hd)
+    lengths = torch.from_numpy(gpu_case_lengths(kind, B, Smax)).to(cuda)
+    q = _torch_in(q, "bfloat16", cuda)
+    ck, cv = e4m3_cache(ck, cuda), e4m3_cache(cv, cuda)
+    bk, bv = ck.bfloat16(), cv.bfloat16()
+    assert tensor_core_path(q, ck, cv) == tensor_core_path(q, bk, bv)
+    before = decode_attention.launches
+    got = decode_attention(q, ck, cv, lengths, window=window)
+    assert decode_attention.launches == before + 1
+    copy = decode_attention(q, bk, bv, lengths, window=window)
+    want = decode_attention_plain(q, ck, cv, lengths, window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(got, copy)
+    assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                    **TOL16)
+
+
+@pytest.mark.gpu
+def test_e4m3_kernel_reads_a_layer_view_and_strided_rows(cuda):
+    """A layer view of a stacked e4m3 cache (no copy), and rows 8 bytes
+    off 16 (the CUDA-core kernel)."""
+    L, B, Smax, H, K, hd = 3, 4, 384, 16, 2, 128
+    rng = np.random.default_rng(3)
+    ck = e4m3_cache(rng.standard_normal((L, B, Smax, K, hd)).astype(
+        np.float32), cuda)
+    cv = e4m3_cache(rng.standard_normal((L, B, Smax, K, hd)).astype(
+        np.float32), cuda)
+    q = _torch_in(rng.standard_normal((B, H, hd)).astype(np.float32),
+                  "bfloat16", cuda)
+    lengths = torch.tensor([384, 1, 200, 77], dtype=torch.int32, device=cuda)
+    for k, v, tc in ((ck[1], cv[1], True),
+                     (ck[1, ..., 8:72], cv[1, ..., 8:72], False)):
+        assert tensor_core_path(q[..., :k.shape[-1]], k, v) is tc
+        qq = q[..., :k.shape[-1]]
+        got = decode_attention(qq, k, v, lengths)
+        want = decode_attention_plain(qq, k, v, lengths)
+        copy = decode_attention(qq, k.bfloat16(), v.bfloat16(), lengths)
+        torch.cuda.synchronize()
+        assert torch.equal(got, copy) or not tc
+        assert_allclose(got.float().cpu().numpy(),
+                        want.float().cpu().numpy(), **TOL16)

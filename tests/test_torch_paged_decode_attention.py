@@ -13,8 +13,10 @@ average from the masked-softmax references.
 
 GPU cases (marker ``gpu``, skipped without a CUDA device): the Hopper
 kernel against the plain version on the card at the same tolerances, and
-bit for bit against K2 on the gathered cache at page size 16.  They need
-no JAX.
+bit for bit against K2 on the gathered cache at page size 16; on an e4m3
+pool (bf16 q), within 3e-2 of the plain version, bit for bit K3 on the
+pool's bf16 copy and, at page size 16, K2 on the gathered e4m3 cache.
+They need no JAX.
 """
 
 import numpy as np
@@ -27,6 +29,7 @@ from repro_torch.kernels.decode_attention import (
     paged_decode_attention_plain)
 from repro_torch.kernels.decode_attention.ops import (paged_split_plan,
                                                       split_plan)
+from repro_torch.models import attention as tattn
 from repro_torch.models import paged as tpaged
 
 TOL32 = dict(rtol=2e-5, atol=2e-5)
@@ -278,3 +281,65 @@ def test_kernel_rejects_what_it_cannot_take(cuda):
     with pytest.raises(TypeError):
         paged_decode_attention(q.half(), pool.half(), pool.half(), table,
                                lengths)
+
+
+# --- the e4m3 pool on the card -------------------------------------------------
+
+
+def e4m3_pool(x, device):
+    """An e4m3 pool reaching the format's edges (near +-448, subnormals),
+    cast as the port's page writes cast (``attention.to_cache``)."""
+    x = x * 3.0
+    x.reshape(-1)[::97] = 440.0
+    x.reshape(-1)[1::89] = -448.0
+    x.reshape(-1)[2::7] *= 2 ** -9
+    return tattn.to_cache(torch.from_numpy(x).bfloat16(),
+                          torch.float8_e4m3fn).to(device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,B,Smax,H,K,hd,ps,window", GPU_CASES)
+def test_e4m3_kernel_matches_plain_on_gpu(cuda, name, B, Smax, H, K, hd, ps,
+                                          window):
+    """K3 on an e4m3 pool: within TOL16 of the plain version and bit for
+    bit K3 on the pool's bf16 copy."""
+    q, _, _, kp, vp, table, lengths = paged_inputs(B, Smax, H, K, hd, ps)
+    q = _torch_in(q, "bfloat16", cuda)
+    kp, vp = e4m3_pool(kp, cuda), e4m3_pool(vp, cuda)
+    table, lengths = (torch.from_numpy(x).to(cuda) for x in (table,
+                                                              lengths))
+    before = paged_decode_attention.launches
+    got = paged_decode_attention(q, kp, vp, table, lengths, window=window)
+    assert paged_decode_attention.launches == before + 1
+    copy = paged_decode_attention(q, kp.bfloat16(), vp.bfloat16(), table,
+                                  lengths, window=window)
+    want = paged_decode_attention_plain(q, kp, vp, table, lengths,
+                                        window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(got, copy)
+    assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                    **_tol("bfloat16"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [None, 100])
+def test_e4m3_kernel_is_bitwise_k2_at_page_size_16(cuda, window):
+    """At ps = 16 K3 on an e4m3 pool equals K2 on the gathered e4m3 cache
+    bit for bit (shared pages and a vacant row included), on a layer view
+    of a stacked pool."""
+    B, Smax, H, K, hd, ps = 8, 1024, 32, 4, 128, 16
+    q, _, _, kp, vp, table, lengths = paged_inputs(B, Smax, H, K, hd, ps,
+                                                   seed=5, layers=3)
+    table[1:4, :4] = table[0, :4]
+    table[7] = 0
+    lengths[7] = 1
+    q = _torch_in(q, "bfloat16", cuda)
+    kp, vp = e4m3_pool(kp, cuda)[1], e4m3_pool(vp, cuda)[1]
+    table, lengths = (torch.from_numpy(x).to(cuda) for x in (table,
+                                                              lengths))
+    got = paged_decode_attention(q, kp, vp, table, lengths, window=window)
+    gk, gv = tpaged._gathered_view(kp, vp, table)
+    assert gk.dtype == torch.float8_e4m3fn
+    want = decode_attention(q, gk, gv, lengths, window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)

@@ -70,7 +70,8 @@ def test_import_guard_no_jax_no_repro():
             " repro_torch.serving.generate, repro_torch.serving.replica,"
             " repro_torch.serving.client, repro_torch.serving.lifecycle,"
             " repro_torch.serving.modelstore, repro_torch.serving.telemetry,"
-            " repro_torch.training.checkpoint, repro_torch.core.slo;"
+            " repro_torch.training.checkpoint, repro_torch.core.slo,"
+            " repro_torch.opt;"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro', 'msgpack', 'ml_dtypes'));"
             "print(bad); sys.exit(1 if bad else 0)")
@@ -88,6 +89,6 @@ def test_source_scan_no_jax_no_repro_imports():
                          re.MULTILINE)
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
-    assert len(files) > 20
+    assert len(files) > 20 and ROOT / "src" / "repro_torch" / "opt.py" in files
     offenders = [str(f) for f in files if pattern.search(f.read_text())]
     assert offenders == []

@@ -8,6 +8,7 @@ package: the same synthetic observations give identical window and store
 snapshots, usage rollups and controller decisions in both."""
 
 import json
+import threading
 import time
 
 import numpy as np
@@ -325,29 +326,48 @@ class _LaggyEngine:
 def test_autopilot_end_to_end(engine):
     """Healthy canary auto-promoted; fault-injected canary auto-rolled
     back; zero failed requests on stable; decisions retrievable from
-    GET /v1/slo and the flight recorder; usage attributed per version."""
+    GET /v1/slo and the flight recorder; usage attributed per version.
+
+    Each round of traffic is a burst of concurrent requests, one client
+    each: a burst shares its decode ticks, so its requests finish together
+    and land in one SLI window however long an eager tick takes on a
+    loaded machine (sent one at a time, ``min_requests`` of them no longer
+    fit in the 1.5 s qualifying window once a tick passes about 50 ms)."""
     policy = SLOPolicy(name="gen-canary", alias="canary",
                        promote_to="stable", plane="generate",
                        success_rate=0.90, max_deadline_miss_rate=0.2,
                        fast_window_s=1.0, slow_window_s=2.0,
                        burn_threshold=2.0, min_requests=6,
                        qualify_window_s=1.5)
-    app = FlexServeApp(ModelRegistry(), None, engine, num_slots=4,
+    burst = policy.min_requests + 2        # one wave of the plane's slots
+    app = FlexServeApp(ModelRegistry(), None, engine, num_slots=burst,
                        slo_policies=[policy], slo_interval_s=0.2,
                        sli_bucket_s=0.25, sli_n_buckets=64)
     srv = FlexServeServer(app).start()
     cl = FlexServeClient(*srv.address, retries=0)
     stable_failures = []
 
+    def one(target, i, deadline_ms, tokens):
+        c = FlexServeClient(*srv.address, retries=0)
+        try:
+            c.generate([[1, 2, 3 + i % 5]], max_new_tokens=tokens,
+                       target=target, deadline_ms=deadline_ms,
+                       client_tag=f"tenant-{target}")
+        except HTTPStatusError:
+            if target == "stable":
+                stable_failures.append(target)
+        finally:
+            c.close()
+
     def drive(target, n, deadline_ms=None, tokens=4):
-        for i in range(n):
-            try:
-                cl.generate([[1, 2, 3 + i % 5]], max_new_tokens=tokens,
-                            target=target, deadline_ms=deadline_ms,
-                            client_tag=f"tenant-{target}")
-            except HTTPStatusError:
-                if target == "stable":
-                    stable_failures.append(target)
+        """``n`` requests at once; returns when all have answered."""
+        threads = [threading.Thread(target=one,
+                                    args=(target, i, deadline_ms, tokens))
+                   for i in range(n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
 
     def wait_for(pred, what, timeout_s=30.0):
         t0 = time.perf_counter()
@@ -360,14 +380,15 @@ def test_autopilot_end_to_end(engine):
         # phase 1: a healthy canary qualifies and is promoted
         app.generation.install("engine", 1, engine, alias="canary",
                                warm=True)
-        wait_for(lambda: (drive("canary", 3) or drive("stable", 2)
+        wait_for(lambda: (drive("canary", burst) or drive("stable", 2)
                           or app.slo.stats()["promotions"] >= 1),
                  "healthy canary promotion")
         assert app._slo_resolve("stable") == "engine@v1"
         # phase 2: a laggy canary blows the deadline SLO and rolls back
         app.generation.install("engine", 2, _LaggyEngine(engine, 0.08),
                                alias="canary", warm=False)
-        wait_for(lambda: (drive("canary", 3, deadline_ms=200, tokens=8)
+        wait_for(lambda: (drive("canary", burst, deadline_ms=200,
+                                tokens=8)
                           or drive("stable", 2)
                           or app.slo.stats()["rollbacks"] >= 1),
                  "faulty canary rollback")
