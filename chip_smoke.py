@@ -10,11 +10,12 @@ Phases (any failure exits non-zero and prints no final result line):
 
 1. device: the card's name and power limit (nvidia-smi); TF32 off for the
    comparisons.
-2. build: every kernel of the main paths (K1 flash_attention; K2
-   decode_attention and K3 paged_decode_attention, one source; K4 wkv6;
-   K5 ssd) is compiled from the checkout's sources with nvcc for sm_90a,
-   one nvcc per source, started together.  cuobjdump's SASS must show
-   HGMMA (wgmma) in K1's library and HMMA (mma.sync) in K2/K3's, K4's and
+2. build: every kernel of the main paths (K1 flash_attention and its
+   backward kernel, two sources; K2 decode_attention and K3
+   paged_decode_attention, one source; K4 wkv6; K5 ssd) is compiled from
+   the checkout's sources with nvcc for sm_90a, one nvcc per source,
+   started together.  cuobjdump's SASS must show HGMMA (wgmma) in K1's
+   library and HMMA (mma.sync) in K1's backward's, K2/K3's, K4's and
    K5's; the counts go into the kernels line.
 3. kernels: each kernel is held against its plain PyTorch version on the
    card at the main path's shapes and at the edges.  K1: yi-9b attention,
@@ -87,6 +88,21 @@ Phases (any failure exits non-zero and prints no final result line):
    library call computes either): the fp32 one (every operation at the
    CUDA-core peak) and the tensor-core one (the products at a third of
    the TF32 peak, the three-term split's three products).
+   K1's backward (``flash_attention_bwd``; bf16 at 3e-2, fp32 at 2e-5,
+   atol scaled to each of dq, dk, dv, and each within BWD_REL_L2 relative
+   L2 error) against ``flash_attention_bwd_plain`` on the
+   forward kernel's own O and lse and a seeded dO: danube's training
+   shape (B=4, S=2048, 32/8 heads of 80, its 4096 window; tensor cores
+   asserted), danube fp32, yi-9b's, a window, ragged lengths with a
+   length-0 row (bf16 and fp32), strided and unaligned inputs, hd 32, 64,
+   96 and 256, G=12 and G=16, the vlm and whisper cross shapes and
+   whisper's fp32 encoder (keys shifted by KEY_SHIFT), Skv < S and causal
+   Skv > S.  Each case also runs the backward twice (bit for bit), holds
+   the forward's lse to the plain one and O with lse bit for bit to O
+   without.  Timed at danube's shape, the vlm cross and whisper's fp32
+   encoder beside the plain version, SDPA's forward + backward
+   (``enable_gqa``) and the bound (2.5x the forward's operations, or the
+   bytes of q, k, v, o, dO, dq, dk, dv once).
 4. ensemble path: ``build_app(["yi-9b", "yi-9b"], full=True, max_len=1024,
    num_slots=8)`` — two members at full width and depth with random
    weights from a seed, and a generate plane over member 0's params —
@@ -350,8 +366,27 @@ Phases (any failure exits non-zero and prints no final result line):
    prompts of 4-64 tokens and max_len 448, K1 18 per forward or prefill
    (6 encoder, 6 decoder self, 6 cross at Skv = 1500) and K2 12 per tick.
 
-The line before the nvidia-smi line is ``{"kernels": [...]}`` (K1-K5);
-the last line is ``{"ok": true, "device": {...}}``.
+12. training, last: A. ``repro_torch.launch.train`` (``--full``) trains
+   h2o-danube-1.8b at full width and depth (24 layers, d_model 2560, 32/8
+   heads of 80, bf16, 1.83 B params) for TRAIN_STEPS steps of B=4 x 2048
+   synthetic tokens at lr TRAIN_LR, remat on, fp32 moments: K1 48
+   forward (24, and 24
+   recomputed) and 24 backward launches a step exactly, K2-K5 none; the
+   loss must fall by TRAIN_LOSS_DROP; the final checkpoint restores bit
+   for bit; one more step is profiled (device time of K1's forward and
+   backward, the GEMMs, the rest).  B. at A's initial weights and first
+   batch, one step's loss and every leaf's gradient through the kernels
+   against the plain versions, in bf16 and on float32 copies of the
+   weights, and in bf16 each leaf's distance from the plain float32
+   gradients against the bf16 plain versions', within GRAD_BOUNDS
+   (``scripts/k1_bwd_fault.py`` shows each planted backward fault failing
+   it).  C. whisper-base at full size, a
+   few steps with float32 frames: K1's backward on the fp32 encoder (S =
+   1500) and the bf16 cross-attention (Skv = 1500), launch counts exact,
+   finite losses.
+
+The line before the nvidia-smi line is ``{"kernels": [...]}`` (K1-K5 and
+K1's backward); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -695,6 +730,256 @@ def kernel_phase(failures):
             f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
     torch.cuda.empty_cache()
     return [entry]
+
+
+# --- phase 3: K1's backward kernel ---------------------------------------------
+
+K1_BWD_KERNELS = ("delta_kernel", "dkdv_kernel", "dq_kernel",
+                  "dkdv_mma_kernel", "dq_mma_kernel")
+# h2o-danube-1.8b, the training phase's model: 32/8 heads of 80, its 4096
+# window (wider than the sequence), B=4 x S=2048 a step
+DANUBE_HEADS = (32, 8, 80)
+TRAIN_SEQ, TRAIN_BATCH, DANUBE_WINDOW = 2048, 4, 4096
+# Each gradient's relative L2 error against the plain backward's, besides
+# the elementwise TOL at its own scale, so that a fault confined to rows
+# whose gradients are small (the late queries of a long causal row) cannot
+# hide under an atol set by the early rows.  Set from the unfaulted
+# kernels' chip run (largest bf16 3.24e-4, fp32 1.40e-6) with a margin of
+# about 6x; the last-tile fault of scripts/k1_bwd_fault.py gave 8.9e-3 to
+# 0.68 in the cases it reaches.  BWD_ZERO: below this fraction of the
+# case's largest norm a gradient is zero up to rounding.
+BWD_REL_L2 = {"bfloat16": 2e-3, "float32": 1e-5}
+BWD_ZERO = 1e-3
+
+
+def bwd_inputs(c, seed=1):
+    """K1's forward output and lse on a case (the kernel's own) and a
+    seeded output gradient: the backward's inputs."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = c["q"]
+    do = torch.randn(q.shape, generator=g, device="cuda").to(q.dtype)
+    lengths = ops._check(q, c["k"], c["v"], c["lengths"])
+    o, lse = ops._forward(q, c["k"], c["v"], c["causal"], c["window"],
+                          lengths, with_lse=True)
+    return o, lse, do
+
+
+def check_bwd_case(c):
+    """K1's backward kernel against its plain version on one case, the
+    forward's lse against the plain lse, O with and without lse, and two
+    runs of the backward bit for bit."""
+    import torch
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd, flash_attention_bwd_plain,
+        flash_attention_plain, ops)
+    kw = dict(causal=c["causal"], window=c["window"], lengths=c["lengths"])
+    q, k, v = c["q"], c["k"], c["v"]
+    o, lse, do = bwd_inputs(c)
+    got = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    tc = flash_attention_bwd.tensor_cores
+    again = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    o0 = ops._forward(q, k, v, c["causal"], c["window"],
+                      ops._check(q, k, v, c["lengths"]), with_lse=False)[0]
+    _, lse_ref = flash_attention_plain(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    errs, rels, ok = {}, {}, True
+    # Each gradient is held to its own scale: atol relative to its largest
+    # element and its relative L2 error.  A tensor whose norm is below
+    # BWD_ZERO of the case's largest is zero up to rounding (at S = 1,
+    # dS = P (dP - Delta) = 0): atol takes the case's largest element
+    # instead, and no relative error is taken.
+    want32 = [w.float() for w in want]
+    top = max(float(w.abs().max()) for w in want32)
+    top_norm = max(float(w.norm()) for w in want32)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want32):
+        a = a.float()
+        zero = float(w.norm()) <= BWD_ZERO * top_norm
+        tol = scaled_tol(c["dtype"], torch.tensor(
+            top if zero else float(w.abs().max())))
+        errs[name] = float((a - w).abs().max())
+        rels[name] = None if zero else float((a - w).norm() / w.norm())
+        ok &= (bool(torch.isfinite(a).all()) and torch.allclose(a, w, **tol)
+               and (zero or rels[name] <= BWD_REL_L2[c["dtype"]]))
+    det = all(torch.equal(a, b) for a, b in zip(got, again))
+    fin = torch.isfinite(lse_ref)
+    ltol = 1e-5 if c["dtype"] == "float32" else 1e-4
+    lse_ok = (torch.equal(torch.isneginf(lse), torch.isneginf(lse_ref))
+              and torch.allclose(lse[fin], lse_ref[fin], rtol=ltol,
+                                 atol=ltol))
+    lse_err = float((lse[fin] - lse_ref[fin]).abs().max()) if fin.any() \
+        else 0.0
+    return {"case": c["name"], "ok": bool(ok), "max_abs_err": max(
+        errs.values()), "errs": errs, "rel_l2": rels, "deterministic": det,
+        "lse_ok": bool(lse_ok), "lse_err": lse_err,
+        "o_bitwise_with_lse": torch.equal(o0, o), "tensor_cores": tc}
+
+
+def time_bwd(c):
+    """K1's backward beside its plain version, SDPA's forward + backward
+    and its bound at one case."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd, flash_attention_bwd_plain, ops)
+    q, k, v = c["q"], c["k"], c["v"]
+    B, S, H, hd = q.shape
+    Skv, K = k.shape[1], k.shape[2]
+    kw = dict(causal=c["causal"], window=c["window"], lengths=None)
+    o, lse, do = bwd_inputs(dict(c, lengths=None))
+
+    def ours():
+        return flash_attention_bwd(q, k, v, o, lse, do, **kw)
+
+    def both():             # our forward (with lse) and backward
+        o2, lse2 = ops._forward(q, k, v, c["causal"], c["window"], None,
+                                with_lse=True)
+        return flash_attention_bwd(q, k, v, o2, lse2, do, **kw)
+    kernel_ms = cuda_time_ms(ours)
+    device = profiled_ms(ours, K1_BWD_KERNELS)
+    both_ms = cuda_time_ms(both)
+    plain_ms = cuda_time_ms(lambda: flash_attention_bwd_plain(
+        q, k, v, o, lse, do, **kw), iters=5, warmup=1)
+    qt, kt, vt = (t.transpose(1, 2).detach().contiguous().requires_grad_()
+                  for t in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+
+    def library():      # SDPA forward + backward; is_causal is top-left
+        out = F.scaled_dot_product_attention(qt, kt, vt,
+                                             is_causal=c["causal"],
+                                             enable_gqa=True)
+        out.backward(dot)
+    try:
+        library_ms = cuda_time_ms(library)
+        library_dev_ms = profiled_ms(library, ())
+    except TypeError:                   # torch without enable_gqa
+        library_ms = library_dev_ms = None
+    del qt, kt, vt
+    esz = q.element_size()
+    nbytes = esz * (4 * q.numel() + 4 * k.numel())  # q k v o dO; dq dk dv
+    flops = 2.5 * 4 * hd * H * visible_pairs(S, c["causal"], c["window"],
+                                             None, B, Skv)
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_flops = flops / PEAK_FLOPS[c["dtype"]]
+    return {"shape": f"B={B} S={S}" + (f" Skv={Skv}" if Skv != S else "")
+                     + f" H={H} K={K} hd={hd} {c['dtype']} "
+                     + ("causal" if c["causal"] else "non-causal")
+                     + (f" window {c['window']}" if c["window"] else ""),
+            "ms": kernel_ms, "device_ms": device, "fwd_bwd_ms": both_ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "library_device_ms": library_dev_ms,
+            "bound_ms": 1e3 * max(t_bytes, t_flops),
+            "bound_by": "bytes" if t_bytes >= t_flops else "operations",
+            "bytes": nbytes, "flops": flops}
+
+
+def bwd_cases():
+    """Phase 3's cases of K1's backward: danube's training shape first."""
+    danube = ("danube train bf16 causal (B=4, S=2048, window 4096)",
+              TRAIN_BATCH, TRAIN_SEQ, *DANUBE_HEADS, "bfloat16")
+    return [
+        attention_case(*danube, window=DANUBE_WINDOW),
+        attention_case("danube fp32 causal S=1024", 1, 1024,
+                       *DANUBE_HEADS, "float32", window=DANUBE_WINDOW),
+        attention_case("yi-9b bf16 causal", 8, 256, 32, 4, 128, "bfloat16"),
+        attention_case("yi-9b bf16 window 64", 4, 256, 32, 4, 128,
+                       "bfloat16", window=64),
+        attention_case("bf16 window 20, ragged lengths with a length-0 row",
+                       4, 300, 32, 4, 128, "bfloat16", window=20,
+                       ragged=True, empty_row=True),
+        attention_case("fp32 ragged lengths with a length-0 row", 4, 200, 8,
+                       2, 64, "float32", ragged=True, empty_row=True),
+        attention_case("S=200 bf16 strided inputs", 3, 200, 32, 4, 128,
+                       "bfloat16", strided=True),
+        attention_case("bf16 rows not 16-byte aligned", 2, 70, 8, 2, 128,
+                       "bfloat16", offset=1),
+        attention_case("hd=32 fp32 S=1", 4, 1, 4, 2, 32, "float32"),
+        attention_case("hd=256 bf16 non-causal window 40", 2, 96, 4, 1, 256,
+                       "bfloat16", causal=False, window=40),
+        attention_case("hd=64 bf16 causal", 2, 300, 8, 2, 64, "bfloat16"),
+        attention_case("G=12 hd=128 bf16 (96/8 heads)", 2, 300, 96, 8, 128,
+                       "bfloat16"),
+        attention_case("hd=96 bf16 G=1", 2, 200, 4, 4, 96, "bfloat16"),
+        attention_case("qwen3-moe G=16 bf16 causal", 2, 256, *QWEN_HEADS,
+                       "bfloat16"),
+        attention_case("vlm cross bf16", 8, 256, *VLM_HEADS, "bfloat16",
+                       causal=False, Skv=VLM_IMAGE_TOKENS,
+                       key_shift=KEY_SHIFT),
+        attention_case("whisper cross bf16", 4, 64, *WHISPER_HEADS,
+                       "bfloat16", causal=False, Skv=WHISPER_FRAMES,
+                       key_shift=KEY_SHIFT),
+        attention_case("whisper encoder fp32", 2, WHISPER_FRAMES,
+                       *WHISPER_HEADS, "float32", causal=False,
+                       key_shift=KEY_SHIFT),
+        attention_case("whisper decoder self bf16", 4, 64, *WHISPER_HEADS,
+                       "bfloat16"),
+        attention_case("Skv < S fp32 ragged lengths with a length-0 row", 4,
+                       300, 32, 8, 128, "float32", causal=False, Skv=130,
+                       ragged=True, empty_row=True),
+        attention_case("causal Skv > S bf16 (top-left aligned)", 2, 200, 32,
+                       8, 128, "bfloat16", Skv=333),
+    ]
+
+
+def bwd_case_ok(r):
+    return (r["ok"] and r["deterministic"] and r["lse_ok"]
+            and r["o_bitwise_with_lse"])
+
+
+def bwd_kernel_phase(failures):
+    """Phase 3, K1's backward: every case against its plain version, then
+    timed at danube's training shape, the vlm cross shape and whisper's
+    fp32 encoder."""
+    import torch
+    cases = bwd_cases()
+    results = []
+    for c in cases:
+        r = check_bwd_case(c)
+        good = bwd_case_ok(r)
+        log(f"[kernels] flash_attention_bwd {c['name']}: max_abs_err "
+            f"{r['max_abs_err']:.3e} ({r['errs']}), relative L2 "
+            f"{r['rel_l2']}, "
+            f"{'tensor' if r['tensor_cores'] else 'CUDA'} cores, "
+            f"deterministic {r['deterministic']}, lse err "
+            f"{r['lse_err']:.2e}, O bitwise with lse "
+            f"{r['o_bitwise_with_lse']} ({'ok' if good else 'FAIL'})")
+        if not good:
+            failures.append(f"flash_attention_bwd {c['name']}: {r}")
+        results.append(r)
+        torch.cuda.empty_cache()
+    by_name = {c["name"]: c for c in cases}
+    if not results[0]["tensor_cores"]:
+        failures.append("flash_attention_bwd: danube's case did not take "
+                        "the tensor-core kernels")
+    main = time_bwd(cases[0])
+    timed = {key: time_bwd(by_name[name]) for key, name in (
+        ("vlm_cross", "vlm cross bf16"),
+        ("whisper_encoder_fp32", "whisper encoder fp32"))}
+    for t in (main, *timed.values()):
+        log(f"[kernels] flash_attention_bwd timed at {t['shape']}: kernel "
+            f"{t['ms']:.4f} ms (device time {t['device_ms']:.4f} ms; with "
+            f"K1's forward {t['fwd_bwd_ms']:.4f} ms), plain "
+            f"{t['plain_ms']:.4f} ms, SDPA forward + backward "
+            f"{t['library_ms']} ms (device {t['library_device_ms']} ms), "
+            f"bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+    torch.cuda.empty_cache()
+    return {
+        "name": "flash_attention_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:74 "
+                    "(the gradient of flash_attention_bhsd; the TPU "
+                    "kernel has none, JAX differentiates its jnp "
+                    "attention)",
+        "launches": None,
+        "max_abs_err": results[0]["max_abs_err"],
+        **main,
+        **{f"{key}_shape": t for key, t in timed.items()},
+        "cases": results,
+    }
 
 
 def device_ms(prof, names) -> float:
@@ -2252,17 +2537,19 @@ def sched_workload(vocab, seed):
 
 
 K_NAMES = ("flash_attention", "decode_attention", "paged_decode_attention",
-           "wkv6", "ssd")
+           "wkv6", "ssd", "flash_attention_bwd")
 
 
 def kernel_fns():
     from repro_torch.kernels.decode_attention import (decode_attention,
                                                       paged_decode_attention)
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
     from repro_torch.kernels.mamba2_ssd import ssd
     from repro_torch.kernels.rwkv6_wkv import wkv6
     return dict(zip(K_NAMES, (flash_attention, decode_attention,
-                              paged_decode_attention, wkv6, ssd)))
+                              paged_decode_attention, wkv6, ssd,
+                              flash_attention_bwd)))
 
 
 def counts_reset():
@@ -4599,6 +4886,8 @@ def control_plane_phase(failures, kernels, profile_dir):
                 "POST", f"/v1/models/{name0}/load",
                 {"version": v2, "warm": True})
             t_loaded = time.perf_counter()
+            load_parts = dict(getattr(mgr.store, "last_load_ms", {}),
+                              warm=res_load.get("warm_ms", 0.0))
             time.sleep(0.8)
             v2_members = {f"{ARCH}#0": v2, f"{ARCH}#1": 1}
             v2_ref = reference_ensemble(mgr, v2_members)
@@ -4619,7 +4908,7 @@ def control_plane_phase(failures, kernels, profile_dir):
                                     {"version": v2})
         torch.cuda.synchronize()
         mem_after = torch.cuda.memory_allocated()
-        served, bad = {}, []
+        served, bad, waits = {}, [], []
         for st, body, rid, t0, t1 in results:
             tr_st, tr, _ = client.call_id("GET", f"/v1/trace/{rid}")
             label = (tr.get("attrs") or {}).get("version")
@@ -4627,14 +4916,32 @@ def control_plane_phase(failures, kernels, profile_dir):
             same = st == 200 and tr_st == 200 and body == refs.get(label)
             if not same:
                 bad.append((st, rid, label))
+            if t0 < t_loaded and t1 > t_load and tr_st == 200:
+                # where a request overlapping the load waited: the
+                # coalescer's queue or its (batched) forward
+                spans = {}
+                for sp in tr.get("spans", []):
+                    spans[sp["name"]] = spans.get(sp["name"], 0.0) \
+                        + sp["duration_ms"]
+                waits.append((1e3 * (t1 - t0),
+                              spans.get("coalesce_queue", 0.0),
+                              spans.get("coalesce_forward", 0.0)))
         during = [1e3 * (t1 - t0) for _, _, _, t0, t1 in results
                   if t0 < t_loaded and t1 > t_load]
+        slowest = max(waits, default=(0.0, 0.0, 0.0))
         info["swap"] = {
             "requests": len(results), "served_by": served,
             "load_to_serving_ms": 1e3 * (t_loaded - t_load),
             "max_response_ms_during_load": max(during or [0.0]),
             "max_response_ms": max(1e3 * (t1 - t0)
                                    for *_, t0, t1 in results),
+            "load_parts_ms": load_parts,
+            "overlapping": len(waits),
+            "queue_ms_max": max((w[1] for w in waits), default=0.0),
+            "forward_ms_max": max((w[2] for w in waits), default=0.0),
+            "slowest_response_parts_ms": {
+                "response": slowest[0], "coalesce_queue": slowest[1],
+                "coalesce_forward": slowest[2]},
             "min_margin": margins,
             "memory_before_gb": mem_before / 1e9,
             "memory_after_unload_gb": mem_after / 1e9}
@@ -4650,6 +4957,11 @@ def control_plane_phase(failures, kernels, profile_dir):
             f"equal to its serving version's reference forward: "
             f"{'yes' if not bad else bad} (smallest top-two probability "
             f"gap {margins}); on {smi}")
+        log(f"[store] C: the load's parts {load_parts} ms; {len(waits)} "
+            f"requests overlapped it: coalesce_queue max "
+            f"{info['swap']['queue_ms_max']:.1f} ms, coalesce_forward max "
+            f"{info['swap']['forward_ms_max']:.1f} ms; the slowest "
+            f"{info['swap']['slowest_response_parts_ms']}")
         log(f"[store] C: unload v{v2} ({st_un}): device memory allocated "
             f"{mem_before / 1e9:.3f} GB before the load, "
             f"{mem_after / 1e9:.3f} GB after the unload")
@@ -6116,6 +6428,328 @@ def frontend_phase(failures, kernels, profile_dir, base_bytes, arch):
         f"{info['seconds']:.1f} s")
 
 
+# --- phase 12: training --------------------------------------------------------
+
+TRAIN_ARCH = "h2o-danube-1.8b"
+# At danube's vocab of 32000 what a few dozen steps can learn of the
+# synthetic data is the head's calibration: the loss starts at 10.78
+# (ln 32000 = 10.37 plus the random head's spread), so it can fall by at
+# most about 0.41.  Measured on the card (PERF.md §6): lr 1e-3 rises
+# first and falls 0.14 in 30 steps, 0.29 in 60; lr 3e-4 falls 0.17 in 30
+# and 0.29 in 60 steps.  100 steps at 3e-4 give the margin room.
+TRAIN_STEPS = 100
+TRAIN_LR = 3e-4
+TRAIN_LOSS_DROP = 0.3       # tests/test_training.py::test_loss_decreases
+WHISPER_TRAIN_STEPS = 4
+WHISPER_TRAIN_SEQ = 64
+# Phase 12 B's bounds, kernels against plain versions on one step's loss
+# and every leaf's gradient (relative L2 error): bf16 at danube's full
+# width and depth, and the same model on float32 copies of its weights
+# (K1's CUDA-core kernels, where only rounding differs).  Set from the
+# first chip run of the unfaulted kernels (bf16: loss 8.2e-5, worst leaf
+# 2.18e-2, layers/attn/wq; float32: 0 and 6.4e-6) with margin, so that
+# each fault of scripts/k1_bwd_fault.py fails them: the diagonal fault
+# gave 0.24 (both dtypes), the Delta fault 2.24, the last-tile fault 2.8e-2
+# in bf16 (within bf16's noise) and 1.8e-2 in float32.  bf16's noise
+# hides a fault of that size from "rel_l2", so "ratio" holds the bf16
+# kernels to the bf16 plain versions' own distance from one common
+# reference, the plain float32 gradients: for every leaf, the kernels'
+# relative L2 distance from it over the plain versions' distance from it.
+# Unfaulted, the largest ratio was 1.0078 (layers/ln1/scale; wq 0.998 at
+# 2.24e-2 from float32); the last-tile fault gave 1.269 (wq, 2.84e-2).
+GRAD_BOUNDS = {"bfloat16": {"loss": 1e-3, "rel_l2": 4e-2, "ratio": 1.1},
+               "float32": {"loss": 1e-5, "rel_l2": 1e-4}}
+
+
+def step_counts(steps, fwd, bwd):
+    want = dict.fromkeys(K_NAMES, 0)
+    want["flash_attention"] = steps * fwd
+    want["flash_attention_bwd"] = steps * bwd
+    return want
+
+
+def leaf_rel(got, ref):
+    """Each leaf's relative L2 distance of ``got`` from ``ref``."""
+    return {k: float((got[k].float() - ref[k].float()).norm()
+                     / ref[k].float().norm().clamp(min=1e-30))
+            for k in ref}
+
+
+def step_grads(model, params, batch, plain):
+    """One step's (loss, gradients, launch counts) through the kernels, or
+    through the plain versions with ``plain``."""
+    import torch
+    from repro_torch.training import train_loop
+    counts_reset()
+    if plain:
+        with plain_kernels():
+            loss, _, grads = train_loop._grads(model, params, batch,
+                                               remat=True)
+    else:
+        loss, _, grads = train_loop._grads(model, params, batch, remat=True)
+    n = counts_read()
+    torch.cuda.synchronize()
+    return float(loss), grads, n
+
+
+def grad_check(model, params, batch, ref, dt):
+    """Phase 12 B at one dtype: the loss difference and the largest
+    relative L2 error of a leaf's gradient, kernels against plain versions
+    on the same batch, and the kernels' launch counts.  In bf16 also each
+    leaf's ratio of distances from ``ref`` (the plain float32 gradients),
+    kernels over plain versions; in float32 the plain versions are ``ref``
+    itself ((loss, grads))."""
+    import torch
+    kl, kg, n = step_grads(model, params, batch, plain=False)
+    if dt == "float32":
+        pl, pg = ref
+    else:
+        pl, pg, _ = step_grads(model, params, batch, plain=True)
+    rel = leaf_rel(kg, pg)
+    worst = max(rel, key=rel.get)
+    out = {"loss_kernels": kl, "loss_plain": pl, "loss_diff": abs(kl - pl),
+           "rel_l2_max": rel[worst], "worst_leaf": worst,
+           "rel_l2_attention": {k: v for k, v in rel.items()
+                                if "/attn/" in k},
+           "launches": n}
+    if dt != "float32":
+        dk, dp = leaf_rel(kg, ref[1]), leaf_rel(pg, ref[1])
+        ratio = {k: dk[k] / dp[k] if dp[k] > 0 else
+                 (1.0 if dk[k] == 0 else float("inf")) for k in dk}
+        top = max(ratio, key=ratio.get)
+        out.update(ratio_max=ratio[top], ratio_leaf=top,
+                   vs_float32={k: {"kernels": dk[k], "plain": dp[k]}
+                               for k in dk if k == top or "/attn/" in k})
+    log(f"[train] B {dt}: loss kernels {kl:.6f} plain {pl:.6f} (diff "
+        f"{out['loss_diff']:.3e}); largest relative L2 gradient error "
+        f"{rel[worst]:.3e} ({worst}); attention leaves "
+        + ", ".join(f"{k} {v:.2e}" for k, v in
+                    out["rel_l2_attention"].items())
+        + (f"; distance from the float32 plain gradients, kernels / plain: "
+           f"largest ratio {out['ratio_max']:.4f} ({out['ratio_leaf']}), "
+           + ", ".join(f"{k} {v['kernels']:.3e} / {v['plain']:.3e}"
+                       for k, v in out["vs_float32"].items())
+           if "ratio_max" in out else "")
+        + f"; launches {n}")
+    del kg, pg
+    return out
+
+
+def gradient_phase(failures):
+    """Phase 12 B: h2o-danube-1.8b at full width and depth, A's initial
+    weights (seed 0) and first batch: one step's loss and every leaf's
+    gradient through the kernels against the plain versions, on float32
+    copies of the weights and in bf16, within ``GRAD_BOUNDS``; the plain
+    float32 gradients are also the common reference of bf16's ratio."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.training import DataConfig, SyntheticLM
+    cfg = get_config(TRAIN_ARCH)
+    model = build_model(cfg)
+    params = model.init(0, "cuda")
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                  seq_len=TRAIN_SEQ,
+                                  global_batch=TRAIN_BATCH, num_dialects=1))
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in data.batch_at(0).items()}
+    p32 = {k: v.float() for k, v in params.items()}
+    ref_loss, ref, _ = step_grads(model, p32, batch, plain=True)
+    out = {}
+    for dt in ("float32", "bfloat16"):
+        r = grad_check(model, p32 if dt == "float32" else params, batch,
+                       (ref_loss, ref), dt)
+        if dt == "float32":
+            del p32
+        gc.collect()
+        torch.cuda.empty_cache()
+        bound = GRAD_BOUNDS[dt]
+        r["bounds"] = bound
+        out[dt] = r
+        want = step_counts(1, 2 * cfg.num_layers, cfg.num_layers)
+        if (r["loss_diff"] > bound["loss"]
+                or r["rel_l2_max"] > bound["rel_l2"]
+                or r.get("ratio_max", 0.0) > bound.get("ratio", 1.0)
+                or r["launches"] != want):
+            failures.append(f"train B {dt}: loss diff {r['loss_diff']}, "
+                            f"rel L2 {r['rel_l2_max']} ({r['worst_leaf']}), "
+                            f"ratio {r.get('ratio_max')} "
+                            f"({r.get('ratio_leaf')}), bounds {bound}, "
+                            f"launches {r['launches']}")
+    del params, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def profile_train_step(trainer, batch, out_dir):
+    """One more training step under torch.profiler: device time by
+    kernel group and the host clock of the step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        trainer.params, trainer.opt_state, m = trainer._step_fn(
+            trainer.params, trainer.opt_state, batch)
+        float(m["loss"])
+        torch.cuda.synchronize()
+    host = 1e3 * (time.perf_counter() - t0)
+    groups = {"k1_forward": K1_KERNELS, "k1_backward": K1_BWD_KERNELS,
+              "gemm": ("gemm", "Gemm", "sm90_xmma", "cutlass", "nvjet")}
+    out = {"host_ms": host, "device_ms": device_ms(prof, ())}
+    for g, names in groups.items():
+        out[f"{g}_ms"] = device_ms(prof, names)
+    out["other_ms"] = out["device_ms"] - sum(out[f"{g}_ms"] for g in groups)
+    if out_dir:
+        Path(out_dir).mkdir(parents=True, exist_ok=True)
+        (Path(out_dir) / "train_step.txt").write_text(
+            prof.key_averages().table(sort_by="self_cuda_time_total",
+                                      row_limit=40))
+    log("[train] one danube step under the profiler: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in out.items()))
+    return out
+
+
+def training_phase(failures, kernels, profile_dir, base_bytes):
+    """Phase 12: h2o-danube-1.8b trained through ``launch.train`` at full
+    width and depth (A), its gradients held against the plain versions
+    (B), and whisper-base trained a few steps (C)."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import build_model
+    from repro_torch.training import (DataConfig, OptimizerConfig,
+                                      SyntheticLM, Trainer, TrainerConfig,
+                                      checkpoint)
+    t_phase = time.perf_counter()
+    info = {"card": nvidia_smi_line()}
+    kernels[0]["training"] = info
+    memory_back(failures, base_bytes, "train")
+    root = tempfile.mkdtemp(prefix="flexserve-train-")
+    try:
+        # A. launch.train at full width and depth
+        cfg = get_config(TRAIN_ARCH)
+        layers = cfg.num_layers
+        argv = ["--arch", TRAIN_ARCH, "--full", "--steps", str(TRAIN_STEPS),
+                "--seq-len", str(TRAIN_SEQ), "--batch", str(TRAIN_BATCH),
+                "--lr", str(TRAIN_LR), "--log-every", "1", "--ckpt-dir",
+                root]
+        torch.cuda.reset_peak_memory_stats()
+        counts_reset()
+        t0 = time.perf_counter()
+        trainer, hist = launch_train.train(launch_train.parse_args(argv))
+        wall = time.perf_counter() - t0
+        n = counts_read()
+        peak = torch.cuda.max_memory_allocated()
+        want = step_counts(TRAIN_STEPS, 2 * layers, layers)
+        losses = [h["loss"] for h in hist]
+        step_s = np.diff([0.0] + [h["wall_s"] for h in hist])
+        drop = losses[0] - losses[-1]
+        nparams = sum(v.numel() for v in trainer.params.values())
+        info["A"] = {"steps": TRAIN_STEPS, "seq_len": TRAIN_SEQ,
+                     "batch": TRAIN_BATCH, "params": nparams,
+                     "losses": losses, "loss_drop": drop,
+                     "step_s_median": float(np.median(step_s[1:])),
+                     "first_step_s": float(step_s[0]), "wall_s": wall,
+                     "peak_memory_gb": peak / 1e9, "launches": n,
+                     "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ
+                     / float(np.median(step_s[1:]))}
+        kernels[-1]["launches"] = n["flash_attention_bwd"]
+        log(f"[train] A: launch.train {' '.join(argv[:-1])} DIR: "
+            f"{TRAIN_ARCH} at full width and depth ({layers} layers, "
+            f"{nparams / 1e9:.3f} B params, bf16, remat, fp32 moments); "
+            f"loss {losses[0]:.4f} -> {losses[-1]:.4f} (drop {drop:.4f}, "
+            f"needed {TRAIN_LOSS_DROP}); step median "
+            f"{info['A']['step_s_median']:.3f} s (first "
+            f"{step_s[0]:.2f} s), {info['A']['tokens_per_s']:.0f} tokens/s; "
+            f"peak memory {peak / 1e9:.2f} GB; launches {n} (expected "
+            f"{want}); on {info['card']}")
+        log(f"[train] A: losses {[round(x, 4) for x in losses]}")
+        if n != want:
+            failures.append(f"train A: launches {n}, expected {want}")
+        if not (np.isfinite(losses).all() and drop >= TRAIN_LOSS_DROP):
+            failures.append(f"train A: loss {losses[0]} -> {losses[-1]}")
+        # the final checkpoint, restored bit for bit
+        path = os.path.join(root, f"step_{TRAIN_STEPS}.ckpt")
+        like = {"params/" + k: v for k, v in trainer.params.items()}
+        restored, meta = checkpoint.restore(path, like, device="cuda")
+        same = meta.get("step") == TRAIN_STEPS and all(
+            torch.equal(restored["params/" + k], v)
+            for k, v in trainer.params.items())
+        info["A"]["checkpoint_bitwise"] = same
+        log(f"[train] A: {path} ({os.path.getsize(path) / 1e9:.2f} GB) "
+            f"restored bit for bit: {same}")
+        if not same:
+            failures.append("train A: the checkpoint did not restore the "
+                            "trained params bit for bit")
+        del restored
+        data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                      seq_len=TRAIN_SEQ,
+                                      global_batch=TRAIN_BATCH,
+                                      num_dialects=1))
+        batch = {k: torch.as_tensor(v, device="cuda")
+                 for k, v in data.batch_at(0).items()}
+        info["profile"] = profile_train_step(
+            trainer, batch, Path(profile_dir) if profile_dir else None)
+
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        # B. one step's gradients, kernels against plain versions
+        info["B"] = gradient_phase(failures)
+
+        # C. whisper-base, a few steps at full size: K1's backward on the
+        # fp32 encoder (S = 1500) and bf16 cross-attention (Skv = 1500)
+        wcfg = get_config("whisper-base")
+        wmodel = build_model(wcfg)
+        frames = np.random.default_rng(FRONTEND_SEED).normal(
+            0, 1, (TRAIN_BATCH, wcfg.encdec.encoder_frames,
+                   wcfg.d_model)).astype(np.float32)
+        wdata = SyntheticLM(DataConfig(vocab_size=wcfg.vocab_size,
+                                       seq_len=WHISPER_TRAIN_SEQ,
+                                       global_batch=TRAIN_BATCH,
+                                       num_dialects=1))
+
+        def with_frames():
+            for b in wdata:
+                yield dict(b, frames=frames)
+        wtr = Trainer(wmodel, OptimizerConfig(
+            peak_lr=1e-3, warmup_steps=2, total_steps=WHISPER_TRAIN_STEPS),
+            TrainerConfig(total_steps=WHISPER_TRAIN_STEPS, log_every=1),
+            seed=0, device="cuda")
+        counts_reset()
+        t0 = time.perf_counter()
+        whist = wtr.fit(with_frames(), log=lambda _: None)
+        wn = counts_read()
+        enc, dec = wcfg.encdec.encoder_layers, wcfg.num_layers
+        # the encoder once; the decoder's self and cross twice (remat)
+        wwant = step_counts(WHISPER_TRAIN_STEPS, enc + 4 * dec,
+                            enc + 2 * dec)
+        wl = [h["loss"] for h in whist]
+        info["C"] = {"steps": WHISPER_TRAIN_STEPS, "losses": wl,
+                     "launches": wn, "wall_s": time.perf_counter() - t0}
+        log(f"[train] C: whisper-base at full size ({enc} + {dec} layers, "
+            f"float32 frames {frames.shape}, tokens {WHISPER_TRAIN_SEQ}) "
+            f"{WHISPER_TRAIN_STEPS} steps: losses "
+            f"{[round(x, 4) for x in wl]}; launches {wn} (expected "
+            f"{wwant}) in {info['C']['wall_s']:.1f} s")
+        if wn != wwant or not np.isfinite(wl).all():
+            failures.append(f"train C: launches {wn}, expected {wwant}, "
+                            f"losses {wl}")
+        del wtr, wmodel
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    info["seconds"] = time.perf_counter() - t_phase
+    log(f"[train] phase 12 in {info['seconds']:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", default=None, metavar="DIR",
@@ -6151,7 +6785,8 @@ def main(argv=None) -> int:
     from repro_torch.kernels.mamba2_ssd import ops as ssd_ops
     from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
     t0 = time.perf_counter()
-    builds = (fa_ops.build, da_ops.build, wkv_ops.build, ssd_ops.build)
+    builds = (fa_ops.build, fa_ops.build_bwd, da_ops.build, wkv_ops.build,
+              ssd_ops.build)
     with concurrent.futures.ThreadPoolExecutor(len(builds)) as ex:
         for fut in [ex.submit(b) for b in builds]:    # one nvcc each
             fut.result()
@@ -6175,6 +6810,7 @@ def main(argv=None) -> int:
     # the products: wgmma in K1; mma.sync in K2/K3 (bf16), K4 and K5 (TF32)
     sass = {}
     for name, op in (("flash_attention", "HGMMA"),
+                     ("flash_attention_bwd", "HMMA"),
                      ("decode_attention", "HMMA"), ("rwkv6_wkv", "HMMA"),
                      ("mamba2_ssd", "HMMA")):
         sass[name] = sass_counts(str(common.build_log[name]["library"]))
@@ -6199,9 +6835,11 @@ def main(argv=None) -> int:
     lap("phase 3, K3")
     kernels += wkv_kernel_phase(failures) + ssd_kernel_phase(failures)
     lap("phase 3, K4 and K5")
+    kernels.append(bwd_kernel_phase(failures))
+    lap("phase 3, K1's backward")
     for entry, lib in zip(kernels, ("flash_attention", "decode_attention",
                                     "decode_attention", "rwkv6_wkv",
-                                    "mamba2_ssd")):
+                                    "mamba2_ssd", "flash_attention_bwd")):
         entry["sass"] = sass[lib]
     base_bytes = torch.cuda.memory_allocated()
     app = main_path_phase(failures, kernels, args.profile)
@@ -6242,6 +6880,10 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         frontend_phase(failures, kernels, args.profile, base_bytes, arch)
     lap("phases 10 and 10b")
+    gc.collect()
+    torch.cuda.empty_cache()
+    training_phase(failures, kernels, args.profile, base_bytes)
+    lap("phase 12")
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -144,6 +144,20 @@ def rows_aligned16(t: torch.Tensor) -> bool:
             and all(st % 4 == 0 for st in t.stride()[:-1]))
 
 
+def refuse_grad(what: str, *tensors: Optional[torch.Tensor]) -> None:
+    """Raise where autograd would need a gradient through a kernel that
+    has no backward kernel yet (on CUDA tensors; CPU tensors take the plain
+    version, which autograd differentiates).  Without this, autograd would
+    stop at the kernel's output and leave the inputs without a gradient,
+    silently."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what} has no backward kernel yet: autograd cannot take a "
+            f"gradient through it on the card (call it under "
+            f"torch.no_grad(), or on CPU tensors)")
+
+
 def check_cuda_status(status: int, what: str) -> None:
     """Raise on a non-zero ``cudaError_t`` returned by a launcher."""
     if status != 0:

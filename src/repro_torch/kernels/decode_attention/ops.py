@@ -23,8 +23,8 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.kernels.common import (cdiv, check_cuda_status, data_ptr,
-                                        is_cuda, load_library, round_up,
-                                        stream_ptr)
+                                        is_cuda, load_library, refuse_grad,
+                                        round_up, stream_ptr)
 from repro_torch.kernels.decode_attention.ref import (
     decode_attention_plain, paged_decode_attention_plain)
 
@@ -207,6 +207,7 @@ def decode_attention(q, cache_k, cache_v, lengths, *,
     if not is_cuda(q, cache_k, cache_v, lengths):
         return decode_attention_plain(q, cache_k, cache_v, lengths,
                                       window=window)
+    refuse_grad("decode_attention", q, cache_k, cache_v)
     if q.dim() != 3 or cache_k.dim() != 4:
         raise ValueError("decode_attention takes q (B,H,hd) and cache "
                          "k/v (B,Smax,K,hd)")
@@ -253,6 +254,7 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
     if not is_cuda(q, k_pages, v_pages, page_table, lengths):
         return paged_decode_attention_plain(q, k_pages, v_pages, page_table,
                                             lengths, window=window)
+    refuse_grad("paged_decode_attention", q, k_pages, v_pages)
     if q.dim() != 3 or k_pages.dim() != 4 or page_table.dim() != 2:
         raise ValueError("paged_decode_attention takes q (B,H,hd), "
                          "k/v_pages (P,ps,K,hd) and page_table (B,MP)")

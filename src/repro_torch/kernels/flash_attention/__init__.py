@@ -1,5 +1,9 @@
-from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.kernels.flash_attention.ref import (flash_attention_plain,
+from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                 flash_attention_bwd)
+from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_plain,
+                                                     flash_attention_plain,
                                                      flash_attention_ref)
 
-__all__ = ["flash_attention", "flash_attention_plain", "flash_attention_ref"]
+__all__ = ["flash_attention", "flash_attention_bwd",
+           "flash_attention_bwd_plain", "flash_attention_plain",
+           "flash_attention_ref"]

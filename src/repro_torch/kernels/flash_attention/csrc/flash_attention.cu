@@ -83,7 +83,11 @@
 //    a warp on distinct banks.  It serves the float32 checks, not the
 //    served path.
 // Both run the key loop inside the block and keep m, l and the output
-// accumulator in registers for the whole loop.
+// accumulator in registers for the whole loop.  Where the caller passes an
+// `lse` buffer (B, H, S) fp32 (training: the backward kernel in
+// flash_attention_bwd.cu recomputes P from it), both write each row's
+// log-sum-exp m + log(l) in natural-log units of the scaled scores, and
+// -inf for a row that sees no key; with lse null nothing else changes.
 //
 // The tensor maps are encoded per call on the host with
 // cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint, so the
@@ -124,6 +128,7 @@ template <typename T, int HD_PAD>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o,
+                       float* __restrict__ lse,
                        const int* __restrict__ lengths, int S, int Skv,
                        int G, int hd, Strides qs, Strides ks, Strides vs,
                        Strides os, int causal, int window, float scale) {
@@ -234,6 +239,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     m = m_new;
   }
 
+  if (qpos < S && lse != nullptr && sub == 0)
+    lse[((long long)b * gridDim.y + h) * S + qpos] =
+        l > 0.f ? m + logf(l) : -INFINITY;
   if (qpos < S) {
     const float denom = fmaxf(l, 1e-30f);
     T* orow = o + b * os.b + (long long)qpos * os.s + h * os.h;
@@ -272,6 +280,7 @@ constexpr int kFaStages = 4;                 // K/V ring depth
 constexpr int kFaThreads = 128 * kFaWG + 32; // + the producer warp
 constexpr int kBoxBytes = 128;  // 64 bf16 head dims: one swizzle row
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -513,6 +522,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                              const __grid_constant__ CUtensorMap tm_k,
                              const __grid_constant__ CUtensorMap tm_v,
                              __nv_bfloat16* __restrict__ o,
+                             float* __restrict__ lse,
                              const int* __restrict__ lengths, int B, int S,
                              int Skv, int H, int G, int hd, Strides os,
                              int causal, int window, float scale_log2) {
@@ -803,6 +813,11 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     for (int x = 0; x < 2; ++x) {
       const int r = rows[x];
       if (r >= S) continue;
+      // m is on the raw scores and l sums powers of 2: back to natural
+      // log units of the scaled scores
+      if (lse != nullptr && t4 == 0)
+        lse[((long long)it.b * H + it.h) * S + r] =
+            l[x] > 0.f ? (m[x] * scale_log2 + log2f(l[x])) * kLn2 : -INFINITY;
       const float inv = 1.f / fmaxf(l[x], 1e-30f);
       __nv_bfloat16* orow =
           o + it.b * os.b + (long long)r * os.s + it.h * os.h;
@@ -880,8 +895,9 @@ int sm_count() {
 
 template <int NC>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
-                         const int* lengths, int B, int S, int Skv, int H,
-                         int K, int hd, Strides qs, Strides ks, Strides vs,
+                         float* lse, const int* lengths, int B, int S,
+                         int Skv, int H, int K, int hd, Strides qs,
+                         Strides ks, Strides vs,
                          Strides os, int causal, int window, float scale,
                          cudaStream_t stream) {
   // Q over S query positions, K and V over Skv keys: TMA zero-fills a box
@@ -901,7 +917,7 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
   if (sms < 1 || items > (1ll << 31) - 1) return cudaErrorInvalidValue;
   const unsigned grid = (unsigned)(items < sms ? items : sms);
   kern<<<grid, kFaThreads, smem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lengths, B, S, Skv, H,
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, lengths, B, S, Skv, H,
       H / K, hd, os, causal, window, scale * kLog2e);
   return cudaGetLastError();
 }
@@ -914,8 +930,9 @@ bool mma_aligned(const void* p, const Strides& st) {
 
 template <typename T, int HD_PAD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   const int* lengths, int B, int S, int Skv, int H, int G,
-                   int hd, Strides qs, Strides ks, Strides vs, Strides os,
+                   float* lse, const int* lengths, int B, int S, int Skv,
+                   int H, int G, int hd, Strides qs, Strides ks,
+                   Strides vs, Strides os,
                    int causal, int window, float scale, cudaStream_t stream) {
   constexpr int BQ = kThreads / (HD_PAD / kDimsPerThread);
   const size_t smem = 2 * kBlockKV * HD_PAD * sizeof(float);
@@ -928,40 +945,43 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((S + BQ - 1) / BQ, H, B);
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lengths, S, Skv, G, hd,
-      qs, ks, vs, os, causal, window, scale);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, lengths, S, Skv, G,
+      hd, qs, ks, vs, os, causal, window, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch_hd(const void* q, const void* k, const void* v, void* o,
-                        const int* lengths, int B, int S, int Skv, int H,
-                        int G, int hd, Strides qs, Strides ks, Strides vs,
+                        float* lse, const int* lengths, int B, int S,
+                        int Skv, int H, int G, int hd, Strides qs,
+                        Strides ks, Strides vs,
                         Strides os,
                         int causal, int window, float scale,
                         cudaStream_t stream) {
   if (hd <= 32)
-    return launch<T, 32>(q, k, v, o, lengths, B, S, Skv, H, G, hd, qs, ks,
+    return launch<T, 32>(q, k, v, o, lse, lengths, B, S, Skv, H, G, hd, qs, ks,
                          vs, os, causal, window, scale, stream);
   if (hd <= 64)
-    return launch<T, 64>(q, k, v, o, lengths, B, S, Skv, H, G, hd, qs, ks,
+    return launch<T, 64>(q, k, v, o, lse, lengths, B, S, Skv, H, G, hd, qs, ks,
                          vs, os, causal, window, scale, stream);
   if (hd <= 128)
-    return launch<T, 128>(q, k, v, o, lengths, B, S, Skv, H, G, hd, qs, ks,
+    return launch<T, 128>(q, k, v, o, lse, lengths, B, S, Skv, H, G, hd, qs, ks,
                           vs, os, causal, window, scale, stream);
-  return launch<T, 256>(q, k, v, o, lengths, B, S, Skv, H, G, hd, qs, ks,
+  return launch<T, 256>(q, k, v, o, lse, lengths, B, S, Skv, H, G, hd, qs, ks,
                         vs, os, causal, window, scale, stream);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  S queries, Skv keys.  Strides are in
-// elements.  lengths may be null (every row has Skv valid keys); a length
-// is read as min(lengths[b], Skv).  window <= 0 means no window.
-// Returns cudaGetLastError() after the launch (0 on success).
+// elements.  lse may be null; else (B, H, S) contiguous fp32, written with
+// each row's log-sum-exp.  lengths may be null (every row has Skv valid
+// keys); a length is read as min(lengths[b], Skv).  window <= 0 means no
+// window.  Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int flash_attention_fwd(
-    const void* q, const void* k, const void* v, void* o, const int* lengths,
-    int dtype, int B, int S, int Skv, int H, int K, int hd, long long q_sb,
+    const void* q, const void* k, const void* v, void* o, float* lse,
+    const int* lengths, int dtype, int B, int S, int Skv, int H, int K,
+    int hd, long long q_sb,
     long long q_ss, long long q_sh, long long k_sb, long long k_ss,
     long long k_sh, long long v_sb, long long v_ss, long long v_sh,
     long long o_sb, long long o_ss, long long o_sh, int causal, int window,
@@ -975,19 +995,22 @@ extern "C" int flash_attention_fwd(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (dtype == 0)
-    e = dispatch_hd<float>(q, k, v, o, lengths, B, S, Skv, H, G, hd, qs, ks,
-                           vs, os, causal, window, scale, st);
+    e = dispatch_hd<float>(q, k, v, o, lse, lengths, B, S, Skv, H, G, hd, qs,
+                           ks, vs, os, causal, window, scale, st);
   else if (dtype == 1 && mma_aligned(q, qs) && mma_aligned(k, ks) &&
            mma_aligned(v, vs) && mma_aligned(o, os) &&
            (hd == 64 || hd == 80 || hd == 96 || hd == 128)) {
     // one 64-dim box (hd 64) or two, TMA zero-filling the dims past hd
-    e = hd == 64 ? launch_wgmma<1>(q, k, v, o, lengths, B, S, Skv, H, K, hd,
-                                   qs, ks, vs, os, causal, window, scale, st)
-                 : launch_wgmma<2>(q, k, v, o, lengths, B, S, Skv, H, K, hd,
-                                   qs, ks, vs, os, causal, window, scale, st);
+    e = hd == 64 ? launch_wgmma<1>(q, k, v, o, lse, lengths, B, S, Skv, H, K,
+                                   hd, qs, ks, vs, os, causal, window, scale,
+                                   st)
+                 : launch_wgmma<2>(q, k, v, o, lse, lengths, B, S, Skv, H, K,
+                                   hd, qs, ks, vs, os, causal, window, scale,
+                                   st);
   } else if (dtype == 1)
-    e = dispatch_hd<__nv_bfloat16>(q, k, v, o, lengths, B, S, Skv, H, G, hd,
-                                   qs, ks, vs, os, causal, window, scale, st);
+    e = dispatch_hd<__nv_bfloat16>(q, k, v, o, lse, lengths, B, S, Skv, H, G,
+                                   hd, qs, ks, vs, os, causal, window, scale,
+                                   st);
   else
     e = cudaErrorInvalidValue;
   return (int)e;

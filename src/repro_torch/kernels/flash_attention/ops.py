@@ -1,10 +1,16 @@
 """Flash attention wrapper in model layout: q (B,S,H,hd), k/v (B,Skv,K,hd).
 
-CPU tensors take the plain version (``ref.flash_attention_plain``); CUDA
-tensors launch the Hopper kernel in ``csrc/flash_attention.cu`` or raise.
-The kernel reads the model layout through strides, so there is no
-transpose and no padding copy (unlike the TPU wrapper, which moves the head
-axis and pads S to the block size)."""
+CPU tensors take the plain version (``ref.flash_attention_plain``), which
+autograd differentiates; CUDA tensors launch the Hopper kernel in
+``csrc/flash_attention.cu`` or raise.  The kernel reads the model layout
+through strides, so there is no transpose and no padding copy (unlike the
+TPU wrapper, which moves the head axis and pads S to the block size).
+
+Where autograd needs a gradient (grad mode on and some CUDA input
+requiring one), the call goes through ``FlashAttentionFn``: the forward
+kernel also writes each row's log-sum-exp, and the backward runs the
+backward kernel of ``csrc/flash_attention_bwd.cu``
+(``flash_attention_bwd``).  Otherwise the serving launch runs as it is."""
 
 from __future__ import annotations
 
@@ -16,9 +22,12 @@ import torch
 
 from repro_torch.kernels.common import (check_cuda_status, data_ptr, is_cuda,
                                         load_library, stream_ptr)
-from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_plain,
+                                                     flash_attention_plain)
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCE = CSRC / "flash_attention.cu"
+BWD_SOURCE = CSRC / "flash_attention_bwd.cu"
 MAX_HEAD_DIM = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -27,7 +36,7 @@ def build() -> ctypes.CDLL:
     """Compile (once per process, cached on disk) and bind the kernel."""
     lib = load_library("flash_attention", [SOURCE])
     fn = lib.flash_attention_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
                    + [ctypes.c_longlong] * 12
                    + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
                       ctypes.c_void_p])
@@ -35,23 +44,21 @@ def build() -> ctypes.CDLL:
     return lib
 
 
-def flash_attention(q, k, v, *, causal: bool = True,
-                    window: Optional[int] = None, lengths=None):
-    """Attention of q (B,S,H,hd) over k/v (B,Skv,K,hd); see
-    ``csrc/flash_attention.cu``.  S and Skv are independent (Skv != S is
-    cross-attention), as in the TPU kernel.
+def build_bwd() -> ctypes.CDLL:
+    """Compile and bind the backward kernel (a library of its own, so the
+    two sources build in parallel)."""
+    lib = load_library("flash_attention_bwd", [BWD_SOURCE])
+    fn = lib.flash_attention_bwd
+    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
+                   + [ctypes.c_longlong] * 24
+                   + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                      ctypes.c_void_p, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return lib
 
-    ``lengths`` (B,) gives each row's valid key count, read as
-    ``min(lengths[b], Skv)`` (ragged right-padded batches); query and key
-    positions both count from 0, so ``causal`` keeps ``kpos <= qpos`` and
-    ``window`` keeps ``qpos - window < kpos``.  Returns (B,S,H,hd) in q's
-    dtype."""
-    if window is not None and window < 1:
-        raise ValueError(f"window must be >= 1, got {window}")
-    tensors = (q, k, v) if lengths is None else (q, k, v, lengths)
-    if not is_cuda(*tensors):
-        return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     lengths=lengths)
+
+def _check(q, k, v, lengths):
+    """Validate CUDA inputs the kernels take; returns int32 lengths."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention takes 4-d q (B,S,H,hd) and "
                          "k/v (B,Skv,K,hd)")
@@ -72,22 +79,123 @@ def flash_attention(q, k, v, *, causal: bool = True,
         raise ValueError("the head dimension of q/k/v must be contiguous")
     if B > 65535 or H > 65535:
         raise ValueError(f"grid too large: B={B}, H={H}")
-    if lengths is not None:
-        if lengths.shape != (B,):
-            raise ValueError(f"lengths must be ({B},), got "
-                             f"{tuple(lengths.shape)}")
-        lengths = lengths.to(torch.int32).contiguous()
+    if lengths is None:
+        return None
+    if lengths.shape != (B,):
+        raise ValueError(f"lengths must be ({B},), got "
+                         f"{tuple(lengths.shape)}")
+    return lengths.to(torch.int32).contiguous()
+
+
+def _forward(q, k, v, causal, window, lengths, with_lse: bool):
+    """One launch of the forward kernel: out, and the (B,H,S) fp32 lse
+    where ``with_lse``, else None."""
+    B, S, H, hd = q.shape
+    Skv, K = k.shape[1], k.shape[2]
     out = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     lib = build()
     status = lib.flash_attention_fwd(
-        data_ptr(q), data_ptr(k), data_ptr(v), data_ptr(out),
+        data_ptr(q), data_ptr(k), data_ptr(v), data_ptr(out), data_ptr(lse),
         data_ptr(lengths), _DTYPES[q.dtype], B, S, Skv, H, K, hd,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         *out.stride()[:3], int(causal), int(window or 0),
         1.0 / (hd ** 0.5), stream_ptr(q.device))
     check_cuda_status(status, "flash_attention")
     flash_attention.launches += 1
-    return out
+    return out, lse
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    window: Optional[int] = None, lengths=None):
+    """Attention of q (B,S,H,hd) over k/v (B,Skv,K,hd); see
+    ``csrc/flash_attention.cu``.  S and Skv are independent (Skv != S is
+    cross-attention), as in the TPU kernel.
+
+    ``lengths`` (B,) gives each row's valid key count, read as
+    ``min(lengths[b], Skv)`` (ragged right-padded batches); query and key
+    positions both count from 0, so ``causal`` keeps ``kpos <= qpos`` and
+    ``window`` keeps ``qpos - window < kpos``.  Returns (B,S,H,hd) in q's
+    dtype; differentiable (through the backward kernel on CUDA)."""
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    tensors = (q, k, v) if lengths is None else (q, k, v, lengths)
+    if not is_cuda(*tensors):
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     lengths=lengths)
+    lengths = _check(q, k, v, lengths)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttentionFn.apply(q, k, v, lengths, causal, window)
+    return _forward(q, k, v, causal, window, lengths, with_lse=False)[0]
 
 
 flash_attention.launches = 0
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
+                        window: Optional[int] = None, lengths=None):
+    """The gradients (dq, dk, dv) of ``flash_attention`` at (q, k, v) given
+    its output ``o``, its (B,H,S) fp32 log-sum-exp ``lse`` and the
+    output's gradient ``do``; see ``csrc/flash_attention_bwd.cu``.  CPU
+    tensors take ``ref.flash_attention_bwd_plain``."""
+    tensors = (q, k, v, o, lse, do) + (() if lengths is None else (lengths,))
+    if not is_cuda(*tensors):
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                         window=window, lengths=lengths)
+    lengths = _check(q, k, v, lengths)
+    B, S, H, hd = q.shape
+    Skv, K = k.shape[1], k.shape[2]
+    if o.shape != q.shape or do.shape != q.shape or lse.shape != (B, H, S):
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, o "
+                         f"{tuple(o.shape)}, do {tuple(do.shape)}, lse "
+                         f"{tuple(lse.shape)}")
+    if o.dtype != q.dtype or lse.dtype != torch.float32:
+        raise TypeError(f"o must be {q.dtype} and lse float32, got "
+                        f"{o.dtype}/{lse.dtype}")
+    do = do.to(q.dtype)
+    o, do = (t if t.stride(-1) == 1 else t.contiguous() for t in (o, do))
+    lse = lse.contiguous()
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    dk = torch.empty((B, Skv, K, hd), dtype=k.dtype, device=k.device)
+    dv = torch.empty_like(dk)
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    tc = ctypes.c_int(0)
+    lib = build_bwd()
+    status = lib.flash_attention_bwd(
+        data_ptr(q), data_ptr(k), data_ptr(v), data_ptr(o), data_ptr(do),
+        data_ptr(lse), data_ptr(delta), data_ptr(dq), data_ptr(dk),
+        data_ptr(dv), data_ptr(lengths), _DTYPES[q.dtype], B, S, Skv, H, K,
+        hd, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        *o.stride()[:3], *do.stride()[:3], *dq.stride()[:3],
+        *dk.stride()[:3], *dv.stride()[:3], int(causal), int(window or 0),
+        1.0 / (hd ** 0.5), stream_ptr(q.device), ctypes.addressof(tc))
+    check_cuda_status(status, "flash_attention_bwd")
+    flash_attention_bwd.launches += 1
+    flash_attention_bwd.tensor_cores = bool(tc.value)
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+flash_attention_bwd.tensor_cores = None   # the last call's path
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """K1 forward (with its log-sum-exp) and the backward kernel as one
+    differentiable op on CUDA tensors; the forward saves q, k, v, o and
+    lse, nothing of size S x Skv."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, lengths, causal, window):
+        out, lse = _forward(q, k, v, causal, window, lengths, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse, lengths)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse, lengths = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do,
+                                         causal=ctx.causal,
+                                         window=ctx.window, lengths=lengths)
+        return dq, dk, dv, None, None, None

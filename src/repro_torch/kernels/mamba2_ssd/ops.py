@@ -22,7 +22,8 @@ import torch
 
 from repro_torch.kernels.common import (cdiv, check_cuda_status, data_ptr,
                                         float_rows, is_cuda, load_library,
-                                        rows_aligned16, stream_ptr)
+                                        refuse_grad, rows_aligned16,
+                                        stream_ptr)
 from repro_torch.kernels.mamba2_ssd.ref import CHUNK, ssd_plain
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "mamba2_ssd.cu"
@@ -56,6 +57,7 @@ def ssd(x, dt, A, Bm, Cm, h0):
     """The Mamba-2 SSD scan over a sequence; see ``ref.ssd_plain``."""
     if not is_cuda(x, dt, A, Bm, Cm, h0):
         return ssd_plain(x, dt, A, Bm, Cm, h0)
+    refuse_grad("ssd", x, dt, A, Bm, Cm, h0)
     if x.dim() != 4:
         raise ValueError(f"ssd takes x (B,T,H,P), got {tuple(x.shape)}")
     B, T, H, P = x.shape

@@ -20,7 +20,8 @@ import torch
 
 from repro_torch.kernels.common import (check_cuda_status, data_ptr,
                                         float_rows, is_cuda, load_library,
-                                        rows_aligned16, stream_ptr)
+                                        refuse_grad, rows_aligned16,
+                                        stream_ptr)
 from repro_torch.kernels.rwkv6_wkv.ref import wkv6_plain
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "rwkv6_wkv.cu"
@@ -54,6 +55,7 @@ def wkv6(r, k, v, logw, u, s0):
     """The RWKV-6 recurrence over a sequence; see ``ref.wkv6_plain``."""
     if not is_cuda(r, k, v, logw, u, s0):
         return wkv6_plain(r, k, v, logw, u, s0)
+    refuse_grad("wkv6", r, k, v, logw, u, s0)
     if r.dim() != 4:
         raise ValueError(f"wkv6 takes (B,T,H,N) inputs, got r "
                          f"{tuple(r.shape)}")

@@ -23,7 +23,9 @@ the port does (ROADMAP §3 records the measured logit difference).
 The state is ``{"k", "v": (L, B, Smax, K, hd), "xk", "xv": (L, B, F, K,
 hd), "length": (B,) int32}``, the JAX layout; ``prefill`` and
 ``decode_step`` write its tensors IN PLACE and return a new dict holding
-the same tensors.  ``train_loss`` comes with training.
+the same tensors.  ``train_loss`` differentiates the forward; on the card
+the encoder's, the decoder's and the cross-attention's gradients are K1's
+backward kernel (the cross at Skv = F, non-causal).
 """
 
 from __future__ import annotations
@@ -35,10 +37,10 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (apply_mlp, apply_norm, compute_dtype,
-                                       embed_init, generator, init_mlp,
-                                       init_norm, matmul,
+                                       cross_entropy_loss, embed_init,
+                                       generator, init_mlp, init_norm, matmul,
                                        sinusoidal_positions, stack_init)
-from repro_torch.models.transformer import subtree
+from repro_torch.models.transformer import layer_views, run_layers, subtree
 from repro_torch.params import flatten
 
 
@@ -80,8 +82,7 @@ def encode(params, frames, cfg: ModelConfig):
     frames' dtype (promoted against the weights')."""
     _, F, D = frames.shape
     x = frames + sinusoidal_positions(F, D, frames.device).to(frames.dtype)
-    for i in range(cfg.encdec.encoder_layers):
-        lp = subtree(params, "enc_layers", i)
+    for lp in layer_views(params, "enc_layers"):
         h = apply_norm(lp["ln1"], x, cfg)
         x = x + attn.attention_block(lp["attn"], h, cfg, causal=False,
                                      rope=False)
@@ -100,13 +101,16 @@ def _logits(params, h):
     return matmul(h, params["embed"].T)          # the tied head
 
 
-def forward(params, tokens, frames, cfg: ModelConfig, *, kv_lengths=None):
+def forward(params, tokens, frames, cfg: ModelConfig, *, kv_lengths=None,
+            remat: bool = False):
     """Teacher-forced decoder over the full target sequence: tokens (B,S),
-    frames (B,F,D) -> logits (B,S,V)."""
+    frames (B,F,D) -> logits (B,S,V).  Under ``remat`` each decoder layer
+    runs inside ``torch.utils.checkpoint``, as the JAX forward checkpoints
+    its decoder scan body (the encoder is not)."""
     enc = encode(params, frames, cfg)
     x = _dec_embed(params, tokens, cfg)
-    for i in range(cfg.num_layers):
-        lp = subtree(params, "dec_layers", i)
+
+    def body(x, lp):
         h = apply_norm(lp["ln1"], x, cfg)
         x = x + attn.attention_block(lp["attn"], h, cfg, causal=True,
                                      rope=False, kv_lengths=kv_lengths)
@@ -114,7 +118,18 @@ def forward(params, tokens, frames, cfg: ModelConfig, *, kv_lengths=None):
         x = x + attn.attention_block(lp["xattn"], hx, cfg, kv_x=enc,
                                      causal=False, rope=False)
         x = x + apply_mlp(lp["mlp"], apply_norm(lp["ln2"], x, cfg), cfg)
+        return x, None
+    x, _ = run_layers(body, layer_views(params, "dec_layers"), x, remat=remat)
     return _logits(params, apply_norm(subtree(params, "final_norm"), x, cfg))
+
+
+def train_loss(params, batch, cfg: ModelConfig, *, remat: bool = True):
+    """batch {"tokens", "labels", "frames", optional "mask"} -> (loss,
+    metrics), as the JAX ``train_loss``."""
+    logits = forward(params, batch["tokens"], batch["frames"], cfg,
+                     remat=remat)
+    loss = cross_entropy_loss(logits, batch["labels"], batch.get("mask"))
+    return loss, {"ce": loss, "loss": loss}
 
 
 def init_state(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
@@ -147,8 +162,7 @@ def prefill(params, tokens, frames, state, cfg: ModelConfig, *,
     lengths = lengths.to(torch.int32)
     enc = encode(params, frames, cfg)
     x = _dec_embed(params, tokens, cfg)
-    for i in range(cfg.num_layers):
-        lp = subtree(params, "dec_layers", i)
+    for i, lp in enumerate(layer_views(params, "dec_layers")):
         h = apply_norm(lp["ln1"], x, cfg)
         q, k, v = attn.project_qkv(lp["attn"], h, cfg, rope=False)
         x = x + attn.attend(lp["attn"], q, k, v, cfg, causal=True,
@@ -182,8 +196,7 @@ def decode_step(params, token, state, cfg: ModelConfig, *,
     x = params["embed"][token.long()][:, None, :]
     pos = sinusoidal_positions(Smax, cfg.d_model, x.device)
     x = x + pos[lengths.long().clamp(max=Smax - 1)][:, None].to(x.dtype)
-    for i in range(cfg.num_layers):
-        lp = subtree(params, "dec_layers", i)
+    for i, lp in enumerate(layer_views(params, "dec_layers")):
         h = apply_norm(lp["ln1"], x, cfg)
         out, _, _ = attn.decode_attn_block(lp["attn"], h, state["k"][i],
                                            state["v"][i], lengths, cfg,

@@ -38,7 +38,7 @@ from repro_torch.models.layers import (apply_mlp, apply_norm, apply_rope,
                                        stack_init)
 from repro_torch.models.mamba2 import (init_mamba2_layer, init_mamba2_state,
                                        mamba2_full, mamba2_step)
-from repro_torch.models.transformer import subtree
+from repro_torch.models.transformer import layer_views, subtree
 from repro_torch.params import flatten
 
 _LORA_RANK = 64
@@ -187,14 +187,16 @@ def _run(params, tokens, cfg: ModelConfig, state, lengths, window,
     x = e0
     positions = torch.arange(S, device=x.device)[None, :]
     sp = subtree(params, "shared")
+    lns = layer_views(params, "mamba_ln")
+    mambas = layer_views(params, "mamba")
     for j in range(napp):
         x, (k, v) = shared_block_full(
             sp, cfg, x, e0, sp["lora_a"][j], sp["lora_b"][j], positions,
             window, kv_lengths=lengths)
         capture(j, k, v)
         for i in range(j * period, (j + 1) * period):
-            h = apply_norm(subtree(params, "mamba_ln", i), x, cfg)
-            out, nc, ns = mamba2_full(subtree(params, "mamba", i), cfg, h,
+            h = apply_norm(lns[i], x, cfg)
+            out, nc, ns = mamba2_full(mambas[i], cfg, h,
                                       state["conv"][i], state["ssd"][i],
                                       lengths=lengths)
             x = x + out
@@ -253,13 +255,15 @@ def decode_step(params, token, state, cfg: ModelConfig, *,
     e0 = params["embed"][token.long()][:, None]
     x = e0
     sp = subtree(params, "shared")
+    lns = layer_views(params, "mamba_ln")
+    mambas = layer_views(params, "mamba")
     for j in range(napp):
         x, _, _ = shared_block_step(sp, cfg, x, e0, sp["lora_a"][j],
                                     sp["lora_b"][j], state["shared_k"][j],
                                     state["shared_v"][j], lengths, window)
         for i in range(j * period, (j + 1) * period):
-            h = apply_norm(subtree(params, "mamba_ln", i), x, cfg)
-            out, nc, ns = mamba2_step(subtree(params, "mamba", i), cfg, h,
+            h = apply_norm(lns[i], x, cfg)
+            out, nc, ns = mamba2_step(mambas[i], cfg, h,
                                       state["conv"][i], state["ssd"][i])
             x = x + out
             state["conv"][i].copy_(nc)

@@ -1,4 +1,4 @@
-"""Common layers: norms, rotary embeddings, MLPs, initializers.
+"""Common layers: norms, rotary embeddings, MLPs, initializers, losses.
 
 Plain functions on tensors, params as dicts of tensors (the port of
 ``repro/models/layers.py``).  Norm statistics are computed in float32
@@ -224,3 +224,64 @@ def apply_mlp(p, x, cfg: ModelConfig):
     if "b_down" in p:
         out = out + p["b_down"]
     return out
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+
+
+def _masked_mean(nll, mask):
+    mask = torch.ones_like(nll) if mask is None else mask.float()
+    return (nll * mask).sum() / mask.sum().clamp(min=1.0)
+
+
+def cross_entropy_loss(logits, labels, mask=None):
+    """Mean masked token cross-entropy; logits in fp32."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    return _masked_mean(logz - gold, mask)
+
+
+def _ce_chunk(hf, head, labels, i: int, chunk: int, V: int, m, s, gold):
+    """One vocab chunk of ``chunked_cross_entropy``'s online logsumexp."""
+    wc = head[:, i * chunk:(i + 1) * chunk]
+    logits_c = hf @ wc.float()                              # (B, S, chunk)
+    # mask padded vocab entries out of the logsumexp
+    col = i * chunk + torch.arange(chunk, device=hf.device)
+    logits_c = torch.where(col < V, logits_c, -1e30)
+    m_new = torch.maximum(m, logits_c.amax(dim=-1))
+    s = s * torch.exp(m - m_new) + torch.exp(
+        logits_c - m_new[..., None]).sum(dim=-1)
+    # gold logit if this row's label falls in the chunk
+    in_chunk = (labels >= i * chunk) & (labels < (i + 1) * chunk)
+    idx = (labels - i * chunk).clamp(0, chunk - 1)
+    g = logits_c.gather(-1, idx[..., None])[..., 0]
+    return m_new, s, torch.where(in_chunk, g, gold)
+
+
+def chunked_cross_entropy(h, head, labels, mask=None, chunk: int = 16384):
+    """Cross-entropy WITHOUT materializing the (B, S, V) logits tensor.
+
+    Walks vocab chunks with an online logsumexp, each step touching only
+    (B, S, chunk); each step runs under ``torch.utils.checkpoint`` (JAX's
+    ``jax.checkpoint`` of the scan body), so backward re-materializes one
+    chunk at a time too.  h: (B, S, D); head: (D, V); labels: (B, S) ->
+    scalar mean CE."""
+    from torch.utils.checkpoint import checkpoint
+    B, S, _ = h.shape
+    V = head.shape[1]
+    nc = -(-V // chunk)
+    if nc * chunk != V:
+        head = F.pad(head, (0, nc * chunk - V))
+    hf = h.float()
+    labels = labels.long()
+    m = torch.full((B, S), -1e30, dtype=torch.float32, device=h.device)
+    s = torch.zeros((B, S), dtype=torch.float32, device=h.device)
+    gold = torch.zeros((B, S), dtype=torch.float32, device=h.device)
+    for i in range(nc):
+        m, s, gold = checkpoint(_ce_chunk, hf, head, labels, i, chunk, V, m,
+                                s, gold, use_reentrant=False,
+                                preserve_rng_state=False)
+    return _masked_mean((m + torch.log(s)) - gold, mask)

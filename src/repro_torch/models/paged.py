@@ -62,8 +62,8 @@ from repro_torch.kernels.decode_attention import paged_decode_attention
 from repro_torch.kernels.decode_attention.ref import take
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import apply_norm
-from repro_torch.models.transformer import (_residual, project_logits,
-                                            stacks, subtree)
+from repro_torch.models.transformer import (_residual, layer_views,
+                                            project_logits, stacks, subtree)
 
 
 def supports_paging(cfg: ModelConfig) -> bool:
@@ -94,10 +94,10 @@ def init_paged_state(cfg: ModelConfig, num_slots: int, num_pages: int,
 def _layers(params, state, cfg: ModelConfig):
     """(layer params, layer i's k pool, v pool) over every stack, in
     order."""
-    for prefix, key, n, _ in stacks(cfg):
+    for prefix, key, _, _ in stacks(cfg):
         pool_k, pool_v = state[key]["k"], state[key]["v"]
-        for i in range(n):
-            yield subtree(params, prefix, i), pool_k[i], pool_v[i]
+        for i, lp in enumerate(layer_views(params, prefix)):
+            yield lp, pool_k[i], pool_v[i]
 
 
 def _gathered_view(pool_k, pool_v, table):
@@ -143,7 +143,7 @@ def paged_decode_step(params, token, state, cfg: ModelConfig, *,
         # K3 on CUDA, its plain gathered-view version on the CPU
         out = paged_decode_attention(q[:, 0], pk, pv, table, lengths + 1,
                                      window=window)
-        x = _residual(cfg, lp, x, h, _attn_out(lp, out[:, None], cfg))
+        x = _residual(cfg, lp, x, h, _attn_out(lp, out[:, None], cfg))[0]
     h = apply_norm(subtree(params, "final_norm"), x, cfg)
     logits = project_logits(params, h, cfg)[:, 0]
     return logits, {**state, "length": lengths + 1}
@@ -186,7 +186,7 @@ def paged_verify_step(params, tokens, state, cfg: ModelConfig, *,
                                                   lengths + j + 1,
                                                   window=window)
                            for j in range(W)], dim=1)
-        x = _residual(cfg, lp, x, h, _attn_out(lp, out, cfg))
+        x = _residual(cfg, lp, x, h, _attn_out(lp, out, cfg))[0]
     h = apply_norm(subtree(params, "final_norm"), x, cfg)
     return project_logits(params, h, cfg), dict(state)
 
@@ -256,7 +256,7 @@ def paged_prefill(params, tokens, lengths, state, ctx_table, ctx_lens,
             padded = F.pad(new, (0, 0, 0, 0, 0, pad_s))
             attn.store(pool, flat, padded.reshape(B * nc, page_size,
                                                   *new.shape[2:]))
-        x = _residual(cfg, lp, x, h, attn_out)
+        x = _residual(cfg, lp, x, h, attn_out)[0]
     h = apply_norm(subtree(params, "final_norm"), x, cfg)
     rows = torch.arange(B, device=h.device)
     logits = project_logits(params, h[rows, lengths.long() - 1], cfg)

@@ -33,7 +33,7 @@ from repro_torch.kernels.rwkv6_wkv import wkv6
 from repro_torch.models.layers import (apply_norm, compute_dtype, dense_init,
                                        embed_init, generator, group_norm,
                                        init_norm, stack_init)
-from repro_torch.models.transformer import subtree
+from repro_torch.models.transformer import layer_views, subtree
 from repro_torch.params import flatten
 
 _LORA_RANK = 32
@@ -244,9 +244,8 @@ def _hidden(params, tokens, cfg: ModelConfig, state, lengths):
     if lengths is not None:
         mask = (torch.arange(S, device=x.device)[None, :]
                 < lengths.to(x.device)[:, None])
-    for i in range(cfg.num_layers):
-        x, tm, cm, S_new = _layer_full(cfg, x, subtree(params, "layers", i),
-                                       state["tm_shift"][i],
+    for i, lp in enumerate(layer_views(params, "layers")):
+        x, tm, cm, S_new = _layer_full(cfg, x, lp, state["tm_shift"][i],
                                        state["cm_shift"][i],
                                        state["wkv"][i], mask=mask,
                                        lengths=lengths)
@@ -291,8 +290,7 @@ def decode_step(params, token, state, cfg: ModelConfig, *,
     tensors are written in place."""
     x = apply_norm(subtree(params, "ln_in"),
                    params["embed"][token.long()][:, None], cfg)
-    for i in range(cfg.num_layers):
-        lp = subtree(params, "layers", i)
+    for i, lp in enumerate(layer_views(params, "layers")):
         h = apply_norm(lp["ln1"], x, cfg)
         tm_out, tm, S = time_mix_step(lp, cfg, h, state["tm_shift"][i],
                                       state["wkv"][i])

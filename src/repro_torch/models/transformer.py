@@ -4,9 +4,10 @@
 Covers yi-9b, mistral-large-123b, command-r-plus-104b (LayerNorm, parallel
 block, tied embeddings), h2o-danube-1.8b (native sliding window),
 qwen3-moe (qk-norm + MoE) and deepseek-v3 (MLA + first-k-dense + MoE; its
-MTP params are carried, as the JAX package's train loss uses them, but
-not served).  The layers run as a Python loop over views of the stacked
-``(L, ...)`` params, a stack at a time (``stacks``).
+MTP params are used by ``train_loss`` only, as in the JAX package).  The
+layers run as a Python loop over views of the stacked ``(L, ...)``
+params, a stack at a time (``stacks``); under ``remat`` each layer runs
+inside ``torch.utils.checkpoint``, the JAX scan body's ``jax.checkpoint``.
 
 The decode path (``init_state``, ``prefill``, ``decode_step`` and the
 speculative ``verify_decode_step``) is the port of the JAX module's second
@@ -21,16 +22,19 @@ live in ``rwkv6.py``, ``hybrid.py``, ``vlm.py`` and ``encdec.py``.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import opt
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
-from repro_torch.models.layers import (apply_mlp, apply_norm, compute_dtype,
-                                       dense_init, embed_init, generator,
-                                       init_mlp, init_norm, stack_init)
+from repro_torch.models.layers import (apply_mlp, apply_norm,
+                                       chunked_cross_entropy, compute_dtype,
+                                       cross_entropy_loss, dense_init,
+                                       embed_init, generator, init_mlp,
+                                       init_norm, matmul, stack_init)
 from repro_torch.models.moe import init_moe, moe_block
 from repro_torch.params import flatten, unflatten
 
@@ -107,14 +111,40 @@ def init_params(seed: int, cfg: ModelConfig, device) -> Dict[str, torch.Tensor]:
     return params
 
 
-def subtree(params: Dict[str, torch.Tensor], prefix: str,
-            layer: Optional[int] = None):
-    """Nested dict of the params under ``prefix/``; with ``layer``, views of
-    that layer of the stacked tensors."""
+def subtree(params: Dict[str, torch.Tensor], prefix: str):
+    """Nested dict of the params under ``prefix/``."""
     n = len(prefix) + 1
-    return unflatten({k[n:]: (v if layer is None else v[layer])
-                      for k, v in params.items()
+    return unflatten({k[n:]: v for k, v in params.items()
                       if k.startswith(prefix + "/")})
+
+
+def layer_views(params: Dict[str, torch.Tensor],
+                prefix: str) -> List[Dict[str, Any]]:
+    """The layers of the stack under ``prefix/`` as nested dicts of views,
+    one ``unbind`` per stacked tensor: its backward stacks the layers'
+    gradients once (a view per ``v[i]`` would add a zero-filled copy of
+    the whole stack per layer)."""
+    n = len(prefix) + 1
+    cols = {k[n:]: v.unbind(0) for k, v in params.items()
+            if k.startswith(prefix + "/")}
+    num = len(next(iter(cols.values())))
+    return [unflatten({k: v[i] for k, v in cols.items()}) for i in range(num)]
+
+
+def run_layers(fn, layers, x, *args, remat: bool = False):
+    """x through ``fn(x, lp, *args) -> (x, aux or None)`` for each layer's
+    params ``lp``, each call under ``torch.utils.checkpoint`` with
+    ``remat``; returns (x, the sum of the aux losses, None if none)."""
+    aux = None
+    for lp in layers:
+        if remat:
+            x, a = checkpoint(fn, x, lp, *args, use_reentrant=False,
+                              preserve_rng_state=False)
+        else:
+            x, a = fn(x, lp, *args)
+        if a is not None:
+            aux = a if aux is None else aux + a
+    return x, aux
 
 
 # ---------------------------------------------------------------------------
@@ -124,17 +154,20 @@ def subtree(params: Dict[str, torch.Tensor], prefix: str,
 
 def _residual(cfg: ModelConfig, lp, x, h, attn_out):
     """The block around attention: parallel (x + attn + mlp(h)) or serial,
-    with the MoE block in place of the MLP in a MoE layer."""
+    with the MoE block in place of the MLP in a MoE layer.  Returns (x, the
+    MoE block's router aux loss, or None)."""
     if cfg.parallel_block:
-        return x + attn_out + apply_mlp(lp["mlp"], h, cfg)
+        return x + attn_out + apply_mlp(lp["mlp"], h, cfg), None
     x = x + attn_out
     h2 = apply_norm(lp["ln2"], x, cfg)
     if "moe" in lp:
-        return x + moe_block(lp["moe"], h2, cfg)[0]
-    return x + apply_mlp(lp["mlp"], h2, cfg)
+        mo, aux = moe_block(lp["moe"], h2, cfg)
+        return x + mo, aux
+    return x + apply_mlp(lp["mlp"], h2, cfg), None
 
 
 def _layer_full(cfg: ModelConfig, window, x, lp, positions, kv_lengths):
+    """One block over the full sequence: (x, aux or None)."""
     h = apply_norm(lp["ln1"], x, cfg)
     if cfg.attn_kind == "mla":
         attn_out = attn.mla_attention_block(lp["attn"], h, cfg,
@@ -148,26 +181,88 @@ def _layer_full(cfg: ModelConfig, window, x, lp, positions, kv_lengths):
     return _residual(cfg, lp, x, h, attn_out)
 
 
-def forward(params, tokens, cfg: ModelConfig, *, kv_lengths=None,
-            window: Optional[int] = None):
-    """tokens (B,S) -> logits (B,S,V). ``window`` overrides
-    cfg.sliding_window (GQA only, as in the JAX package)."""
+def _stack(cfg: ModelConfig, layers, x, positions, kv_lengths, window,
+           remat: bool):
+    def body(x, lp):
+        return _layer_full(cfg, window, x, lp, positions, kv_lengths)
+    return run_layers(body, layers, x, remat=remat)
+
+
+def hidden(params, tokens, cfg: ModelConfig, *, kv_lengths=None,
+           window: Optional[int] = None, remat: bool = False):
+    """tokens (B,S) -> (the final-normed hidden states (B,S,D), the summed
+    MoE router aux loss)."""
     check_family(cfg)
-    B, S = tokens.shape
+    S = tokens.shape[1]
     window = window if window is not None else cfg.sliding_window
     x = params["embed"][tokens.long()]
     positions = torch.arange(S, device=x.device)[None, :]
-    for prefix, _, n, _ in stacks(cfg):
-        for i in range(n):
-            x = _layer_full(cfg, window, x, subtree(params, prefix, i),
-                            positions, kv_lengths)
-    h = apply_norm(subtree(params, "final_norm"), x, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for prefix, _, _, _ in stacks(cfg):
+        x, a = _stack(cfg, layer_views(params, prefix), x, positions,
+                      kv_lengths, window, remat)
+        if a is not None:
+            aux = aux + a
+    return apply_norm(subtree(params, "final_norm"), x, cfg), aux
+
+
+def forward(params, tokens, cfg: ModelConfig, *, kv_lengths=None,
+            window: Optional[int] = None, remat: bool = False):
+    """tokens (B,S) -> logits (B,S,V); ``hidden`` gives the final hidden
+    states and the MoE aux loss (the JAX ``forward(return_hidden=True)``).
+    ``window`` overrides cfg.sliding_window (GQA only, as in the JAX
+    package)."""
+    h, _ = hidden(params, tokens, cfg, kv_lengths=kv_lengths,
+                  window=window, remat=remat)
     return project_logits(params, h, cfg)
 
 
 def project_logits(params, h, cfg: ModelConfig):
     head = params["head"] if "head" in params else params["embed"].T
     return h @ head
+
+
+# ---------------------------------------------------------------------------
+# Train loss (with optional deepseek MTP)
+# ---------------------------------------------------------------------------
+
+
+def train_loss(params, batch, cfg: ModelConfig, *, remat: bool = True):
+    """batch {"tokens", "labels" (B,S), optional "mask"} -> (loss, metrics):
+    the port of the JAX ``train_loss``.  Under ``chunked_ce`` with a vocab
+    of at least 32768 the logits are never materialized; a moe config adds
+    ``router_aux_weight`` x the router aux loss; deepseek's MTP head adds
+    0.3 x its next-next-token loss."""
+    tokens, labels = batch["tokens"], batch["labels"]
+    mask = batch.get("mask")
+    h, aux = hidden(params, tokens, cfg, remat=remat)
+    if opt.enabled("chunked_ce") and cfg.vocab_size >= 32768:
+        head = params["head"] if "head" in params else params["embed"].T
+        loss = chunked_cross_entropy(h, head, labels, mask)
+    else:
+        loss = cross_entropy_loss(project_logits(params, h, cfg), labels,
+                                  mask)
+    metrics = {"ce": loss, "aux": aux}
+    if cfg.moe is not None:
+        loss = loss + cfg.moe.router_aux_weight * aux
+    if cfg.mtp and any(k.startswith("mtp/") for k in params):
+        mtp = subtree(params, "mtp")
+        # predict t+2: combine h_t with the embedding of label t (token t+1)
+        emb_next = params["embed"][labels.long()]
+        hm = torch.cat([apply_norm(mtp["norm_h"], h, cfg),
+                        apply_norm(mtp["norm_e"], emb_next, cfg)], -1)
+        hm = matmul(hm, mtp["proj"])
+        positions = torch.arange(tokens.shape[1], device=hm.device)[None, :]
+        hm, _ = _stack(cfg, layer_views(params, "mtp/layer"), hm,
+                       positions, None, cfg.sliding_window, remat)
+        mtp_logits = project_logits(params, apply_norm(
+            subtree(params, "final_norm"), hm, cfg), cfg)
+        mtp_labels = torch.cat([labels[:, 1:], labels[:, -1:]], dim=1)
+        mtp_loss = cross_entropy_loss(mtp_logits, mtp_labels, mask)
+        metrics["mtp"] = mtp_loss
+        loss = loss + 0.3 * mtp_loss
+    metrics["loss"] = loss
+    return loss, metrics
 
 
 # ---------------------------------------------------------------------------
@@ -212,7 +307,7 @@ def _layer_decode(cfg: ModelConfig, window, x, lp, cache, i, lengths):
         attn_out, _, _ = attn.decode_attn_block(
             lp["attn"], h, cache["k"][i], cache["v"][i], lengths, cfg,
             window=window)
-    return _residual(cfg, lp, x, h, attn_out)
+    return _residual(cfg, lp, x, h, attn_out)[0]
 
 
 def decode_step(params, token, state, cfg: ModelConfig, *,
@@ -222,10 +317,9 @@ def decode_step(params, token, state, cfg: ModelConfig, *,
     window = window if window is not None else cfg.sliding_window
     lengths = state["length"]
     x = params["embed"][token.long()][:, None, :]            # (B,1,D)
-    for prefix, key, n, _ in stacks(cfg):
-        for i in range(n):
-            x = _layer_decode(cfg, window, x, subtree(params, prefix, i),
-                              state[key], i, lengths)
+    for prefix, key, _, _ in stacks(cfg):
+        for i, lp in enumerate(layer_views(params, prefix)):
+            x = _layer_decode(cfg, window, x, lp, state[key], i, lengths)
     h = apply_norm(subtree(params, "final_norm"), x, cfg)
     logits = project_logits(params, h, cfg)[:, 0]
     return logits, {**state, "length": lengths + 1}
@@ -277,7 +371,7 @@ def _layer_verify(cfg: ModelConfig, window, x, lp, cache_k, cache_v,
                        for i in range(W)], dim=1)
     attn_out = attn._linear(out.reshape(B, W, cfg.num_heads * cfg.head_dim),
                             lp["attn"]["wo"], lp["attn"].get("bo"))
-    return _residual(cfg, lp, x, h, attn_out)
+    return _residual(cfg, lp, x, h, attn_out)[0]
 
 
 def verify_decode_step(params, tokens, state, cfg: ModelConfig, *,
@@ -298,11 +392,11 @@ def verify_decode_step(params, tokens, state, cfg: ModelConfig, *,
     window = window if window is not None else cfg.sliding_window
     lengths = state["length"]
     x = params["embed"][tokens.long()]                       # (B, W, D)
-    for prefix, key, n, _ in stacks(cfg):
+    for prefix, key, _, _ in stacks(cfg):
         cache = state[key]
-        for i in range(n):
-            x = _layer_verify(cfg, window, x, subtree(params, prefix, i),
-                              cache["k"][i], cache["v"][i], lengths)
+        for i, lp in enumerate(layer_views(params, prefix)):
+            x = _layer_verify(cfg, window, x, lp, cache["k"][i],
+                              cache["v"][i], lengths)
     h = apply_norm(subtree(params, "final_norm"), x, cfg)
     return project_logits(params, h, cfg), dict(state)
 
@@ -335,7 +429,7 @@ def _layer_prefill(cfg: ModelConfig, window, x, lp, positions, lengths,
         new = ((cache["k"][i], k), (cache["v"][i], v))
     for c, t in new:
         attn.fill_cache(c, t, lengths, ring)
-    return _residual(cfg, lp, x, h, attn_out)
+    return _residual(cfg, lp, x, h, attn_out)[0]
 
 
 def prefill(params, tokens, state, cfg: ModelConfig, *, lengths=None,
@@ -358,12 +452,12 @@ def prefill(params, tokens, state, cfg: ModelConfig, *, lengths=None,
     x = params["embed"][tokens.long()]
     positions = torch.arange(S, device=x.device)[None, :]
     mla = cfg.attn_kind == "mla"
-    for prefix, key, n, _ in stacks(cfg):
+    for prefix, key, _, _ in stacks(cfg):
         cache = state[key]
         ring = not mla and prefill_rings(cache["k"].shape[2], S, window)
-        for i in range(n):
-            x = _layer_prefill(cfg, window, x, subtree(params, prefix, i),
-                               positions, lengths, cache, i, ring)
+        for i, lp in enumerate(layer_views(params, prefix)):
+            x = _layer_prefill(cfg, window, x, lp, positions, lengths,
+                               cache, i, ring)
     h = apply_norm(subtree(params, "final_norm"), x, cfg)
     rows = torch.arange(B, device=h.device)
     h_last = h[rows, lengths.long() - 1]          # each row's last valid

@@ -23,7 +23,9 @@ port does (ROADMAP §3 records the measured logit difference).
 The state is ``{"k", "v": (ngroups, nself, B, Smax, K, hd), "xk", "xv":
 (ngroups, B, T_img, K, hd), "length": (B,) int32}``, the JAX layout;
 ``prefill`` and ``decode_step`` write its tensors IN PLACE and return a
-new dict holding the same tensors.  ``train_loss`` comes with training.
+new dict holding the same tensors.  ``train_loss`` differentiates the
+forward; on the card the cross-attention's gradient is K1's backward
+kernel at Skv = T, non-causal.
 """
 
 from __future__ import annotations
@@ -37,9 +39,10 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import (apply_mlp, apply_norm, compute_dtype,
-                                       dense_init, embed_init, generator,
-                                       init_mlp, init_norm, matmul,
-                                       rms_norm_simple, stack_init)
+                                       cross_entropy_loss, dense_init,
+                                       embed_init, generator, init_mlp,
+                                       init_norm, matmul, rms_norm_simple,
+                                       stack_init)
 from repro_torch.params import flatten
 
 
@@ -88,12 +91,14 @@ def init_params(seed: int, cfg: ModelConfig, device) -> Dict[str, torch.Tensor]:
     return params
 
 
-def _group_params(params, cfg: ModelConfig, g: int):
-    """Group ``g``'s self layers (views of the stacked params) and its
-    cross block."""
+def _groups(params, cfg: ModelConfig):
+    """Each group's self layers and its cross block, as views of the
+    stacked params."""
     _, nself = _layout(cfg)
-    return ([tfm.subtree(params, "layers", g * nself + j)
-             for j in range(nself)], tfm.subtree(params, "cross", g))
+    selfs = tfm.layer_views(params, "layers")
+    crosses = tfm.layer_views(params, "cross")
+    return [(selfs[g * nself:(g + 1) * nself], cp)
+            for g, cp in enumerate(crosses)]
 
 
 # ---------------------------------------------------------------------------
@@ -158,21 +163,33 @@ def cross_block_step(cp, cfg: ModelConfig, x1, k, v):
 
 
 def forward(params, tokens, image_embeds, cfg: ModelConfig, *,
-            window: Optional[int] = None):
-    """tokens (B,S), image_embeds (B,T,Dv) -> logits (B,S,V)."""
-    ngroups, _ = _layout(cfg)
+            window: Optional[int] = None, remat: bool = False):
+    """tokens (B,S), image_embeds (B,T,Dv) -> logits (B,S,V).  Under
+    ``remat`` each self layer runs inside ``torch.utils.checkpoint``, as
+    the JAX forward checkpoints its self-layer scan body (the cross blocks
+    are not)."""
     S = tokens.shape[1]
     window = window if window is not None else cfg.sliding_window
     x = params["embed"][tokens.long()]
     positions = torch.arange(S, device=x.device)[None, :]
-    for g in range(ngroups):
-        layers, cp = _group_params(params, cfg, g)
+
+    def body(x, lp):
+        return tfm._layer_full(cfg, window, x, lp, positions, None)
+    for layers, cp in _groups(params, cfg):
         k, v = _cross_kv(cp, image_embeds, cfg)
-        for lp in layers:
-            x = tfm._layer_full(cfg, window, x, lp, positions, None)
+        x, _ = tfm.run_layers(body, layers, x, remat=remat)
         x = cross_block_full(cp, cfg, x, k, v)
     h = apply_norm(tfm.subtree(params, "final_norm"), x, cfg)
     return matmul(h, params["head"])
+
+
+def train_loss(params, batch, cfg: ModelConfig, *, remat: bool = True):
+    """batch {"tokens", "labels", "image_embeds", optional "mask"} ->
+    (loss, metrics), as the JAX ``train_loss``."""
+    logits = forward(params, batch["tokens"], batch["image_embeds"], cfg,
+                     remat=remat)
+    loss = cross_entropy_loss(logits, batch["labels"], batch.get("mask"))
+    return loss, {"ce": loss, "loss": loss}
 
 
 def init_state(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
@@ -205,7 +222,6 @@ def prefill(params, tokens, image_embeds, state, cfg: ModelConfig, *,
     self caches and the fixed image K/V in place.  Returns
     (last-valid-position logits (B,V), new state).  The self layers run
     K1 with ``lengths`` and ``window``, as the dense prefill does."""
-    ngroups, _ = _layout(cfg)
     B, S = tokens.shape
     window = window if window is not None else cfg.sliding_window
     if lengths is None:
@@ -214,8 +230,7 @@ def prefill(params, tokens, image_embeds, state, cfg: ModelConfig, *,
     x = params["embed"][tokens.long()]
     positions = torch.arange(S, device=x.device)[None, :]
     ring = tfm.prefill_rings(state["k"].shape[3], S, window)
-    for g in range(ngroups):
-        layers, cp = _group_params(params, cfg, g)
+    for g, (layers, cp) in enumerate(_groups(params, cfg)):
         cache = {"k": state["k"][g], "v": state["v"][g]}
         for j, lp in enumerate(layers):
             x = tfm._layer_prefill(cfg, window, x, lp, positions, lengths,
@@ -234,12 +249,10 @@ def decode_step(params, token, state, cfg: ModelConfig, *,
                 window: Optional[int] = None):
     """token (B,) -> (logits (B,V), new state).  The self caches take the
     new token in place; the image K/V are read."""
-    ngroups, _ = _layout(cfg)
     window = window if window is not None else cfg.sliding_window
     lengths = state["length"]
     x = params["embed"][token.long()][:, None, :]
-    for g in range(ngroups):
-        layers, cp = _group_params(params, cfg, g)
+    for g, (layers, cp) in enumerate(_groups(params, cfg)):
         cache = {"k": state["k"][g], "v": state["v"][g]}
         for j, lp in enumerate(layers):
             x = tfm._layer_decode(cfg, window, x, lp, cache, j, lengths)

@@ -21,8 +21,13 @@ What reads each flag in the port:
                   decode, the plain one-token attention): on, P is cast to
                   the value dtype before P.V; off, P and V stay float32.
                   The Hopper kernels keep their own precision either way.
-  chunked_ce, opt_bf16_moments — training flags; nothing in the port reads
-                  them yet (training is not ported).
+  chunked_ce    — ``models/transformer.py::train_loss``: with a vocab of
+                  at least 32768 the loss streams the head by vocab chunk
+                  (``layers.chunked_cross_entropy``) and never makes the
+                  (B, S, V) logits.
+  opt_bf16_moments — read by nothing, as in the JAX package, whose
+                  ``Trainer`` takes ``OptimizerConfig.moment_dtype`` (only
+                  its ``launch/dryrun.py`` reads the flag).
   pallas_attn, pallas_paged_decode — read by nothing: in the port the
                   tensor's device chooses the kernel (CUDA) or its plain
                   version (CPU), and no flag forces either.

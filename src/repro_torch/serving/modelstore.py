@@ -32,6 +32,8 @@ import time
 from datetime import datetime, timezone
 from typing import Any, Dict, Iterable, List, Optional, Tuple
 
+import torch
+
 from repro_torch.training import checkpoint
 
 _VDIR = re.compile(r"v(\d{4,})")
@@ -43,10 +45,55 @@ class StoreError(RuntimeError):
     pass
 
 
+# The host-to-device upload's staging: two pinned buffers of this many bytes
+# that the host fills in turns while the copy engine drains the other.
+STAGING_BYTES = 64 << 20
+
+
+def upload(host: Dict[str, torch.Tensor], device) -> Dict[str, torch.Tensor]:
+    """Copy host tensors to ``device``.  On a CUDA device the copies run on
+    a side stream of their own, from two pinned staging buffers filled in
+    turns, and the call returns once the last one has landed: the serving
+    forwards on the default stream never queue behind a leaf's copy (a
+    pageable ``.to(device)`` of an mmapped leaf on the default stream holds
+    every kernel enqueued after it until the whole leaf is across)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return {k: v.to(device) for k, v in host.items()}
+    stream = torch.cuda.Stream(device)
+    # the outputs are allocated on the current stream; the side stream
+    # writes them only after what that stream has queued so far
+    stream.wait_stream(torch.cuda.current_stream(device))
+    staging = [torch.empty(STAGING_BYTES, dtype=torch.uint8,
+                           pin_memory=True) for _ in range(2)]
+    done: List[Optional[torch.cuda.Event]] = [None, None]
+    out, n = {}, 0
+    for key, v in host.items():
+        dst = torch.empty(v.shape, dtype=v.dtype, device=device)
+        src = v.contiguous().reshape(-1).view(torch.uint8)
+        flat = dst.reshape(-1).view(torch.uint8)
+        for off in range(0, src.numel(), STAGING_BYTES):
+            m = min(STAGING_BYTES, src.numel() - off)
+            buf = staging[n % 2]
+            if done[n % 2] is not None:
+                done[n % 2].synchronize()   # its last copy has drained
+            buf[:m].copy_(src[off:off + m])
+            with torch.cuda.stream(stream):
+                flat[off:off + m].copy_(buf[:m], non_blocking=True)
+                done[n % 2] = torch.cuda.Event()
+                done[n % 2].record(stream)
+            n += 1
+        out[key] = dst
+    stream.synchronize()
+    return out
+
+
 class ModelStore:
     def __init__(self, root: str):
         self.root = root
         os.makedirs(root, exist_ok=True)
+        # the last load's parts (ms): checkpoint read, hash verify, upload
+        self.last_load_ms: Dict[str, float] = {}
 
     # --- layout ---------------------------------------------------------------
 
@@ -138,11 +185,15 @@ class ModelStore:
         With ``verify`` (default), the restored leaves are re-hashed and
         checked against the manifest's ``param_hash`` — provenance is only
         as good as the bytes actually served.  The hash is taken on the
-        host bytes the device copy is made from, so it costs no copy back.
+        host bytes the device copy is made from, so it costs no copy back,
+        and the upload (``upload``) returns only once every leaf is on the
+        device: nothing is served from a version before both.
         """
         manifest = self.manifest(name, version)
         path = os.path.join(self.version_dir(name, version), CKPT_FILE)
+        t0 = time.perf_counter()
         host, _meta = checkpoint.restore(path, like)
+        t1 = time.perf_counter()
         if verify:
             got = checkpoint.param_hash(host)
             if got != manifest["param_hash"]:
@@ -150,9 +201,12 @@ class ModelStore:
                     f"{name} v{version}: param hash mismatch "
                     f"(manifest {manifest['param_hash'][:12]}…, "
                     f"checkpoint {got[:12]}…) — refusing to serve")
-        if device is None:
-            return host, manifest
-        return {k: v.to(device) for k, v in host.items()}, manifest
+        t2 = time.perf_counter()
+        out = host if device is None else upload(host, device)
+        self.last_load_ms = {"read": 1e3 * (t1 - t0),
+                             "verify": 1e3 * (t2 - t1),
+                             "upload": 1e3 * (time.perf_counter() - t2)}
+        return out, manifest
 
     # --- retention ------------------------------------------------------------
 

@@ -32,7 +32,7 @@ from repro.models import mamba2 as jmamba2
 from repro.training.checkpoint import _flatten
 from repro_torch.configs import get_config, reduce_for_smoke
 from repro_torch.models import build_model, hybrid, mamba2
-from repro_torch.models.transformer import subtree
+from repro_torch.models.transformer import layer_views, subtree
 from repro_torch.params import from_jax, state_from_jax, unflatten
 
 ARCH = "zamba2-2.7b"
@@ -82,7 +82,7 @@ def _logits_close(got, want):
 def _mamba_layer(pair, i=0):
     _, _, jp, _, _, tp = pair
     return (jax.tree_util.tree_map(lambda t: t[i], jp["mamba"]),
-            subtree(tp, "mamba", i))
+            layer_views(tp, "mamba")[i])
 
 
 def test_causal_conv(pair):

@@ -71,6 +71,8 @@ def test_import_guard_no_jax_no_repro():
             " repro_torch.serving.client, repro_torch.serving.lifecycle,"
             " repro_torch.serving.modelstore, repro_torch.serving.telemetry,"
             " repro_torch.training.checkpoint, repro_torch.core.slo,"
+            " repro_torch.training.data, repro_torch.training.optimizer,"
+            " repro_torch.training.train_loop, repro_torch.launch.train,"
             " repro_torch.opt;"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro', 'msgpack', 'ml_dtypes'));"

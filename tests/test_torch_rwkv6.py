@@ -27,7 +27,7 @@ from repro.training.checkpoint import _flatten
 from repro_torch.configs import get_config, reduce_for_smoke
 from repro_torch.models import build_model, rwkv6
 from repro_torch.models.layers import group_norm
-from repro_torch.models.transformer import subtree
+from repro_torch.models.transformer import layer_views
 from repro_torch.params import from_jax, state_from_jax
 
 ARCH = "rwkv6-1.6b"
@@ -46,7 +46,7 @@ def pair():
 def _layer(pair, i=0):
     _, _, jp, _, _, tp = pair
     return (jax.tree_util.tree_map(lambda t: t[i], jp["layers"]),
-            subtree(tp, "layers", i))
+            layer_views(tp, "layers")[i])
 
 
 def _rand(*shape, seed=0, scale=1.0):

@@ -31,7 +31,7 @@ from repro.models import vlm as jvlm
 from repro.training.checkpoint import _flatten
 from repro_torch.configs import get_config, reduce_for_smoke
 from repro_torch.models import build_model, vlm
-from repro_torch.models.transformer import subtree
+from repro_torch.models.transformer import layer_views
 from repro_torch.params import from_jax, unflatten
 
 ARCH = "llama-3.2-vision-11b"
@@ -74,7 +74,7 @@ def _image(cfg, B, seed=3):
 
 def _group(jp, tp, g):
     return (jax.tree_util.tree_map(lambda t: t[g], jp["cross"]),
-            subtree(tp, "cross", g))
+            layer_views(tp, "cross")[g])
 
 
 def test_cross_kv(pair):
