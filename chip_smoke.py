@@ -15,8 +15,9 @@ Phases (any failure exits non-zero and prints no final result line):
    paged_decode_attention, one source; K4 wkv6; K5 ssd) is compiled from
    the checkout's sources with nvcc for sm_90a, one nvcc per source,
    started together.  cuobjdump's SASS must show HGMMA (wgmma) in K1's
-   library and HMMA (mma.sync) in K1's backward's, K2/K3's, K4's and
-   K5's; the counts go into the kernels line.
+   library and its backward's and HMMA (mma.sync) in K2/K3's, K4's and
+   K5's; the counts go into the kernels line.  A ptxas line saying that
+   it serialised a wgmma of K1's backward fails the build.
 3. kernels: each kernel is held against its plain PyTorch version on the
    card at the main path's shapes and at the edges.  K1: yi-9b attention,
    B=8, S=256, H=32, K=4, hd=128, bf16 and fp32, plus sliding window,
@@ -102,7 +103,9 @@ Phases (any failure exits non-zero and prints no final result line):
    without.  Timed at danube's shape, the vlm cross and whisper's fp32
    encoder beside the plain version, SDPA's forward + backward
    (``enable_gqa``) and the bound (2.5x the forward's operations, or the
-   bytes of q, k, v, o, dO, dq, dk, dv once).
+   bytes of q, k, v, o, dO, dq, dk, dv once), the device time split
+   between the Delta, dK/dV and dQ kernels; a split that reads 0 in all
+   fails (a renamed kernel would).
 4. ensemble path: ``build_app(["yi-9b", "yi-9b"], full=True, max_len=1024,
    num_slots=8)`` — two members at full width and depth with random
    weights from a seed, and a generate plane over member 0's params —
@@ -734,8 +737,12 @@ def kernel_phase(failures):
 
 # --- phase 3: K1's backward kernel ---------------------------------------------
 
-K1_BWD_KERNELS = ("delta_kernel", "dkdv_kernel", "dq_kernel",
-                  "dkdv_mma_kernel", "dq_mma_kernel")
+# K1's backward kernels by launch: Delta, then dK/dV and dQ on the tensor
+# cores (wgmma) or the CUDA cores
+K1_BWD_SPLIT = {"delta": ("delta_kernel",),
+                "dkdv": ("dkdv_wgmma_kernel", "dkdv_kernel"),
+                "dq": ("dq_wgmma_kernel", "dq_kernel")}
+K1_BWD_KERNELS = tuple(n for names in K1_BWD_SPLIT.values() for n in names)
 # h2o-danube-1.8b, the training phase's model: 32/8 heads of 80, its 4096
 # window (wider than the sequence), B=4 x S=2048 a step
 DANUBE_HEADS = (32, 8, 80)
@@ -838,7 +845,8 @@ def time_bwd(c):
                                 with_lse=True)
         return flash_attention_bwd(q, k, v, o2, lse2, do, **kw)
     kernel_ms = cuda_time_ms(ours)
-    device = profiled_ms(ours, K1_BWD_KERNELS)
+    split = profiled_groups_ms(ours, K1_BWD_SPLIT)
+    device = sum(split.values())
     both_ms = cuda_time_ms(both)
     plain_ms = cuda_time_ms(lambda: flash_attention_bwd_plain(
         q, k, v, o, lse, do, **kw), iters=5, warmup=1)
@@ -867,7 +875,8 @@ def time_bwd(c):
                      + f" H={H} K={K} hd={hd} {c['dtype']} "
                      + ("causal" if c["causal"] else "non-causal")
                      + (f" window {c['window']}" if c["window"] else ""),
-            "ms": kernel_ms, "device_ms": device, "fwd_bwd_ms": both_ms,
+            "ms": kernel_ms, "device_ms": device, "device_split_ms": split,
+            "fwd_bwd_ms": both_ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
             "library_device_ms": library_dev_ms,
             "bound_ms": 1e3 * max(t_bytes, t_flops),
@@ -959,11 +968,16 @@ def bwd_kernel_phase(failures):
         ("whisper_encoder_fp32", "whisper encoder fp32"))}
     for t in (main, *timed.values()):
         log(f"[kernels] flash_attention_bwd timed at {t['shape']}: kernel "
-            f"{t['ms']:.4f} ms (device time {t['device_ms']:.4f} ms; with "
-            f"K1's forward {t['fwd_bwd_ms']:.4f} ms), plain "
+            f"{t['ms']:.4f} ms (device time {t['device_ms']:.4f} ms: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in
+                        t["device_split_ms"].items())
+            + f"; with K1's forward {t['fwd_bwd_ms']:.4f} ms), plain "
             f"{t['plain_ms']:.4f} ms, SDPA forward + backward "
             f"{t['library_ms']} ms (device {t['library_device_ms']} ms), "
             f"bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+        if not t["device_ms"] > 0:      # a renamed kernel would read 0
+            failures.append(f"flash_attention_bwd: the profiled device time "
+                            f"of {K1_BWD_KERNELS} reads 0 at {t['shape']}")
     torch.cuda.empty_cache()
     return {
         "name": "flash_attention_bwd",
@@ -1000,9 +1014,10 @@ def device_ms(prof, names) -> float:
     return total / 1e3
 
 
-def profiled_ms(fn, names, iters: int = 20) -> float:
-    """Device time per call of the named kernels over ``iters`` calls,
-    from torch.profiler (the launches' host overhead is not in it)."""
+def profiled_groups_ms(fn, groups, iters: int = 20) -> dict:
+    """Device time per call of each group of named kernels ({group:
+    names}) over ``iters`` calls, from torch.profiler (the launches' host
+    overhead is not in it)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -1012,7 +1027,13 @@ def profiled_ms(fn, names, iters: int = 20) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    return device_ms(prof, names) / iters
+    return {g: device_ms(prof, names) / iters for g, names in groups.items()}
+
+
+def profiled_ms(fn, names, iters: int = 20) -> float:
+    """Device time per call of the named kernels (all kernels when
+    ``names`` is empty)."""
+    return profiled_groups_ms(fn, {"": names}, iters)[""]
 
 
 K1_KERNELS = ("flash_attention_wgmma_kernel", "flash_attention_kernel")
@@ -6696,6 +6717,9 @@ def training_phase(failures, kernels, profile_dir, base_bytes):
                  for k, v in data.batch_at(0).items()}
         info["profile"] = profile_train_step(
             trainer, batch, Path(profile_dir) if profile_dir else None)
+        if not info["profile"]["k1_backward_ms"] > 0:
+            failures.append(f"train A: the profiled device time of "
+                            f"{K1_BWD_KERNELS} reads 0 in a step")
 
         del trainer
         gc.collect()
@@ -6807,10 +6831,11 @@ def main(argv=None) -> int:
                 log(f"[build]   {entry}: {line.split(':', 1)[-1].strip()}")
 
     failures = []
-    # the products: wgmma in K1; mma.sync in K2/K3 (bf16), K4 and K5 (TF32)
+    # the products: wgmma in K1 and its backward; mma.sync in K2/K3 (bf16),
+    # K4 and K5 (TF32)
     sass = {}
     for name, op in (("flash_attention", "HGMMA"),
-                     ("flash_attention_bwd", "HMMA"),
+                     ("flash_attention_bwd", "HGMMA"),
                      ("decode_attention", "HMMA"), ("rwkv6_wkv", "HMMA"),
                      ("mamba2_ssd", "HMMA")):
         sass[name] = sass_counts(str(common.build_log[name]["library"]))
@@ -6818,6 +6843,16 @@ def main(argv=None) -> int:
             f"{sass[name] or 'cuobjdump not found'}")
         if sass[name] and not sass[name][op]:
             failures.append(f"{name}: no {op} in its SASS")
+    # ptxas serialises a wgmma whose registers it cannot keep in flight: a
+    # design failure in K1's backward (its CUDA-core kernels have no wgmma,
+    # so any such line is from a tensor-core instantiation)
+    for name in ("flash_attention", "flash_attention_bwd"):
+        for line in str(common.build_log[name]["ptxas"]).splitlines():
+            if "wgmma" in line and "serialized" in line:
+                log(f"[build] {name} ptxas: {line.strip()}")
+                if name == "flash_attention_bwd":
+                    failures.append(f"{name}: ptxas serialised a wgmma: "
+                                    f"{line.strip()}")
     t_start = time.perf_counter()
     clock = [t_start]
 

@@ -88,9 +88,23 @@ def nvcc_path() -> str:
     return found
 
 
-def load_library(name: str, sources: Sequence[Path]) -> ctypes.CDLL:
+def library_path(name: str, sources: Sequence[Path],
+                 headers: Sequence[Path] = ()) -> Path:
+    """The file that a build of ``sources`` lands in: named after ``name``
+    and a hash of the flags, the sources and ``headers`` (the headers the
+    sources include, hashed but not passed to nvcc), so that an edit to any
+    of them builds anew.  Needs no nvcc."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in (*sources, *headers):
+        h.update(Path(path).read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def load_library(name: str, sources: Sequence[Path],
+                 headers: Sequence[Path] = ()) -> ctypes.CDLL:
     """Compile ``sources`` with nvcc for sm_90a into a shared library named
-    after ``name`` and a hash of the sources and flags, and load it.
+    after ``name`` and a hash of the sources, the headers they include and
+    the flags (``library_path``), and load it.
 
     The library is cached in this process and on disk; a build by a
     concurrent process lands under a temporary name and is renamed into
@@ -102,10 +116,7 @@ def load_library(name: str, sources: Sequence[Path]) -> ctypes.CDLL:
     with lock:
         if name in _libs:
             return _libs[name]
-        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-        for src in sources:
-            h.update(Path(src).read_bytes())
-        out = BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+        out = library_path(name, sources, headers)
         t0 = time.perf_counter()
         report = ""
         if not out.exists():

@@ -25,44 +25,63 @@
 //
 // Design: three launches, no atomics, so two runs give the same bits.
 //  * delta_kernel: Delta, one warp per (b, s, h) row.
-//  * dK/dV: one block per (key tile, KV head, batch row).  It keeps its
-//    tile's K and V and the dK/dV accumulators for the whole loop over the
-//    G query heads of the KV head and their query tiles that can see the
-//    tile, recomputing P from lse on the way: the GQA sum happens inside
-//    the block.
-//  * dQ: one block per (query tile, query head, batch row) over the key
-//    tiles its rows can see, the same recomputation.
+//  * dK/dV: over keys.  An item's K and V stay in place while the G query
+//    heads of its KV head and their query tiles that can see it stream
+//    past, so the GQA sum happens inside the block; P is recomputed from
+//    lse on the way.
+//  * dQ: over query rows of one head, over the key tiles they see, the
+//    same recomputation (the price of having no atomics).
 // Two paths, chosen per call as K1's forward chooses:
-//  * tensor cores (bf16, head_dim 64, 80, 96 or 128, 16-byte aligned rows):
-//    64-row tiles, four warps of 16 rows, every product on mma.sync
-//    m16n8k16 with fp32 accumulators.  P and dS enter their products as
-//    bf16 hi + lo parts (as K1's forward takes P), so the only bf16
-//    rounding left is the inputs' own and the gradients' final one.  The
-//    operands sit in shared memory in the two layouts the products read
-//    (Q, dO or K row-major and transposed), and fragments are loaded by
-//    plain 32-bit reads.
+//  * tensor cores (bf16, head_dim 64, 80, 96 or 128, 16-byte aligned rows:
+//    dkdv_wgmma_kernel, dq_wgmma_kernel; the section below);
 //  * CUDA cores (fp32, other head dims up to 256, unaligned bf16): the
 //    forward's CUDA-core layout, HD_PAD/32 lanes owning one row's head dims
 //    in registers, dot products reduced by warp shuffles, 32-row tiles of
 //    the other side staged in shared memory as fp32.
-// What bounds it: at danube's training shape (B=4, S=2048, 32/8 heads of
-// 80, causal) the work is about 2.5x the forward's operations against
-// the bytes of q, k, v, o, dO and the three gradients, far above the
-// card's ~295 operations a byte: the tensor cores bound the ideal.  This
-// first kernel is simple rather than fast (no wgmma, TMA or warp
-// specialisation, scalar fragment loads, P recomputed in both kernels);
-// chip_smoke.py prints its time beside that bound.
+// What bounds it on an H100: at danube's training shape (B=4, S=2048,
+// 32/8 heads of 80, causal) the gradient's ideal work is five products a
+// visible pair, 215 GFLOP (2.5x the forward's 86), against about 0.3 GB of
+// q, k, v, o, dO and the three gradients: some 700 operations a byte, far
+// above the card's ~295, so the tensor cores bound it (0.217 ms at the
+// bf16 peak).  What the tensor-core design does about it:
+//  * every product on wgmma, the only way to the tensor cores' full rate:
+//    S^T = K Q^T and dP^T = V dO^T from shared memory, then dV += P^T dO
+//    and dK += dS^T Q with P^T and dS^T as register A operands (the dQ
+//    kernel: S = Q K^T, dP = dO V^T, dQ += dS K);
+//  * P and dS enter their products as bf16 hi + lo parts (pack_bf16_split,
+//    as K1's forward takes P), so the only bf16 rounding left is the
+//    inputs' own and the gradients' final one;
+//  * one shared-memory layout serves both readings of a tile: 16-dim
+//    chunks of 32-byte rows, 32B-swizzled, read K-major (chunk c is k-step
+//    c) for S^T and dP^T and MN-major (16 rows of every chunk are a k-step
+//    of N = hd) for the accumulating products, so nothing is transposed in
+//    shared memory, and hd 80 and 96 run exact k-steps and N (on the hd-128
+//    instantiation with TMA zero-filling dims 80-127, as the forward runs
+//    them, danube's backward took 1.62 ms against 1.33 exact on "NVIDIA
+//    H100 80GB HBM3, 700.00 W": scripts/k1_bwd_variants.py);
+//  * a producer warp issues TMA loads of the streamed tiles into a ring of
+//    stages on mbarriers (lse and Delta rows by cp.async beside them) and
+//    reloads an item's resident pair only after its first stages; its
+//    warpgroup gives registers to the two consumer warpgroups
+//    (setmaxnreg), which at hd 128 hold dK's and dV's 128 accumulators a
+//    thread besides S^T's and dP^T's 64;
+//  * persistent blocks, one per SM, walk items longest first (causal:
+//    the first keys, or the last query rows), the dK/dV walk snaking;
+//  * masks only on tiles that straddle the length, S, the diagonal or the
+//    window edge; tiles that no key (row) of an item sees are neither
+//    loaded nor multiplied.  A query row that sees no key (lse = -inf)
+//    only ever meets such a tile, where P is selected to 0, never exp(inf).
+// What it still lacks: ten products a pair where five are ideal (S and
+// dP recomputed by the dQ kernel, P and dS as hi + lo); inside a
+// warpgroup a tile's products wait for each other (the two warpgroups
+// overlap one another; a one-tile software pipeline ran slower, its
+// registers spilling); the gradients are stored from registers, not TMA.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "sm90.cuh"
 
 namespace {
-
-struct Strides {
-  long long b, s, h;
-};
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
@@ -359,323 +378,547 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core path: bf16, head_dim HD in {64, 80, 96, 128}.  Tiles of 64
-// rows on both sides; warp w owns rows 16w..16w+15 of the block's own side.
-// A lane's fragments follow mma.m16n8k16: g = lane / 4, t = lane % 4; A
-// holds (row g | g+8, k 2t..2t+1 | 2t+8..2t+9), B (k 2t.. | 2t+8.., n g),
-// C (row g | g+8, n 2t..2t+1).
+// Tensor-core path: bf16, head_dim HD in {64, 80, 96, 128}, 16-byte aligned
+// rows.  A block is kBwWG consumer warpgroups of 64 resident rows each and
+// one producer warpgroup (its first warp issues every load; the warpgroup
+// gives its registers to the consumers with setmaxnreg).  Every
+// tile is 16-dim chunks of 32 bytes a row, 32B-swizzled, chunk c of a tile
+// of R rows at c * R * 32 bytes: a K-major wgmma operand reads chunk c as
+// k-step c, and an MN-major one reads 16 rows of every chunk as a k-step of
+// N = HD, so every k-step and N slice is exact at hd 80 and 96 and one
+// layout serves both readings of a tile.  The wgmma accumulator layout: a
+// thread (warp w of its warpgroup, lane g * 4 + t4) holds d[j] at row
+// 16 w + g + 8 ((j >> 1) & 1), column 8 (j / 4) + 2 t4 + (j & 1).
 // ---------------------------------------------------------------------------
 
-constexpr int kMT = 64;               // rows of a tile, either side
+constexpr int kBwWG = 2;                       // consumer warpgroups
+constexpr int kBwRows = 64 * kBwWG;            // resident rows of an item
+constexpr int kBwTile = 64;                    // rows of a streamed tile
+constexpr int kBwThreads = 128 * (kBwWG + 1);  // + the producer warpgroup
+constexpr int kRowBytes = 32;                  // a chunk row: 16 bf16 dims
+constexpr int kChunk = 16;                     // head dims a chunk
+constexpr int kSmemCap = 232448 - 1024 - 256;  // less alignment, barriers
+constexpr int kMaxStages = 6;
+// registers a thread after setmaxnreg (the launch gives 168 to each of the
+// 384): dK/dV at hd 128 holds 128 accumulators besides S^T's and dP^T's
+template <int HD, bool KV>
+constexpr int kProducerRegs = KV && HD == 128 ? 24 : 40;
+template <int HD, bool KV>
+constexpr int kConsumerRegs = KV && HD == 128 ? 240 : 232;
 
-template <int HD>
-struct MmaSmem {
-  static constexpr int LD = HD + 8;       // row-major tile row (bf16)
-  static constexpr int LDT = kMT + 8;     // transposed tile row (bf16)
-  static constexpr int ROW = kMT * LD;    // elements of a row-major tile
-  static constexpr int TR = HD * LDT;     // elements of a transposed tile
+// Shared-memory plan: the resident pair (K and V for dK/dV, Q and dO for
+// dQ), then a ring of stages of the streamed pair (Q and dO, with their
+// rows' lse and Delta, for dK/dV; K and V for dQ), then the barriers.
+template <int HD, bool KV>
+struct BwTiles {
+  static constexpr int NCH = HD / kChunk;
+  static constexpr int RES_T = NCH * kBwRows * kRowBytes;
+  static constexpr int TILE_T = NCH * kBwTile * kRowBytes;
+  static constexpr int RES = 2 * RES_T;
+  static constexpr int STAGE = 2 * TILE_T + (KV ? 1024 : 0);
+  static constexpr int TX = 2 * TILE_T;     // the TMA bytes of a stage
+  static constexpr int FIT = (kSmemCap - RES) / STAGE;
+  static constexpr int STAGES = FIT < kMaxStages ? FIT : kMaxStages;
+  static constexpr int BARS = RES + STAGES * STAGE;
+  static constexpr int SMEM = BARS + 8 * (2 + 2 * STAGES) + 1024;
 };
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// One 4-byte cp.async; cp_async_arrive makes `bar` take one arrival when
+// this thread's earlier cp.asyncs have landed (its count includes it).
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+__device__ __forceinline__ uint64_t kmajor(const unsigned char* p) {
+  return gmma_desc(p, 16, 8 * kRowBytes, kSwizzle32);
 }
 
-// Two values as the bf16 pair hi = bf16(x) and the pair of remainders
-// lo = bf16(x - hi), low element first.
-__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
-                                           uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  const __nv_bfloat162 r =
-      __floats2bfloat162_rn(a - __low2float(h), b - __high2float(h));
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = *reinterpret_cast<const uint32_t*>(&r);
+// 16 rows from `p` of a tile of `rows` rows as an MN-major B of N = HD:
+// chunks `rows * 32` bytes apart (LBO), 8-row groups 256 bytes (SBO).
+__device__ __forceinline__ uint64_t mnmajor(const unsigned char* p,
+                                            int rows) {
+  return gmma_desc(p, rows * kRowBytes, 8 * kRowBytes, kSwizzle32);
 }
 
-// A fragment of rows r0.. (16) and head dims kk*16.. of a row-major tile.
-template <int LD>
-__device__ __forceinline__ void frag_a(uint32_t (&a)[4],
-                                       const __nv_bfloat16* tile, int r0,
-                                       int kk, int g, int t) {
-  const __nv_bfloat16* p = tile + (r0 + g) * LD + kk * 16 + 2 * t;
-  a[0] = ld32(p);
-  a[1] = ld32(p + 8 * LD);
-  a[2] = ld32(p + 8);
-  a[3] = ld32(p + 8 * LD + 8);
+// The r-th item of this block's walk, or -1 past the last: rounds of
+// gridDim.x items, with `snake` every other round in reverse block order.
+// dK/dV snakes: its items, longest first, are few (3.9 a block at danube's
+// shape), and round-robin gives the first blocks 21% more than the mean
+// (scripts/k1_bwd_variants.py times both).  dQ's many items come out
+// within 3% of the mean either way; it walks round-robin.
+__device__ __forceinline__ int walk(int r, int items, bool snake) {
+  const int t = r * (int)gridDim.x + (snake && (r & 1)
+                                          ? (int)gridDim.x - 1 - blockIdx.x
+                                          : blockIdx.x);
+  return t < items ? t : -1;
 }
 
-// c[n] (16 x 64) = A rows r0.. of `a_tile` times B^T, B the 64 rows of
-// `b_tile` (both row-major over HD head dims): S = Q K^T and its kind.
-template <int HD>
-__device__ __forceinline__ void rows_by_rows(float (&c)[8][4],
-                                             const __nv_bfloat16* a_tile,
-                                             const __nv_bfloat16* b_tile,
-                                             int r0, int g, int t) {
-  constexpr int LD = MmaSmem<HD>::LD;
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) c[n][e] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    uint32_t a[4];
-    frag_a<LD>(a, a_tile, r0, kk, g, t);
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      const __nv_bfloat16* p = b_tile + (n * 8 + g) * LD + kk * 16 + 2 * t;
-      mma_bf16(c[n], a, ld32(p), ld32(p + 8));
-    }
+// A dK/dV work item: keys [k0, k0 + kBwRows) of KV head kh of batch row b.
+// Its tiles are, for each query head kh * G + hh in turn, the query tiles
+// [tfirst, tfirst + ntq * kBwTile) that some key of the item sees.
+struct KvItem {
+  int b, kh, k0, L, tfirst, ntq;
+};
+
+__device__ __forceinline__ KvItem kv_item(int t, int K, int B, int S,
+                                          int Skv, const int* lengths,
+                                          int causal, int window) {
+  KvItem it;
+  const int per = K * B;
+  // the first keys see the most queries under causality: they come first;
+  // KV heads run fastest
+  const int rest = t % per;
+  it.kh = rest % K;
+  it.b = rest / K;
+  it.k0 = (t / per) * kBwRows;
+  it.L = valid_keys(lengths, it.b, Skv);
+  it.tfirst = 0;
+  it.ntq = 0;
+  if (it.k0 < it.L) {
+    int lo, hi;
+    query_range(it.k0, min(it.k0 + kBwRows, it.L), S, causal, window, lo,
+                hi);
+    it.tfirst = (lo / kBwTile) * kBwTile;
+    it.ntq = hi > it.tfirst ? (hi - it.tfirst + kBwTile - 1) / kBwTile : 0;
   }
+  return it;
 }
 
-// acc (16 x HD) += X (16 x 64, fp32 C fragments, as bf16 hi + lo) times the
-// 64 x HD matrix held transposed in `bt` (HD rows of 64): dV += P^T dO etc.
-template <int HD>
-__device__ __forceinline__ void acc_product(float (&acc)[HD / 8][4],
-                                            const float (&x)[8][4],
-                                            const __nv_bfloat16* bt, int g,
-                                            int t) {
-  constexpr int LDT = MmaSmem<HD>::LDT;
-#pragma unroll
-  for (int kc = 0; kc < 4; ++kc) {
-    uint32_t hi[4], lo[4];
-    split_bf16(x[2 * kc][0], x[2 * kc][1], hi[0], lo[0]);
-    split_bf16(x[2 * kc][2], x[2 * kc][3], hi[1], lo[1]);
-    split_bf16(x[2 * kc + 1][0], x[2 * kc + 1][1], hi[2], lo[2]);
-    split_bf16(x[2 * kc + 1][2], x[2 * kc + 1][3], hi[3], lo[3]);
-#pragma unroll
-    for (int nd = 0; nd < HD / 8; ++nd) {
-      const __nv_bfloat16* p = bt + (nd * 8 + g) * LDT + kc * 16 + 2 * t;
-      const uint32_t b0 = ld32(p), b1 = ld32(p + 8);
-      mma_bf16(acc[nd], hi, b0, b1);
-      mma_bf16(acc[nd], lo, b0, b1);
-    }
-  }
+// A dQ work item: queries [q0, q0 + kBwRows) of query head h of batch row
+// b, and the key tiles [tfirst, tfirst + ntiles * kBwTile) some row sees.
+struct QItem {
+  int b, h, q0, L, tfirst, ntiles;
+};
+
+__device__ __forceinline__ QItem q_item(int t, int nqb, int B, int H,
+                                        int Skv, const int* lengths,
+                                        int causal, int window) {
+  QItem it;
+  const int per = H * B;
+  // causal: the rows that see the most key tiles come first
+  const int qb = causal ? nqb - 1 - t / per : t / per;
+  const int rest = t % per;
+  it.h = rest % H;
+  it.b = rest / H;
+  it.q0 = qb * kBwRows;
+  it.L = valid_keys(lengths, it.b, Skv);
+  int lo, hi;
+  key_range(it.q0, it.q0 + kBwRows, it.L, causal, window, lo, hi);
+  it.tfirst = (lo / kBwTile) * kBwTile;
+  it.ntiles = hi > it.tfirst ? (hi - it.tfirst + kBwTile - 1) / kBwTile : 0;
+  return it;
 }
 
-// Stage rows [r0, r0 + 64) of a (B, N, heads, HD) bf16 tensor (head `hh`
-// of batch row b) in shared memory, row-major into `rm` and, where `tr` is
-// not null, transposed into `tr`; rows at or past `n` are zeros.
+// Write rows `rows` of a warpgroup's 64 x HD fp32 accumulators (times mul)
+// as bf16 to head hh of batch row b; rows at or past n are skipped.
 template <int HD>
-__device__ __forceinline__ void stage_tile(const __nv_bfloat16* src,
-                                           Strides st, int b, int hh, int r0,
-                                           int n, __nv_bfloat16* rm,
-                                           __nv_bfloat16* tr) {
-  constexpr int LD = MmaSmem<HD>::LD;
-  constexpr int LDT = MmaSmem<HD>::LDT;
-  constexpr int CH = HD / 8;              // 16-byte chunks a row
-  for (int idx = threadIdx.x; idx < kMT * CH; idx += blockDim.x) {
-    const int j = idx / CH;
-    const int c = idx % CH;
-    uint4 x = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + j < n)
-      x = *reinterpret_cast<const uint4*>(
-          src + b * st.b + (long long)(r0 + j) * st.s + hh * st.h + 8 * c);
-    *reinterpret_cast<uint4*>(rm + j * LD + 8 * c) = x;
-    if (tr != nullptr) {
-      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&x);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) tr[(8 * c + i) * LDT + j] = e[i];
-    }
-  }
-}
-
-// Write a warp's 16 x HD fp32 accumulators (times mul) as bf16 rows r0 + g
-// and r0 + g + 8 of head hh, rows at or past n skipped.
-template <int HD>
-__device__ __forceinline__ void store_acc(__nv_bfloat16* dst, Strides st,
-                                          int b, int hh, int r0, int n,
-                                          const float (&acc)[HD / 8][4],
-                                          float mul, int g, int t) {
+__device__ __forceinline__ void store_rows(__nv_bfloat16* dst, Strides st,
+                                           int b, int hh, const int (&rows)[2],
+                                           int n, const float (&acc)[HD / 2],
+                                           float mul, int t4) {
 #pragma unroll
   for (int x = 0; x < 2; ++x) {
-    const int r = r0 + g + 8 * x;
-    if (r >= n) continue;
-    __nv_bfloat16* row = dst + b * st.b + (long long)r * st.s + hh * st.h;
+    if (rows[x] >= n) continue;
+    __nv_bfloat16* row =
+        dst + b * st.b + (long long)rows[x] * st.s + hh * st.h;
 #pragma unroll
-    for (int nd = 0; nd < HD / 8; ++nd) {
-      const __nv_bfloat162 w = __floats2bfloat162_rn(
-          acc[nd][2 * x] * mul, acc[nd][2 * x + 1] * mul);
-      *reinterpret_cast<__nv_bfloat162*>(row + nd * 8 + 2 * t) = w;
+    for (int j = 0; j < HD / 8; ++j)
+      *reinterpret_cast<uint32_t*>(row + 8 * j + 2 * t4) =
+          pack_bf16(acc[4 * j + 2 * x] * mul, acc[4 * j + 2 * x + 1] * mul);
+  }
+}
+
+// X (64 x 64 fp32 accumulators) as the A fragments of four k-steps, bf16
+// hi parts in x[0..3] and lo parts in x[4..7]: the accumulators of n-tiles
+// 2kk and 2kk+1 are the A layout of k-step kk.
+__device__ __forceinline__ void split_frags(const float (&acc)[32],
+                                            uint32_t (&x)[8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      pack_bf16_split(acc[8 * kk + 2 * e], acc[8 * kk + 2 * e + 1], x[kk][e],
+                      x[4 + kk][e]);
+}
+
+// acc (64 x HD) += X (64 x 64, as hi + lo fragments) times the 64 x HD
+// tile at `tile` read MN-major.
+template <int HD>
+__device__ __forceinline__ void issue_acc(float (&acc)[HD / 2],
+                                          const uint32_t (&x)[8][4],
+                                          const unsigned char* tile) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t db = mnmajor(tile + kk * 16 * kRowBytes, kBwTile);
+    wgmma_rs<HD>(acc, x[kk], db);
+    wgmma_rs<HD>(acc, x[4 + kk], db);
+  }
+  wgmma_commit();
+}
+
+// d (64 x 64) = A B^T over HD: A rows at `a` of a tile of `arows` rows, B
+// the 64 rows of the tile at `b`, both K-major (issued, not committed).
+template <int HD>
+__device__ __forceinline__ void issue_rows(float (&d)[32],
+                                           const unsigned char* a, int arows,
+                                           const unsigned char* b) {
+#pragma unroll
+  for (int c = 0; c < HD / kChunk; ++c)
+    wgmma_ss_n64(d, kmajor(a + c * arows * kRowBytes),
+                 kmajor(b + c * kBwTile * kRowBytes), c > 0);
+}
+
+// dK and dV.  Persistent: one block per SM walks the items t = blockIdx.x,
+// blockIdx.x + gridDim.x, ...  The producer loads an item's K and V once
+// (the resident pair, reused after the consumers release it) and then, in
+// the ring, every (query head, query tile) of the item with the tile's lse
+// and Delta rows; it loads the first stages of an item before waiting to
+// reload the resident pair, so those overlap the previous item's end.
+template <int HD>
+__global__ void __launch_bounds__(kBwThreads, 1)
+dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                  const __grid_constant__ CUtensorMap tm_do,
+                  const __grid_constant__ CUtensorMap tm_k,
+                  const __grid_constant__ CUtensorMap tm_v,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ delta,
+                  __nv_bfloat16* __restrict__ dk,
+                  __nv_bfloat16* __restrict__ dv,
+                  const int* __restrict__ lengths, int B, int S, int Skv,
+                  int H, int G, Strides dks, Strides dvs, int causal,
+                  int window, float scale, float scale_log2) {
+  using T = BwTiles<HD, true>;
+  constexpr int ST = T::STAGES;
+  extern __shared__ unsigned char bw_smem_raw[];
+  unsigned char* smem =
+      bw_smem_raw + ((1024u - (smem_u32(bw_smem_raw) & 1023u)) & 1023u);
+  uint64_t* resfull = reinterpret_cast<uint64_t*>(smem + T::BARS);
+  uint64_t* resempty = resfull + 1;
+  uint64_t* full = resempty + 1;
+  uint64_t* empty = full + ST;
+  const int K = H / G;
+  const int items = ((Skv + kBwRows - 1) / kBwRows) * K * B;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    mbar_init(resfull, 1);
+    mbar_init(resempty, 4 * kBwWG);          // one arrival per consumer warp
+#pragma unroll
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&full[s], 1 + 32);           // the TMAs, the lanes' cp.asyncs
+      mbar_init(&empty[s], 4 * kBwWG);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= 4 * kBwWG) {                   // the producer warpgroup
+    regs_dealloc<kProducerRegs<HD, true>>();
+    // one warp: lane 0 issues the TMAs; every lane copies two of a tile's
+    // 64 lse and Delta values by cp.async (a 1-d TMA box would need each
+    // row's start 16-byte aligned, and S need not be a multiple of 4)
+    if (warp == 4 * kBwWG) {
+      const long long last = (long long)B * H * S - 1;
+      int seq = 0;                           // ring tiles issued so far
+      int n = 0;                             // items of this block so far
+      for (int t; (t = walk(n, items, true)) >= 0; ++n) {
+        const KvItem it =
+            kv_item(t, K, B, S, Skv, lengths, causal, window);
+        const int ntile = G * it.ntq;
+        auto load_res = [&]() {
+          if (n >= 1) mbar_wait(resempty, (n - 1) & 1);
+          mbar_expect_tx(resfull, T::RES);
+#pragma unroll
+          for (int c = 0; c < T::NCH; ++c) {
+            tma_load(smem + c * kBwRows * kRowBytes, &tm_k, resfull,
+                     kChunk * c, it.kh, it.k0, it.b);
+            tma_load(smem + T::RES_T + c * kBwRows * kRowBytes, &tm_v,
+                     resfull, kChunk * c, it.kh, it.k0, it.b);
+          }
+        };
+        // the first item's pair loads at once, a later one's after the
+        // item's first ST tiles (or all, if fewer)
+        const int at = n == 0 ? 0 : min(ntile, ST);
+        for (int i = 0; i < ntile; ++i, ++seq) {
+          if (i == at && lane == 0) load_res();
+          const int s = seq % ST;
+          if (seq >= ST) mbar_wait(&empty[s], (seq / ST - 1) & 1);
+          unsigned char* st = smem + T::RES + s * T::STAGE;
+          const int h = it.kh * G + i / it.ntq;
+          const int t0 = it.tfirst + (i % it.ntq) * kBwTile;
+          if (lane == 0) {
+            mbar_expect_tx(&full[s], T::TX);
+#pragma unroll
+            for (int c = 0; c < T::NCH; ++c) {
+              tma_load(st + c * kBwTile * kRowBytes, &tm_q, &full[s],
+                       kChunk * c, h, t0, it.b);
+              tma_load(st + T::TILE_T + c * kBwTile * kRowBytes, &tm_do,
+                       &full[s], kChunk * c, h, t0, it.b);
+            }
+          }
+          // rows past S (masked) read the last value rather than past it
+          float* lse_s = reinterpret_cast<float*>(st + 2 * T::TILE_T);
+          const long long row = ((long long)it.b * H + h) * S + t0;
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int j = lane + 32 * e;
+            const long long x = min(row + j, last);
+            cp_async4(lse_s + j, lse + x);
+            cp_async4(lse_s + kBwTile + j, delta + x);
+          }
+          cp_async_arrive(&full[s]);
+        }
+        if (at == ntile && lane == 0) load_res();
+      }
+    }
+  } else {
+    regs_alloc<kConsumerRegs<HD, true>>();
+    // consumer warpgroup wg owns keys k0 + 64 wg .. + 63 of an item
+    const int wg = warp / 4;
+    const int g = lane / 4;
+    const int t4 = lane % 4;
+    const unsigned char* ks = smem + wg * 64 * kRowBytes;
+    const unsigned char* vs = ks + T::RES_T;
+    float dka[HD / 2], dva[HD / 2];
+    float sacc[32], pacc[32];
+    int seq = 0;
+    int n = 0;
+    for (int t; (t = walk(n, items, true)) >= 0; ++n) {
+      const KvItem it = kv_item(t, K, B, S, Skv, lengths, causal, window);
+      const int L = it.L;
+      const int kw0 = it.k0 + 64 * wg;
+      const int rows[2] = {kw0 + (warp % 4) * 16 + g,
+                           kw0 + (warp % 4) * 16 + g + 8};
+      int wlo = 0, whi = 0;                  // queries the warpgroup's keys see
+      if (kw0 < L)
+        query_range(kw0, min(kw0 + 64, L), S, causal, window, wlo, whi);
+#pragma unroll
+      for (int j = 0; j < HD / 2; ++j) dka[j] = dva[j] = 0.f;
+      const int ntile = G * it.ntq;
+      mbar_wait(resfull, n & 1);
+      for (int i = 0; i < ntile; ++i) {
+        const int s = (seq + i) % ST;
+        mbar_wait(&full[s], ((seq + i) / ST) & 1);
+        const int t0 = it.tfirst + (i % it.ntq) * kBwTile;
+        if (t0 < whi && t0 + kBwTile > wlo) {
+          const unsigned char* qt = smem + T::RES + s * T::STAGE;
+          const unsigned char* dot = qt + T::TILE_T;
+          const float* lse_s =
+              reinterpret_cast<const float*>(qt + 2 * T::TILE_T);
+          const float* dl_s = lse_s + kBwTile;
+          // S^T = K Q^T and dP^T = V dO^T, keys by queries
+          fence_regs(sacc);
+          fence_regs(pacc);
+          wgmma_fence();
+          issue_rows<HD>(sacc, ks, kBwRows, qt);
+          issue_rows<HD>(pacc, vs, kBwRows, dot);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(sacc);
+          fence_regs(pacc);
+          // P^T and dS^T, lse and Delta by column (query); masks only on
+          // tiles that straddle the length, S, the diagonal or the window
+          const bool edge = kw0 + 64 > L || t0 + kBwTile > S ||
+                            (causal && kw0 + 63 > t0) ||
+                            (window > 0 && kw0 <= t0 + kBwTile - 1 - window);
+#pragma unroll
+          for (int j = 0; j < 32; ++j) {
+            const int col = 8 * (j / 4) + 2 * t4 + (j & 1);
+            float p = ex2(fmaf(sacc[j], scale_log2, -lse_s[col] * kLog2e));
+            if (edge && !(t0 + col < S && visible(rows[(j >> 1) & 1],
+                                                  t0 + col, L, causal,
+                                                  window)))
+              p = 0.f;
+            sacc[j] = p;
+            pacc[j] = dsoft(p, pacc[j], dl_s[col]);
+          }
+          // both split before either product is issued: P^T's fragments
+          // stay live while dV's wgmma runs, and at hd 128 dS^T's fp32
+          // values beside them would not fit in the registers
+          uint32_t pf[8][4], df[8][4];
+          split_frags(sacc, pf);
+          split_frags(pacc, df);
+          wgmma_fence();
+          issue_acc<HD>(dva, pf, dot);       // dV += P^T dO
+          issue_acc<HD>(dka, df, qt);        // dK += dS^T Q
+          wgmma_wait<0>();
+          fence_regs(dva);
+          fence_regs(dka);
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[s]);
+      }
+      __syncwarp();                          // K and V of this item are done
+      if (lane == 0) mbar_arrive(resempty);
+      seq += ntile;
+      store_rows<HD>(dk, dks, it.b, it.kh, rows, Skv, dka, scale, t4);
+      store_rows<HD>(dv, dvs, it.b, it.kh, rows, Skv, dva, 1.f, t4);
     }
   }
 }
 
+// dQ: the forward's skeleton.  Persistent blocks walk items of kBwRows
+// query rows of one head; the producer loads an item's Q and dO once and
+// its K and V tiles into the ring.
 template <int HD>
-__global__ void __launch_bounds__(kThreads)
-dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                const __nv_bfloat16* __restrict__ k,
-                const __nv_bfloat16* __restrict__ v,
-                const __nv_bfloat16* __restrict__ dout,
+__global__ void __launch_bounds__(kBwThreads, 1)
+dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                const __grid_constant__ CUtensorMap tm_do,
+                const __grid_constant__ CUtensorMap tm_k,
+                const __grid_constant__ CUtensorMap tm_v,
                 const float* __restrict__ lse,
                 const float* __restrict__ delta,
-                __nv_bfloat16* __restrict__ dk,
-                __nv_bfloat16* __restrict__ dv,
-                const int* __restrict__ lengths, int S, int Skv, int H,
-                int G, Strides qs, Strides ks, Strides vs, Strides dos,
-                Strides dks, Strides dvs, int causal, int window,
-                float scale) {
-  using M = MmaSmem<HD>;
-  extern __shared__ uint4 smem_u4[];
-  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem_u4);
-  __nv_bfloat16* v_s = k_s + M::ROW;
-  __nv_bfloat16* q_s = v_s + M::ROW;
-  __nv_bfloat16* do_s = q_s + M::ROW;
-  __nv_bfloat16* qt_s = do_s + M::ROW;    // Q transposed: HD rows of 64
-  __nv_bfloat16* dot_s = qt_s + M::TR;    // dO transposed
-  float* lse_s = reinterpret_cast<float*>(dot_s + M::TR);
-  float* dl_s = lse_s + kMT;
-
-  const int b = blockIdx.z;
-  const int kh = blockIdx.y;
-  const int k0 = blockIdx.x * kMT;
+                __nv_bfloat16* __restrict__ dq,
+                const int* __restrict__ lengths, int B, int S, int Skv,
+                int H, int G, Strides dqs, int causal, int window,
+                float scale, float scale_log2) {
+  using T = BwTiles<HD, false>;
+  constexpr int ST = T::STAGES;
+  extern __shared__ unsigned char bw_smem_raw[];
+  unsigned char* smem =
+      bw_smem_raw + ((1024u - (smem_u32(bw_smem_raw) & 1023u)) & 1023u);
+  uint64_t* resfull = reinterpret_cast<uint64_t*>(smem + T::BARS);
+  uint64_t* resempty = resfull + 1;
+  uint64_t* full = resempty + 1;
+  uint64_t* empty = full + ST;
+  const int nqb = (S + kBwRows - 1) / kBwRows;
+  const int items = nqb * H * B;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int g = lane / 4;
-  const int t = lane % 4;
-  const int r0 = 16 * warp;               // the warp's keys in the tile
-  const int L = valid_keys(lengths, b, Skv);
+  if (threadIdx.x == 0) {
+    mbar_init(resfull, 1);
+    mbar_init(resempty, 4 * kBwWG);
+#pragma unroll
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * kBwWG);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  float dka[HD / 8][4], dva[HD / 8][4];
+  if (warp >= 4 * kBwWG) {                   // the producer warpgroup
+    regs_dealloc<kProducerRegs<HD, false>>();
+    if (warp == 4 * kBwWG && lane == 0) {
+      int seq = 0;
+      int n = 0;
+      for (int t; (t = walk(n, items, false)) >= 0; ++n) {
+        const QItem it = q_item(t, nqb, B, H, Skv, lengths, causal, window);
+        const int kh = it.h / G;
+        auto load_res = [&]() {
+          if (n >= 1) mbar_wait(resempty, (n - 1) & 1);
+          mbar_expect_tx(resfull, T::RES);
 #pragma unroll
-  for (int nd = 0; nd < HD / 8; ++nd)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[nd][e] = dva[nd][e] = 0.f;
-
-  if (k0 < L) {
-    stage_tile<HD>(k, ks, b, kh, k0, Skv, k_s, nullptr);
-    stage_tile<HD>(v, vs, b, kh, k0, Skv, v_s, nullptr);
-    int qlo, qhi;
-    query_range(k0, min(k0 + kMT, L), S, causal, window, qlo, qhi);
-    for (int hh = 0; hh < G; ++hh) {
-      const int h = kh * G + hh;
-      for (int t0 = (qlo / kMT) * kMT; t0 < qhi; t0 += kMT) {
-        __syncthreads();    // the previous tile is no longer read
-        stage_tile<HD>(q, qs, b, h, t0, qhi, q_s, qt_s);
-        stage_tile<HD>(dout, dos, b, h, t0, qhi, do_s, dot_s);
-        for (int j = threadIdx.x; j < kMT; j += blockDim.x) {
-          const int qp = t0 + j;
-          const long long r = ((long long)b * H + h) * S + qp;
-          lse_s[j] = qp < qhi ? lse[r] : 0.f;
-          dl_s[j] = qp < qhi ? delta[r] : 0.f;
-        }
-        __syncthreads();
-        // S^T = K Q^T, then P^T, for the warp's 16 keys x 64 queries
-        float p[8][4];
-        rows_by_rows<HD>(p, k_s, q_s, r0, g, t);
-#pragma unroll
-        for (int n = 0; n < 8; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int kp = k0 + r0 + g + 8 * (e >> 1);
-            const int j = n * 8 + 2 * t + (e & 1);
-            const int qp = t0 + j;
-            p[n][e] = qp >= qlo && qp < qhi &&
-                              visible(kp, qp, L, causal, window)
-                          ? expf(p[n][e] * scale - lse_s[j])
-                          : 0.f;
+          for (int c = 0; c < T::NCH; ++c) {
+            tma_load(smem + c * kBwRows * kRowBytes, &tm_q, resfull,
+                     kChunk * c, it.h, it.q0, it.b);
+            tma_load(smem + T::RES_T + c * kBwRows * kRowBytes, &tm_do,
+                     resfull, kChunk * c, it.h, it.q0, it.b);
           }
-        acc_product<HD>(dva, p, dot_s, g, t);          // dV += P^T dO
-        float ds[8][4];
-        rows_by_rows<HD>(ds, v_s, do_s, r0, g, t);     // dP^T = V dO^T
+        };
+        const int at = n == 0 ? 0 : min(it.ntiles, ST);
+        for (int i = 0; i < it.ntiles; ++i, ++seq) {
+          if (i == at) load_res();
+          const int s = seq % ST;
+          if (seq >= ST) mbar_wait(&empty[s], (seq / ST - 1) & 1);
+          unsigned char* st = smem + T::RES + s * T::STAGE;
+          const int t0 = it.tfirst + i * kBwTile;
+          mbar_expect_tx(&full[s], T::TX);
 #pragma unroll
-        for (int n = 0; n < 8; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            ds[n][e] = dsoft(p[n][e], ds[n][e], dl_s[n * 8 + 2 * t + (e & 1)]);
-        acc_product<HD>(dka, ds, qt_s, g, t);          // dK += dS^T Q
+          for (int c = 0; c < T::NCH; ++c) {
+            tma_load(st + c * kBwTile * kRowBytes, &tm_k, &full[s],
+                     kChunk * c, kh, t0, it.b);
+            tma_load(st + T::TILE_T + c * kBwTile * kRowBytes, &tm_v,
+                     &full[s], kChunk * c, kh, t0, it.b);
+          }
+        }
+        if (at == it.ntiles) load_res();
       }
     }
-  }
-  store_acc<HD>(dk, dks, b, kh, k0 + r0, Skv, dka, scale, g, t);
-  store_acc<HD>(dv, dvs, b, kh, k0 + r0, Skv, dva, 1.f, g, t);
-}
-
-template <int HD>
-__global__ void __launch_bounds__(kThreads)
-dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
-              const __nv_bfloat16* __restrict__ k,
-              const __nv_bfloat16* __restrict__ v,
-              const __nv_bfloat16* __restrict__ dout,
-              const float* __restrict__ lse, const float* __restrict__ delta,
-              __nv_bfloat16* __restrict__ dq,
-              const int* __restrict__ lengths, int S, int Skv, int H, int G,
-              Strides qs, Strides ks, Strides vs, Strides dos, Strides dqs,
-              int causal, int window, float scale) {
-  using M = MmaSmem<HD>;
-  extern __shared__ uint4 smem_u4[];
-  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_u4);
-  __nv_bfloat16* do_s = q_s + M::ROW;
-  __nv_bfloat16* k_s = do_s + M::ROW;
-  __nv_bfloat16* v_s = k_s + M::ROW;
-  __nv_bfloat16* kt_s = v_s + M::ROW;     // K transposed: HD rows of 64
-
-  const int b = blockIdx.z;
-  const int h = blockIdx.y;
-  const int kh = h / G;
-  const int q0 = blockIdx.x * kMT;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;
-  const int t = lane % 4;
-  const int r0 = 16 * warp;               // the warp's queries in the tile
-  const int L = valid_keys(lengths, b, Skv);
-
-  stage_tile<HD>(q, qs, b, h, q0, S, q_s, nullptr);
-  stage_tile<HD>(dout, dos, b, h, q0, S, do_s, nullptr);
-  float lse_r[2], dl_r[2];
+  } else {
+    regs_alloc<kConsumerRegs<HD, false>>();
+    // consumer warpgroup wg owns query rows q0 + 64 wg .. + 63 of an item
+    const int wg = warp / 4;
+    const int g = lane / 4;
+    const int t4 = lane % 4;
+    const unsigned char* qs = smem + wg * 64 * kRowBytes;
+    const unsigned char* dos = qs + T::RES_T;
+    float dqa[HD / 2];
+    float sacc[32], pacc[32];
+    int seq = 0;
+    int n = 0;
+    for (int t; (t = walk(n, items, false)) >= 0; ++n) {
+      const QItem it = q_item(t, nqb, B, H, Skv, lengths, causal, window);
+      const int L = it.L;
+      const int r0 = it.q0 + 64 * wg;
+      const int rows[2] = {r0 + (warp % 4) * 16 + g,
+                           r0 + (warp % 4) * 16 + g + 8};
+      float lse2[2], dl[2];                  // rows past S read row S - 1
 #pragma unroll
-  for (int x = 0; x < 2; ++x) {
-    const int qp = min(q0 + r0 + g + 8 * x, S - 1);
-    const long long r = ((long long)b * H + h) * S + qp;
-    lse_r[x] = lse[r];
-    dl_r[x] = delta[r];
-  }
-  float dqa[HD / 8][4];
-#pragma unroll
-  for (int nd = 0; nd < HD / 8; ++nd)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dqa[nd][e] = 0.f;
-
-  int lo, hi;
-  key_range(q0, q0 + kMT, L, causal, window, lo, hi);
-  for (int t0 = (lo / kMT) * kMT; t0 < hi; t0 += kMT) {
-    __syncthreads();
-    stage_tile<HD>(k, ks, b, kh, t0, hi, k_s, kt_s);
-    stage_tile<HD>(v, vs, b, kh, t0, hi, v_s, nullptr);
-    __syncthreads();
-    float p[8][4], ds[8][4];
-    rows_by_rows<HD>(p, q_s, k_s, r0, g, t);           // S = Q K^T
-    rows_by_rows<HD>(ds, do_s, v_s, r0, g, t);         // dP = dO V^T
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int x = e >> 1;
-        const int qp = q0 + r0 + g + 8 * x;
-        const int kp = t0 + n * 8 + 2 * t + (e & 1);
-        const float pv = qp < S && kp >= lo && kp < hi &&
-                                 visible(kp, qp, L, causal, window)
-                             ? expf(p[n][e] * scale - lse_r[x])
-                             : 0.f;
-        ds[n][e] = dsoft(pv, ds[n][e], dl_r[x]);
+      for (int x = 0; x < 2; ++x) {
+        const long long r =
+            ((long long)it.b * H + it.h) * S + min(rows[x], S - 1);
+        lse2[x] = lse[r] * kLog2e;
+        dl[x] = delta[r];
       }
-    acc_product<HD>(dqa, ds, kt_s, g, t);              // dQ += dS K
+      // the key tiles some row of this warpgroup sees are one run
+      const int wlo = window > 0 ? max(0, r0 - window + 1) : 0;
+      const int whi = causal ? min(L, r0 + 64) : L;
+#pragma unroll
+      for (int j = 0; j < HD / 2; ++j) dqa[j] = 0.f;
+      mbar_wait(resfull, n & 1);
+      for (int i = 0; i < it.ntiles; ++i) {
+        const int s = (seq + i) % ST;
+        mbar_wait(&full[s], ((seq + i) / ST) & 1);
+        const int t0 = it.tfirst + i * kBwTile;
+        if (t0 < whi && t0 + kBwTile > wlo) {
+          const unsigned char* kt = smem + T::RES + s * T::STAGE;
+          const unsigned char* vt = kt + T::TILE_T;
+          // S = Q K^T and dP = dO V^T, queries by keys
+          fence_regs(sacc);
+          fence_regs(pacc);
+          wgmma_fence();
+          issue_rows<HD>(sacc, qs, kBwRows, kt);
+          issue_rows<HD>(pacc, dos, kBwRows, vt);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(sacc);
+          fence_regs(pacc);
+          const bool edge = t0 + kBwTile > L ||
+                            (causal && t0 + kBwTile - 1 > r0) ||
+                            (window > 0 && t0 <= r0 + 63 - window);
+#pragma unroll
+          for (int j = 0; j < 32; ++j) {
+            const int x = (j >> 1) & 1;
+            const int kp = t0 + 8 * (j / 4) + 2 * t4 + (j & 1);
+            float p = ex2(fmaf(sacc[j], scale_log2, -lse2[x]));
+            if (edge && !visible(kp, rows[x], L, causal, window)) p = 0.f;
+            pacc[j] = dsoft(p, pacc[j], dl[x]);
+          }
+          uint32_t df[8][4];
+          split_frags(pacc, df);
+          wgmma_fence();
+          issue_acc<HD>(dqa, df, kt);        // dQ += dS K
+          wgmma_wait<0>();
+          fence_regs(dqa);
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[s]);
+      }
+      __syncwarp();                          // Q and dO of this item are done
+      if (lane == 0) mbar_arrive(resempty);
+      seq += it.ntiles;
+      store_rows<HD>(dq, dqs, it.b, it.h, rows, S, dqa, scale, t4);
+    }
   }
-  store_acc<HD>(dq, dqs, b, h, q0 + r0, S, dqa, scale, g, t);
-}
-
-bool mma_aligned(const void* p, const Strides& st) {
-  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0 && st.b % 8 == 0 &&
-         st.s % 8 == 0 && st.h % 8 == 0;
 }
 
 template <typename K>
@@ -748,34 +991,51 @@ cudaError_t dispatch_cuda_core(const Args& a) {
 }
 
 template <int HD>
-cudaError_t launch_mma(const Args& a) {
-  using M = MmaSmem<HD>;
+cudaError_t launch_wgmma(const Args& a) {
   using bf = __nv_bfloat16;
   const int G = a.H / a.K;
-  auto kv = dkdv_mma_kernel<HD>;
-  const size_t kv_smem =
-      (4 * M::ROW + 2 * M::TR) * sizeof(bf) + 2 * kMT * sizeof(float);
-  cudaError_t e = smem_attr(kv, kv_smem);
+  const int sms = sm_count();
+  if (sms < 1) return cudaErrorInvalidValue;
+  // boxes of 16 head dims (32 bytes, 32B-swizzled) by 64 or kBwRows rows;
+  // TMA zero-fills rows past S or Skv, and the kernels mask them
+  const CUtensorMapSwizzle sw = CU_TENSOR_MAP_SWIZZLE_32B;
+  CUtensorMap q_t, do_t, k_r, v_r, q_r, do_r, k_t, v_t;
+  if (!make_map(&q_t, a.q, a.B, a.S, a.H, HD, a.qs, kBwTile, kChunk, sw) ||
+      !make_map(&do_t, a.dout, a.B, a.S, a.H, HD, a.dos, kBwTile, kChunk,
+                sw) ||
+      !make_map(&k_r, a.k, a.B, a.Skv, a.K, HD, a.ks, kBwRows, kChunk, sw) ||
+      !make_map(&v_r, a.v, a.B, a.Skv, a.K, HD, a.vs, kBwRows, kChunk, sw) ||
+      !make_map(&q_r, a.q, a.B, a.S, a.H, HD, a.qs, kBwRows, kChunk, sw) ||
+      !make_map(&do_r, a.dout, a.B, a.S, a.H, HD, a.dos, kBwRows, kChunk,
+                sw) ||
+      !make_map(&k_t, a.k, a.B, a.Skv, a.K, HD, a.ks, kBwTile, kChunk, sw) ||
+      !make_map(&v_t, a.v, a.B, a.Skv, a.K, HD, a.vs, kBwTile, kChunk, sw))
+    return cudaErrorInvalidValue;
+  const float scale_log2 = a.scale * kLog2e;
+  auto kv = dkdv_wgmma_kernel<HD>;
+  constexpr int kv_smem = BwTiles<HD, true>::SMEM;
+  cudaError_t e = cudaFuncSetAttribute(
+      kv, cudaFuncAttributeMaxDynamicSharedMemorySize, kv_smem);
   if (e != cudaSuccess) return e;
-  kv<<<dim3((a.Skv + kMT - 1) / kMT, a.K, a.B), kThreads, kv_smem,
-       a.stream>>>(
-      static_cast<const bf*>(a.q), static_cast<const bf*>(a.k),
-      static_cast<const bf*>(a.v), static_cast<const bf*>(a.dout), a.lse,
-      a.delta, static_cast<bf*>(a.dk), static_cast<bf*>(a.dv), a.lengths,
-      a.S, a.Skv, a.H, G, a.qs, a.ks, a.vs, a.dos, a.dks, a.dvs, a.causal,
-      a.window, a.scale);
+  const long long kv_items =
+      (long long)((a.Skv + kBwRows - 1) / kBwRows) * a.K * a.B;
+  kv<<<(unsigned)(kv_items < sms ? kv_items : sms), kBwThreads, kv_smem,
+       a.stream>>>(q_t, do_t, k_r, v_r, a.lse, a.delta, static_cast<bf*>(a.dk),
+                   static_cast<bf*>(a.dv), a.lengths, a.B, a.S, a.Skv, a.H,
+                   G, a.dks, a.dvs, a.causal, a.window, a.scale, scale_log2);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  auto kq = dq_mma_kernel<HD>;
-  const size_t q_smem = (4 * M::ROW + M::TR) * sizeof(bf);
-  e = smem_attr(kq, q_smem);
+  auto kq = dq_wgmma_kernel<HD>;
+  constexpr int q_smem = BwTiles<HD, false>::SMEM;
+  e = cudaFuncSetAttribute(kq, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           q_smem);
   if (e != cudaSuccess) return e;
-  kq<<<dim3((a.S + kMT - 1) / kMT, a.H, a.B), kThreads, q_smem,
-       a.stream>>>(
-      static_cast<const bf*>(a.q), static_cast<const bf*>(a.k),
-      static_cast<const bf*>(a.v), static_cast<const bf*>(a.dout), a.lse,
-      a.delta, static_cast<bf*>(a.dq), a.lengths, a.S, a.Skv, a.H, G, a.qs,
-      a.ks, a.vs, a.dos, a.dqs, a.causal, a.window, a.scale);
+  const long long q_items =
+      (long long)((a.S + kBwRows - 1) / kBwRows) * a.H * a.B;
+  kq<<<(unsigned)(q_items < sms ? q_items : sms), kBwThreads, q_smem,
+       a.stream>>>(q_r, do_r, k_t, v_t, a.lse, a.delta,
+                   static_cast<bf*>(a.dq), a.lengths, a.B, a.S, a.Skv, a.H,
+                   G, a.dqs, a.causal, a.window, a.scale, scale_log2);
   return cudaGetLastError();
 }
 
@@ -828,12 +1088,12 @@ extern "C" int flash_attention_bwd(
   else if (!tc)
     e = dispatch_cuda_core<__nv_bfloat16>(a);
   else if (hd == 64)
-    e = launch_mma<64>(a);
+    e = launch_wgmma<64>(a);
   else if (hd == 80)
-    e = launch_mma<80>(a);
+    e = launch_wgmma<80>(a);
   else if (hd == 96)
-    e = launch_mma<96>(a);
+    e = launch_wgmma<96>(a);
   else
-    e = launch_mma<128>(a);
+    e = launch_wgmma<128>(a);
   return (int)e;
 }

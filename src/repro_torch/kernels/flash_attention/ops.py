@@ -28,13 +28,14 @@ from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_plain,
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCE = CSRC / "flash_attention.cu"
 BWD_SOURCE = CSRC / "flash_attention_bwd.cu"
+HEADER = CSRC / "sm90.cuh"      # the sm_90a helpers both sources include
 MAX_HEAD_DIM = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def build() -> ctypes.CDLL:
     """Compile (once per process, cached on disk) and bind the kernel."""
-    lib = load_library("flash_attention", [SOURCE])
+    lib = load_library("flash_attention", [SOURCE], [HEADER])
     fn = lib.flash_attention_fwd
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
                    + [ctypes.c_longlong] * 12
@@ -47,7 +48,7 @@ def build() -> ctypes.CDLL:
 def build_bwd() -> ctypes.CDLL:
     """Compile and bind the backward kernel (a library of its own, so the
     two sources build in parallel)."""
-    lib = load_library("flash_attention_bwd", [BWD_SOURCE])
+    lib = load_library("flash_attention_bwd", [BWD_SOURCE], [HEADER])
     fn = lib.flash_attention_bwd
     fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
                    + [ctypes.c_longlong] * 24

@@ -18,6 +18,7 @@ need no JAX.
 """
 
 import functools
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -159,6 +160,42 @@ def test_cpu_call_counts_no_launch():
     assert (flash_attention.launches, flash_attention_bwd.launches) == before
 
 
+def test_fault_anchors_occur_once():
+    """scripts/k1_bwd_fault.py plants each fault by replacing text that
+    occurs exactly once in the backward source (a helper that both the
+    tensor-core and the CUDA-core kernels call)."""
+    import importlib.util
+    root = Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location(
+        "k1_bwd_fault", root / "scripts" / "k1_bwd_fault.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    text = ops.BWD_SOURCE.read_text()
+    assert set(mod.FAULTS) == {"diagonal", "delta", "last_tile"}
+    for name, (old, new) in mod.FAULTS.items():
+        assert text.count(old) == 1, name
+        assert old != new
+
+
+def test_library_name_hashes_the_shared_header(tmp_path):
+    """An edit to a header alone (sm90.cuh) must name a new library, or a
+    stale build would load."""
+    from repro_torch.kernels import common
+    src, hdr = tmp_path / "k.cu", tmp_path / "h.cuh"
+    src.write_text('#include "h.cuh"\n')
+    hdr.write_text("// one\n")
+    first = common.library_path("k", [src], [hdr])
+    assert first == common.library_path("k", [src], [hdr])
+    assert first != common.library_path("k", [src])
+    hdr.write_text("// two\n")
+    assert common.library_path("k", [src], [hdr]) != first
+    assert first.parent == common.BUILD_DIR and first.name.startswith("libk-")
+    # both of K1's libraries hash the header they include
+    for source in (ops.SOURCE, ops.BWD_SOURCE):
+        assert '#include "sm90.cuh"' in source.read_text()
+    assert ops.HEADER.is_file()
+
+
 # ---------------------------------------------------------------------------
 # GPU: the kernels against the plain versions on the card
 # ---------------------------------------------------------------------------
@@ -185,6 +222,27 @@ GPU_CASES = [
      20, True, 0),
     ("fp32 cross Skv < S ragged", 2, 120, 50, 4, 2, 32, "float32", False,
      None, True, 0),
+    # the wgmma kernels' edges: S and Skv one off a multiple of 64 and 128,
+    # lengths at a tile's edges (a tuple: one per batch row), a window of
+    # one tile, G = 12, and danube's hd 80 over a whole list of items
+    ("hd=128 S=127 causal", 2, 127, 127, 4, 2, 128, "bfloat16", True, None,
+     False, 0),
+    ("hd=64 S=129 Skv=191 non-causal", 2, 129, 191, 4, 2, 64, "bfloat16",
+     False, None, False, 0),
+    ("hd=80 S=191 Skv=65 causal", 2, 191, 65, 8, 2, 80, "bfloat16", True,
+     None, False, 0),
+    ("hd=96 S=63 Skv=129 causal", 2, 63, 129, 4, 1, 96, "bfloat16", True,
+     None, False, 0),
+    ("hd=128 lengths 63, 64, 65, 128", 4, 130, 130, 4, 2, 128, "bfloat16",
+     True, None, (63, 64, 65, 128), 0),
+    ("hd=80 non-causal lengths 63, 64, 65, 128", 4, 100, 129, 4, 2, 80,
+     "bfloat16", False, None, (63, 64, 65, 128), 0),
+    ("hd=80 window 64", 2, 300, 300, 8, 2, 80, "bfloat16", True, 64, False,
+     0),
+    ("G=12 hd=128", 1, 200, 200, 24, 2, 128, "bfloat16", True, None, False,
+     0),
+    ("danube hd=80 S=2048", 1, 2048, 2048, 32, 8, 80, "bfloat16", True, None,
+     False, 0),
 ]
 TOL = {"bfloat16": dict(rtol=3e-2, atol=3e-2), "float32": TOL32}
 
@@ -209,7 +267,9 @@ def _gpu_case(case, seed=0):
     q, k, v, do = t(B, S, H, hd), t(B, Skv, K, hd), t(B, Skv, K, hd), \
         t(B, S, H, hd)
     lengths = None
-    if ragged:
+    if isinstance(ragged, tuple):
+        lengths = torch.tensor(ragged, dtype=torch.int32, device="cuda")
+    elif ragged:
         lengths = torch.randint(1, Skv + 1, (B,), generator=g,
                                 device="cuda", dtype=torch.int32)
         lengths[0] = Skv
@@ -236,9 +296,11 @@ def test_kernel_matches_plain_backward(cuda, case):
             f"{name}: max err {float((a - w).abs().max())}"
 
 
+DET_CASES = GPU_CASES[:2] + GPU_CASES[6:7] + GPU_CASES[-1:]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", GPU_CASES[:2] + GPU_CASES[6:7],
-                         ids=[c[0] for c in GPU_CASES[:2] + GPU_CASES[6:7]])
+@pytest.mark.parametrize("case", DET_CASES, ids=[c[0] for c in DET_CASES])
 def test_kernel_is_deterministic(cuda, case):
     q, k, v, do, kw = _gpu_case(case)
     o, lse = flash_attention_plain(q, k, v, return_lse=True, **kw)
