@@ -12,7 +12,8 @@ Phases (any failure exits non-zero and prints no final result line):
    comparisons.
 2. build: every kernel of the main paths (K1 flash_attention and its
    backward kernel, two sources; K2 decode_attention and K3
-   paged_decode_attention, one source; K4 wkv6; K5 ssd) is compiled from
+   paged_decode_attention, one source; K4 wkv6 and its backward, two
+   sources; K5 ssd and its backward, two sources) is compiled from
    the checkout's sources with nvcc for sm_90a, one nvcc per source,
    started together.  cuobjdump's SASS must show HGMMA (wgmma) in K1's
    library and its backward's and HMMA (mma.sync) in K2/K3's, K4's and
@@ -106,6 +107,18 @@ Phases (any failure exits non-zero and prints no final result line):
    bytes of q, k, v, o, dO, dq, dk, dv once), the device time split
    between the Delta, dK/dV and dQ kernels; a split that reads 0 in all
    fails (a renamed kernel would).
+   K4's and K5's backward (``wkv6_bwd``, ``ssd_bwd``; fp32) against
+   ``wkv6_bwd_plain`` / ``ssd_bwd_plain``, each gradient within
+   RECUR_BWD_REL of its largest entry, two calls bit for bit: rwkv6's
+   training shape (B=4, T=2048, H=32, N=64) and zamba2's (B=4, T=2048,
+   H=80, P=N=64) with a zero initial state and no state cotangent, as
+   training calls them, there also the plain backward against autograd
+   of the plain forward; T=130 with a nonzero initial state and state
+   cotangent; K4 at N=32, K5 at P=32, N=16; strong decay; an unaligned r
+   (K4) and Bm rows 66 floats apart (K5).  Timed at the training shapes
+   (CUDA events, and the device time split between the states pass and
+   the adjoint kernel) beside the plain backward and the fp32 bound; no
+   library call computes either.
 4. ensemble path: ``build_app(["yi-9b", "yi-9b"], full=True, max_len=1024,
    num_slots=8)`` — two members at full width and depth with random
    weights from a seed, and a generate plane over member 0's params —
@@ -387,9 +400,31 @@ Phases (any failure exits non-zero and prints no final result line):
    few steps with float32 frames: K1's backward on the fp32 encoder (S =
    1500) and the bf16 cross-attention (Skv = 1500), launch counts exact,
    finite losses.
+13. training of the recurrent families, after phase 12: A.
+   ``launch.train --full`` trains rwkv6-1.6b at full width and depth (24
+   layers, d_model 2048, bf16, 1.60 B params) for RECUR_TRAIN_STEPS steps
+   of B=4 x 2048 synthetic tokens at lr RECUR_TRAIN_LR, remat on, fp32
+   moments: K4 48 forward (24, and 24 recomputed) and 24 backward
+   launches a step exactly, K1-K3 and K5 none; every loss finite and the
+   last below the first; the final checkpoint restores bit for bit; one
+   more step profiled (device time of K4's forward and backward, the
+   GEMMs, the rest), with the step's seconds, tokens/s and peak memory.
+   B. the same for zamba2-2.7b (54 layers, d_model 2560): K5 108 forward
+   and 54 backward, K1 9 forward and 9 backward (the shared block is not
+   remat'd, as in JAX). C. for each family at A's and B's initial weights
+   (their first RECUR_GRAD_LAYERS layers: rwkv6's full-depth gradient at
+   this init is ill-conditioned; zamba2's cut keeps the script's time)
+   and first batch, one step's loss and
+   every leaf's gradient through the kernels against the plain versions,
+   on float32 copies and in bf16 as phase 12 B, within RECUR_GRAD_BOUNDS
+   (``scripts/recurrent_bwd_fault.py`` shows each planted backward fault
+   failing it); and at rwkv6's full depth, K4's backward on each layer's
+   own inputs and cotangents from one float32 step against the plain
+   backward and autograd of the plain forward, within RECUR_BWD_REL.
 
-The line before the nvidia-smi line is ``{"kernels": [...]}`` (K1-K5 and
-K1's backward); the last line is ``{"ok": true, "device": {...}}``.
+The line before the nvidia-smi line is ``{"kernels": [...]}`` (K1-K5,
+K1's backward, K4's and K5's backward); the last line is ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -400,12 +435,14 @@ import dataclasses
 import gc
 import http.client
 import json
+import math
 import os
 import re
 import subprocess
 import sys
 import threading
 import time
+import types
 import urllib.parse
 from contextlib import nullcontext
 from pathlib import Path
@@ -461,6 +498,15 @@ def sass_counts(library: str) -> dict:
                          text=True, timeout=300).stdout
     return {op: len(re.findall(rf"\b{op}\.", out))
             for op in ("HGMMA", "HMMA")}
+
+
+def ptxas_spills(ptxas: str) -> dict:
+    """Spill bytes (stores, loads) summed over a library's kernels, from
+    its ``ptxas -v`` report."""
+    out = {"stores": 0, "loads": 0}
+    for m in re.finditer(r"(\d+) bytes spill (stores|loads)", ptxas):
+        out[m.group(2)] += int(m.group(1))
+    return out
 
 
 def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -2110,6 +2156,277 @@ def ssd_kernel_phase(failures):
         "cases": results,
     }]
 
+# --- phase 3: K4's and K5's backward -------------------------------------------
+
+# Each gradient's largest error against the plain backward over that
+# gradient's largest entry: the CPU tests' bound (tests/test_torch_rwkv6_
+# wkv_bwd.py, test_torch_mamba2_ssd_bwd.py), fp32 on both sides.
+RECUR_BWD_REL = 1e-4
+RWKV6_TRAIN = (TRAIN_BATCH, TRAIN_SEQ, 32, 64)          # B, T, H, N
+ZAMBA2_TRAIN = (TRAIN_BATCH, TRAIN_SEQ, 80, 64, 64)     # B, T, H, P, N
+WKV_GRADS = ("r", "k", "v", "logw", "u", "s0")
+SSD_GRADS = ("x", "dt", "A", "Bm", "Cm", "h0")
+
+
+def cotangents(seed, *shapes):
+    """Seeded randn cotangents on the card, one per shape (None for a
+    shape of None: a dropped output)."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed + 1000)
+    return [None if s is None else torch.randn(s, generator=g, device="cuda")
+            for s in shapes]
+
+
+def grads_check(failures, kernel, case, got, want, names):
+    """Each gradient against the plain backward's at RECUR_BWD_REL of its
+    largest entry, finite.  Returns the case's record."""
+    import torch
+    rel, errs, ok = {}, {}, True
+    for name, g, w in zip(names, got, want):
+        scale = float(w.abs().max())
+        errs[name] = float((g - w).abs().max())
+        rel[name] = errs[name] / scale if scale > 0 else errs[name]
+        ok &= bool(torch.isfinite(g).all()) and rel[name] <= RECUR_BWD_REL
+    worst = max(rel, key=rel.get)
+    log(f"[kernels] {kernel} {case}: largest error over each gradient's "
+        f"largest entry {rel[worst]:.2e} ({worst}; bound {RECUR_BWD_REL}): "
+        + ", ".join(f"{k} {v:.1e}" for k, v in rel.items())
+        + f" ({'ok' if ok else 'FAIL'})")
+    if not ok:
+        failures.append(f"{kernel} {case}: relative errors {rel}")
+    return {"case": case, "max_abs_err": max(errs.values()),
+            "rel_err": rel, "ok": ok}
+
+
+def bwd_case(failures, kernel, case, fn, plain, ins, names):
+    """``fn`` (the kernels' wrapper) twice and ``plain`` once on the same
+    inputs: every gradient within RECUR_BWD_REL, the two calls bit for
+    bit."""
+    import torch
+    got = fn(*ins)
+    again = fn(*ins)
+    want = plain(*ins)
+    torch.cuda.synchronize()
+    rec = grads_check(failures, kernel, case, got, want, names)
+    rec["bitwise_repeat"] = all(torch.equal(a, b) for a, b in zip(got, again))
+    if not rec["bitwise_repeat"]:
+        failures.append(f"{kernel} {case}: two calls differ")
+    del got, again, want
+    torch.cuda.empty_cache()
+    return rec
+
+
+def identity_check(failures, kernel, fwd_plain, plain_bwd, ins, names):
+    """At the training shape, the plain backward (the kernels' formula,
+    reverse sums and all) against autograd of the plain forward: the same
+    gradient by another route, so a flaw of the formula that the kernels
+    share cannot pass unseen at full length."""
+    import torch
+    *xs, dy, dT = ins
+    leaves = [t.detach().clone().requires_grad_(True) for t in xs]
+    y, sT = fwd_plain(*leaves)
+    loss = (y * dy).sum() + (0.0 if dT is None else (sT * dT).sum())
+    want = torch.autograd.grad(loss, leaves)
+    del y, sT, loss, leaves
+    got = plain_bwd(*ins)
+    torch.cuda.synchronize()
+    rec = grads_check(failures, kernel, "training shape, the plain backward "
+                      "against autograd of the plain forward", got, want,
+                      names)
+    del got, want
+    torch.cuda.empty_cache()
+    return rec
+
+
+def wkv_bwd_flops(B, T, H, N, c=32):
+    """fp32 operations of K4's backward (each exp one operation), per chunk
+    and head: the states pass (cumulative sum, decayed k, update), the
+    anchor, the decay D = exp(Lprev_t - L_s) once per (t, s < t, n) (the
+    kernel takes it anew for each of its three uses; the function needs
+    it once), A and Bd, the decayed k and r, dv, dr' and dk' (three
+    operations per (t, s < t, n) each), the bonus and dlogw, the
+    adjoint's update."""
+    nc = -(-T // c)
+    pairs = c * (c - 1) // 2
+    per = (4 * c * N + N * N * (2 * c + 2)          # states pass
+           + 2 * N * N + 2 * c * N                  # anchor, cumsums
+           + 2 * N * pairs                          # D
+           + 3 * N * pairs + 3 * c * N + N * c * (c + 1)   # A, Bd
+           + 5 * c * N                              # kd, rp
+           + c * (c + 1) * N + 2 * c * N * N        # dv
+           + 2 * (3 * N * pairs + 2 * c * N * N + 4 * c * N)  # dr', dk'
+           + 12 * c * N + N * N * (2 * c + 2))      # finalize, adjoint
+    return B * H * nc * per + B * H * N             # du's sum over B
+
+
+def ssd_bwd_flops(B, T, H, P, N, c=32):
+    """fp32 operations of K5's backward (each exp one operation): per
+    (batch row, chunk) CB = C B^T once (it does not depend on the head);
+    per head the states pass, Gc B, h0^T dy, X, M, dC (M X dt once per
+    (t, s <= t), then two operations per n), gx and dx, dB, the
+    rectangle sums of dl, E, F and x.gx, the scans and the adjoint's
+    update; then dB's and dC's sums over the heads."""
+    nc = -(-T // c)
+    tri = c * (c + 1) // 2
+    per_head = (P * N * (3 * c + 1) + 4 * c              # states pass
+                + 4 * c * P * N + 2 * P * tri + 2 * P * N + 4 * tri
+                + tri + 2 * N * tri + 2 * c * N          # dC
+                + 2 * P * tri + 3 * c * P                # gx, dx
+                + 2 * N * tri + 2 * c * P * N + 3 * c * N   # dB
+                + c ** 3 // 2 + 2 * c * N + 4 * c * P + 8 * c
+                + P * N * (3 * c + 1))                   # adjoint
+    return B * nc * (2 * N * tri + H * per_head) + 2 * B * T * H * N + B * H
+
+
+def time_recurrent_bwd(fn, plain, ins, names, nbytes, flops, shape):
+    """One backward's kernel ms (CUDA events), device ms (torch.profiler,
+    split between the states pass and the adjoint kernel), the plain
+    backward's ms and the fp32 bound (bytes over 3.35 TB/s or operations
+    over the fp32 peak)."""
+    kernel_ms = cuda_time_ms(lambda: fn(*ins), iters=10, warmup=2)
+    split = profiled_groups_ms(lambda: fn(*ins),
+                               {k: (k,) for k in names}, iters=10)
+    plain_ms = cuda_time_ms(lambda: plain(*ins), iters=3, warmup=1)
+    bound, by = recurrent_bound(nbytes, flops)
+    return {"shape": shape, "ms": kernel_ms, "kernel_ms": kernel_ms,
+            "device_ms": sum(split.values()), "device_split_ms": split,
+            "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound,
+            "bound_by": by, "bytes": nbytes, "flops": flops}
+
+
+def log_bwd_timed(name, t):
+    log(f"[kernels] {name} timed at {t['shape']}: kernel {t['ms']:.4f} ms "
+        f"(device {t['device_ms']:.4f} ms: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in t["device_split_ms"].items())
+        + f"), plain backward {t['plain_ms']:.4f} ms, no library call; "
+        f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}: {t['bytes']} "
+        f"bytes, {t['flops']} fp32 operations)")
+
+
+def wkv_bwd_kernel_phase(failures):
+    """Phase 3, K4's backward (``wkv6_bwd``) against ``wkv6_bwd_plain``:
+    rwkv6's training shape (zero s0, no state cotangent, as training
+    calls it) also against autograd of the plain forward, an unaligned T
+    with a nonzero s0 and dsT, N=32, strong decay, an unaligned r; timed at
+    the training shape."""
+    import torch
+    from repro_torch.kernels.rwkv6_wkv import (wkv6_bwd, wkv6_bwd_plain,
+                                               wkv6_plain)
+    from repro_torch.kernels.rwkv6_wkv.ops import BWD_KERNEL_NAMES
+
+    def inputs(B, T, H, N, *, s0_scale=0.3, dsT=True, seed=0, **kw):
+        ins = wkv_inputs(B, T, H, N, s0_scale=s0_scale, seed=seed, **kw)
+        return ins + cotangents(seed, (B, T, H, N),
+                                (B, H, N, N) if dsT else None)
+
+    def case(name, ins):
+        return bwd_case(failures, "wkv6_bwd", name, wkv6_bwd,
+                        wkv6_bwd_plain, ins, WKV_GRADS)
+
+    B, T, H, N = RWKV6_TRAIN
+    main_ins = inputs(B, T, H, N, s0_scale=0.0, dsT=False)
+    results = [case(f"rwkv6 training B={B} T={T} H={H} N={N}, s0 = 0, "
+                    f"no dsT", main_ins)]
+    results.append(identity_check(failures, "wkv6_bwd", wkv6_plain,
+                                  wkv6_bwd_plain, main_ins, WKV_GRADS))
+    results.append(case("T=130, nonzero s0 and dsT",
+                        inputs(2, 130, 32, 64, seed=1)))
+    results.append(case("N=32", inputs(2, 100, 4, 32, seed=2)))
+    results.append(case("strong decay (logw = -exp(normal + 2))",
+                        inputs(2, 512, 32, 64, decay_shift=2.0, seed=3)))
+    ins = inputs(2, 100, 4, 64, seed=4)
+    flat = torch.empty(ins[0].numel() + 1, device="cuda")[1:]
+    ins[0] = flat.view(ins[0].shape).copy_(ins[0])
+    results.append(case("r 4 bytes off 16-byte alignment", ins))
+    # the bytes: r, k, v, logw, dy, u and s0 read once; dr, dk, dv, dlogw,
+    # du and ds0 written once (no dsT in training)
+    nbytes = 4 * (9 * B * T * H * N + 2 * H * N + 2 * B * H * N * N)
+    t = time_recurrent_bwd(wkv6_bwd, wkv6_bwd_plain, main_ins,
+                           BWD_KERNEL_NAMES, nbytes, wkv_bwd_flops(B, T, H, N),
+                           f"B={B} T={T} H={H} N={N} fp32")
+    log_bwd_timed("wkv6_bwd", t)
+    if not all(v > 0 for v in t["device_split_ms"].values()):
+        failures.append(f"wkv6_bwd: a profiled device time of "
+                        f"{BWD_KERNEL_NAMES} reads 0: {t['device_split_ms']}")
+    del main_ins, ins
+    torch.cuda.empty_cache()
+    return {
+        "name": "wkv6_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/rwkv6_wkv/csrc/rwkv6_wkv_bwd.cu",
+        "replaces": "src/repro/kernels/rwkv6_wkv/kernel.py:74 (the gradient "
+                    "of wkv6_bhtn; the TPU kernel has none, JAX "
+                    "differentiates its jnp wkv_chunked)",
+        "launches": None,
+        "max_abs_err": results[0]["max_abs_err"],
+        **t,
+        "cases": results,
+    }
+
+
+def ssd_bwd_kernel_phase(failures):
+    """Phase 3, K5's backward (``ssd_bwd``) against ``ssd_bwd_plain``:
+    zamba2's training shape (zero h0, no state cotangent, as training calls
+    it) also against autograd of the plain forward, an unaligned T with a
+    nonzero h0 and dhT, P=32 N=16, strong decay, Bm rows 66 floats apart;
+    timed at the training shape."""
+    import torch
+    from repro_torch.kernels.mamba2_ssd import (ssd_bwd, ssd_bwd_plain,
+                                                ssd_plain)
+    from repro_torch.kernels.mamba2_ssd.ops import BWD_KERNEL_NAMES
+
+    def inputs(B, T, H, P, N, *, h0_scale=0.3, dhT=True, seed=0,
+               a_shift=0.0):
+        ins = ssd_inputs(B, T, H, P, N, h0_scale=h0_scale, seed=seed)
+        ins[2] = ins[2] * math.exp(a_shift)
+        return ins + cotangents(seed, (B, T, H, P),
+                                (B, H, P, N) if dhT else None)
+
+    def case(name, ins):
+        return bwd_case(failures, "ssd_bwd", name, ssd_bwd, ssd_bwd_plain,
+                        ins, SSD_GRADS)
+
+    B, T, H, P, N = ZAMBA2_TRAIN
+    main_ins = inputs(B, T, H, P, N, h0_scale=0.0, dhT=False)
+    results = [case(f"zamba2 training B={B} T={T} H={H} P={P} N={N}, h0 = "
+                    f"0, no dhT", main_ins)]
+    results.append(identity_check(failures, "ssd_bwd", ssd_plain,
+                                  ssd_bwd_plain, main_ins, SSD_GRADS))
+    results.append(case("T=130, nonzero h0 and dhT",
+                        inputs(2, 130, 80, 64, 64, seed=1)))
+    results.append(case("P=32 N=16", inputs(2, 100, 8, 32, 16, seed=2)))
+    results.append(case("strong decay (A = -exp(normal + 3))",
+                        inputs(2, 512, 80, 64, 64, seed=3, a_shift=3.0)))
+    ins = inputs(2, 100, 8, 64, 64, seed=4)
+    ins[3] = torch.nn.functional.pad(ins[3], (0, 2))[..., :64]
+    results.append(case("Bm rows 66 floats apart", ins))
+    # the bytes: x, dt, Bm, Cm, dy, A read once; dx, ddt, dBm, dCm, dA and
+    # dh0 written once (zero h0 read, no dhT in training)
+    nbytes = 4 * (3 * B * T * H * P + 2 * B * T * H + 4 * B * T * N + 2 * H
+                  + 2 * B * H * P * N)
+    t = time_recurrent_bwd(ssd_bwd, ssd_bwd_plain, main_ins,
+                           BWD_KERNEL_NAMES, nbytes,
+                           ssd_bwd_flops(B, T, H, P, N),
+                           f"B={B} T={T} H={H} P={P} N={N} fp32")
+    log_bwd_timed("ssd_bwd", t)
+    if not all(v > 0 for v in t["device_split_ms"].values()):
+        failures.append(f"ssd_bwd: a profiled device time of "
+                        f"{BWD_KERNEL_NAMES} reads 0: {t['device_split_ms']}")
+    del main_ins, ins
+    torch.cuda.empty_cache()
+    return {
+        "name": "ssd_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/mamba2_ssd/csrc/mamba2_ssd_bwd.cu",
+        "replaces": "src/repro/kernels/mamba2_ssd/kernel.py:73 (the gradient "
+                    "of ssd_bhtp; the TPU kernel has none, JAX "
+                    "differentiates its jnp ssd_chunked)",
+        "launches": None,
+        "max_abs_err": results[0]["max_abs_err"],
+        **t,
+        "cases": results,
+    }
+
 # --- phase 4: main path --------------------------------------------------------
 
 
@@ -2558,7 +2875,7 @@ def sched_workload(vocab, seed):
 
 
 K_NAMES = ("flash_attention", "decode_attention", "paged_decode_attention",
-           "wkv6", "ssd", "flash_attention_bwd")
+           "wkv6", "ssd", "flash_attention_bwd", "wkv6_bwd", "ssd_bwd")
 
 
 def kernel_fns():
@@ -2566,11 +2883,11 @@ def kernel_fns():
                                                       paged_decode_attention)
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_bwd)
-    from repro_torch.kernels.mamba2_ssd import ssd
-    from repro_torch.kernels.rwkv6_wkv import wkv6
+    from repro_torch.kernels.mamba2_ssd import ssd, ssd_bwd
+    from repro_torch.kernels.rwkv6_wkv import wkv6, wkv6_bwd
     return dict(zip(K_NAMES, (flash_attention, decode_attention,
                               paged_decode_attention, wkv6, ssd,
-                              flash_attention_bwd)))
+                              flash_attention_bwd, wkv6_bwd, ssd_bwd)))
 
 
 def counts_reset():
@@ -2585,6 +2902,20 @@ def counts_read():
     return {name: fn.launches for name, fn in kernel_fns().items()}
 
 
+def remat_plain_attention(*args, **kw):
+    """K1's plain version, recomputed in backward where autograd records
+    it: its (B, H, S, Skv) fp32 scores would otherwise stay alive for every
+    attention call that no remat covers (zamba2's shared block: 9 x about
+    6 GB at B=4, S=2048).  The gradients are the same."""
+    import torch
+    from torch.utils.checkpoint import checkpoint
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    if not torch.is_grad_enabled():
+        return flash_attention_plain(*args, **kw)
+    return checkpoint(flash_attention_plain, *args, use_reentrant=False,
+                      preserve_rng_state=False, **kw)
+
+
 class plain_kernels:
     """Swap K1, K2, K4 and K5 for their plain versions in the model
     modules for the duration of a ``with`` block (the comparison runs;
@@ -2592,11 +2923,10 @@ class plain_kernels:
 
     def __enter__(self):
         from repro_torch.kernels.decode_attention import decode_attention_plain
-        from repro_torch.kernels.flash_attention import flash_attention_plain
         from repro_torch.kernels.mamba2_ssd import ssd_plain
         from repro_torch.kernels.rwkv6_wkv import wkv6_plain
         from repro_torch.models import attention, mamba2, rwkv6
-        swaps = [(attention, "flash_attention", flash_attention_plain),
+        swaps = [(attention, "flash_attention", remat_plain_attention),
                  (attention, "decode_attention", decode_attention_plain),
                  (rwkv6, "wkv6", wkv6_plain), (mamba2, "ssd", ssd_plain)]
         self.saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
@@ -6489,6 +6819,13 @@ def step_counts(steps, fwd, bwd):
     return want
 
 
+# the leaves whose gradients come straight out of a backward kernel: K1's
+# attention projections, K4's time-mix (r, k, v, decay, bonus), K5's
+# Mamba-2 projections and decays
+KERNEL_LEAVES = ("/attn/", "/w_r", "/w_k", "/w_v", "/dw_a2", "/first",
+                 "mamba/in_proj", "mamba/a_log", "mamba/dt_bias")
+
+
 def leaf_rel(got, ref):
     """Each leaf's relative L2 distance of ``got`` from ``ref``."""
     return {k: float((got[k].float() - ref[k].float()).norm()
@@ -6513,7 +6850,7 @@ def step_grads(model, params, batch, plain):
     return float(loss), grads, n
 
 
-def grad_check(model, params, batch, ref, dt):
+def grad_check(model, params, batch, ref, dt, tag="train B"):
     """Phase 12 B at one dtype: the loss difference and the largest
     relative L2 error of a leaf's gradient, kernels against plain versions
     on the same batch, and the kernels' launch counts.  In bf16 also each
@@ -6531,7 +6868,7 @@ def grad_check(model, params, batch, ref, dt):
     out = {"loss_kernels": kl, "loss_plain": pl, "loss_diff": abs(kl - pl),
            "rel_l2_max": rel[worst], "worst_leaf": worst,
            "rel_l2_attention": {k: v for k, v in rel.items()
-                                if "/attn/" in k},
+                                if any(p in k for p in KERNEL_LEAVES)},
            "launches": n}
     if dt != "float32":
         dk, dp = leaf_rel(kg, ref[1]), leaf_rel(pg, ref[1])
@@ -6540,10 +6877,12 @@ def grad_check(model, params, batch, ref, dt):
         top = max(ratio, key=ratio.get)
         out.update(ratio_max=ratio[top], ratio_leaf=top,
                    vs_float32={k: {"kernels": dk[k], "plain": dp[k]}
-                               for k in dk if k == top or "/attn/" in k})
-    log(f"[train] B {dt}: loss kernels {kl:.6f} plain {pl:.6f} (diff "
+                               for k in dk if k == top or any(
+                                   p in k for p in KERNEL_LEAVES)})
+    log(f"[{tag}] {model.config.name} {dt}: loss kernels {kl:.6f} plain "
+        f"{pl:.6f} (diff "
         f"{out['loss_diff']:.3e}); largest relative L2 gradient error "
-        f"{rel[worst]:.3e} ({worst}); attention leaves "
+        f"{rel[worst]:.3e} ({worst}); the leaves that feed the kernels "
         + ", ".join(f"{k} {v:.2e}" for k, v in
                     out["rel_l2_attention"].items())
         + (f"; distance from the float32 plain gradients, kernels / plain: "
@@ -6556,17 +6895,28 @@ def grad_check(model, params, batch, ref, dt):
     return out
 
 
-def gradient_phase(failures):
-    """Phase 12 B: h2o-danube-1.8b at full width and depth, A's initial
-    weights (seed 0) and first batch: one step's loss and every leaf's
-    gradient through the kernels against the plain versions, on float32
-    copies of the weights and in bf16, within ``GRAD_BOUNDS``; the plain
-    float32 gradients are also the common reference of bf16's ratio."""
+def gradient_phase(failures, arch=TRAIN_ARCH, bounds=None, want=None,
+                   tag="train B", layers=None):
+    """Phase 12 B (h2o-danube-1.8b) and 13 C (the recurrent families): the
+    arch at full width and depth (the first ``layers`` layers where given:
+    the init draws layer by layer, so they are the full model's first
+    layers), the training phase's initial weights (seed 0) and first
+    batch: one step's loss and every leaf's gradient through the kernels
+    against the plain versions, on float32 copies of the weights and in
+    bf16, within ``bounds`` (``GRAD_BOUNDS``), with the kernels' launches
+    ``want(cfg)`` of the config as cut (K1's of one danube step by
+    default); the plain float32 gradients are also the common reference
+    of bf16's ratio."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     from repro_torch.training import DataConfig, SyntheticLM
-    cfg = get_config(TRAIN_ARCH)
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    bounds = GRAD_BOUNDS if bounds is None else bounds
+    want = (step_counts(1, 2 * cfg.num_layers, cfg.num_layers)
+            if want is None else want(cfg))
     model = build_model(cfg)
     params = model.init(0, "cuda")
     data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
@@ -6579,33 +6929,34 @@ def gradient_phase(failures):
     out = {}
     for dt in ("float32", "bfloat16"):
         r = grad_check(model, p32 if dt == "float32" else params, batch,
-                       (ref_loss, ref), dt)
+                       (ref_loss, ref), dt, tag)
         if dt == "float32":
             del p32
         gc.collect()
         torch.cuda.empty_cache()
-        bound = GRAD_BOUNDS[dt]
+        bound = bounds[dt]
         r["bounds"] = bound
         out[dt] = r
-        want = step_counts(1, 2 * cfg.num_layers, cfg.num_layers)
         if (r["loss_diff"] > bound["loss"]
                 or r["rel_l2_max"] > bound["rel_l2"]
                 or r.get("ratio_max", 0.0) > bound.get("ratio", 1.0)
                 or r["launches"] != want):
-            failures.append(f"train B {dt}: loss diff {r['loss_diff']}, "
-                            f"rel L2 {r['rel_l2_max']} ({r['worst_leaf']}), "
-                            f"ratio {r.get('ratio_max')} "
-                            f"({r.get('ratio_leaf')}), bounds {bound}, "
-                            f"launches {r['launches']}")
+            failures.append(f"{tag} {arch} {dt}: loss diff "
+                            f"{r['loss_diff']}, rel L2 {r['rel_l2_max']} "
+                            f"({r['worst_leaf']}), ratio {r.get('ratio_max')}"
+                            f" ({r.get('ratio_leaf')}), bounds {bound}, "
+                            f"launches {r['launches']} (expected {want})")
     del params, ref
     gc.collect()
     torch.cuda.empty_cache()
     return out
 
 
-def profile_train_step(trainer, batch, out_dir):
+def profile_train_step(trainer, batch, out_dir, groups=None,
+                       name="train_step"):
     """One more training step under torch.profiler: device time by
-    kernel group and the host clock of the step."""
+    kernel group (K1's forward and backward and the GEMMs unless
+    ``groups`` names others) and the host clock of the step."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -6617,19 +6968,21 @@ def profile_train_step(trainer, batch, out_dir):
         float(m["loss"])
         torch.cuda.synchronize()
     host = 1e3 * (time.perf_counter() - t0)
-    groups = {"k1_forward": K1_KERNELS, "k1_backward": K1_BWD_KERNELS,
-              "gemm": ("gemm", "Gemm", "sm90_xmma", "cutlass", "nvjet")}
+    groups = groups or {"k1_forward": K1_KERNELS,
+                        "k1_backward": K1_BWD_KERNELS,
+                        "gemm": ("gemm", "Gemm", "sm90_xmma", "cutlass",
+                                 "nvjet")}
     out = {"host_ms": host, "device_ms": device_ms(prof, ())}
     for g, names in groups.items():
         out[f"{g}_ms"] = device_ms(prof, names)
     out["other_ms"] = out["device_ms"] - sum(out[f"{g}_ms"] for g in groups)
     if out_dir:
         Path(out_dir).mkdir(parents=True, exist_ok=True)
-        (Path(out_dir) / "train_step.txt").write_text(
+        (Path(out_dir) / f"{name}.txt").write_text(
             prof.key_averages().table(sort_by="self_cuda_time_total",
                                       row_limit=40))
-    log("[train] one danube step under the profiler: " + ", ".join(
-        f"{k} {v:.2f}" for k, v in out.items()))
+    log(f"[train] one {trainer.model.config.name} step under the profiler: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in out.items()))
     return out
 
 
@@ -6680,7 +7033,8 @@ def training_phase(failures, kernels, profile_dir, base_bytes):
                      "peak_memory_gb": peak / 1e9, "launches": n,
                      "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ
                      / float(np.median(step_s[1:]))}
-        kernels[-1]["launches"] = n["flash_attention_bwd"]
+        next(k for k in kernels if k["name"] == "flash_attention_bwd")[
+            "launches"] = n["flash_attention_bwd"]
         log(f"[train] A: launch.train {' '.join(argv[:-1])} DIR: "
             f"{TRAIN_ARCH} at full width and depth ({layers} layers, "
             f"{nparams / 1e9:.3f} B params, bf16, remat, fp32 moments); "
@@ -6774,6 +7128,285 @@ def training_phase(failures, kernels, profile_dir, base_bytes):
     log(f"[train] phase 12 in {info['seconds']:.1f} s")
 
 
+# --- phase 13: training of the recurrent families ---------------------------
+
+RECUR_TRAIN_ARCHS = ("rwkv6-1.6b", "zamba2-2.7b")
+RECUR_TRAIN_STEPS = 20
+RECUR_TRAIN_LR = 3e-4
+# Phase 13 C's depth: rwkv6-1.6b's first 2 of its 24 layers.  Its randomly
+# initialised gradient at B=4 x 2048 grows ill-conditioned with depth:
+# each K4 launch equals its plain version within 1e-6 (phase 3), yet the
+# float32 kernels-vs-plain relative L2 of a step's gradients reads 1.27e-5
+# at 2 layers, 7.2e-4 at 4, 8.3e-2 at 8 and 1.85 at 24 (gradient norm 2116
+# at the first step), while a planted fault that drops the u bonus from dk
+# reads 2.3e-2 at 2 layers, 6.9e-2 at 4 and 0.11 at 8
+# (scripts/recurrent_bwd_fault.py --rwkv6-layers); only the cut depth
+# tells a fault from rounding.  No kernel is needed for that growth: the
+# plain float32 gradients alone move by 7.96e-6 at 2 layers, 0.120 at 8
+# and 2.52 at 24 under 1e-6 noise on WKV's output, beside the kernels'
+# 1.27e-5, 8.31e-2 and 1.85 (scripts/recurrent_bwd_precision.py
+# --sensitivity --card); and at full depth K4's backward on each layer's
+# own inputs matches its plain version (``wkv_layer_check``, within
+# RECUR_BWD_REL).  zamba2's first 12 of its 54 layers (two
+# applications of the shared block) keep the phase inside the script's
+# time limit: at full depth its float32 gradients agree to 6.69e-5 and
+# each planted K5 fault reads above 0.9, as at the cut depth.
+RECUR_GRAD_LAYERS = {"rwkv6-1.6b": 2, "zamba2-2.7b": 12}
+# Phase 13 C's bounds, kernels against plain versions on one step's loss
+# and every leaf's gradient (relative L2), as phase 12 B's GRAD_BOUNDS:
+# float32 copies of the weights, and bf16 as the ratio of each leaf's
+# distance from the plain float32 gradients, kernels over plain versions.
+# Set from the unfaulted readings on the card with margin (rwkv6 at 2
+# layers: float32 loss 0, worst leaf 1.27e-5 (mu_mix); bf16 loss 4.1e-5,
+# worst leaf 2.94e-2, largest ratio 1.0036; zamba2 at full depth: float32
+# loss 9.5e-7, worst leaf 6.69e-5 (d_skip); bf16 loss 2.4e-4, worst leaf
+# 0.243, largest ratio 1.066; at its first 12 layers 0, 3.70e-5 (a_log),
+# 1.84e-4, 0.118, 1.07), so that each fault of
+# scripts/recurrent_bwd_fault.py fails them: the u bonus dropped from dk
+# 2.3e-2 in float32, dlogw's anchor 1.02 (ratio 24.9), K5's carry 0.918
+# (ratio 3.66) at full depth and 1.37 (7.98) at 12 layers, dl's cross
+# term 0.975 (4.16) and 1.02 (5.65).
+RECUR_GRAD_BOUNDS = {
+    "rwkv6-1.6b": {"bfloat16": {"loss": 1e-3, "rel_l2": 0.1, "ratio": 1.1},
+                   "float32": {"loss": 1e-5, "rel_l2": 1e-4}},
+    "zamba2-2.7b": {"bfloat16": {"loss": 1e-3, "rel_l2": 0.5, "ratio": 1.15},
+                    "float32": {"loss": 1e-5, "rel_l2": 2e-4}},
+}
+
+
+def recurrent_step_counts(cfg, steps):
+    """The launches of ``steps`` training steps under remat: each remat'd
+    layer's kernel twice forward and once backward (rwkv6: K4 in every
+    layer; zamba2: K5 in every Mamba-2 layer), zamba2's shared block (not
+    remat'd, as in JAX) K1 once forward and once backward per
+    application."""
+    want = dict.fromkeys(K_NAMES, 0)
+    L = cfg.num_layers
+    if cfg.family == "ssm":
+        want["wkv6"], want["wkv6_bwd"] = 2 * L * steps, L * steps
+    else:
+        napp = L // cfg.hybrid.shared_block_period
+        want["ssd"], want["ssd_bwd"] = 2 * L * steps, L * steps
+        want["flash_attention"] = napp * steps
+        want["flash_attention_bwd"] = napp * steps
+    return want
+
+
+def recurrent_grads(failures, arch):
+    """Phase 13 C for one family: ``gradient_phase`` at its depth
+    (``RECUR_GRAD_LAYERS``), bounds and launch counts."""
+    out = gradient_phase(failures, arch, RECUR_GRAD_BOUNDS[arch],
+                         lambda cfg: recurrent_step_counts(cfg, 1),
+                         "train13 C", RECUR_GRAD_LAYERS[arch])
+    out["layers"] = RECUR_GRAD_LAYERS[arch]
+    return out
+
+
+def wkv_layer_check(failures, cfg):
+    """Phase 13 C's full-depth check of K4's backward on the model's own
+    activations: one float32 step of ``cfg`` (at full width and depth, A's
+    initial weights and first batch) through the kernels, taking each
+    ``Wkv6Fn`` backward's inputs (the saved r, k, v, logw, u, s0 and the
+    cotangents) as the step hands them over; then on each layer's inputs
+    the kernels' backward against the plain backward and against autograd
+    of the plain forward, every gradient within RECUR_BWD_REL of its
+    largest entry.  Returns the worst reading of each leaf over the
+    layers."""
+    import torch
+    from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
+    from repro_torch.kernels.rwkv6_wkv.ref import wkv6_bwd_plain, wkv6_plain
+    from repro_torch.models import build_model
+    from repro_torch.training import DataConfig, SyntheticLM
+    model = build_model(cfg)
+    params = {k: v.float() for k, v in model.init(0, "cuda").items()}
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                  seq_len=TRAIN_SEQ,
+                                  global_batch=TRAIN_BATCH, num_dialects=1))
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in data.batch_at(0).items()}
+    taken = []
+    fn = wkv_ops.Wkv6Fn
+    own = fn.__dict__["backward"]
+
+    def taking(ctx, dy, dsT):
+        # a remat'd layer's saved tensors unpack once: the real backward
+        # reads them from a stand-in for ctx
+        saved = ctx.saved_tensors
+        taken.append([t.detach().clone() for t in saved]
+                     + [dy.detach().clone(),
+                        None if dsT is None else dsT.detach().clone()])
+        return own.__func__(types.SimpleNamespace(
+            saved_tensors=saved, needs_input_grad=ctx.needs_input_grad),
+            dy, dsT)
+    fn.backward = staticmethod(taking)
+    try:
+        from repro_torch.training import train_loop
+        train_loop._grads(model, params, batch, remat=True)
+    finally:
+        fn.backward = own
+    del params, model
+    gc.collect()
+    if len(taken) != cfg.num_layers:
+        failures.append(f"train13 C: {len(taken)} K4 backward calls taken "
+                        f"in a {cfg.num_layers}-layer step")
+    names = ("dr", "dk", "dv", "dlogw", "du", "ds0")
+    worst = dict.fromkeys(names, 0.0)
+    # autograd runs the layers backward: the first taken is the last layer
+    i = len(taken)
+    while taken:
+        ins = taken.pop(0)
+        i -= 1
+        got = wkv_ops.wkv6_bwd(*ins)
+        plain = wkv6_bwd_plain(*ins)
+        *xs, dy, dT = ins
+        leaves = [t.clone().requires_grad_(True) for t in xs]
+        with torch.enable_grad():
+            y, sT = wkv6_plain(*leaves)
+            loss = (y * dy).sum() + (0.0 if dT is None else (sT * dT).sum())
+            auto = torch.autograd.grad(loss, leaves)
+        del y, sT, loss, leaves
+        for want, what in ((plain, "the plain backward"),
+                           (auto, "autograd of the plain forward")):
+            rec = grads_check(failures, "wkv6_bwd", f"{cfg.name} layer {i} "
+                              f"of {cfg.num_layers}, the step's own inputs, "
+                              f"against {what}", got, want, names)
+            for k, v in rec["rel_err"].items():
+                worst[k] = max(worst[k], v)
+        del got, plain, auto, ins
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[train13] C: {cfg.name} at full depth, K4's backward on each "
+        f"layer's own inputs: worst over the layers of each gradient's "
+        f"largest error over its largest entry "
+        + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+        + f" (bound {RECUR_BWD_REL})")
+    return {"layers": cfg.num_layers, "rel_err_worst": worst,
+            "bound": RECUR_BWD_REL}
+
+
+def recurrent_train_phase(failures, kernels, profile_dir, base_bytes):
+    """Phase 13: rwkv6-1.6b and zamba2-2.7b trained through ``launch.train``
+    at full width and depth (A, B), and at their initial weights and first
+    batch one step's gradients through the kernels against the plain
+    versions (C)."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.mamba2_ssd import ops as ssd_ops
+    from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
+    from repro_torch.launch import train as launch_train
+    from repro_torch.training import DataConfig, SyntheticLM, checkpoint
+    t_phase = time.perf_counter()
+    info = {"card": nvidia_smi_line()}
+    by_name = {k["name"]: k for k in kernels}
+    by_name["wkv6_bwd"]["training"] = info
+    groups = {"k4_forward": wkv_ops.KERNEL_NAMES,
+              "k4_backward": wkv_ops.BWD_KERNEL_NAMES,
+              "k5_forward": ssd_ops.KERNEL_NAMES,
+              "k5_backward": ssd_ops.BWD_KERNEL_NAMES,
+              "k1_forward": K1_KERNELS, "k1_backward": K1_BWD_KERNELS,
+              "gemm": ("gemm", "Gemm", "sm90_xmma", "cutlass", "nvjet")}
+    for part, arch in zip("AB", RECUR_TRAIN_ARCHS):
+        t_part = time.perf_counter()
+        memory_back(failures, base_bytes, f"train13 {arch}")
+        root = tempfile.mkdtemp(prefix="flexserve-train13-")
+        try:
+            cfg = get_config(arch)
+            argv = ["--arch", arch, "--full", "--steps",
+                    str(RECUR_TRAIN_STEPS), "--seq-len", str(TRAIN_SEQ),
+                    "--batch", str(TRAIN_BATCH), "--lr", str(RECUR_TRAIN_LR),
+                    "--log-every", "1", "--ckpt-dir", root]
+            torch.cuda.reset_peak_memory_stats()
+            counts_reset()
+            t0 = time.perf_counter()
+            trainer, hist = launch_train.train(launch_train.parse_args(argv))
+            wall = time.perf_counter() - t0
+            n = counts_read()
+            peak = torch.cuda.max_memory_allocated()
+            want = recurrent_step_counts(cfg, RECUR_TRAIN_STEPS)
+            losses = [h["loss"] for h in hist]
+            step_s = np.diff([0.0] + [h["wall_s"] for h in hist])
+            median = float(np.median(step_s[1:]))
+            nparams = sum(v.numel() for v in trainer.params.values())
+            rec = {"arch": arch, "steps": RECUR_TRAIN_STEPS,
+                   "seq_len": TRAIN_SEQ, "batch": TRAIN_BATCH,
+                   "layers": cfg.num_layers, "d_model": cfg.d_model,
+                   "params": nparams, "losses": losses,
+                   "step_s_median": median, "first_step_s": float(step_s[0]),
+                   "wall_s": wall, "peak_memory_gb": peak / 1e9,
+                   "launches": n,
+                   "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / median}
+            info[part] = rec
+            bwd = "wkv6_bwd" if cfg.family == "ssm" else "ssd_bwd"
+            by_name[bwd]["launches"] = n[bwd]
+            by_name[bwd]["launches_per_step"] = n[bwd] // RECUR_TRAIN_STEPS
+            log(f"[train13] {part}: launch.train {' '.join(argv[:-1])} DIR: "
+                f"{arch} at full width and depth ({cfg.num_layers} layers, "
+                f"d_model {cfg.d_model}, {nparams / 1e9:.3f} B params, bf16, "
+                f"remat, fp32 moments); loss {losses[0]:.4f} -> "
+                f"{losses[-1]:.4f}; step median {median:.3f} s (first "
+                f"{step_s[0]:.2f} s), {rec['tokens_per_s']:.0f} tokens/s; "
+                f"peak memory {peak / 1e9:.2f} GB; launches {n} (expected "
+                f"{want}); on {info['card']}")
+            log(f"[train13] {part}: losses {[round(x, 4) for x in losses]}")
+            if n != want:
+                failures.append(f"train13 {part}: launches {n}, expected "
+                                f"{want}")
+            if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+                failures.append(f"train13 {part}: loss {losses[0]} -> "
+                                f"{losses[-1]}")
+            path = os.path.join(root, f"step_{RECUR_TRAIN_STEPS}.ckpt")
+            like = {"params/" + k: v for k, v in trainer.params.items()}
+            restored, meta = checkpoint.restore(path, like, device="cuda")
+            same = meta.get("step") == RECUR_TRAIN_STEPS and all(
+                torch.equal(restored["params/" + k], v)
+                for k, v in trainer.params.items())
+            rec["checkpoint_bitwise"] = same
+            log(f"[train13] {part}: {path} ({os.path.getsize(path) / 1e9:.2f}"
+                f" GB) restored bit for bit: {same}")
+            if not same:
+                failures.append(f"train13 {part}: the checkpoint did not "
+                                f"restore the trained params bit for bit")
+            del restored, like
+            data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                          seq_len=TRAIN_SEQ,
+                                          global_batch=TRAIN_BATCH,
+                                          num_dialects=1))
+            batch = {k: torch.as_tensor(v, device="cuda")
+                     for k, v in data.batch_at(0).items()}
+            rec["profile"] = profile_train_step(
+                trainer, batch, Path(profile_dir) if profile_dir else None,
+                groups, arch)
+            kname = "k4" if cfg.family == "ssm" else "k5"
+            if not (rec["profile"][f"{kname}_forward_ms"] > 0
+                    and rec["profile"][f"{kname}_backward_ms"] > 0):
+                failures.append(f"train13 {part}: the profiled device time "
+                                f"of {kname}'s kernels reads 0 in a step")
+            del trainer, batch
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+            gc.collect()
+            torch.cuda.empty_cache()
+        info[part]["seconds"] = time.perf_counter() - t_part
+        log(f"[train13] {part}: {arch} in {info[part]['seconds']:.1f} s "
+            f"(training, checkpoint, restore, profiled step)")
+    # C. one step's gradients, kernels against plain versions
+    info["C"] = {}
+    for arch in RECUR_TRAIN_ARCHS:
+        t0 = time.perf_counter()
+        info["C"][arch] = recurrent_grads(failures, arch)
+        if arch == "rwkv6-1.6b":
+            info["C"][arch]["full_depth_layers"] = wkv_layer_check(
+                failures, get_config(arch))
+        info["C"][arch]["seconds"] = time.perf_counter() - t0
+        log(f"[train13] C: {arch} in {info['C'][arch]['seconds']:.1f} s")
+    info["seconds"] = time.perf_counter() - t_phase
+    log(f"[train13] phase 13 in {info['seconds']:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", default=None, metavar="DIR",
@@ -6810,7 +7443,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
     t0 = time.perf_counter()
     builds = (fa_ops.build, fa_ops.build_bwd, da_ops.build, wkv_ops.build,
-              ssd_ops.build)
+              ssd_ops.build, wkv_ops.build_bwd, ssd_ops.build_bwd)
     with concurrent.futures.ThreadPoolExecutor(len(builds)) as ex:
         for fut in [ex.submit(b) for b in builds]:    # one nvcc each
             fut.result()
@@ -6832,16 +7465,19 @@ def main(argv=None) -> int:
 
     failures = []
     # the products: wgmma in K1 and its backward; mma.sync in K2/K3 (bf16),
-    # K4 and K5 (TF32)
-    sass = {}
+    # K4 and K5 (TF32); K4's and K5's backward are CUDA-core fp32 (none)
+    sass, spills = {}, {}
     for name, op in (("flash_attention", "HGMMA"),
                      ("flash_attention_bwd", "HGMMA"),
                      ("decode_attention", "HMMA"), ("rwkv6_wkv", "HMMA"),
-                     ("mamba2_ssd", "HMMA")):
+                     ("mamba2_ssd", "HMMA"), ("rwkv6_wkv_bwd", None),
+                     ("mamba2_ssd_bwd", None)):
         sass[name] = sass_counts(str(common.build_log[name]["library"]))
+        spills[name] = ptxas_spills(str(common.build_log[name]["ptxas"]))
         log(f"[build] {name} SASS tensor-core instructions: "
-            f"{sass[name] or 'cuobjdump not found'}")
-        if sass[name] and not sass[name][op]:
+            f"{sass[name] or 'cuobjdump not found'}; ptxas spill bytes over "
+            f"its kernels: {spills[name]}")
+        if op and sass[name] and not sass[name][op]:
             failures.append(f"{name}: no {op} in its SASS")
     # ptxas serialises a wgmma whose registers it cannot keep in flight: a
     # design failure in K1's backward (its CUDA-core kernels have no wgmma,
@@ -6872,10 +7508,18 @@ def main(argv=None) -> int:
     lap("phase 3, K4 and K5")
     kernels.append(bwd_kernel_phase(failures))
     lap("phase 3, K1's backward")
-    for entry, lib in zip(kernels, ("flash_attention", "decode_attention",
-                                    "decode_attention", "rwkv6_wkv",
-                                    "mamba2_ssd", "flash_attention_bwd")):
+    kernels += [wkv_bwd_kernel_phase(failures),
+                ssd_bwd_kernel_phase(failures)]
+    lap("phase 3, K4's and K5's backward")
+    libs = ("flash_attention", "decode_attention", "decode_attention",
+            "rwkv6_wkv", "mamba2_ssd", "flash_attention_bwd",
+            "rwkv6_wkv_bwd", "mamba2_ssd_bwd")
+    if len(kernels) != len(libs):
+        failures.append(f"{len(kernels)} kernels-line entries for "
+                        f"{len(libs)} libraries")
+    for entry, lib in zip(kernels, libs):
         entry["sass"] = sass[lib]
+        entry["spill_bytes"] = spills[lib]
     base_bytes = torch.cuda.memory_allocated()
     app = main_path_phase(failures, kernels, args.profile)
     lap("phase 4")
@@ -6919,6 +7563,10 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     training_phase(failures, kernels, args.profile, base_bytes)
     lap("phase 12")
+    gc.collect()
+    torch.cuda.empty_cache()
+    recurrent_train_phase(failures, kernels, args.profile, base_bytes)
+    lap("phase 13")
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -11,7 +11,14 @@ moved the head axis of x and dt, built dA and padded all five inputs).
 ``tensor_core_path`` picks the kernel by shape: P = N = 64 with 16-byte
 aligned rows (the model's shapes) take the tensor-core kernel
 (``ssd_tc_fwd``: a G = C B^T pass, then the scan), everything else the
-CUDA-core kernel (``ssd_fwd``)."""
+CUDA-core kernel (``ssd_fwd``).
+
+Where autograd needs a gradient (grad mode on and some CUDA input
+requiring one), the call goes through ``SsdFn``: the forward launch as
+above, and a backward of two kernels in ``csrc/mamba2_ssd_bwd.cu``
+(``ssd_bwd``): one that rebuilds the state at every chunk's start, and one
+that runs the adjoint backward over the chunks.  CPU tensors take
+``ref.ssd_bwd_plain``."""
 
 from __future__ import annotations
 
@@ -22,15 +29,17 @@ import torch
 
 from repro_torch.kernels.common import (cdiv, check_cuda_status, data_ptr,
                                         float_rows, is_cuda, load_library,
-                                        refuse_grad, rows_aligned16,
-                                        stream_ptr)
-from repro_torch.kernels.mamba2_ssd.ref import CHUNK, ssd_plain
+                                        rows_aligned16, stream_ptr)
+from repro_torch.kernels.mamba2_ssd.ref import CHUNK, ssd_bwd_plain, ssd_plain
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "mamba2_ssd.cu"
-MAX_DIM = 64        # kMaxP and kMaxN in the source
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCE = CSRC / "mamba2_ssd.cu"
+BWD_SOURCE = CSRC / "mamba2_ssd_bwd.cu"
+MAX_DIM = 64        # kMaxP and kMaxN in the sources
 TC_DIM = 64         # kDim: P and N of the tensor-core kernel
 # the device kernels a call may launch (torch.profiler names)
 KERNEL_NAMES = ("ssd_kernel", "ssd_gram_kernel", "ssd_tc_kernel")
+BWD_KERNEL_NAMES = ("ssd_states_kernel", "ssd_bwd_kernel")
 
 
 def build() -> ctypes.CDLL:
@@ -45,6 +54,16 @@ def build() -> ctypes.CDLL:
     return lib
 
 
+def build_bwd() -> ctypes.CDLL:
+    """Compile and bind the backward kernels (a library of their own, so
+    the two sources build in parallel)."""
+    lib = load_library("mamba2_ssd_bwd", [BWD_SOURCE])
+    lib.ssd_bwd.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 5
+                            + [ctypes.c_longlong] * 13 + [ctypes.c_void_p])
+    lib.ssd_bwd.restype = ctypes.c_int
+    return lib
+
+
 def tensor_core_path(x, Bm, Cm) -> bool:
     """Whether a launch takes the tensor-core kernel: float32 x, Bm and Cm
     (as the wrapper passes them) with P = N = TC_DIM and every row start
@@ -53,11 +72,8 @@ def tensor_core_path(x, Bm, Cm) -> bool:
             and all(rows_aligned16(t) for t in (x, Bm, Cm)))
 
 
-def ssd(x, dt, A, Bm, Cm, h0):
-    """The Mamba-2 SSD scan over a sequence; see ``ref.ssd_plain``."""
-    if not is_cuda(x, dt, A, Bm, Cm, h0):
-        return ssd_plain(x, dt, A, Bm, Cm, h0)
-    refuse_grad("ssd", x, dt, A, Bm, Cm, h0)
+def _check(x, dt, A, Bm, Cm, h0):
+    """Validate CUDA inputs the kernels take."""
     if x.dim() != 4:
         raise ValueError(f"ssd takes x (B,T,H,P), got {tuple(x.shape)}")
     B, T, H, P = x.shape
@@ -73,6 +89,12 @@ def ssd(x, dt, A, Bm, Cm, h0):
                          f"got P={P}, N={N}, T={T}")
     if B > 65535 or H > 65535:
         raise ValueError(f"grid too large: B={B}, H={H}")
+
+
+def _forward(x, dt, A, Bm, Cm, h0):
+    """One launch of the forward kernels on checked CUDA inputs."""
+    B, T, H, P = x.shape
+    N = Bm.shape[-1]
     x, Bm, Cm = (float_rows(t) for t in (x, Bm, Cm))
     dt = dt.float()
     A = A.float().contiguous()
@@ -99,4 +121,81 @@ def ssd(x, dt, A, Bm, Cm, h0):
     return y, hT
 
 
+def ssd(x, dt, A, Bm, Cm, h0):
+    """The Mamba-2 SSD scan over a sequence; see ``ref.ssd_plain``.
+    Differentiable (through the backward kernels on CUDA)."""
+    if not is_cuda(x, dt, A, Bm, Cm, h0):
+        return ssd_plain(x, dt, A, Bm, Cm, h0)
+    _check(x, dt, A, Bm, Cm, h0)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, dt, A, Bm, Cm, h0)):
+        return SsdFn.apply(x, dt, A, Bm, Cm, h0)
+    return _forward(x, dt, A, Bm, Cm, h0)
+
+
 ssd.launches = 0
+
+
+def ssd_bwd(x, dt, A, Bm, Cm, h0, dy, dhT=None):
+    """The gradients (dx (B,T,H,P), ddt (B,T,H), dA (H,), dBm, dCm
+    (B,T,N), dh0 (B,H,P,N)) of ``ssd``'s (y, h_T) given dy and dhT (either
+    may be None: zero), float32; see ``csrc/mamba2_ssd_bwd.cu``.  CPU
+    tensors take ``ref.ssd_bwd_plain``."""
+    given = [t for t in (x, dt, A, Bm, Cm, h0, dy, dhT) if t is not None]
+    if not is_cuda(*given):
+        return ssd_bwd_plain(x, dt, A, Bm, Cm, h0, dy, dhT)
+    _check(x, dt, A, Bm, Cm, h0)
+    B, T, H, P = x.shape
+    N = Bm.shape[-1]
+    for name, t, shape in (("dy", dy, x.shape), ("dhT", dhT, h0.shape)):
+        if t is not None and t.shape != shape:
+            raise ValueError(f"{name} {tuple(t.shape)} != {tuple(shape)}")
+    dev = x.device
+    x, Bm, Cm = (float_rows(t) for t in (x, Bm, Cm))
+    dy = (torch.zeros((B, T, H, P), dtype=torch.float32, device=dev)
+          if dy is None else float_rows(dy))
+    dt = dt.float()
+    A = A.float().contiguous()
+    h0 = h0.float().contiguous()
+    dhT = None if dhT is None else dhT.float().contiguous()
+    f32 = dict(dtype=torch.float32, device=dev)
+    states = torch.empty((B, H, cdiv(T, CHUNK) + 1, P, N), **f32)
+    dx = torch.empty((B, T, H, P), **f32)
+    ddt = torch.empty((B, T, H), **f32)
+    dA_part = torch.empty((B, H), **f32)
+    dB_part, dC_part = (torch.empty((B, T, H, N), **f32) for _ in range(2))
+    dh0 = torch.empty((B, H, P, N), **f32)
+    lib = build_bwd()
+    status = lib.ssd_bwd(
+        *(data_ptr(t) for t in (x, dt, A, Bm, Cm, h0, dy, dhT, states, dx,
+                                ddt, dA_part, dB_part, dC_part, dh0)),
+        B, T, H, P, N, *x.stride()[:3], *dt.stride(), Bm.stride(0),
+        Bm.stride(1), Cm.stride(0), Cm.stride(1), *dy.stride()[:3],
+        stream_ptr(dev))
+    check_cuda_status(status, "ssd_bwd")
+    ssd_bwd.launches += 1
+    # the heads' dB and dC rows and the batch rows' dA, summed in a fixed
+    # order (every head of a row shares its B and C)
+    return dx, ddt, dA_part.sum(0), dB_part.sum(2), dC_part.sum(2), dh0
+
+
+ssd_bwd.launches = 0
+
+
+class SsdFn(torch.autograd.Function):
+    """K5's forward and its backward kernels as one differentiable op on
+    CUDA tensors; the forward saves its inputs only (the backward rebuilds
+    the chunk states)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, h0):
+        y, hT = _forward(x, dt, A, Bm, Cm, h0)
+        ctx.save_for_backward(x, dt, A, Bm, Cm, h0)
+        ctx.set_materialize_grads(False)
+        return y, hT
+
+    @staticmethod
+    def backward(ctx, dy, dhT):
+        grads = ssd_bwd(*ctx.saved_tensors, dy, dhT)
+        return tuple(g if need else None
+                     for g, need in zip(grads, ctx.needs_input_grad))

@@ -9,7 +9,14 @@ wrapper moved the head axis of all four inputs and padded T).
 
 ``tensor_core_path`` picks the kernel by shape: N = 64 with 16-byte
 aligned rows (the model's shapes) take the tensor-core kernel
-(``wkv6_tc_fwd``), everything else the CUDA-core kernel (``wkv6_fwd``)."""
+(``wkv6_tc_fwd``), everything else the CUDA-core kernel (``wkv6_fwd``).
+
+Where autograd needs a gradient (grad mode on and some CUDA input
+requiring one), the call goes through ``Wkv6Fn``: the forward launch as
+above, and a backward of two kernels in ``csrc/rwkv6_wkv_bwd.cu``
+(``wkv6_bwd``): one that rebuilds the state at every chunk's start, and
+one that runs the adjoint backward over the chunks.  CPU tensors take
+``ref.wkv6_bwd_plain``."""
 
 from __future__ import annotations
 
@@ -18,17 +25,19 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels.common import (check_cuda_status, data_ptr,
+from repro_torch.kernels.common import (cdiv, check_cuda_status, data_ptr,
                                         float_rows, is_cuda, load_library,
-                                        refuse_grad, rows_aligned16,
-                                        stream_ptr)
-from repro_torch.kernels.rwkv6_wkv.ref import wkv6_plain
+                                        rows_aligned16, stream_ptr)
+from repro_torch.kernels.rwkv6_wkv.ref import CHUNK, wkv6_bwd_plain, wkv6_plain
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "rwkv6_wkv.cu"
-MAX_N = 64          # kMaxN in the source
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCE = CSRC / "rwkv6_wkv.cu"
+BWD_SOURCE = CSRC / "rwkv6_wkv_bwd.cu"
+MAX_N = 64          # kMaxN in the sources
 TC_N = 64           # kDim: N of the tensor-core kernel
 # the device kernels a call may launch (torch.profiler names)
 KERNEL_NAMES = ("wkv6_kernel", "wkv6_tc_kernel")
+BWD_KERNEL_NAMES = ("wkv6_states_kernel", "wkv6_bwd_kernel")
 
 
 def build() -> ctypes.CDLL:
@@ -43,6 +52,16 @@ def build() -> ctypes.CDLL:
     return lib
 
 
+def build_bwd() -> ctypes.CDLL:
+    """Compile and bind the backward kernels (a library of their own, so
+    the two sources build in parallel)."""
+    lib = load_library("rwkv6_wkv_bwd", [BWD_SOURCE])
+    lib.wkv6_bwd.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 4
+                             + [ctypes.c_longlong] * 15 + [ctypes.c_void_p])
+    lib.wkv6_bwd.restype = ctypes.c_int
+    return lib
+
+
 def tensor_core_path(r, k, v, logw) -> bool:
     """Whether a launch takes the tensor-core kernel: float32 inputs (as
     the wrapper passes them) with N = TC_N and every row start 16-byte
@@ -51,11 +70,8 @@ def tensor_core_path(r, k, v, logw) -> bool:
             and all(rows_aligned16(t) for t in (r, k, v, logw)))
 
 
-def wkv6(r, k, v, logw, u, s0):
-    """The RWKV-6 recurrence over a sequence; see ``ref.wkv6_plain``."""
-    if not is_cuda(r, k, v, logw, u, s0):
-        return wkv6_plain(r, k, v, logw, u, s0)
-    refuse_grad("wkv6", r, k, v, logw, u, s0)
+def _check(r, k, v, logw, u, s0):
+    """Validate CUDA inputs the kernels take."""
     if r.dim() != 4:
         raise ValueError(f"wkv6 takes (B,T,H,N) inputs, got r "
                          f"{tuple(r.shape)}")
@@ -72,6 +88,11 @@ def wkv6(r, k, v, logw, u, s0):
                          f"got N={N}, T={T}")
     if B > 65535 or H > 65535:
         raise ValueError(f"grid too large: B={B}, H={H}")
+
+
+def _forward(r, k, v, logw, u, s0):
+    """One launch of the forward kernel on checked CUDA inputs."""
+    B, T, H, N = r.shape
     r, k, v, logw = (float_rows(t) for t in (r, k, v, logw))
     u = u.float().contiguous()
     s0 = s0.float().contiguous()
@@ -92,4 +113,76 @@ def wkv6(r, k, v, logw, u, s0):
     return y, sT
 
 
+def wkv6(r, k, v, logw, u, s0):
+    """The RWKV-6 recurrence over a sequence; see ``ref.wkv6_plain``.
+    Differentiable (through the backward kernels on CUDA)."""
+    if not is_cuda(r, k, v, logw, u, s0):
+        return wkv6_plain(r, k, v, logw, u, s0)
+    _check(r, k, v, logw, u, s0)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (r, k, v, logw, u, s0)):
+        return Wkv6Fn.apply(r, k, v, logw, u, s0)
+    return _forward(r, k, v, logw, u, s0)
+
+
 wkv6.launches = 0
+
+
+def wkv6_bwd(r, k, v, logw, u, s0, dy, dsT=None):
+    """The gradients (dr, dk, dv, dlogw (B,T,H,N), du (H,N), ds0
+    (B,H,N,N)) of ``wkv6``'s (y, s_T) given dy and dsT (either may be
+    None: zero), float32; see ``csrc/rwkv6_wkv_bwd.cu``.  CPU tensors take
+    ``ref.wkv6_bwd_plain``."""
+    given = [t for t in (r, k, v, logw, u, s0, dy, dsT) if t is not None]
+    if not is_cuda(*given):
+        return wkv6_bwd_plain(r, k, v, logw, u, s0, dy, dsT)
+    _check(r, k, v, logw, u, s0)
+    B, T, H, N = r.shape
+    for name, t, shape in (("dy", dy, r.shape), ("dsT", dsT, s0.shape)):
+        if t is not None and t.shape != shape:
+            raise ValueError(f"{name} {tuple(t.shape)} != {tuple(shape)}")
+    dev = r.device
+    r, k, v, logw = (float_rows(t) for t in (r, k, v, logw))
+    dy = (torch.zeros((B, T, H, N), dtype=torch.float32, device=dev)
+          if dy is None else float_rows(dy))
+    u = u.float().contiguous()
+    s0 = s0.float().contiguous()
+    dsT = None if dsT is None else dsT.float().contiguous()
+    nc = cdiv(T, CHUNK)
+    states = torch.empty((B, H, nc + 1, N, N), dtype=torch.float32,
+                         device=dev)
+    dr, dk, dv, dlogw = (torch.empty((B, T, H, N), dtype=torch.float32,
+                                     device=dev) for _ in range(4))
+    du_part = torch.empty((B, H, N), dtype=torch.float32, device=dev)
+    ds0 = torch.empty((B, H, N, N), dtype=torch.float32, device=dev)
+    lib = build_bwd()
+    status = lib.wkv6_bwd(
+        *(data_ptr(t) for t in (r, k, v, logw, u, s0, dy, dsT, states, dr,
+                                dk, dv, dlogw, du_part, ds0)),
+        B, T, H, N, *r.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        *logw.stride()[:3], *dy.stride()[:3], stream_ptr(dev))
+    check_cuda_status(status, "wkv6_bwd")
+    wkv6_bwd.launches += 1
+    return dr, dk, dv, dlogw, du_part.sum(0), ds0
+
+
+wkv6_bwd.launches = 0
+
+
+class Wkv6Fn(torch.autograd.Function):
+    """K4's forward and its backward kernels as one differentiable op on
+    CUDA tensors; the forward saves its inputs only (the backward rebuilds
+    the chunk states)."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, logw, u, s0):
+        y, sT = _forward(r, k, v, logw, u, s0)
+        ctx.save_for_backward(r, k, v, logw, u, s0)
+        ctx.set_materialize_grads(False)
+        return y, sT
+
+    @staticmethod
+    def backward(ctx, dy, dsT):
+        grads = wkv6_bwd(*ctx.saved_tensors, dy, dsT)
+        return tuple(g if need else None
+                     for g, need in zip(grads, ctx.needs_input_grad))

@@ -1,19 +1,21 @@
 """Training launcher: the port of ``repro/launch/train.py``.
 
 Trains a REDUCED variant of the selected arch on the synthetic pipeline
-unless ``--full`` is given; on the card (the default device) attention's
-gradient runs through K1's backward kernel.  ``--device cpu`` runs the
-port on the CPU, kernels' plain versions and all.
+unless ``--full`` is given; on the card (the default device) the gradients
+run through the kernels' backward kernels: K1's for attention, K4's for
+rwkv6's WKV recurrence, K5's for zamba2's SSD scan.  ``--device cpu`` runs
+the port on the CPU, kernels' plain versions and all.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch h2o-danube-1.8b \\
       --steps 200 --seq-len 64 --batch 16 [--device cpu]
+  PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-1.6b \\
+      --steps 60 --seq-len 32 --batch 8 [--device cpu]
 
 The JAX launcher's ``--multi-pod`` (the production TPU mesh) has no
 meaning on one card and is refused.  The data carry tokens and labels
-only, as the JAX launcher's do, so the vlm and encdec families (which
-also take images or frames) train through ``Trainer`` directly, and the
-ssm and hybrid families' loss waits for the next slice (``Model.loss``
-says so).
+only, as the JAX launcher's do: the dense, moe, ssm and hybrid families
+train through it, and the vlm and encdec families (which also take
+images or frames) through ``Trainer`` directly.
 """
 
 from __future__ import annotations

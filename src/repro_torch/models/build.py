@@ -28,8 +28,6 @@ _FAMILIES = {"dense": transformer, "moe": transformer, "ssm": rwkv6,
 # the frontend stub's input a family takes beside the tokens, as the JAX
 # Model passes it
 _EXTRAS = {"vlm": "image_embeds", "encdec": "frames"}
-# the families whose train_loss waits for their kernels' backward kernels
-_NO_TRAIN_LOSS = ("ssm", "hybrid")
 
 
 @dataclass(frozen=True)
@@ -60,16 +58,11 @@ class Model:
 
     def loss(self, params, batch: Dict[str, Any], **kw):
         """batch {"tokens", "labels" (B,S)} (with the family's extras, and
-        an optional "mask") -> (loss, metrics), as the JAX ``Model.loss``;
-        ``remat`` (default True) recomputes each layer in backward.  The
-        ssm and hybrid families raise: on the card their kernels (K4, K5)
-        have no backward kernel yet, which the next slice of the port
-        brings."""
-        if self.config.family in _NO_TRAIN_LOSS:
-            raise NotImplementedError(
-                f"{self.config.name}: train_loss of the {self.config.family}"
-                f" family is not ported yet (it waits for the K4/K5 backward"
-                f" kernels, the next training slice)")
+        an optional "mask") -> (loss, metrics), as the JAX ``Model.loss``,
+        for every family; ``remat`` (default True) recomputes each layer
+        (each Mamba-2 layer of the hybrid family) in backward.  On CUDA the
+        gradients run through the kernels' backward kernels (K1, K4,
+        K5)."""
         return self.module.train_loss(params, batch, self.config, **kw)
 
     def like(self) -> Dict[str, torch.Tensor]:

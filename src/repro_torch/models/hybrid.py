@@ -20,7 +20,13 @@ batch on axis 1 of every per-layer leaf.  The shared caches keep
 package's default) and ``max_len`` slots without it; they keep the
 compute dtype under ``kv_cache_f8``, as the JAX package's do.
 ``prefill`` and ``decode_step`` write the state's tensors IN PLACE and
-return a new dict holding the same tensors.
+return a new dict holding the same tensors.  ``forward`` without a state
+(the training path, ``train_loss``) starts each Mamba-2 layer from zeros
+and keeps no state, so autograd sees no in-place write; under ``remat``
+each Mamba-2 layer runs inside ``torch.utils.checkpoint`` and the shared
+block does not, as JAX remats ``mamba_step`` alone, so K1's forward runs
+once a step there.  The gradients run through K5's backward kernel
+(``SsdFn``) and K1's (``FlashAttentionFn``) on CUDA.
 """
 
 from __future__ import annotations
@@ -33,12 +39,12 @@ from repro_torch import opt
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (apply_mlp, apply_norm, apply_rope,
-                                       compute_dtype, dense_init, embed_init,
-                                       generator, init_mlp, init_norm,
-                                       stack_init)
+                                       compute_dtype, cross_entropy_loss,
+                                       dense_init, embed_init, generator,
+                                       init_mlp, init_norm, stack_init)
 from repro_torch.models.mamba2 import (init_mamba2_layer, init_mamba2_state,
                                        mamba2_full, mamba2_step)
-from repro_torch.models.transformer import layer_views, subtree
+from repro_torch.models.transformer import call_layer, layer_views, subtree
 from repro_torch.params import flatten
 
 _LORA_RANK = 64
@@ -174,12 +180,25 @@ def init_state(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
     return st
 
 
+def _mamba_layer(cfg: ModelConfig, x, ln, lp, conv_state, ssd_state,
+                 lengths):
+    """One backbone layer: x + Mamba-2(norm(x)); returns (x, new conv
+    state, new SSD state)."""
+    out, nc, ns = mamba2_full(lp, cfg, apply_norm(ln, x, cfg), conv_state,
+                              ssd_state, lengths=lengths)
+    return x + out, nc, ns
+
+
 def _run(params, tokens, cfg: ModelConfig, state, lengths, window,
-         capture):
+         capture, remat: bool = False):
     """The full-sequence stack: per application j, the shared block, then
-    its ``period`` Mamba-2 layers.  Writes the backbone's states into
-    ``state`` in place; ``capture(j, k, v)`` takes each application's
-    K/V.  Returns the final hidden states."""
+    its ``period`` Mamba-2 layers.  With a ``state``, writes the backbone's
+    states into it in place; with ``state=None`` each layer starts from
+    zeros and its new state is dropped (nothing is written in place, so
+    autograd may run through it).  ``capture(j, k, v)`` takes each
+    application's K/V; ``remat`` runs each Mamba-2 layer (not the shared
+    block) under ``torch.utils.checkpoint``.  Returns the final hidden
+    states."""
     B, S = tokens.shape
     napp = _num_groups(cfg)
     period = cfg.num_layers // napp
@@ -189,34 +208,45 @@ def _run(params, tokens, cfg: ModelConfig, state, lengths, window,
     sp = subtree(params, "shared")
     lns = layer_views(params, "mamba_ln")
     mambas = layer_views(params, "mamba")
+    if state is None:
+        zero = init_mamba2_state(cfg, 1, 1, x.device)
+        start = (zero["conv"][0].expand(B, -1, -1),
+                 zero["ssd"][0].expand(B, -1, -1, -1))
     for j in range(napp):
         x, (k, v) = shared_block_full(
             sp, cfg, x, e0, sp["lora_a"][j], sp["lora_b"][j], positions,
             window, kv_lengths=lengths)
         capture(j, k, v)
         for i in range(j * period, (j + 1) * period):
-            h = apply_norm(lns[i], x, cfg)
-            out, nc, ns = mamba2_full(mambas[i], cfg, h,
-                                      state["conv"][i], state["ssd"][i],
-                                      lengths=lengths)
-            x = x + out
-            state["conv"][i].copy_(nc)
-            state["ssd"][i].copy_(ns)
+            if state is not None:
+                start = (state["conv"][i], state["ssd"][i])
+            x, nc, ns = call_layer(_mamba_layer, cfg, x, lns[i], mambas[i],
+                                   *start, lengths, remat=remat)
+            if state is not None:
+                state["conv"][i].copy_(nc)
+                state["ssd"][i].copy_(ns)
     return apply_norm(subtree(params, "final_norm"), x, cfg)
 
 
 def forward(params, tokens, cfg: ModelConfig, *, state=None, lengths=None,
-            window: Optional[int] = None):
-    """tokens (B,S) -> logits (B,S,V).  ``state`` (default zeros) carries
-    the backbone's conv and SSD states in, written in place."""
-    B, S = tokens.shape
+            window: Optional[int] = None, remat: bool = False):
+    """tokens (B,S) -> logits (B,S,V).  A given ``state`` carries the
+    backbone's conv and SSD states in and is written in place; without
+    one every layer starts from zeros and nothing is kept (the training
+    path).  ``remat`` recomputes each Mamba-2 layer in backward."""
     window = window if window is not None else cfg.hybrid.shared_window
-    if state is None:
-        state = init_mamba2_state(cfg, cfg.num_layers, B,
-                                  params["embed"].device)
     h = _run(params, tokens, cfg, state, lengths, window,
-             lambda j, k, v: None)
+             lambda j, k, v: None, remat)
     return h @ params["head"]
+
+
+def train_loss(params, batch, cfg: ModelConfig, *, remat: bool = True):
+    """batch {"tokens", "labels" (B,S), optional "mask"} -> (loss, metrics),
+    as the JAX ``train_loss``: the next-token cross-entropy of ``forward``
+    from zero states."""
+    logits = forward(params, batch["tokens"], cfg, remat=remat)
+    loss = cross_entropy_loss(logits, batch["labels"], batch.get("mask"))
+    return loss, {"ce": loss, "loss": loss}
 
 
 def prefill(params, tokens, state, cfg: ModelConfig, *, lengths=None,

@@ -19,6 +19,11 @@ The state is ``{"tm_shift", "cm_shift": (L, B, D), "wkv": (L, B, H, N, N)
 float32, "length": (B,) int32}``, batch on axis 1 of every per-layer leaf.
 ``prefill`` and ``decode_step`` overwrite the state's tensors IN PLACE (the
 JAX engine donates them) and return a new dict holding the same tensors.
+``forward`` without a state (the training path, ``train_loss``) starts each
+layer from zeros and keeps no state, so autograd sees no in-place write;
+under ``remat`` each layer runs inside ``torch.utils.checkpoint``, the JAX
+scan body's ``jax.checkpoint``, and K4's backward kernel (``Wkv6Fn`` on
+CUDA) takes the gradient through the recurrence.
 """
 
 from __future__ import annotations
@@ -30,10 +35,11 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.rwkv6_wkv import wkv6
-from repro_torch.models.layers import (apply_norm, compute_dtype, dense_init,
+from repro_torch.models.layers import (apply_norm, compute_dtype,
+                                       cross_entropy_loss, dense_init,
                                        embed_init, generator, group_norm,
                                        init_norm, stack_init)
-from repro_torch.models.transformer import layer_views, subtree
+from repro_torch.models.transformer import call_layer, layer_views, subtree
 from repro_torch.params import flatten
 
 _LORA_RANK = 32
@@ -232,42 +238,65 @@ def init_state(cfg: ModelConfig, batch: int, max_len: int = 0, dtype=None,
     }
 
 
-def _hidden(params, tokens, cfg: ModelConfig, state, lengths):
-    """Embedding, ln_in and the layer loop of the full-sequence pass; each
-    layer's new recurrent state is written into ``state``'s tensors in
-    place.  ``lengths`` (B,) masks right-padded steps.  Returns the last
+def _hidden(params, tokens, cfg: ModelConfig, state, lengths,
+            remat: bool = False):
+    """Embedding, ln_in and the layer loop of the full-sequence pass.  With
+    a ``state``, each layer's new recurrent state is written into its
+    tensors in place; with ``state=None`` every layer starts from zeros and
+    its new state is dropped (nothing is written in place, so autograd may
+    run through it).  ``lengths`` (B,) masks right-padded steps; ``remat``
+    runs each layer under ``torch.utils.checkpoint``.  Returns the last
     layer's hidden states (B,S,D)."""
-    S = tokens.shape[1]
+    B, S = tokens.shape
     x = apply_norm(subtree(params, "ln_in"), params["embed"][tokens.long()],
                    cfg)
     mask = None
     if lengths is not None:
         mask = (torch.arange(S, device=x.device)[None, :]
                 < lengths.to(x.device)[:, None])
+    if state is None:
+        zero = init_state(cfg, 1, dtype=x.dtype, device=x.device)
+        start = (zero["tm_shift"][0].expand(B, -1),
+                 zero["cm_shift"][0].expand(B, -1),
+                 zero["wkv"][0].expand(B, -1, -1, -1))
     for i, lp in enumerate(layer_views(params, "layers")):
-        x, tm, cm, S_new = _layer_full(cfg, x, lp, state["tm_shift"][i],
-                                       state["cm_shift"][i],
-                                       state["wkv"][i], mask=mask,
-                                       lengths=lengths)
-        state["tm_shift"][i].copy_(tm)
-        state["cm_shift"][i].copy_(cm)
-        state["wkv"][i].copy_(S_new)
+        if state is not None:
+            start = (state["tm_shift"][i], state["cm_shift"][i],
+                     state["wkv"][i])
+        x, tm, cm, S_new = call_layer(_layer_full, cfg, x, lp, *start, mask,
+                                      lengths, remat=remat)
+        if state is not None:
+            state["tm_shift"][i].copy_(tm)
+            state["cm_shift"][i].copy_(cm)
+            state["wkv"][i].copy_(S_new)
     return x
 
 
 def forward(params, tokens, cfg: ModelConfig, *, state=None, lengths=None,
-            return_state: bool = False):
+            remat: bool = False, return_state: bool = False):
     """tokens (B,S) -> logits (B,S,V); with ``return_state``, (logits, new
-    state).  ``state`` (default zeros) is carried in and written in place;
-    ``lengths`` (B,) marks right-padded rows for an exact ragged prefill."""
+    state).  A given ``state`` is carried in and written in place;
+    without one, every layer starts from zeros and, unless
+    ``return_state``, nothing is kept (the training path).  ``lengths``
+    (B,) marks right-padded rows for an exact ragged prefill; ``remat``
+    recomputes each layer in backward."""
     B, S = tokens.shape
-    if state is None:
+    if state is None and return_state:
         state = init_state(cfg, B, device=params["embed"].device)
-    x = _hidden(params, tokens, cfg, state, lengths)
+    x = _hidden(params, tokens, cfg, state, lengths, remat)
     logits = apply_norm(subtree(params, "final_norm"), x, cfg) @ params["head"]
     if return_state:
         return logits, {**state, "length": state["length"] + S}
     return logits
+
+
+def train_loss(params, batch, cfg: ModelConfig, *, remat: bool = True):
+    """batch {"tokens", "labels" (B,S), optional "mask"} -> (loss, metrics),
+    as the JAX ``train_loss``: the next-token cross-entropy of ``forward``
+    from zero states."""
+    logits = forward(params, batch["tokens"], cfg, remat=remat)
+    loss = cross_entropy_loss(logits, batch["labels"], batch.get("mask"))
+    return loss, {"ce": loss, "loss": loss}
 
 
 def prefill(params, tokens, state, cfg: ModelConfig, *, lengths=None,

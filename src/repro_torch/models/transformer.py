@@ -131,17 +131,23 @@ def layer_views(params: Dict[str, torch.Tensor],
     return [unflatten({k: v[i] for k, v in cols.items()}) for i in range(num)]
 
 
+def call_layer(fn, *args, remat: bool = False):
+    """``fn(*args)``, under ``torch.utils.checkpoint`` with ``remat`` (the
+    JAX scan body's ``jax.checkpoint``): one layer of every family's
+    training path."""
+    if remat:
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return fn(*args)
+
+
 def run_layers(fn, layers, x, *args, remat: bool = False):
     """x through ``fn(x, lp, *args) -> (x, aux or None)`` for each layer's
-    params ``lp``, each call under ``torch.utils.checkpoint`` with
-    ``remat``; returns (x, the sum of the aux losses, None if none)."""
+    params ``lp``, each call under ``call_layer``; returns (x, the sum of
+    the aux losses, None if none)."""
     aux = None
     for lp in layers:
-        if remat:
-            x, a = checkpoint(fn, x, lp, *args, use_reentrant=False,
-                              preserve_rng_state=False)
-        else:
-            x, a = fn(x, lp, *args)
+        x, a = call_layer(fn, x, lp, *args, remat=remat)
         if a is not None:
             aux = a if aux is None else aux + a
     return x, aux

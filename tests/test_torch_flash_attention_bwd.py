@@ -350,17 +350,17 @@ def test_autograd_runs_the_kernels(cuda):
 
 
 # ---------------------------------------------------------------------------
-# K2-K5 have no backward kernel yet: on CUDA they refuse where autograd
-# would need their gradient.  Shown here without a card by making the
-# wrappers take CPU tensors for CUDA ones: the refusal comes before any
-# launch.
+# K2 and K3 have no backward kernel (nothing trains through a decode step):
+# on CUDA they refuse where autograd would need their gradient.  Shown here
+# without a card by making the wrappers take CPU tensors for CUDA ones: the
+# refusal comes before any launch.  K4 and K5 have backward kernels; their
+# autograd route is shown in test_torch_rwkv6_wkv_bwd.py and
+# test_torch_mamba2_ssd_bwd.py.
 # ---------------------------------------------------------------------------
 
 
 def _k2_k5_calls():
     from repro_torch.kernels.decode_attention import ops as da
-    from repro_torch.kernels.mamba2_ssd import ops as ssd
-    from repro_torch.kernels.rwkv6_wkv import ops as wkv
     r = lambda *s: torch.randn(*s)
     lengths = torch.tensor([5, 3], dtype=torch.int32)
     return {
@@ -369,17 +369,11 @@ def _k2_k5_calls():
         "paged_decode_attention": (da, lambda: da.paged_decode_attention(
             r(2, 4, 16), r(4, 4, 2, 16), r(4, 4, 2, 16),
             torch.tensor([[1, 2], [3, 0]], dtype=torch.int32), lengths)),
-        "wkv6": (wkv, lambda: wkv.wkv6(r(1, 4, 2, 8), r(1, 4, 2, 8),
-                                       r(1, 4, 2, 8), -r(1, 4, 2, 8).exp(),
-                                       r(2, 8), r(1, 2, 8, 8))),
-        "ssd": (ssd, lambda: ssd.ssd(r(1, 4, 2, 8), r(1, 4, 2).abs(),
-                                     -r(2).abs(), r(1, 4, 2, 8),
-                                     r(1, 4, 2, 8), r(1, 2, 8, 8))),
     }
 
 
 @pytest.mark.parametrize("name", ["decode_attention",
-                                  "paged_decode_attention", "wkv6", "ssd"])
+                                  "paged_decode_attention"])
 def test_k2_k5_refuse_a_gradient_on_cuda(monkeypatch, name):
     module, call = _k2_k5_calls()[name]
     monkeypatch.setattr(module, "is_cuda", lambda *t: True)

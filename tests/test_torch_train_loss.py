@@ -5,7 +5,10 @@ The reduced float32 configs (``reduce_for_smoke``) of yi-9b, h2o-danube
 qwen3-moe (the router aux loss), deepseek-v3 (MLA, first-k-dense, MoE and
 the MTP head), llama-3.2-vision (cross-attention through K1's plain
 version at Skv = T; its gates opened, as at 0 they silence every cross
-block and its gradients) and whisper-base: the same params on both sides
+block and its gradients), whisper-base, rwkv6 (the WKV recurrence through
+K4's plain version) and zamba2 (K5's and K1's plain versions; its
+``lora_b``, zeros at init, perturbed so the LoRA path carries a
+gradient): the same params on both sides
 (the port's seeded init, to JAX as numpy), one seeded batch, and ``jax.value_and_grad`` of
 the JAX ``Model.loss`` against autograd of the port's.  Loss and metrics
 at 1e-4, every parameter's gradient at 1e-4 relative to that leaf's
@@ -13,7 +16,7 @@ largest entry (elementwise; a gradient that is analytically zero, as the
 key bias's, must stay below 1e-6 of the model's largest).  Also:
 ``chunked_ce`` at a vocab of 32768 against JAX's chunked loss and the
 port's own full-logits loss; remat on and off give the same loss and
-gradients; ssm and hybrid refuse.
+gradients.
 """
 
 import dataclasses
@@ -39,7 +42,7 @@ from repro_torch.params import from_jax, to_flat, unflatten
 
 ARCHS = ["yi-9b", "h2o-danube-1.8b", "command-r-plus-104b",
          "qwen3-moe-235b-a22b", "deepseek-v3-671b", "llama-3.2-vision-11b",
-         "whisper-base"]
+         "whisper-base", "rwkv6-1.6b", "zamba2-2.7b"]
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 
@@ -55,10 +58,15 @@ def one_torch_thread():
 
 
 def _gates_open(flat):
-    """vlm: open the cross blocks' tanh gates (0 at init)."""
+    """vlm: open the cross blocks' tanh gates (0 at init); zamba2: perturb
+    the shared block's LoRA up-projections (zeros at init)."""
     for k, v in (("cross/gate_attn", 0.7), ("cross/gate_mlp", -0.5)):
         if k in flat:
             flat[k] = np.full(flat[k].shape, v, np.float32)
+    if "shared/lora_b" in flat:
+        rng = np.random.default_rng(3)
+        flat["shared/lora_b"] = rng.normal(
+            0, 0.02, flat["shared/lora_b"].shape).astype(np.float32)
     return flat
 
 
@@ -155,7 +163,8 @@ def test_chunked_ce_matches_jax_and_full_logits(chunked_ce):
 
 
 @pytest.mark.parametrize("arch", ["h2o-danube-1.8b", "deepseek-v3-671b",
-                                  "llama-3.2-vision-11b", "whisper-base"])
+                                  "llama-3.2-vision-11b", "whisper-base",
+                                  "rwkv6-1.6b", "zamba2-2.7b"])
 def test_remat_agrees(arch):
     _, _, tmodel, flat, batch = _pair(arch)
     l0, _, g0 = _port_loss(tmodel, flat, batch, remat=False)
@@ -163,10 +172,3 @@ def test_remat_agrees(arch):
     assert_allclose(l1, l0, rtol=1e-6)
     for k in g0:
         assert_allclose(g1[k], g0[k], rtol=1e-5, atol=1e-7, err_msg=k)
-
-
-@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "zamba2-2.7b"])
-def test_ssm_and_hybrid_wait_for_their_backward_kernels(arch):
-    model = build_model(reduce_for_smoke(get_config(arch)))
-    with pytest.raises(NotImplementedError, match="next training slice"):
-        model.loss({}, {})
