@@ -16,9 +16,13 @@ Phases (any failure exits non-zero and prints no final result line):
    sources; K5 ssd and its backward, two sources) is compiled from
    the checkout's sources with nvcc for sm_90a, one nvcc per source,
    started together.  cuobjdump's SASS must show HGMMA (wgmma) in K1's
-   library and its backward's and HMMA (mma.sync) in K2/K3's, K4's and
-   K5's; the counts go into the kernels line.  A ptxas line saying that
-   it serialised a wgmma of K1's backward fails the build.
+   library and its backward's and HMMA (mma.sync) in K2/K3's, K4's, K5's
+   and K5's backward's; the counts go into the kernels line.  A ptxas
+   line saying that it serialised a wgmma of K1's backward fails the
+   build, and so does a spill in K5's backward.  A yardstick library is
+   built beside them: K2/K3's source with P rounded to bf16 for P V (one
+   product a tile, the kernel before it took P as bf16 hi + lo parts),
+   written under build/variants and never called by the port.
 3. kernels: each kernel is held against its plain PyTorch version on the
    card at the main path's shapes and at the edges.  K1: yi-9b attention,
    B=8, S=256, H=32, K=4, hd=128, bf16 and fp32, plus sliding window,
@@ -118,7 +122,16 @@ Phases (any failure exits non-zero and prints no final result line):
    (K4) and Bm rows 66 floats apart (K5).  Timed at the training shapes
    (CUDA events, and the device time split between the states pass and
    the adjoint kernel) beside the plain backward and the fp32 bound; no
-   library call computes either.
+   library call computes either.  K5's backward also at a head count
+   that is not a multiple of its head group (H=6) and at one chunk
+   (T=20), and timed against a second bound, its products on TF32 tensor
+   cores with the three-term split (a third of the TF32 peak) and the
+   rest at the fp32 peak; the device split is its two kernels, the
+   boundary scans and the chunk-parallel kernel.
+   K2/K3 taking P as bf16 hi + lo parts, what it costs: K2 and K3 at the
+   yi-9b tick and at 32k keys, on the bf16 and the e4m3 cache, each
+   timed in turns (after, before, before, after) against the yardstick
+   library that rounds P to bf16.
 4. ensemble path: ``build_app(["yi-9b", "yi-9b"], full=True, max_len=1024,
    num_slots=8)`` — two members at full width and depth with random
    weights from a seed, and a generate plane over member 0's params —
@@ -1813,6 +1826,142 @@ def paged_e4m3_cases(failures):
     torch.cuda.empty_cache()
     return {"cases": results, "timed": {"tick": tick, "long_cache": long}}
 
+# --- phase 3: K2/K3 with P as bf16 hi + lo parts, before and after --------
+
+# decode_attention.cu's P V as it was before the kernels took P as bf16 hi
+# + lo parts: P rounded to bf16, one product a tile
+P_SPLIT_NOW = """    uint32_t ph[4], pl[4];
+    pack_bf16_split(s[0][0], s[0][1], ph[0], pl[0]);
+    pack_bf16_split(s[0][2], s[0][3], ph[1], pl[1]);
+    pack_bf16_split(s[1][0], s[1][1], ph[2], pl[2]);
+    pack_bf16_split(s[1][2], s[1][3], ph[3], pl[3]);
+#pragma unroll
+    for (int d = 0; d < NT_O; d += 2) {
+      // matrices: (keys 0-7, dims 8d), (keys 8-15, dims 8d), (.., 8d+8)
+      uint32_t bf[4];
+      ldsm_x4_trans(bf, vs + ((mi & 1) * 8 + (lane & 7)) * LDS +
+                            (d + (mi >> 1)) * 8);
+      mma_bf16(acc[d], pl, bf[0], bf[1]);
+      mma_bf16(acc[d + 1], pl, bf[2], bf[3]);
+      mma_bf16(acc[d], ph, bf[0], bf[1]);
+      mma_bf16(acc[d + 1], ph, bf[2], bf[3]);
+    }"""
+P_SPLIT_BEFORE = """    uint32_t pf[4];
+    pf[0] = pack_bf16(s[0][0], s[0][1]);
+    pf[1] = pack_bf16(s[0][2], s[0][3]);
+    pf[2] = pack_bf16(s[1][0], s[1][1]);
+    pf[3] = pack_bf16(s[1][2], s[1][3]);
+#pragma unroll
+    for (int d = 0; d < NT_O; d += 2) {
+      // matrices: (keys 0-7, dims 8d), (keys 8-15, dims 8d), (.., 8d+8)
+      uint32_t bf[4];
+      ldsm_x4_trans(bf, vs + ((mi & 1) * 8 + (lane & 7)) * LDS +
+                            (d + (mi >> 1)) * 8);
+      mma_bf16(acc[d], pf, bf[0], bf[1]);
+      mma_bf16(acc[d + 1], pf, bf[2], bf[3]);
+    }"""
+
+
+def bf16_p_library():
+    """K2/K3's library with P rounded to bf16 for P V (the kernels before
+    they took P as hi + lo parts), written from the checkout's source
+    under build/variants and built beside the real one: a yardstick that
+    only ``p_split_phase`` loads."""
+    from repro_torch.kernels import common
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    src = da_ops.SOURCE.read_text()
+    if src.count(P_SPLIT_NOW) != 1:
+        raise RuntimeError("bf16_p_library: the P V block is not in "
+                           f"{da_ops.SOURCE} once")
+    path = ROOT / "build" / "variants" / "decode_attention_bf16p.cu"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(src.replace(P_SPLIT_NOW, P_SPLIT_BEFORE))
+    lib = common.load_library("decode_attention_bf16p", [path])
+    real = da_ops.build()
+    for fn in ("decode_attention_fwd", "paged_decode_attention_fwd"):
+        getattr(lib, fn).argtypes = getattr(real, fn).argtypes
+        getattr(lib, fn).restype = getattr(real, fn).restype
+    return lib
+
+
+def p_split_phase(failures, kernels):
+    """K2 and K3 at the yi-9b tick and at 32k keys, bf16 and e4m3 caches:
+    the kernels (P as bf16 hi + lo parts) timed in turns against the
+    yardstick that rounds P to bf16 (after, before, before, after; CUDA
+    events, and the device time from torch.profiler, which at the tick is
+    a tenth of the event time), and the two outputs' largest
+    difference.  The results go into K2's
+    and K3's kernels-line entries under ``p_split``."""
+    import torch
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      paged_decode_attention)
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    before_lib = bf16_p_library()
+    real_build = da_ops.build
+    yi = (32, 4, 128)
+
+    def timed(fn):
+        runs, dev = {}, {}
+        for name, lib in (("after", None), ("before", before_lib),
+                          ("before_again", before_lib), ("after_again", None)):
+            da_ops.build = real_build if lib is None else (lambda: lib)
+            try:
+                runs[name] = cuda_time_ms(fn)
+                dev[name] = profiled_ms(fn, K2_KERNELS)
+                if name == "before":
+                    old = fn()
+            finally:
+                da_ops.build = real_build
+        new = fn()
+        torch.cuda.synchronize()
+        after = min(runs["after"], runs["after_again"])
+        before = min(runs["before"], runs["before_again"])
+        dev_after = min(dev["after"], dev["after_again"])
+        dev_before = min(dev["before"], dev["before_again"])
+        return {"ms": after, "bf16_p_ms": before, "device_ms": dev_after,
+                "bf16_p_device_ms": dev_before,
+                "device_ratio": dev_after / dev_before, "runs": runs,
+                "device_runs": dev,
+                "max_abs_diff": float((new.float() - old.float()).abs().max())}
+
+    out = {"decode_attention": {}, "paged_decode_attention": {}}
+    for shape, Smax, MP, lens in (("tick", 1024, 64, "ragged"),
+                                  ("32k keys", 32768, 2048, "full")):
+        dense = decode_case(shape, 8, Smax, *yi, "bfloat16", lengths=lens)
+        paged = paged_case(shape, 8, MP, 16, *yi, "bfloat16",
+                           lengths="tick" if lens == "ragged" else lens,
+                           share=lens == "ragged")
+        for cache, dc, pc in (("bf16", dense, paged),
+                              ("e4m3", e4m3_copy(dense), e4m3_copy(paged))):
+            key = f"{shape} {cache}"
+            out["decode_attention"][key] = timed(
+                lambda: decode_attention(dc["q"], dc["k"], dc["v"],
+                                         dc["lengths"]))
+            out["paged_decode_attention"][key] = timed(
+                lambda: paged_decode_attention(pc["q"], pc["k"], pc["v"],
+                                               pc["table"], pc["lengths"]))
+            for name in out:
+                t = out[name][key]
+                log(f"[kernels] {name} at {key}, P as bf16 hi + lo parts: "
+                    f"device {t['device_ms']:.4f} ms (event {t['ms']:.4f}); "
+                    f"P in bf16 (before): device {t['bf16_p_device_ms']:.4f} "
+                    f"ms (event {t['bf16_p_ms']:.4f}); device ratio "
+                    f"{t['device_ratio']:.3f} (device runs "
+                    + ", ".join(f"{k} {v:.4f}"
+                                for k, v in t["device_runs"].items())
+                    + "; event runs "
+                    + ", ".join(f"{k} {v:.4f}" for k, v in t["runs"].items())
+                    + f"); outputs differ by at most {t['max_abs_diff']:.3e}")
+        del dense, paged
+        torch.cuda.empty_cache()
+    by_name = {k["name"]: k for k in kernels}
+    for name in out:
+        by_name[name]["p_split"] = out[name]
+        if not all(t["max_abs_diff"] > 0 for t in out[name].values()):
+            failures.append(f"{name}: the bf16-P yardstick gave the same "
+                            f"outputs as the kernel (not built as meant?)")
+
+
 # --- phase 3: K4 (WKV-6) and K5 (SSD) ------------------------------------------
 
 # fp32 in and out: tests/test_kernels.py's WKV and SSD tolerance (the SSD's
@@ -2278,6 +2427,19 @@ def ssd_bwd_flops(B, T, H, P, N, c=32):
     return B * nc * (2 * N * tri + H * per_head) + 2 * B * T * H * N + B * H
 
 
+def ssd_bwd_tc_ops(B, T, H, P, N, c=32):
+    """(product operations, other operations) of ``ssd_bwd_flops``'s count
+    for the tensor-core K5 backward: per (batch row, chunk) CB, per head
+    the two boundary scans' state products, Gc B, h0^T dy, Gc^T x and X,
+    and the products of dC, gx and dB over s <= t on tensor cores; the
+    rest (M, the scales, dl's terms, the sums) on the CUDA cores."""
+    nc = -(-T // c)
+    tri = c * (c + 1) // 2
+    products = (B * nc * 2 * N * tri
+                + B * H * nc * (10 * c * P * N + 4 * P * tri + 4 * N * tri))
+    return products, ssd_bwd_flops(B, T, H, P, N, c) - products
+
+
 def time_recurrent_bwd(fn, plain, ins, names, nbytes, flops, shape):
     """One backward's kernel ms (CUDA events), device ms (torch.profiler,
     split between the states pass and the adjoint kernel), the plain
@@ -2368,12 +2530,14 @@ def ssd_bwd_kernel_phase(failures):
     """Phase 3, K5's backward (``ssd_bwd``) against ``ssd_bwd_plain``:
     zamba2's training shape (zero h0, no state cotangent, as training calls
     it) also against autograd of the plain forward, an unaligned T with a
-    nonzero h0 and dhT, P=32 N=16, strong decay, Bm rows 66 floats apart;
-    timed at the training shape."""
+    nonzero h0 and dhT, P=32 N=16, strong decay, Bm rows 66 floats apart,
+    H=6 (a partial head group) and one chunk; timed at the training shape
+    against the fp32 and the tensor-core bound."""
     import torch
     from repro_torch.kernels.mamba2_ssd import (ssd_bwd, ssd_bwd_plain,
                                                 ssd_plain)
-    from repro_torch.kernels.mamba2_ssd.ops import BWD_KERNEL_NAMES
+    from repro_torch.kernels.mamba2_ssd.ops import (BWD_KERNEL_NAMES,
+                                                    HEAD_GROUP)
 
     def inputs(B, T, H, P, N, *, h0_scale=0.3, dhT=True, seed=0,
                a_shift=0.0):
@@ -2400,6 +2564,10 @@ def ssd_bwd_kernel_phase(failures):
     ins = inputs(2, 100, 8, 64, 64, seed=4)
     ins[3] = torch.nn.functional.pad(ins[3], (0, 2))[..., :64]
     results.append(case("Bm rows 66 floats apart", ins))
+    results.append(case(f"H=6, a head group of 6 of {HEAD_GROUP}",
+                        inputs(2, 150, 6, 64, 64, seed=5)))
+    results.append(case("one chunk (T=20), H=11", inputs(3, 20, 11, 64, 64,
+                                                          seed=6)))
     # the bytes: x, dt, Bm, Cm, dy, A read once; dx, ddt, dBm, dCm, dA and
     # dh0 written once (zero h0 read, no dhT in training)
     nbytes = 4 * (3 * B * T * H * P + 2 * B * T * H + 4 * B * T * N + 2 * H
@@ -2408,7 +2576,15 @@ def ssd_bwd_kernel_phase(failures):
                            BWD_KERNEL_NAMES, nbytes,
                            ssd_bwd_flops(B, T, H, P, N),
                            f"B={B} T={T} H={H} P={P} N={N} fp32")
+    products, other = ssd_bwd_tc_ops(B, T, H, P, N)
+    tc, tc_by = tc_bound(nbytes, products, other)
+    t.update(bound_tf32x3_ms=tc, bound_tf32x3_by=tc_by, tc_products=products,
+             tc_other=other)
     log_bwd_timed("ssd_bwd", t)
+    log(f"[kernels] ssd_bwd tensor-core bound {tc:.4f} ms ({tc_by}: "
+        f"{products} operations in products at 495/3 TFLOP/s, {other} "
+        f"others at 67); kernel {t['ms'] / tc:.2f}x it, "
+        f"{t['ms'] / t['bound_ms']:.2f}x the fp32 bound")
     if not all(v > 0 for v in t["device_split_ms"].values()):
         failures.append(f"ssd_bwd: a profiled device time of "
                         f"{BWD_KERNEL_NAMES} reads 0: {t['device_split_ms']}")
@@ -7443,7 +7619,8 @@ def main(argv=None) -> int:
     from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
     t0 = time.perf_counter()
     builds = (fa_ops.build, fa_ops.build_bwd, da_ops.build, wkv_ops.build,
-              ssd_ops.build, wkv_ops.build_bwd, ssd_ops.build_bwd)
+              ssd_ops.build, wkv_ops.build_bwd, ssd_ops.build_bwd,
+              bf16_p_library)
     with concurrent.futures.ThreadPoolExecutor(len(builds)) as ex:
         for fut in [ex.submit(b) for b in builds]:    # one nvcc each
             fut.result()
@@ -7465,13 +7642,14 @@ def main(argv=None) -> int:
 
     failures = []
     # the products: wgmma in K1 and its backward; mma.sync in K2/K3 (bf16),
-    # K4 and K5 (TF32); K4's and K5's backward are CUDA-core fp32 (none)
+    # K4, K5 and K5's backward (TF32); K4's backward is CUDA-core fp32
+    # (none)
     sass, spills = {}, {}
     for name, op in (("flash_attention", "HGMMA"),
                      ("flash_attention_bwd", "HGMMA"),
                      ("decode_attention", "HMMA"), ("rwkv6_wkv", "HMMA"),
                      ("mamba2_ssd", "HMMA"), ("rwkv6_wkv_bwd", None),
-                     ("mamba2_ssd_bwd", None)):
+                     ("mamba2_ssd_bwd", "HMMA")):
         sass[name] = sass_counts(str(common.build_log[name]["library"]))
         spills[name] = ptxas_spills(str(common.build_log[name]["ptxas"]))
         log(f"[build] {name} SASS tensor-core instructions: "
@@ -7479,6 +7657,9 @@ def main(argv=None) -> int:
             f"its kernels: {spills[name]}")
         if op and sass[name] and not sass[name][op]:
             failures.append(f"{name}: no {op} in its SASS")
+    if any(spills["mamba2_ssd_bwd"].values()):
+        failures.append(f"mamba2_ssd_bwd: ptxas spills "
+                        f"{spills['mamba2_ssd_bwd']}")
     # ptxas serialises a wgmma whose registers it cannot keep in flight: a
     # design failure in K1's backward (its CUDA-core kernels have no wgmma,
     # so any such line is from a tensor-core instantiation)
@@ -7504,6 +7685,8 @@ def main(argv=None) -> int:
     lap("phase 3, K2")
     kernels += paged_decode_kernel_phase(failures)
     lap("phase 3, K3")
+    p_split_phase(failures, kernels)
+    lap("phase 3, K2/K3 with P as hi + lo parts against P in bf16")
     kernels += wkv_kernel_phase(failures) + ssd_kernel_phase(failures)
     lap("phase 3, K4 and K5")
     kernels.append(bwd_kernel_phase(failures))

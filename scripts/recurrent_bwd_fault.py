@@ -2,17 +2,19 @@
 ``chip_smoke.py``'s checks see each one.  Needs a CUDA card (Hopper) and
 nvcc.
 
-Four faults, one at a time, each in a scratch copy of ``src/repro_torch``:
+Five faults, one at a time, each in a scratch copy of ``src/repro_torch``:
   * ``wkv_bonus_dk`` (``rwkv6_wkv_bwd.cu``): the u bonus dropped from dk
     (dk = dk' alone);
   * ``wkv_dlogw_anchor`` (``rwkv6_wkv_bwd.cu``): dlogw's anchor dropped,
     the chunk's end state against the adjoint from the later chunks (at
     the last chunk sum_m S_T dsT): dlogw keeps only the reverse sums;
-  * ``ssd_carry`` (``mamba2_ssd_bwd.cu``): the adjoint carried across a
-    chunk boundary without the chunk's decay (Gc <- Gc + ... in place of
-    exp(L_c) Gc + ...);
+  * ``ssd_carry`` (``mamba2_ssd_bwd.cu``): the adjoint's boundary scan
+    carries it across a chunk boundary without the chunk's decay (Gc <-
+    Gc + ... in place of exp(L_c) Gc + ...);
   * ``ssd_dl_cross`` (``mamba2_ssd_bwd.cu``): dl's cross term (the
-    chunk's inputs s < t against its own dy C^T at tau >= t) dropped.
+    chunk's inputs s < t against its own dy C^T at tau >= t) dropped;
+  * ``ssd_group_head`` (``mamba2_ssd_bwd.cu``): the second head of every
+    head group dropped from the group's sum of dB.
 For each (and for the unmutated copy, the control), a subprocess builds
 the copy's kernels and runs chip_smoke's phase 3 backward cases of the
 mutated kernel (``wkv_bwd_kernel_phase`` or ``ssd_bwd_kernel_phase``) and
@@ -47,10 +49,14 @@ SSD = Path("repro_torch/kernels/mamba2_ssd/csrc/mamba2_ssd_bwd.cu")
 FAULTS = {
     "wkv_bonus_dk": (WKV, "dk[o] = dkp + rt * u_s[n] * vdy;", "dk[o] = dkp;"),
     "wkv_dlogw_anchor": (WKV, "float acc = q_s[n];", "float acc = 0.f;"),
-    "ssd_carry": (SSD, "float acc = expf(Lc) * G_s[p * LN + n];",
-                  "float acc = G_s[p * LN + n];"),
-    "ssd_dl_cross": (SSD, "const float dl = base + suf + pre + rect_s[tt];",
-                     "const float dl = base + suf + pre;"),
+    "ssd_carry": (SSD, "const float carry = __expf(fminf(Lc, 0.f));",
+                  "const float carry = fwd ? __expf(fminf(Lc, 0.f)) : 1.f;"),
+    "ssd_dl_cross": (SSD, "const float dl = base + esuf + fpre + rect;",
+                     "const float dl = base + esuf + fpre;"),
+    "ssd_group_head": (SSD,
+                       "dB_acc[j2][i] += dB_h[j2][i] + dB_e[j2][i];",
+                       "dB_acc[j2][i] += hi == 1 ? 0.f : "
+                       "dB_h[j2][i] + dB_e[j2][i];"),
 }
 FAMILY = {WKV: "rwkv6-1.6b", SSD: "zamba2-2.7b"}
 

@@ -589,6 +589,7 @@ class ContinuousBatchingScheduler:
         self.decode_device_ms_total += 1e3 * device_s
         now = time.perf_counter()
         free_later: List[int] = []
+        done_later: List[Tuple[Request, int]] = []
         for b, req in enumerate(self.slots):
             if req is None:
                 continue
@@ -619,7 +620,7 @@ class ContinuousBatchingScheduler:
                     self._finish(req, reason, now)
                     finished.append(req)
                     free_later.append(b)
-                    self._notify(req, t)
+                    done_later.append((req, t))
                     break
                 self._notify(req, t)
             if reason is None:
@@ -653,6 +654,11 @@ class ContinuousBatchingScheduler:
         self.decode_host_ms_total += host_ms
         for b in free_later:
             self._free_slot(b)
+        # a finished request's last token reaches its sink only after its
+        # slot's flush has put the decode counters on its trace, so a
+        # caller that reads the trace as the stream ends finds them
+        for req, t in done_later:
+            self._notify(req, t)
         return finished
 
     def run(self, max_steps: int = 10_000) -> List[Request]:

@@ -16,10 +16,14 @@
 // h / G), online softmax over the row's lengths[b] valid keys (clamped to
 // Smax, which is MP * ps for the paged pool), optionally only keys with
 // kpos > lengths[b] - 1 - window.  Scores are scaled by 1/sqrt(head_dim); m,
-// l and the accumulator are fp32.  The tensor-core kernel rounds the
-// unnormalised P to bf16 for P.V (the plain versions round the normalised
-// P to the cache dtype); the CUDA-core kernel keeps P fp32, as the TPU
-// kernels do.  A row with no valid key produces zeros.
+// l and the accumulator are fp32.  Both kernels keep P at fp32 precision,
+// as the TPU kernels do (kernel.py:59-63 and :150-154, an f32 dot_general):
+// the CUDA-core kernel multiplies fp32 P by V; the tensor-core kernel takes
+// the unnormalised P as a bf16 hi part and a bf16 lo part (P - hi), two
+// products a tile (pack_bf16_split, as K1's P V), which comes within about
+// 2^-16 of fp32 P where hi alone would round every p to 8 bits.  (The plain
+// versions round the normalised P to the cache dtype.)  A row with no valid
+// key produces zeros.
 //
 // Layout: q (B,H,hd) and o (B,H,hd) through (batch, head) element strides.
 // K2's cache layer k/v (B,Smax,K,hd) is read through (batch, position,
@@ -427,8 +431,9 @@ decode_split_kernel(const TQ* __restrict__ q, KV kv,
 // ...) through a private ring of kTcStages shared-memory stages filled by
 // 16-byte cp.async, so every warp keeps kTcStages - 1 tiles in flight while
 // it computes one.  Per tile: S = Q K^T (K by ldmatrix), the online softmax
-// in the exp2 domain across the four lanes of a quad, P rounded to bf16 as
-// the A operand of O += P V (V by ldmatrix.trans).  The warps' (m, l, acc)
+// in the exp2 domain across the four lanes of a quad, P split into bf16 hi
+// and lo parts as the A operands of O += P_hi V + P_lo V (V by
+// ldmatrix.trans).  The warps' (m, l, acc)
 // are merged through shared memory at the end.  Keys of a tile outside the
 // split's [begin, end) load the nearest row inside it (so K3 stays on its
 // staged pages) and are masked.  With an e4m3 cache the ring holds e4m3
@@ -476,6 +481,17 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// (a, b) as bf16 hi parts and the rest (a - hi, b - hi) as bf16 lo parts:
+// P V taken as hi V + lo V keeps P to about 2^-16 of its fp32 value
+__device__ __forceinline__ void pack_bf16_split(float a, float b,
+                                                uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const __nv_bfloat162 r =
+      __floats2bfloat162_rn(a - __low2float(h), b - __high2float(h));
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&r);
 }
 
 // Two e4m3 values (low byte first) as a bf16x2 word (low half first):
@@ -715,20 +731,23 @@ decode_split_mma_kernel(const __nv_bfloat16* __restrict__ q, KV kv,
       acc[d][3] *= alpha[1];
     }
 
-    // O += P V: P (16 heads x 16 keys) as one A fragment
-    uint32_t pf[4];
-    pf[0] = pack_bf16(s[0][0], s[0][1]);
-    pf[1] = pack_bf16(s[0][2], s[0][3]);
-    pf[2] = pack_bf16(s[1][0], s[1][1]);
-    pf[3] = pack_bf16(s[1][2], s[1][3]);
+    // O += P V: P (16 heads x 16 keys) as two A fragments, its bf16 hi
+    // and lo parts (the lo product first: the smaller terms join first)
+    uint32_t ph[4], pl[4];
+    pack_bf16_split(s[0][0], s[0][1], ph[0], pl[0]);
+    pack_bf16_split(s[0][2], s[0][3], ph[1], pl[1]);
+    pack_bf16_split(s[1][0], s[1][1], ph[2], pl[2]);
+    pack_bf16_split(s[1][2], s[1][3], ph[3], pl[3]);
 #pragma unroll
     for (int d = 0; d < NT_O; d += 2) {
       // matrices: (keys 0-7, dims 8d), (keys 8-15, dims 8d), (.., 8d+8)
       uint32_t bf[4];
       ldsm_x4_trans(bf, vs + ((mi & 1) * 8 + (lane & 7)) * LDS +
                             (d + (mi >> 1)) * 8);
-      mma_bf16(acc[d], pf, bf[0], bf[1]);
-      mma_bf16(acc[d + 1], pf, bf[2], bf[3]);
+      mma_bf16(acc[d], pl, bf[0], bf[1]);
+      mma_bf16(acc[d + 1], pl, bf[2], bf[3]);
+      mma_bf16(acc[d], ph, bf[0], bf[1]);
+      mma_bf16(acc[d + 1], ph, bf[2], bf[3]);
     }
     __syncwarp();                      // stage and staging refill next
   }

@@ -16,9 +16,10 @@ CUDA-core kernel (``ssd_fwd``).
 Where autograd needs a gradient (grad mode on and some CUDA input
 requiring one), the call goes through ``SsdFn``: the forward launch as
 above, and a backward of two kernels in ``csrc/mamba2_ssd_bwd.cu``
-(``ssd_bwd``): one that rebuilds the state at every chunk's start, and one
-that runs the adjoint backward over the chunks.  CPU tensors take
-``ref.ssd_bwd_plain``."""
+(``ssd_bwd``): one that runs the two chunk-boundary scans (the state at
+every chunk's start, the adjoint at every chunk's end), and one that takes
+every chunk's terms in parallel, a block per (chunk, group of HEAD_GROUP
+heads, batch row).  CPU tensors take ``ref.ssd_bwd_plain``."""
 
 from __future__ import annotations
 
@@ -35,16 +36,18 @@ from repro_torch.kernels.mamba2_ssd.ref import CHUNK, ssd_bwd_plain, ssd_plain
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCE = CSRC / "mamba2_ssd.cu"
 BWD_SOURCE = CSRC / "mamba2_ssd_bwd.cu"
+HEADERS = (CSRC / "ssd_mma.cuh",)   # included by both sources
 MAX_DIM = 64        # kMaxP and kMaxN in the sources
 TC_DIM = 64         # kDim: P and N of the tensor-core kernel
 # the device kernels a call may launch (torch.profiler names)
 KERNEL_NAMES = ("ssd_kernel", "ssd_gram_kernel", "ssd_tc_kernel")
-BWD_KERNEL_NAMES = ("ssd_states_kernel", "ssd_bwd_kernel")
+BWD_KERNEL_NAMES = ("ssd_bwd_scan_kernel", "ssd_bwd_chunk_kernel")
+HEAD_GROUP = 8      # kGroup: heads per block of the backward's chunk kernel
 
 
 def build() -> ctypes.CDLL:
     """Compile (once per process, cached on disk) and bind the kernels."""
-    lib = load_library("mamba2_ssd", [SOURCE])
+    lib = load_library("mamba2_ssd", [SOURCE], HEADERS)
     lib.ssd_fwd.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
                             + [ctypes.c_longlong] * 13 + [ctypes.c_void_p])
     lib.ssd_tc_fwd.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 3
@@ -57,9 +60,10 @@ def build() -> ctypes.CDLL:
 def build_bwd() -> ctypes.CDLL:
     """Compile and bind the backward kernels (a library of their own, so
     the two sources build in parallel)."""
-    lib = load_library("mamba2_ssd_bwd", [BWD_SOURCE])
+    lib = load_library("mamba2_ssd_bwd", [BWD_SOURCE], HEADERS)
     lib.ssd_bwd.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 5
-                            + [ctypes.c_longlong] * 13 + [ctypes.c_void_p])
+                            + [ctypes.c_longlong] * 13 + [ctypes.c_int]
+                            + [ctypes.c_void_p])
     lib.ssd_bwd.restype = ctypes.c_int
     return lib
 
@@ -159,24 +163,32 @@ def ssd_bwd(x, dt, A, Bm, Cm, h0, dy, dhT=None):
     h0 = h0.float().contiguous()
     dhT = None if dhT is None else dhT.float().contiguous()
     f32 = dict(dtype=torch.float32, device=dev)
-    states = torch.empty((B, H, cdiv(T, CHUNK) + 1, P, N), **f32)
+    nc = cdiv(T, CHUNK)
+    # the state at every chunk's start and the adjoint at every chunk's
+    # end (entry 0: dh0), each (B, H, nc + 1, P, N)
+    states, adj = (torch.empty((B, H, nc + 1, P, N), **f32)
+                   for _ in range(2))
     dx = torch.empty((B, T, H, P), **f32)
     ddt = torch.empty((B, T, H), **f32)
-    dA_part = torch.empty((B, H), **f32)
-    dB_part, dC_part = (torch.empty((B, T, H, N), **f32) for _ in range(2))
-    dh0 = torch.empty((B, H, P, N), **f32)
+    dA_part = torch.empty((B, nc, H), **f32)
+    groups = cdiv(H, HEAD_GROUP)
+    dB_part, dC_part = (torch.empty((B, T, groups, N), **f32)
+                        for _ in range(2))
+    vec = (P % 4 == 0 and N % 4 == 0
+           and all(rows_aligned16(t) for t in (x, dy, Bm, Cm)))
     lib = build_bwd()
     status = lib.ssd_bwd(
-        *(data_ptr(t) for t in (x, dt, A, Bm, Cm, h0, dy, dhT, states, dx,
-                                ddt, dA_part, dB_part, dC_part, dh0)),
+        *(data_ptr(t) for t in (x, dt, A, Bm, Cm, h0, dy, dhT, states, adj,
+                                dx, ddt, dA_part, dB_part, dC_part)),
         B, T, H, P, N, *x.stride()[:3], *dt.stride(), Bm.stride(0),
         Bm.stride(1), Cm.stride(0), Cm.stride(1), *dy.stride()[:3],
-        stream_ptr(dev))
+        int(vec), stream_ptr(dev))
     check_cuda_status(status, "ssd_bwd")
     ssd_bwd.launches += 1
-    # the heads' dB and dC rows and the batch rows' dA, summed in a fixed
-    # order (every head of a row shares its B and C)
-    return dx, ddt, dA_part.sum(0), dB_part.sum(2), dC_part.sum(2), dh0
+    # the head groups' dB and dC rows and the (b, chunk) partials of dA,
+    # summed in a fixed order (every head of a row shares its B and C)
+    return (dx, ddt, dA_part.sum((0, 1)), dB_part.sum(2), dC_part.sum(2),
+            adj[:, :, 0].clone())
 
 
 ssd_bwd.launches = 0

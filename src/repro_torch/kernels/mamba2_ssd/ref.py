@@ -13,8 +13,10 @@ exp(L_t - L_s)`` for s <= t (argument <= 0), and the carried state is
 literal step-by-step recurrence (the oracle of
 ``repro/kernels/mamba2_ssd/ref.py``).
 
-``ssd_bwd_plain`` is the backward kernel's formula written out chunk by
-chunk (the gradients of every input given dy and dhT); only the tests and
+``ssd_bwd_plain`` is the backward kernels' formula written out in their
+factoring (the gradients of every input given dy and dhT): the states and
+the adjoints at the chunk boundaries by two scans (``chunk_states``,
+``chunk_adjoints``), then every chunk's terms at once; only the tests and
 ``chip_smoke.py`` call it (on the CPU, autograd differentiates
 ``ssd_plain``).
 """
@@ -96,23 +98,45 @@ def chunk_states(x, dt, A, Bm, h0):
     return torch.stack(states, dim=2)
 
 
+def chunk_adjoints(dy, dt, A, Cm, dhT):
+    """The adjoint of the state at the start of every chunk and at the
+    end: (B, H, nc + 1, P, N) float32, entry nc dhT and entry j the
+    adjoint of chunk j's start state, G_j = exp(L_c) G_{j+1} + (dy o
+    exp(L))^T C over chunk j (entry 0 is dh0); dy/dt/Cm (B,Tp,...) already
+    padded, dhT (B,H,P,N) float32."""
+    c = CHUNK
+    G = dhT
+    adj = [G]
+    for j in reversed(range(dy.shape[1] // c)):
+        sl = slice(j * c, (j + 1) * c)
+        L = torch.cumsum(dt[:, sl] * A, dim=1)            # (B,c,H)
+        G = (torch.exp(L[:, -1])[..., None, None] * G
+             + torch.einsum("bthp,btn->bhpn",
+                            dy[:, sl] * torch.exp(L)[..., None], Cm[:, sl]))
+        adj.append(G)
+    return torch.stack(adj[::-1], dim=2)
+
+
 def ssd_bwd_plain(x, dt, A, Bm, Cm, h0, dy, dhT=None):
     """The gradients (dx (B,T,H,P), ddt (B,T,H), dA (H,), dBm, dCm
     (B,T,N), dh0 (B,H,P,N)) of ``ssd_plain``'s (y, h_T) at these inputs,
     given dy (B,T,H,P) and dhT (B,H,P,N) (None: zero), all float32.
 
-    The adjoint of the state runs backward, G_t = dy_t C_t^T + exp(l_{t+1})
-    G_{t+1} with l = dt A, from dhT, a chunk at a time from the state at
-    each chunk's start (a forward sweep rebuilds them).  Inside a chunk,
-    with L the inclusive cumulative sum of l, M[t,s] = exp(L_t - L_s)
-    (s <= t), CB[t,s] = C_t . B_s, X[t,s] = dy_t . x_s and Gc the adjoint
-    arriving from the chunks after it:
-        dC_t (head h) = exp(L_t) h_start^T dy_t + sum_{s<=t} M X dt_s B_s
+    In the backward kernels' factoring: two scans over the chunk
+    boundaries, then every chunk's terms at once.  The scans give the
+    state at each chunk's start (``chunk_states``, the forward recurrence)
+    and the adjoint of the state at each chunk's end (``chunk_adjoints``,
+    G_t = dy_t C_t^T + exp(l_{t+1}) G_{t+1} with l = dt A, from dhT,
+    chunk by chunk).  Inside a chunk, with h0 its start state, Gc the
+    adjoint arriving at its end, L the inclusive cumulative sum of l,
+    M[t,s] = exp(L_t - L_s) (s <= t), CB[t,s] = C_t . B_s and X[t,s] =
+    dy_t . x_s:
+        dC_t (head h) = exp(L_t) h0^T dy_t + sum_{s<=t} M X dt_s B_s
         gx_s = exp(L_c - L_s) Gc B_s + sum_{t>=s} M CB dy_t,  dx_s = dt_s gx_s
         dB_s (head h) = dt_s (exp(L_c - L_s) Gc^T x_s + sum_{t>=s} M X C_t)
     dBm and dCm sum the heads.  The log decay's gradient dl_t = exp(l_t)
-    G_t . h_{t-1} needs no P x N product per step: expanded over the
-    chunk's start state h0 and its inputs, term by term,
+    G_t . h_{t-1} needs no P x N product per step: expanded over h0 and
+    the chunk's inputs, term by term,
         dl_t = exp(L_c) h0 . Gc + sum_{tau>=t} exp(L_tau) C_tau . (h0^T dy_tau)
                + sum_{s<t} exp(L_c - L_s) dt_s x_s . (Gc B_s)
                + sum_{s<t<=tau} M[tau,s] dt_s X[tau,s] CB[tau,s]
@@ -132,55 +156,51 @@ def ssd_bwd_plain(x, dt, A, Bm, Cm, h0, dy, dhT=None):
     dt = F.pad(dt.float(), (0, 0, 0, Tp - T))
     Bm, Cm = (F.pad(t.float(), (0, 0, 0, Tp - T)) for t in (Bm, Cm))
     A = A.float()
-    states = chunk_states(x, dt, A, Bm, h0)
-    G = (torch.zeros((Bt, H, P, N), dtype=torch.float32, device=x.device)
-         if dhT is None else dhT.float())
+    h0 = h0.float()
+    dhT = torch.zeros_like(h0) if dhT is None else dhT.float()
+    # the two boundary scans, then (B, nc, ...) views of every chunk
+    starts = chunk_states(x, dt, A, Bm, h0)[:, :, :nc].transpose(1, 2)
+    adj = chunk_adjoints(dy, dt, A, Cm, dhT)
+    Gc = adj[:, :, 1:].transpose(1, 2)                   # (B,nc,H,P,N)
+    x_, dy_ = (t.reshape(Bt, nc, c, H, P) for t in (x, dy))
+    dt_ = dt.reshape(Bt, nc, c, H)
+    B_, C_ = (t.reshape(Bt, nc, c, N) for t in (Bm, Cm))
     tril = torch.ones((c, c), dtype=torch.bool, device=x.device).tril()
-    strict = tril.tril(-1)[None, :, :, None]              # s < t
-    tril = tril[None, :, :, None]                         # s <= t
-    dA = torch.zeros_like(A)
-    dx = torch.empty_like(x)
-    ddt = torch.empty_like(dt)
-    dB, dC = torch.empty_like(Bm), torch.empty_like(Cm)
-    for j in reversed(range(nc)):
-        sl = slice(j * c, (j + 1) * c)
-        x_, dt_, B_, C_, dy_ = x[:, sl], dt[:, sl], Bm[:, sl], Cm[:, sl], dy[:, sl]
-        L = torch.cumsum(dt_ * A, dim=1)                  # (B,c,H)
-        Lc = L[:, -1]
-        M = torch.exp(torch.where(tril, L[:, :, None] - L[:, None, :],
-                                  float("-inf")))          # (B,t,s,H)
-        CB = torch.einsum("btn,bsn->bts", C_, B_)
-        X = torch.einsum("bthp,bshp->btsh", dy_, x_)
-        MX = M * X
-        back = torch.exp(Lc[:, None] - L)                 # (B,c,H)
-        hdy = torch.einsum("bthp,bhpn->bthn", dy_, states[:, :, j])
-        Gb = torch.einsum("bhpn,bsn->bshp", G, B_)
-        dCh = (torch.exp(L)[..., None] * hdy
-               + torch.einsum("btsh,bsh,bsn->bthn", MX, dt_, B_))
-        gx = (back[..., None] * Gb
-              + torch.einsum("btsh,bts,bthp->bshp", M, CB, dy_))
-        dBh = dt_[..., None] * (
-            back[..., None] * torch.einsum("bhpn,bshp->bshn", G, x_)
-            + torch.einsum("btsh,btn->bshn", MX, C_))
-        dx[:, sl] = dt_[..., None] * gx
-        xg = (x_ * gx).sum(-1)                            # (B,c,H)
-        # dl_t = exp(l_t) G_t . h_{t-1}, term by term: the chunk's start
-        # state against the adjoint from later chunks, the start state
-        # against this chunk's dy C^T, this chunk's inputs against the later
-        # adjoint, and its inputs s < t against its dy C^T at tau >= t
-        E = torch.exp(L) * (C_[:, :, None] * hdy).sum(-1)          # (B,c,H)
-        Fs = back * dt_ * (x_ * Gb).sum(-1)
-        Y = torch.where(strict, MX * CB[..., None] * dt_[:, None], 0.0)
-        col = Y.flip(1).cumsum(1).flip(1)          # (B,t,s,H): tau >= t
-        rect = torch.where(strict, col, 0.0).sum(2)
-        dl = (torch.exp(Lc)[:, None]
-              * (states[:, :, j] * G).sum((-1, -2))[:, None]
-              + E.flip(1).cumsum(1).flip(1)
-              + F.pad(Fs.cumsum(1)[:, :-1], (0, 0, 1, 0)) + rect)
-        ddt[:, sl] = A * dl + xg
-        dA += (dt_ * dl).sum((0, 1))
-        dB[:, sl], dC[:, sl] = dBh.sum(2), dCh.sum(2)
-        G = (torch.exp(Lc)[..., None, None] * G
-             + torch.einsum("bthp,btn->bhpn", dy_ * torch.exp(L)[..., None],
-                            C_))
-    return dx[:, :T], ddt[:, :T], dA, dB[:, :T], dC[:, :T], G
+    strict = tril.tril(-1)[:, :, None]                   # s < t
+    tril = tril[:, :, None]                              # s <= t
+    L = torch.cumsum(dt_ * A, dim=2)                     # (B,nc,c,H)
+    Lc = L[:, :, -1]                                     # (B,nc,H)
+    M = torch.exp(torch.where(tril, L[:, :, :, None] - L[:, :, None, :],
+                              float("-inf")))            # (B,nc,t,s,H)
+    CB = torch.einsum("bjtn,bjsn->bjts", C_, B_)
+    MX = M * torch.einsum("bjthp,bjshp->bjtsh", dy_, x_)
+    back = torch.exp(Lc[:, :, None] - L)                 # (B,nc,c,H)
+    hdy = torch.einsum("bjthp,bjhpn->bjthn", dy_, starts)
+    Gb = torch.einsum("bjhpn,bjsn->bjshp", Gc, B_)
+    dCh = (torch.exp(L)[..., None] * hdy
+           + torch.einsum("bjtsh,bjsh,bjsn->bjthn", MX, dt_, B_))
+    gx = (back[..., None] * Gb
+          + torch.einsum("bjtsh,bjts,bjthp->bjshp", M, CB, dy_))
+    dBh = dt_[..., None] * (
+        back[..., None] * torch.einsum("bjhpn,bjshp->bjshn", Gc, x_)
+        + torch.einsum("bjtsh,bjtn->bjshn", MX, C_))
+    dx = dt_[..., None] * gx
+    xg = (x_ * gx).sum(-1)                               # (B,nc,c,H)
+    # dl_t = exp(l_t) G_t . h_{t-1}, term by term: the chunk's start state
+    # against the adjoint from later chunks, the start state against this
+    # chunk's dy C^T, this chunk's inputs against the later adjoint, and
+    # its inputs s < t against its dy C^T at tau >= t (the rectangle: the
+    # column sums over tau >= t, then the row sum over s < t)
+    E = torch.exp(L) * (C_[:, :, :, None] * hdy).sum(-1)
+    Fs = back * dt_ * (x_ * Gb).sum(-1)
+    Y = torch.where(strict, MX * CB[..., None] * dt_[:, :, None], 0.0)
+    col = Y.flip(2).cumsum(2).flip(2)                    # tau >= t
+    rect = torch.where(strict, col, 0.0).sum(3)
+    dl = (torch.exp(Lc)[:, :, None] * (starts * Gc).sum((-1, -2))[:, :, None]
+          + E.flip(2).cumsum(2).flip(2)
+          + F.pad(Fs.cumsum(2)[:, :, :-1], (0, 0, 1, 0)) + rect)
+    ddt = A * dl + xg
+    dA = (dt_ * dl).sum((0, 1, 2))
+    return (dx.reshape(Bt, Tp, H, P)[:, :T], ddt.reshape(Bt, Tp, H)[:, :T],
+            dA, dBh.sum(3).reshape(Bt, Tp, N)[:, :T],
+            dCh.sum(3).reshape(Bt, Tp, N)[:, :T], adj[:, :, 0])

@@ -30,6 +30,18 @@ from repro_torch.params import from_jax, to_flat
 from repro_torch.training import checkpoint as ck
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's side on one intra-op thread: these reduced shapes gain
+    nothing from more, and under the suite's parallel workers every
+    worker's torch would start a thread per core (several times the run's
+    CPU time for the same results)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _leaves(seed=0):
     """bf16, fp32 and int32 leaves (numpy, the JAX package's dtypes),
     from a numpy generator."""

@@ -12,7 +12,11 @@ and a uniform average from the masked-softmax references.
 GPU cases (marker ``gpu``, skipped without a CUDA device): the Hopper
 kernel against the plain version on the card at the same tolerances; on
 an e4m3 cache (bf16 q) within 3e-2 of the plain version and bit for bit
-the kernel on the cache's bf16 copy.  They need no JAX.
+the kernel on the cache's bf16 copy; and P kept at fp32 precision, as the
+TPU kernel keeps it: on near-tied scores over values of mixed sign and
+magnitude, every output within one bf16 ulp of a float64 computation on
+the same bf16 (or e4m3) inputs, where P rounded to bf16 moves outputs by
+several.  They need no JAX.
 """
 
 import numpy as np
@@ -26,6 +30,19 @@ from repro_torch.kernels.decode_attention.ops import (heads_per_block,
                                                       split_plan,
                                                       tensor_core_path)
 from repro_torch.models import attention as tattn
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's side on one intra-op thread: these reduced shapes gain
+    nothing from more, and under the suite's parallel workers every
+    worker's torch would start a thread per core (several times the run's
+    CPU time for the same results)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 TOL32 = dict(rtol=2e-5, atol=2e-5)
 TOL16 = dict(rtol=3e-2, atol=3e-2)
@@ -322,3 +339,68 @@ def test_e4m3_kernel_reads_a_layer_view_and_strided_rows(cuda):
         assert torch.equal(got, copy) or not tc
         assert_allclose(got.float().cpu().numpy(),
                         want.float().cpu().numpy(), **TOL16)
+
+
+# --- P at fp32 precision ------------------------------------------------------
+
+
+def near_tie_case(seed, cache_dtype, device, B=2, H=8, K=1, hd=128,
+                  Smax=24):
+    """q, k, v, lengths where rounding P to bf16 shows: scores q.k/sqrt(hd)
+    a few hundredths apart (so every p lies in (0.9, 1], where bf16 keeps
+    8 bits), v of +-64 in balanced halves plus 0 or 8 (an output of a few
+    units from terms of 64: P's rounding error is amplified), every key
+    valid (two 16-key tiles).  Every value is exact in bf16 and in
+    e4m3."""
+    rng = np.random.default_rng(seed)
+    q = np.zeros((B, H, hd), np.float32)
+    q[..., 0] = rng.uniform(0.5, 2.0, (B, H))
+    q[..., 1] = rng.uniform(-1.0, 1.0, (B, H))
+    k = np.zeros((B, Smax, K, hd), np.float32)
+    k[..., :2] = rng.integers(-4, 5, (B, Smax, K, 2)) * 0.125
+    order = np.argsort(rng.random((B, Smax, K, hd)), axis=1)
+    v = (np.where(order % 2 == 0, 64.0, -64.0)
+         + 8.0 * (rng.random((B, Smax, K, hd)) < 0.5)).astype(np.float32)
+    q = torch.from_numpy(q).to(device, torch.bfloat16)
+    k, v = (torch.from_numpy(t).bfloat16() for t in (k, v))
+    if cache_dtype == "float8_e4m3fn":
+        k, v = (tattn.to_cache(t, torch.float8_e4m3fn) for t in (k, v))
+    lengths = torch.full((B,), Smax, dtype=torch.int32, device=device)
+    return q, k.to(device), v.to(device), lengths
+
+
+def decode_f64(q, k, v, lengths):
+    """One-token GQA softmax attention in float64 on the CPU."""
+    B, H, hd = q.shape
+    G = H // k.shape[2]
+    q, k, v = (t.cpu().double() for t in (q, k, v))
+    out = torch.zeros((B, H, hd), dtype=torch.float64)
+    for b in range(B):
+        n = int(lengths[b])
+        for h in range(H):
+            p = torch.softmax(k[b, :n, h // G] @ q[b, h] / hd ** 0.5, 0)
+            out[b, h] = p @ v[b, :n, h // G]
+    return out
+
+
+def bf16_ulps(got, want):
+    """|got - want| in units of one bf16 ulp at |want| (want float64)."""
+    ulp = torch.exp2(torch.floor(torch.log2(want.abs())) - 7)
+    return (got.cpu().double() - want).abs() / ulp
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+@pytest.mark.parametrize("cache_dtype", ["bfloat16", "float8_e4m3fn"])
+def test_p_keeps_fp32_precision_on_gpu(cuda, cache_dtype, seed):
+    """The tensor-core kernel takes P as bf16 hi + lo parts: every output
+    within one bf16 ulp of float64 on the same inputs (the final rounding
+    alone is half an ulp).  With P rounded to bf16 (the kernel before it
+    took hi + lo parts) the largest miss of a seed was 3.4 to 8.6 ulps on
+    an H100."""
+    q, k, v, lengths = near_tie_case(seed, cache_dtype, cuda)
+    assert tensor_core_path(q, k, v)
+    got = decode_attention(q, k, v, lengths)
+    torch.cuda.synchronize()
+    ulps = bf16_ulps(got, decode_f64(q, k, v, lengths))
+    assert float(ulps.max()) <= 1.0, float(ulps.max())

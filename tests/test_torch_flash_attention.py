@@ -20,6 +20,19 @@ from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain,
                                                  flash_attention_ref)
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's side on one intra-op thread: these reduced shapes gain
+    nothing from more, and under the suite's parallel workers every
+    worker's torch would start a thread per core (several times the run's
+    CPU time for the same results)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL32 = dict(rtol=2e-5, atol=2e-5)
 
 GRID = [(2, 128, 4, 2, 64), (1, 256, 8, 8, 128), (2, 96, 4, 1, 64),

@@ -28,6 +28,19 @@ from numpy.testing import assert_allclose
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's side on one intra-op thread: these reduced shapes gain
+    nothing from more, and under the suite's parallel workers every
+    worker's torch would start a thread per core (several times the run's
+    CPU time for the same results)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL32 = dict(rtol=2e-5, atol=2e-5)
 TOL16 = dict(rtol=3e-2, atol=3e-2)
 BLK = 8

@@ -24,6 +24,19 @@ from repro_torch.kernels.mamba2_ssd import ssd, ssd_plain, ssd_ref
 from repro_torch.kernels.mamba2_ssd.ops import tensor_core_path
 from repro_torch.models.mamba2 import mamba2_dims
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's side on one intra-op thread: these reduced shapes gain
+    nothing from more, and under the suite's parallel workers every
+    worker's torch would start a thread per core (several times the run's
+    CPU time for the same results)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = dict(rtol=1e-4, atol=1e-4)
 SHAPES = [(2, 64, 4, 32, 16, 16), (1, 128, 2, 64, 64, 32),
           (2, 100, 3, 16, 32, 64)]

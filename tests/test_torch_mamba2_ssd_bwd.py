@@ -4,8 +4,9 @@ package's.
 CPU cases: seeded numpy inputs and random cotangents for both outputs (y
 and h_T) through ``jax.vjp`` of ``repro.models.mamba2.ssd_chunked`` (the
 jnp path the JAX package trains through) and through the port: autograd
-of ``ssd_plain`` and ``ssd_bwd_plain`` (the backward kernel's formula
-written out chunk by chunk).  Tolerance: 1e-4 relative to each leaf's
+of ``ssd_plain`` and ``ssd_bwd_plain`` (the backward kernels' formula in
+their factoring: the states and adjoints at the chunk boundaries by two
+scans, then every chunk's terms at once).  Tolerance: 1e-4 relative to each leaf's
 largest entry (the sides cut the sequence into other chunks and sum in
 other orders).  A strong-decay case (A = -exp(normal + 3), as zamba2's
 heads decay by up to exp(-16 dt) a step) is held against autograd of the
@@ -16,9 +17,13 @@ that require a gradient) is shown on CPU tensors posing as CUDA ones, its
 launches swapped for the plain versions.
 
 GPU cases (marker ``gpu``, skipped without a CUDA device): the backward
-kernels against ``ssd_bwd_plain`` on the card at 1e-4 of each leaf's
-largest entry, bit for bit across two calls, and autograd on CUDA
-tensors through ``SsdFn``.  They need no JAX.
+kernels (the chunk-boundary scans, then the chunk-parallel kernel over
+groups of heads) against ``ssd_bwd_plain`` on the card at 1e-4 of each
+leaf's largest entry, bit for bit across two calls: zamba2's training
+shape, an unaligned T with a nonzero h0 and dhT, small and odd P and N,
+strong decay, head counts that are not a multiple of the group, a single
+chunk, Bm rows 66 floats apart; and autograd on CUDA tensors through
+``SsdFn``.  They need no JAX.
 """
 
 import numpy as np
@@ -208,6 +213,14 @@ def _on(dev, B, T, H, P, N, **kw):
     (2, 130, 8, 64, 64, 0.0, 0.0),   # an unaligned T, zero h0
     (3, 77, 4, 32, 16, 0.0, 0.3),    # small P, N
     (2, 200, 8, 64, 64, 3.0, 0.3),   # strong decay
+    (4, 2048, 80, 64, 64, 0.0, 0.3),  # zamba2-2.7b's training shape
+    (2, 130, 80, 64, 64, 0.0, 0.3),  # an unaligned T, nonzero h0 and dhT
+    (2, 100, 8, 32, 16, 0.0, 0.3),   # P=32, N=16
+    (2, 512, 80, 64, 64, 3.0, 0.3),  # strong decay over 16 chunks
+    (2, 150, 6, 64, 64, 0.0, 0.3),   # H=6: a head group of 6 of 8
+    (3, 20, 11, 64, 64, 0.0, 0.3),   # one chunk; groups of 8 and 3
+    (2, 70, 5, 20, 12, 0.0, 0.3),    # P, N not multiples of 16 (4-byte copies)
+    (1, 45, 3, 7, 5, 0.0, 0.3),      # odd P, N
 ])
 def test_kernel_matches_plain_backward_on_gpu(cuda, B, T, H, P, N, a_shift,
                                               h0_scale):

@@ -56,6 +56,19 @@ from repro_torch.params import unflatten
 from repro_torch.serving import FlexServeApp, FlexServeServer, ModelStore
 from repro_torch.training import checkpoint as ck
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's side on one intra-op thread: these reduced shapes gain
+    nothing from more, and under the suite's parallel workers every
+    worker's torch would start a thread per core (several times the run's
+    CPU time for the same results)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 QWEN, DSV3 = "qwen3-moe-235b-a22b", "deepseek-v3-671b"
 ARCHS = [QWEN, DSV3]
 MAX_LEN = 128

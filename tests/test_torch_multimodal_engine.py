@@ -20,6 +20,7 @@ paged and speculative engines refuse both families, as the JAX engines do.
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from conftest import smoke_model
 from repro.core import ContinuousBatchingScheduler as JScheduler
@@ -34,6 +35,19 @@ from repro_torch.core import (ContinuousBatchingScheduler, InferenceEngine,
                               SpeculativeEngine)
 from repro_torch.models import build_model
 from repro_torch.params import flatten, from_jax, state_from_jax, to_flat
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's side on one intra-op thread: these reduced shapes gain
+    nothing from more, and under the suite's parallel workers every
+    worker's torch would start a thread per core (several times the run's
+    CPU time for the same results)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 VLM, WHISPER = "llama-3.2-vision-11b", "whisper-base"
 EXTRA = {VLM: "image_embeds", WHISPER: "frames"}

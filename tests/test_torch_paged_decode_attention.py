@@ -15,8 +15,12 @@ GPU cases (marker ``gpu``, skipped without a CUDA device): the Hopper
 kernel against the plain version on the card at the same tolerances, and
 bit for bit against K2 on the gathered cache at page size 16; on an e4m3
 pool (bf16 q), within 3e-2 of the plain version, bit for bit K3 on the
-pool's bf16 copy and, at page size 16, K2 on the gathered e4m3 cache.
-They need no JAX.
+pool's bf16 copy and, at page size 16, K2 on the gathered e4m3 cache;
+and P kept at fp32 precision, as the TPU kernel keeps it: on near-tied
+scores over values of mixed sign and magnitude scattered into a pool,
+every output within one bf16 ulp of a float64 computation on the same
+inputs, where P rounded to bf16 moves outputs by several.  They need no
+JAX.
 """
 
 import numpy as np
@@ -31,6 +35,19 @@ from repro_torch.kernels.decode_attention.ops import (paged_split_plan,
                                                       split_plan)
 from repro_torch.models import attention as tattn
 from repro_torch.models import paged as tpaged
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's side on one intra-op thread: these reduced shapes gain
+    nothing from more, and under the suite's parallel workers every
+    worker's torch would start a thread per core (several times the run's
+    CPU time for the same results)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 TOL32 = dict(rtol=2e-5, atol=2e-5)
 TOL16 = dict(rtol=3e-2, atol=3e-2)
@@ -343,3 +360,64 @@ def test_e4m3_kernel_is_bitwise_k2_at_page_size_16(cuda, window):
     want = decode_attention(q, gk, gv, lengths, window=window)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+# --- P at fp32 precision ------------------------------------------------------
+
+
+def near_tie_pool(seed, cache_dtype, device, B=2, H=8, K=1, hd=128, ps=8,
+                  MP=3):
+    """q, the pool, page table and lengths of near-tied scores over v of
+    +-64 in balanced halves plus 0 or 8 (exact in bf16 and e4m3), each
+    row's keys on shuffled pages of size ``ps``, so that P's rounding to
+    bf16 shows (test_torch_decode_attention.py::near_tie_case), with the
+    gathered (B, MP * ps, K, hd) cache for the reference."""
+    rng = np.random.default_rng(seed)
+    Smax = MP * ps
+    q = np.zeros((B, H, hd), np.float32)
+    q[..., 0] = rng.uniform(0.5, 2.0, (B, H))
+    q[..., 1] = rng.uniform(-1.0, 1.0, (B, H))
+    k = np.zeros((B, Smax, K, hd), np.float32)
+    k[..., :2] = rng.integers(-4, 5, (B, Smax, K, 2)) * 0.125
+    order = np.argsort(rng.random((B, Smax, K, hd)), axis=1)
+    v = (np.where(order % 2 == 0, 64.0, -64.0)
+         + 8.0 * (rng.random((B, Smax, K, hd)) < 0.5)).astype(np.float32)
+    table = (1 + rng.permutation(B * MP)).reshape(B, MP).astype(np.int32)
+    pools = []
+    for t in (k, v):
+        pool = np.zeros((B * MP + 1, ps, K, hd), np.float32)
+        pool[table.reshape(-1)] = t.reshape(B * MP, ps, K, hd)
+        pool = torch.from_numpy(pool).bfloat16()
+        if cache_dtype == "float8_e4m3fn":
+            pool = tattn.to_cache(pool, torch.float8_e4m3fn)
+        pools.append(pool.to(device))
+    lengths = torch.full((B,), Smax, dtype=torch.int32, device=device)
+    q = torch.from_numpy(q).to(device, torch.bfloat16)
+    table = torch.from_numpy(table).to(device)
+    gathered = [p[table.long()].reshape(B, Smax, K, hd) for p in pools]
+    return q, pools, table, lengths, gathered
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+@pytest.mark.parametrize("cache_dtype", ["bfloat16", "float8_e4m3fn"])
+def test_p_keeps_fp32_precision_on_gpu(cuda, cache_dtype, seed):
+    """K3's tensor-core kernel takes P as bf16 hi + lo parts: every output
+    within one bf16 ulp of float64 attention over the gathered cache (the
+    final rounding alone is half an ulp)."""
+    q, (kp, vp), table, lengths, (k, v) = near_tie_pool(seed, cache_dtype,
+                                                        cuda)
+    got = paged_decode_attention(q, kp, vp, table, lengths)
+    torch.cuda.synchronize()
+    B, H, hd = q.shape
+    G = H // k.shape[2]
+    qd, kd, vd = (t.cpu().double() for t in (q, k, v))
+    want = torch.zeros((B, H, hd), dtype=torch.float64)
+    for b in range(B):
+        n = int(lengths[b])
+        for h in range(H):
+            p = torch.softmax(kd[b, :n, h // G] @ qd[b, h] / hd ** 0.5, 0)
+            want[b, h] = p @ vd[b, :n, h // G]
+    ulp = torch.exp2(torch.floor(torch.log2(want.abs())) - 7)
+    ulps = (got.cpu().double() - want).abs() / ulp
+    assert float(ulps.max()) <= 1.0, float(ulps.max())

@@ -47,6 +47,19 @@ from repro_torch.params import flatten, from_jax, state_from_jax, to_flat
 from repro_torch.params import unflatten
 from repro_torch.serving import FlexServeApp, FlexServeServer
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's side on one intra-op thread: these reduced shapes gain
+    nothing from more, and under the suite's parallel workers every
+    worker's torch would start a thread per core (several times the run's
+    CPU time for the same results)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ARCHS = ["rwkv6-1.6b", "zamba2-2.7b"]
 MAX_LEN = 128          # zamba2's 64-slot shared ring wraps on long prompts
 C = 8

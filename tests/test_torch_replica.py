@@ -11,6 +11,7 @@ import threading
 import time
 
 import pytest
+import torch
 
 from conftest import smoke_model
 from repro.core import InferenceEngine as JEngine
@@ -30,6 +31,19 @@ from repro_torch.serving import (FlexServeApp, FlexServeClient,
                                  FlexServeServer, GenerationService,
                                  NotFoundError, ReplicaPool, UnavailableError)
 from repro_torch.serving import api
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's side on one intra-op thread: these reduced shapes gain
+    nothing from more, and under the suite's parallel workers every
+    worker's torch would start a thread per core (several times the run's
+    CPU time for the same results)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 PROMPTS = [[1, 2, 3], [4, 5], [6, 7, 8, 9]]
 KW = dict(max_len=128, max_batch=4)

@@ -30,6 +30,19 @@ from repro_torch.kernels.rwkv6_wkv import wkv6, wkv6_plain, wkv6_ref
 from repro_torch.kernels.rwkv6_wkv.ops import tensor_core_path
 from repro_torch.models.rwkv6 import rwkv_dims
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's side on one intra-op thread: these reduced shapes gain
+    nothing from more, and under the suite's parallel workers every
+    worker's torch would start a thread per core (several times the run's
+    CPU time for the same results)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = dict(rtol=1e-4, atol=1e-4)
 SHAPES = [(2, 64, 4, 32, 16), (1, 128, 2, 64, 32), (2, 50, 3, 16, 32),
           (1, 33, 2, 32, 16)]

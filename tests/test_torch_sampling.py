@@ -22,6 +22,19 @@ from repro_torch.core import sampling as tsampling
 from repro_torch.core.sampling import (SamplingError, SamplingParams,
                                        sample_tokens, sampling_regime)
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's side on one intra-op thread: these reduced shapes gain
+    nothing from more, and under the suite's parallel workers every
+    worker's torch would start a thread per core (several times the run's
+    CPU time for the same results)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 SEEDS = [0, 1, 7, 42, 12345, 2 ** 31 - 1, 2 ** 32 + 5, -1, -5]
 jsample_tokens = jax.jit(jsampling.sample_tokens)   # as the JAX engine runs it
 TINY = float(np.finfo(np.float32).tiny)

@@ -36,6 +36,19 @@ from repro_torch.models import build_model
 from repro_torch.params import from_jax
 from repro_torch.serving import FlexServeApp, FlexServeServer
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's side on one intra-op thread: these reduced shapes gain
+    nothing from more, and under the suite's parallel workers every
+    worker's torch would start a thread per core (several times the run's
+    CPU time for the same results)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 C = 8
 
 

@@ -13,6 +13,7 @@ import time
 
 import numpy as np
 import pytest
+import torch
 
 from repro.core import slo as jslo
 from repro.serving import FlightRecorder as JRecorder
@@ -26,6 +27,19 @@ from repro_torch.models.build import build_model
 from repro_torch.serving import (FlexServeApp, FlexServeClient,
                                  FlexServeServer, FlightRecorder,
                                  HTTPStatusError, RequestContext)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's side on one intra-op thread: these reduced shapes gain
+    nothing from more, and under the suite's parallel workers every
+    worker's torch would start a thread per core (several times the run's
+    CPU time for the same results)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 ARCH = "yi-9b"
 

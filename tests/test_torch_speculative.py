@@ -48,6 +48,18 @@ from repro_torch.core.sampling import sampling_regime, speculative_accept
 from repro_torch.models import build_model, paged, transformer
 from repro_torch.params import from_jax
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's side on one intra-op thread: these reduced shapes gain
+    nothing from more, and under the suite's parallel workers every
+    worker's torch would start a thread per core (several times the run's
+    CPU time for the same results)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 ARCH = "yi-9b"                      # dense GQA, no sliding window
 MAX_LEN = 64
 LOGITS = dict(rtol=1e-4, atol=1e-4)

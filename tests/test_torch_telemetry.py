@@ -14,6 +14,7 @@ import time
 
 import jax
 import pytest
+import torch
 
 from conftest import smoke_model
 from repro.core import Ensemble as JEnsemble
@@ -35,6 +36,19 @@ from repro_torch.serving import (FlexServeApp, FlexServeClient,
                                  FlexServeServer, FlightRecorder,
                                  HTTPStatusError, prometheus_exposition)
 from repro_torch.serving import telemetry
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's side on one intra-op thread: these reduced shapes gain
+    nothing from more, and under the suite's parallel workers every
+    worker's torch would start a thread per core (several times the run's
+    CPU time for the same results)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 # every histogram snapshot key the /metrics schema documents
 HIST_KEYS = {"le", "counts", "count", "sum"}
