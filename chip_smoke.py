@@ -17,9 +17,9 @@ Phases (any failure exits non-zero and prints no final result line):
    the checkout's sources with nvcc for sm_90a, one nvcc per source,
    started together.  cuobjdump's SASS must show HGMMA (wgmma) in K1's
    library and its backward's and HMMA (mma.sync) in K2/K3's, K4's, K5's
-   and K5's backward's; the counts go into the kernels line.  A ptxas
-   line saying that it serialised a wgmma of K1's backward fails the
-   build, and so does a spill in K5's backward.  A yardstick library is
+   and K4's and K5's backward's; the counts go into the kernels line.  A
+   ptxas line saying that it serialised a wgmma of K1's backward fails
+   the build, and so does a spill in K4's or K5's backward.  A yardstick library is
    built beside them: K2/K3's source with P rounded to bf16 for P V (one
    product a tile, the kernel before it took P as bf16 hi + lo parts),
    written under build/variants and never called by the port.
@@ -118,16 +118,16 @@ Phases (any failure exits non-zero and prints no final result line):
    H=80, P=N=64) with a zero initial state and no state cotangent, as
    training calls them, there also the plain backward against autograd
    of the plain forward; T=130 with a nonzero initial state and state
-   cotangent; K4 at N=32, K5 at P=32, N=16; strong decay; an unaligned r
-   (K4) and Bm rows 66 floats apart (K5).  Timed at the training shapes
-   (CUDA events, and the device time split between the states pass and
-   the adjoint kernel) beside the plain backward and the fp32 bound; no
-   library call computes either.  K5's backward also at a head count
-   that is not a multiple of its head group (H=6) and at one chunk
-   (T=20), and timed against a second bound, its products on TF32 tensor
-   cores with the three-term split (a third of the TF32 peak) and the
-   rest at the fp32 peak; the device split is its two kernels, the
-   boundary scans and the chunk-parallel kernel.
+   cotangent; K4 at N=32 (its CUDA-core route), K5 at P=32, N=16; strong
+   decay; an unaligned r (K4, the CUDA-core route) and Bm rows 66 floats
+   apart (K5); one chunk (T=20).  Timed at the training shapes (CUDA
+   events, and the device time split between each backward's two
+   kernels, the boundary scans and the chunk-parallel kernel) beside the
+   plain backward, the fp32 bound and a second bound, the products on
+   TF32 tensor cores with the three-term split (a third of the TF32 peak)
+   and the rest at the fp32 peak; no library call computes either.  K5's
+   backward also at a head count that is not a multiple of its head group
+   (H=6).
    K2/K3 taking P as bf16 hi + lo parts, what it costs: K2 and K3 at the
    yi-9b tick and at 32k keys, on the bf16 and the e4m3 cache, each
    timed in turns (after, before, before, after) against the yardstick
@@ -2440,11 +2440,26 @@ def ssd_bwd_tc_ops(B, T, H, P, N, c=32):
     return products, ssd_bwd_flops(B, T, H, P, N, c) - products
 
 
+def wkv_bwd_tc_ops(B, T, H, N, c=32):
+    """(product operations, other operations) of ``wkv_bwd_flops``'s count
+    for the tensor-core K4 backward: per chunk and head the two boundary
+    scans' state products, Bd = dy v^T over s <= t, A's dot products over
+    s < t, dv (A^T dy and the decayed k against G), and dr' and dk' (their
+    sums over the pairs s < t, S dy and G v) on tensor cores; the rest
+    (the decays, the products with them, the bonus, dlogw's sums, the
+    cumulative sums, the anchor) on the CUDA cores."""
+    nc = -(-T // c)
+    pairs = c * (c - 1) // 2
+    products = B * H * nc * (10 * c * N * N + 2 * c * (c + 1) * N
+                             + 6 * N * pairs)
+    return products, wkv_bwd_flops(B, T, H, N, c) - products
+
+
 def time_recurrent_bwd(fn, plain, ins, names, nbytes, flops, shape):
     """One backward's kernel ms (CUDA events), device ms (torch.profiler,
-    split between the states pass and the adjoint kernel), the plain
-    backward's ms and the fp32 bound (bytes over 3.35 TB/s or operations
-    over the fp32 peak)."""
+    split between its two kernels: the boundary scans and the chunk
+    kernel), the plain backward's ms and the fp32 bound (bytes over 3.35
+    TB/s or operations over the fp32 peak)."""
     kernel_ms = cuda_time_ms(lambda: fn(*ins), iters=10, warmup=2)
     split = profiled_groups_ms(lambda: fn(*ins),
                                {k: (k,) for k in names}, iters=10)
@@ -2468,13 +2483,15 @@ def log_bwd_timed(name, t):
 def wkv_bwd_kernel_phase(failures):
     """Phase 3, K4's backward (``wkv6_bwd``) against ``wkv6_bwd_plain``:
     rwkv6's training shape (zero s0, no state cotangent, as training
-    calls it) also against autograd of the plain forward, an unaligned T
-    with a nonzero s0 and dsT, N=32, strong decay, an unaligned r; timed at
-    the training shape."""
+    calls it; the tensor-core route asserted) also against autograd of the
+    plain forward, an unaligned T with a nonzero s0 and dsT, N=32 and an
+    unaligned r (the CUDA-core route), strong decay, one chunk; timed at
+    the training shape against the fp32 and the tensor-core bound."""
     import torch
     from repro_torch.kernels.rwkv6_wkv import (wkv6_bwd, wkv6_bwd_plain,
                                                wkv6_plain)
-    from repro_torch.kernels.rwkv6_wkv.ops import BWD_KERNEL_NAMES
+    from repro_torch.kernels.rwkv6_wkv.ops import (BWD_KERNEL_NAMES,
+                                                   tensor_core_path)
 
     def inputs(B, T, H, N, *, s0_scale=0.3, dsT=True, seed=0, **kw):
         ins = wkv_inputs(B, T, H, N, s0_scale=s0_scale, seed=seed, **kw)
@@ -2487,26 +2504,42 @@ def wkv_bwd_kernel_phase(failures):
 
     B, T, H, N = RWKV6_TRAIN
     main_ins = inputs(B, T, H, N, s0_scale=0.0, dsT=False)
+    check_path(failures, "wkv6_bwd at the rwkv6 training shape",
+               tensor_core_path(*main_ins[:4]), True)
     results = [case(f"rwkv6 training B={B} T={T} H={H} N={N}, s0 = 0, "
                     f"no dsT", main_ins)]
     results.append(identity_check(failures, "wkv6_bwd", wkv6_plain,
                                   wkv6_bwd_plain, main_ins, WKV_GRADS))
     results.append(case("T=130, nonzero s0 and dsT",
                         inputs(2, 130, 32, 64, seed=1)))
-    results.append(case("N=32", inputs(2, 100, 4, 32, seed=2)))
+    small = inputs(2, 100, 4, 32, seed=2)
+    check_path(failures, "wkv6_bwd at N=32", tensor_core_path(*small[:4]),
+               False)
+    results.append(case("N=32", small))
     results.append(case("strong decay (logw = -exp(normal + 2))",
                         inputs(2, 512, 32, 64, decay_shift=2.0, seed=3)))
     ins = inputs(2, 100, 4, 64, seed=4)
     flat = torch.empty(ins[0].numel() + 1, device="cuda")[1:]
     ins[0] = flat.view(ins[0].shape).copy_(ins[0])
+    check_path(failures, "wkv6_bwd with r 4 bytes off 16-byte alignment",
+               tensor_core_path(*ins[:4]), False)
     results.append(case("r 4 bytes off 16-byte alignment", ins))
+    results.append(case("one chunk (T=20)", inputs(3, 20, 32, 64, seed=5)))
     # the bytes: r, k, v, logw, dy, u and s0 read once; dr, dk, dv, dlogw,
     # du and ds0 written once (no dsT in training)
     nbytes = 4 * (9 * B * T * H * N + 2 * H * N + 2 * B * H * N * N)
     t = time_recurrent_bwd(wkv6_bwd, wkv6_bwd_plain, main_ins,
                            BWD_KERNEL_NAMES, nbytes, wkv_bwd_flops(B, T, H, N),
                            f"B={B} T={T} H={H} N={N} fp32")
+    products, other = wkv_bwd_tc_ops(B, T, H, N)
+    tc, tc_by = tc_bound(nbytes, products, other)
+    t.update(bound_tf32x3_ms=tc, bound_tf32x3_by=tc_by, tc_products=products,
+             tc_other=other)
     log_bwd_timed("wkv6_bwd", t)
+    log(f"[kernels] wkv6_bwd tensor-core bound {tc:.4f} ms ({tc_by}: "
+        f"{products} operations in products at 495/3 TFLOP/s, {other} "
+        f"others at 67); kernel {t['ms'] / tc:.2f}x it, "
+        f"{t['ms'] / t['bound_ms']:.2f}x the fp32 bound")
     if not all(v > 0 for v in t["device_split_ms"].values()):
         failures.append(f"wkv6_bwd: a profiled device time of "
                         f"{BWD_KERNEL_NAMES} reads 0: {t['device_split_ms']}")
@@ -7642,24 +7675,23 @@ def main(argv=None) -> int:
 
     failures = []
     # the products: wgmma in K1 and its backward; mma.sync in K2/K3 (bf16),
-    # K4, K5 and K5's backward (TF32); K4's backward is CUDA-core fp32
-    # (none)
+    # K4, K5 and their backward (TF32)
     sass, spills = {}, {}
     for name, op in (("flash_attention", "HGMMA"),
                      ("flash_attention_bwd", "HGMMA"),
                      ("decode_attention", "HMMA"), ("rwkv6_wkv", "HMMA"),
-                     ("mamba2_ssd", "HMMA"), ("rwkv6_wkv_bwd", None),
+                     ("mamba2_ssd", "HMMA"), ("rwkv6_wkv_bwd", "HMMA"),
                      ("mamba2_ssd_bwd", "HMMA")):
         sass[name] = sass_counts(str(common.build_log[name]["library"]))
         spills[name] = ptxas_spills(str(common.build_log[name]["ptxas"]))
         log(f"[build] {name} SASS tensor-core instructions: "
             f"{sass[name] or 'cuobjdump not found'}; ptxas spill bytes over "
             f"its kernels: {spills[name]}")
-        if op and sass[name] and not sass[name][op]:
+        if sass[name] and not sass[name][op]:
             failures.append(f"{name}: no {op} in its SASS")
-    if any(spills["mamba2_ssd_bwd"].values()):
-        failures.append(f"mamba2_ssd_bwd: ptxas spills "
-                        f"{spills['mamba2_ssd_bwd']}")
+    for name in ("rwkv6_wkv_bwd", "mamba2_ssd_bwd"):
+        if any(spills[name].values()):
+            failures.append(f"{name}: ptxas spills {spills[name]}")
     # ptxas serialises a wgmma whose registers it cannot keep in flight: a
     # design failure in K1's backward (its CUDA-core kernels have no wgmma,
     # so any such line is from a tensor-core instantiation)

@@ -2,12 +2,19 @@
 ``chip_smoke.py``'s checks see each one.  Needs a CUDA card (Hopper) and
 nvcc.
 
-Five faults, one at a time, each in a scratch copy of ``src/repro_torch``:
-  * ``wkv_bonus_dk`` (``rwkv6_wkv_bwd.cu``): the u bonus dropped from dk
-    (dk = dk' alone);
-  * ``wkv_dlogw_anchor`` (``rwkv6_wkv_bwd.cu``): dlogw's anchor dropped,
-    the chunk's end state against the adjoint from the later chunks (at
-    the last chunk sum_m S_T dsT): dlogw keeps only the reverse sums;
+Seven faults, one at a time, each in a scratch copy of ``src/repro_torch``;
+the K4 ones in the tensor-core route of ``rwkv6_wkv_bwd.cu``, the one the
+model's shapes take:
+  * ``wkv_bonus_dk``: the u bonus dropped from dk (dk = dk' alone);
+  * ``wkv_dlogw_anchor``: dlogw's anchor dropped, the chunk's end state
+    against the adjoint from the later chunks (at the last chunk sum_m
+    S_T dsT): dlogw keeps only the reverse sums;
+  * ``wkv_carry``: the adjoint's boundary scan carries it across a chunk
+    boundary without the chunk's decay (G <- G + ... in place of exp(L_c)
+    o G + ...);
+  * ``wkv_subchunk``: the factor exp(L_e - L_s) dropped from the k side
+    of A's factored product between sub-chunks (A[t, s] = (r_t o
+    exp(L_{t-1} - L_e)) . k_s);
   * ``ssd_carry`` (``mamba2_ssd_bwd.cu``): the adjoint's boundary scan
     carries it across a chunk boundary without the chunk's decay (Gc <-
     Gc + ... in place of exp(L_c) Gc + ...);
@@ -47,8 +54,24 @@ WKV = Path("repro_torch/kernels/rwkv6_wkv/csrc/rwkv6_wkv_bwd.cu")
 SSD = Path("repro_torch/kernels/mamba2_ssd/csrc/mamba2_ssd_bwd.cu")
 # fault -> (source, text, its replacement)
 FAULTS = {
-    "wkv_bonus_dk": (WKV, "dk[o] = dkp + rt * u_s[n] * vdy;", "dk[o] = dkp;"),
-    "wkv_dlogw_anchor": (WKV, "float acc = q_s[n];", "float acc = 0.f;"),
+    "wkv_bonus_dk": (WKV,
+                     "c.x + rv.x * uv.x * vdy, c.y + rv.y * uv.y * vdy,\n"
+                     "        c.z + rv.z * uv.z * vdy, "
+                     "c.w + rv.w * uv.w * vdy);",
+                     "c.x, c.y, c.z, c.w);"),
+    "wkv_dlogw_anchor": (WKV,
+                         "float acc = __expf(L[(kChunk - 1) * kLd + n]) *\n"
+                         "                    (tl.sg[0][n] + tl.sg[1][n] + "
+                         "tl.sg[2][n] + tl.sg[3][n]) +\n"
+                         "                sm.qpart[0][n] + sm.qpart[1][n];",
+                         "float acc = 0.f;"),
+    "wkv_carry": (WKV, "const float d0 = __expf(Lc[wr + g]), "
+                       "d1 = __expf(Lc[wr + g + 8]);",
+                  "const float d0 = fwd ? __expf(Lc[wr + g]) : 1.f,\n"
+                  "                d1 = fwd ? __expf(Lc[wr + g + 8]) : 1.f;"),
+    "wkv_subchunk": (WKV, "bv[0] = kv.x * __expf(le.x - ls.x);\n"
+                          "            bv[1] = kv.y * __expf(le.y - ls.y);",
+                     "bv[0] = kv.x;\n            bv[1] = kv.y;"),
     "ssd_carry": (SSD, "const float carry = __expf(fminf(Lc, 0.f));",
                   "const float carry = fwd ? __expf(fminf(Lc, 0.f)) : 1.f;"),
     "ssd_dl_cross": (SSD, "const float dl = base + esuf + fpre + rect;",

@@ -9,7 +9,9 @@ against its adjoint, or term by term.  This script prints, for each case,
 the largest error of each form over the float64 gradient's largest entry,
 the worst over a few seeds:
   * K4 ``dlogw``: the port's form (reverse sums re-anchored at every
-    32-step chunk) and the same sums anchored once, at the sequence's end;
+    32-step chunk) in exact fp32 and with every product rounded as the
+    backward kernels' TF32 x 3 tensor-core products round it (``tf32x3``),
+    and the same sums anchored once, at the sequence's end;
   * K5 ``dA``: the port's form (term by term) and the reverse sums,
     anchored at every chunk and once.
 With ``--sensitivity`` it also prints how far a rwkv6's gradients move
@@ -42,6 +44,28 @@ from repro_torch.kernels.rwkv6_wkv.ref import wkv6_bwd_plain, wkv6_plain
 
 def rel(got, want):
     return float((got.double() - want).abs().max() / want.abs().max())
+
+
+def _tf32(x, nearest):
+    """x (float32) cut to TF32's 10 stored mantissa bits: rounded to
+    nearest, ties away (cvt.rna.tf32), or truncated (what the tensor cores
+    read of an fp32 operand)."""
+    bits = x.view(torch.int32)
+    if nearest:
+        bits = bits + 0x1000
+    return (bits & ~0x1FFF).view(torch.float32)
+
+
+def tf32x3(eq, a, b):
+    """``torch.einsum(eq, a, b)`` as the backward kernels take it on tensor
+    cores: each operand split as hi + lo (hi rounded to TF32, lo the rest,
+    read truncated to TF32), hi*hi accumulated in fp32, the cross terms
+    lo*hi + hi*lo in an fp32 accumulator of their own, the two added."""
+    a, b = a.float().contiguous(), b.float().contiguous()
+    ah, bh = _tf32(a, True), _tf32(b, True)
+    al, bl = _tf32(a - ah, False), _tf32(b - bh, False)
+    return (torch.einsum(eq, ah, bh)
+            + (torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl)))
 
 
 def wkv_steps(r, k, v, logw, u, S):
@@ -151,9 +175,10 @@ def wkv_case(name, B, T, H, N, logw_of, seed):
     want = torch.autograd.grad((y * dy).sum(), leaves[3])[0]
     f32 = [t.float() for t in (r, k, v, logw, u, s0, dy)]
     port = wkv6_bwd_plain(*f32, None)[3]
+    tc = wkv6_bwd_plain(*f32, None, product=tf32x3)[3]
     once = wkv_dlogw_anchored_once(*f32)
     return {"case": name, "port_every_chunk": rel(port, want),
-            "anchored_once": rel(once, want)}
+            "port_tf32x3": rel(tc, want), "anchored_once": rel(once, want)}
 
 
 def ssd_case(name, B, T, H, P, N, a_shift, seed):
@@ -259,17 +284,19 @@ def main(argv=None) -> int:
     def logw_shift(shift):
         return lambda g, shape: -torch.exp(
             torch.randn(shape, generator=g, dtype=torch.float64) + shift)
+    WKV_FORMS = ("port_every_chunk", "port_tf32x3", "anchored_once")
+
     def worst(rows, keys):
         """Each form's largest error over the seeds."""
         return {k: max(r[k] for r in rows) for k in keys}
     res = [
         {"of": "wkv6_dlogw", "case": "rwkv6's init decays, T=1024",
          **worst([wkv_case("", 1, 1024, 2, 64, logw_model, s)
-                  for s in range(2)], ("port_every_chunk", "anchored_once"))},
+                  for s in range(2)], WKV_FORMS)},
         *({"of": "wkv6_dlogw", "case": f"logw = -exp(normal + {sh}), T=512",
            **worst([wkv_case("", 1, 512, 2, 16, logw_shift(sh), s)
-                    for s in range(4)], ("port_every_chunk", "anchored_once"))}
-          for sh in (2.5, 4.0)),
+                    for s in range(4)], WKV_FORMS)}
+          for sh in (2.0, 2.5, 4.0)),
         *({"of": "ssd_dA", "case": f"A = -exp(normal + {sh}), T=512",
            **worst([ssd_case("", 1, 512, 2, 16, 8, sh, s) for s in range(8)],
                    ("port_term_by_term", "reverse_sums_every_chunk",

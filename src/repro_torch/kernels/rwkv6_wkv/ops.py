@@ -14,9 +14,14 @@ aligned rows (the model's shapes) take the tensor-core kernel
 Where autograd needs a gradient (grad mode on and some CUDA input
 requiring one), the call goes through ``Wkv6Fn``: the forward launch as
 above, and a backward of two kernels in ``csrc/rwkv6_wkv_bwd.cu``
-(``wkv6_bwd``): one that rebuilds the state at every chunk's start, and
-one that runs the adjoint backward over the chunks.  CPU tensors take
-``ref.wkv6_bwd_plain``."""
+(``wkv6_bwd``), chosen by the same shape test (and dy's rows aligned too).
+On the tensor-core route one kernel runs the two chunk-boundary scans (the
+state at every chunk's start, the adjoint at every chunk's end) and one
+takes every chunk's terms in parallel, a block per (chunk, head, batch
+row); on the other, one rebuilds the chunk states and one runs the
+adjoint backward over the chunks.  CPU tensors take
+``ref.wkv6_bwd_plain``.  Both sources include the TF32 x 3 helpers of
+``csrc/wkv_mma.cuh``."""
 
 from __future__ import annotations
 
@@ -33,16 +38,18 @@ from repro_torch.kernels.rwkv6_wkv.ref import CHUNK, wkv6_bwd_plain, wkv6_plain
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCE = CSRC / "rwkv6_wkv.cu"
 BWD_SOURCE = CSRC / "rwkv6_wkv_bwd.cu"
+HEADERS = (CSRC / "wkv_mma.cuh",)   # included by both sources
 MAX_N = 64          # kMaxN in the sources
 TC_N = 64           # kDim: N of the tensor-core kernel
 # the device kernels a call may launch (torch.profiler names)
 KERNEL_NAMES = ("wkv6_kernel", "wkv6_tc_kernel")
-BWD_KERNEL_NAMES = ("wkv6_states_kernel", "wkv6_bwd_kernel")
+# the tensor-core route's backward kernels (the model's shapes)
+BWD_KERNEL_NAMES = ("wkv6_bwd_scan_kernel", "wkv6_bwd_chunk_kernel")
 
 
 def build() -> ctypes.CDLL:
     """Compile (once per process, cached on disk) and bind the kernels."""
-    lib = load_library("rwkv6_wkv", [SOURCE])
+    lib = load_library("rwkv6_wkv", [SOURCE], HEADERS)
     lib.wkv6_fwd.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
                              + [ctypes.c_longlong] * 15 + [ctypes.c_void_p])
     lib.wkv6_tc_fwd.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
@@ -55,9 +62,10 @@ def build() -> ctypes.CDLL:
 def build_bwd() -> ctypes.CDLL:
     """Compile and bind the backward kernels (a library of their own, so
     the two sources build in parallel)."""
-    lib = load_library("rwkv6_wkv_bwd", [BWD_SOURCE])
-    lib.wkv6_bwd.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 4
-                             + [ctypes.c_longlong] * 15 + [ctypes.c_void_p])
+    lib = load_library("rwkv6_wkv_bwd", [BWD_SOURCE], HEADERS)
+    lib.wkv6_bwd.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 4
+                             + [ctypes.c_longlong] * 15 + [ctypes.c_int]
+                             + [ctypes.c_void_p])
     lib.wkv6_bwd.restype = ctypes.c_int
     return lib
 
@@ -148,22 +156,28 @@ def wkv6_bwd(r, k, v, logw, u, s0, dy, dsT=None):
     u = u.float().contiguous()
     s0 = s0.float().contiguous()
     dsT = None if dsT is None else dsT.float().contiguous()
+    tc = tensor_core_path(r, k, v, logw) and rows_aligned16(dy)
+    f32 = dict(dtype=torch.float32, device=dev)
     nc = cdiv(T, CHUNK)
-    states = torch.empty((B, H, nc + 1, N, N), dtype=torch.float32,
-                         device=dev)
-    dr, dk, dv, dlogw = (torch.empty((B, T, H, N), dtype=torch.float32,
-                                     device=dev) for _ in range(4))
-    du_part = torch.empty((B, H, N), dtype=torch.float32, device=dev)
-    ds0 = torch.empty((B, H, N, N), dtype=torch.float32, device=dev)
+    # the state at every chunk's start and at the end; on the tensor-core
+    # route also the adjoint at every chunk's end (entry 0: ds0)
+    states = torch.empty((B, H, nc + 1, N, N), **f32)
+    adj = torch.empty((B, H, nc + 1, N, N), **f32) if tc else None
+    dr, dk, dv, dlogw = (torch.empty((B, T, H, N), **f32) for _ in range(4))
+    # du's partial rows: one per (b, chunk, h) on the tensor-core route,
+    # one per (b, h) on the other
+    du_part = torch.empty((B, nc if tc else 1, H, N), **f32)
+    ds0 = None if tc else torch.empty((B, H, N, N), **f32)
     lib = build_bwd()
     status = lib.wkv6_bwd(
-        *(data_ptr(t) for t in (r, k, v, logw, u, s0, dy, dsT, states, dr,
-                                dk, dv, dlogw, du_part, ds0)),
+        *(data_ptr(t) for t in (r, k, v, logw, u, s0, dy, dsT, states, adj,
+                                dr, dk, dv, dlogw, du_part, ds0)),
         B, T, H, N, *r.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        *logw.stride()[:3], *dy.stride()[:3], stream_ptr(dev))
+        *logw.stride()[:3], *dy.stride()[:3], int(tc), stream_ptr(dev))
     check_cuda_status(status, "wkv6_bwd")
     wkv6_bwd.launches += 1
-    return dr, dk, dv, dlogw, du_part.sum(0), ds0
+    return (dr, dk, dv, dlogw, du_part.sum((0, 1)),
+            adj[:, :, 0].clone() if tc else ds0)
 
 
 wkv6_bwd.launches = 0

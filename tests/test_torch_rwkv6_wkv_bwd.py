@@ -3,8 +3,10 @@
 CPU cases: seeded numpy inputs and random cotangents for both outputs (y
 and s_T) through ``jax.vjp`` of ``repro.models.rwkv6.wkv_chunked`` (the
 jnp path the JAX package trains through) and through the port: autograd
-of ``wkv6_plain`` and ``wkv6_bwd_plain`` (the backward kernel's formula
-written out chunk by chunk).  Tolerance: 1e-4 relative to each leaf's
+of ``wkv6_plain`` and ``wkv6_bwd_plain`` (the backward kernels' formula
+in their factoring: the states and adjoints at the chunk boundaries by
+two scans, then every chunk's terms at once, A, dr' and dk' between
+sub-chunks through factored decays).  Tolerance: 1e-4 relative to each leaf's
 largest entry (the sides cut the sequence into other chunks and sum in
 other orders; the reverse sums of dlogw cancel large terms).  Under strong
 decay JAX's ``wkv_chunked`` takes ``exp(Lprev - L)`` before masking it,
@@ -13,19 +15,27 @@ NaN in dr, dk and dlogw while its forward stays finite; there the port is
 held against autograd of the step-by-step ``wkv6_ref`` instead.  The
 wrapper's autograd route (``Wkv6Fn``, taken on CUDA tensors that require
 a gradient) is shown on CPU tensors posing as CUDA ones, its launches
-swapped for the plain versions.
+swapped for the plain versions.  Two checks of the factoring itself, in
+float64: the sub-chunk-factored A, dr' and dk' equal the direct form over
+the (t, s, n) decay tensor under strong decay, and the adjoint scan's
+entries equal the step-by-step adjoint at every chunk boundary (entry 0
+is ds0).
 
 GPU cases (marker ``gpu``, skipped without a CUDA device): the backward
 kernels against ``wkv6_bwd_plain`` on the card at 1e-4 of each leaf's
-largest entry, bit for bit across two calls, and autograd on CUDA
-tensors through ``Wkv6Fn``.  They need no JAX.
+largest entry, bit for bit across two calls (the model's N on the
+tensor-core route across 10 chunks and in one, a small N and an
+unaligned r on the CUDA-core route), and autograd on CUDA tensors
+through ``Wkv6Fn``.  They need no JAX.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels.rwkv6_wkv import ops
+import torch.nn.functional as F
+
+from repro_torch.kernels.rwkv6_wkv import ops, ref
 from repro_torch.kernels.rwkv6_wkv import (wkv6, wkv6_bwd, wkv6_bwd_plain,
                                            wkv6_plain, wkv6_ref)
 
@@ -140,6 +150,68 @@ def test_strong_decay_against_the_step_oracle(jax_vjp):
     _check(_autograd(wkv6_plain, ins, dy, dsT), want)
 
 
+def _chunked(ins, c=ref.CHUNK):
+    """r, k, logw (B,T,H,N) float64, T a chunk multiple, as (B, nc, c, H,
+    N), with the inclusive and exclusive cumulative log decays."""
+    r, k, logw = (torch.from_numpy(t).double() for t in ins)
+    B, T, H, N = r.shape
+    r, k, logw = (t.reshape(B, T // c, c, H, N) for t in (r, k, logw))
+    L = torch.cumsum(logw, dim=2)
+    return r, k, L, F.pad(L[:, :, :-1], (0, 0, 0, 0, 1, 0))
+
+
+def test_subchunk_factoring_equals_the_direct_form():
+    """Under strong decay (logw = -exp(normal + 2), whole chunks' decays
+    far past exp(-88)) the kernels' factoring of A, dr' and dk' (pairs
+    of different sub-chunks through exp(Lprev_t - L_b) exp(L_b - L_s),
+    pairs of one sub-chunk exact) equals the direct form over the (t, s,
+    n) decay tensor D = exp(Lprev_t - L_s), s < t."""
+    r, k, v, logw, u, s0, dy, dsT = _inputs(2, 64, 2, 16, seed=8,
+                                           decay_shift=2.0)
+    r, k, L, Lp = _chunked((r, k, logw))
+    g = np.random.default_rng(9)
+    Bd = torch.from_numpy(g.standard_normal((2, 2, 32, 32, 2)))
+    tril = torch.ones((32, 32), dtype=torch.bool).tril(-1)
+    D = torch.exp(torch.where(tril[:, :, None, None],
+                              Lp[:, :, :, None] - L[:, :, None],
+                              float("-inf")))          # (B,nc,t,s,H,N)
+    want = ((r[:, :, :, None] * D * k[:, :, None]).sum(-1),
+            torch.einsum("bjtsh,bjtshn,bjshn->bjthn", Bd, D, k),
+            torch.einsum("bjtsh,bjtshn,bjthn->bjshn", Bd, D, r))
+    off = ref.subchunk_terms(r, k, L, Lp, Bd)
+    diag = ref.diag_terms(r, k, L, Lp, Bd)
+    for name, a, b, w in zip(("A", "dr'", "dk'"), off, diag, want):
+        got = a + b
+        assert torch.isfinite(got).all(), name
+        err = float((got - w).abs().max() / w.abs().max())
+        assert err <= 1e-12, f"{name}: {err:.2e}"
+    # in float32 as the kernels take it: finite, no exponent above 0
+    f32 = [t.float() for t in (r, k, L, Lp, Bd)]
+    assert all(torch.isfinite(t).all() for t in ref.subchunk_terms(*f32))
+
+
+def test_adjoint_scan_matches_the_step_by_step_adjoint():
+    """``chunk_adjoints``' entry j is the adjoint of the state at chunk j's
+    start, dS_{t-1} = diag(w_t) dS_t + r_t dy_t^T stepped back from dS_T =
+    dsT one step at a time (float64): entry 0 is ds0, entry nc is dsT."""
+    B, T, H, N = 2, 96, 2, 8
+    r, _, _, logw, _, _, dy, dsT = (torch.from_numpy(t).double()
+                                    for t in _inputs(B, T, H, N, seed=10))
+    adj = ref.chunk_adjoints(r, logw, dy, dsT)
+    assert adj.shape == (B, H, T // ref.CHUNK + 1, N, N)
+    G = dsT
+    for t in reversed(range(T)):
+        if (t + 1) % ref.CHUNK == 0:
+            j = (t + 1) // ref.CHUNK
+            assert torch.allclose(adj[:, :, j], G, rtol=1e-12, atol=1e-12), j
+        G = (torch.exp(logw[:, t])[..., None] * G
+             + r[:, t, :, :, None] * dy[:, t, :, None, :])
+    assert torch.allclose(adj[:, :, 0], G, rtol=1e-12, atol=1e-12)
+    ds0 = wkv6_bwd_plain(*(torch.from_numpy(t) for t in _inputs(
+        B, T, H, N, seed=10)))[5]
+    assert torch.allclose(ds0.double(), G, rtol=1e-5, atol=1e-5)
+
+
 @pytest.mark.parametrize("s0_grad", [True, False])
 def test_cuda_tensors_take_the_autograd_function(monkeypatch, s0_grad):
     """On CUDA tensors that require a gradient, ``wkv6`` goes through
@@ -195,6 +267,7 @@ def _on(dev, B, T, H, N, **kw):
 @pytest.mark.parametrize("B,T,H,N,decay_shift,s0_scale", [
     (2, 300, 4, 64, -1.0, 0.3),     # the model's N, T across 10 chunks
     (2, 130, 4, 64, -1.0, 0.0),     # an unaligned T, zero s0
+    (2, 32, 4, 64, -1.0, 0.3),      # one chunk
     (3, 77, 2, 32, -1.0, 0.3),      # a small N
     (2, 200, 4, 64, 2.0, 0.3),      # strong decay
 ])
