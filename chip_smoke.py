@@ -434,6 +434,28 @@ Phases (any failure exits non-zero and prints no final result line):
    failing it); and at rwkv6's full depth, K4's backward on each layer's
    own inputs and cotangents from one float32 step against the plain
    backward and autograd of the plain forward, within RECUR_BWD_REL.
+14. what fits one card, after every timed phase.  A: ``python -m
+   repro_torch.launch.dryrun --all --jobs SWEEP_JOBS`` (a meta-device
+   pass in worker processes with no card visible to them): every (arch x
+   shape) of the configs, 10 x 4, must end "ok" (flops and argument bytes
+   above 0) but whisper-base x long_500k, "skipped"; roofline's table of
+   the records (per-card GiB, whether it fits, the dominant term, the
+   useful ratio) is printed.  B, meanwhile in this process: the meta pass
+   of each step phases 5, 12 and 13 measured, its peak bytes against the
+   card's ``torch.cuda.max_memory_allocated()`` growth over what was
+   resident before, within FIT_TOL either way: phase 12 A's and 13 A's
+   and B's training runs (their meta pass at B=4 x 2048, remat, fp32
+   moments: params, moments, batch and the step's peak), and phase 5's
+   yi-9b prefill and tick (their growth over the resident params, state
+   and batch; phase 5 resets the peak around one of each).  C: one more,
+   untimed training step of danube, rwkv6 and zamba2 in phases 12 and 13
+   runs under ``analysis.costs.Counter`` on the card: its flops within
+   FLOPS_TOL and its bytes within BYTES_TOL of the meta pass's of the same
+   step; the kernels' launches, as the wrappers count them where they
+   launch, equal to the wrapper calls the counter saw on the card and to
+   the calls the meta pass planned.  The bounds of phase 3 come from the
+   kernels' cost functions (``kernels/*/ops.py``) and
+   ``analysis/roofline.py``.
 
 The line before the nvidia-smi line is ``{"kernels": [...]}`` (K1-K5,
 K1's backward, K4's and K5's backward); the last line is ``{"ok": true,
@@ -461,11 +483,6 @@ from contextlib import nullcontext
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-
-# H100 SXM data-sheet peaks (dense): bf16 and TF32 tensor cores, fp32 CUDA
-# cores, device memory bandwidth.  A card below its 700 W limit runs slower.
-PEAK_FLOPS = {"bfloat16": 989e12, "tf32": 495e12, "float32": 67e12}
-PEAK_BYTES_PER_S = 3.35e12
 
 ARCH = "yi-9b"
 MEMBERS = 2
@@ -573,28 +590,13 @@ def attention_case(name, B, S, H, K, hd, dtype, *, causal=True, window=None,
                 window=window, dtype=dtype)
 
 
-def visible_pairs(S, causal, window, lengths, B, Skv=None):
-    """The (query, key) pairs the mask keeps, over the batch: what a
-    call's work depends on."""
-    import torch
-    Skv = S if Skv is None else Skv
-    qp = torch.arange(S, device="cuda")[:, None]
-    kp = torch.arange(Skv, device="cuda")[None, :]
-    m = torch.ones((S, Skv), dtype=torch.bool, device="cuda")
-    if causal:
-        m &= kp <= qp
-    if window is not None:
-        m &= kp > qp - window
-    if lengths is None:
-        return int(m.sum()) * B
-    return int((m[None] & (kp[None] < lengths[:, None, None])).sum())
-
-
 def time_flash(c):
     """K1 beside its plain version, SDPA and its bound at one case."""
     import torch.nn.functional as F
+    from repro_torch.analysis.roofline import kernel_bound
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
+    from repro_torch.kernels.flash_attention.ops import flash_attention_cost
     q, k, v = c["q"], c["k"], c["v"]
     B, S, H, hd = q.shape
     Skv, K = k.shape[1], k.shape[2]
@@ -614,12 +616,9 @@ def time_flash(c):
         library_dev_ms = profiled_ms(library, ())
     except TypeError:                   # torch without enable_gqa
         library_ms = library_dev_ms = None
-    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v)) \
-        + q.numel() * q.element_size()
-    flops = 4 * hd * H * visible_pairs(S, c["causal"], c["window"], None, B,
-                                       Skv)
-    t_bytes = nbytes / PEAK_BYTES_PER_S
-    t_flops = flops / PEAK_FLOPS[c["dtype"]]
+    cost = flash_attention_cost(B, S, Skv, H, K, hd, q.element_size(),
+                                causal=c["causal"], window=c["window"])
+    bound, by = kernel_bound(cost.nbytes, cost.flops, c["dtype"])
     return {"shape": f"B={B} S={S}"
                      + (f" Skv={Skv}" if Skv != S else "")
                      + f" H={H} K={K} hd={hd} {c['dtype']} "
@@ -628,9 +627,8 @@ def time_flash(c):
             "ms": kernel_ms, "kernel_ms": kernel_ms,
             "device_ms": kernel_dev_ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "library_device_ms": library_dev_ms,
-            "bound_ms": 1e3 * max(t_bytes, t_flops),
-            "bound_by": "bytes" if t_bytes >= t_flops else "operations",
-            "bytes": nbytes, "flops": flops}
+            "bound_ms": bound, "bound_by": by, "bytes": cost.nbytes,
+            "flops": cost.flops}
 
 
 # keys shifted by this much make an unmasked ragged key edge show (see
@@ -888,6 +886,7 @@ def time_bwd(c):
     and its bound at one case."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.analysis.roofline import kernel_bound
     from repro_torch.kernels.flash_attention import (
         flash_attention_bwd, flash_attention_bwd_plain, ops)
     q, k, v = c["q"], c["k"], c["v"]
@@ -924,12 +923,10 @@ def time_bwd(c):
     except TypeError:                   # torch without enable_gqa
         library_ms = library_dev_ms = None
     del qt, kt, vt
-    esz = q.element_size()
-    nbytes = esz * (4 * q.numel() + 4 * k.numel())  # q k v o dO; dq dk dv
-    flops = 2.5 * 4 * hd * H * visible_pairs(S, c["causal"], c["window"],
-                                             None, B, Skv)
-    t_bytes = nbytes / PEAK_BYTES_PER_S
-    t_flops = flops / PEAK_FLOPS[c["dtype"]]
+    cost = ops.flash_attention_bwd_cost(B, S, Skv, H, K, hd, q.element_size(),
+                                        causal=c["causal"],
+                                        window=c["window"])
+    bound, by = kernel_bound(cost.nbytes, cost.flops, c["dtype"])
     return {"shape": f"B={B} S={S}" + (f" Skv={Skv}" if Skv != S else "")
                      + f" H={H} K={K} hd={hd} {c['dtype']} "
                      + ("causal" if c["causal"] else "non-causal")
@@ -938,9 +935,8 @@ def time_bwd(c):
             "fwd_bwd_ms": both_ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
             "library_device_ms": library_dev_ms,
-            "bound_ms": 1e3 * max(t_bytes, t_flops),
-            "bound_by": "bytes" if t_bytes >= t_flops else "operations",
-            "bytes": nbytes, "flops": flops}
+            "bound_ms": bound, "bound_by": by, "bytes": cost.nbytes,
+            "flops": cost.flops}
 
 
 def bwd_cases():
@@ -1131,8 +1127,10 @@ def time_decode(c):
     """K2 beside its plain version, SDPA and its bound at one case."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.analysis.roofline import kernel_bound
     from repro_torch.kernels.decode_attention import (decode_attention,
                                                       decode_attention_plain)
+    from repro_torch.kernels.decode_attention.ops import decode_attention_cost
     q, k, v, lens = c["q"], c["k"], c["v"], c["lengths"]
     B, H, hd = q.shape
     Smax, K = k.shape[1], k.shape[2]
@@ -1153,19 +1151,16 @@ def time_decode(c):
     except TypeError:                   # torch without enable_gqa
         library_ms = library_dev_ms = None
     keys = int(torch.clamp(lens, max=Smax).sum())
-    nbytes = 2 * keys * K * hd * k.element_size() \
-        + 2 * q.numel() * q.element_size()
-    flops = 4 * hd * (H // K) * K * keys
-    t_bytes = nbytes / PEAK_BYTES_PER_S
-    t_flops = flops / PEAK_FLOPS[c["dtype"]]
+    cost = decode_attention_cost(B, H, K, hd, Smax, k.element_size(),
+                                 q.element_size(), keys)
+    bound, by = kernel_bound(cost.nbytes, cost.flops, c["dtype"])
     return {"shape": f"B={B} Smax={Smax} H={H} K={K} hd={hd} {c['dtype']} "
                      f"valid keys {keys}",
             "ms": kernel_ms, "kernel_ms": kernel_ms,
             "device_ms": kernel_dev_ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "library_device_ms": library_dev_ms,
-            "bound_ms": 1e3 * max(t_bytes, t_flops),
-            "bound_by": "bytes" if t_bytes >= t_flops else "operations",
-            "bytes": nbytes, "flops": flops}
+            "bound_ms": bound, "bound_by": by, "bytes": cost.nbytes,
+            "flops": cost.flops}
 
 
 def decode_kernel_phase(failures):
@@ -1328,20 +1323,16 @@ def unaligned_copy(t):
     return out
 
 
-def e4m3_bytes(keys, K, hd, q_bytes, table_bytes=0):
-    """The bytes an e4m3 launch must move: the valid K/V at 1 byte per
-    element, q and the output (bf16), and K3's table entries."""
-    return 2 * keys * K * hd + 2 * q_bytes + table_bytes
-
-
 def time_decode_e4m3(c):
     """K2 on an e4m3 cache beside K2 on its bf16 copy (same shape, same
     call), the plain version, an upcast-to-bf16 + SDPA yardstick and the
     1-byte bound."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.analysis.roofline import kernel_bound
     from repro_torch.kernels.decode_attention import (decode_attention,
                                                       decode_attention_plain)
+    from repro_torch.kernels.decode_attention.ops import decode_attention_cost
     q, k, v, lens = c["q"], c["k"], c["v"], c["lengths"]
     kb, vb = c["k_bf16"], c["v_bf16"]
     B, H, hd = q.shape
@@ -1369,10 +1360,9 @@ def time_decode_e4m3(c):
     except TypeError:                   # torch without enable_gqa
         library_ms = library_dev_ms = None
     keys = int(torch.clamp(lens, max=Smax).sum())
-    nbytes = e4m3_bytes(keys, K, hd, q.numel() * q.element_size())
-    flops = 4 * hd * H * keys
-    t_bytes = nbytes / PEAK_BYTES_PER_S
-    t_flops = flops / PEAK_FLOPS["bfloat16"]
+    cost = decode_attention_cost(B, H, K, hd, Smax, k.element_size(),
+                                 q.element_size(), keys)
+    bound, by = kernel_bound(cost.nbytes, cost.flops, "bfloat16")
     return {"shape": f"B={B} Smax={Smax} H={H} K={K} hd={hd} e4m3 cache, "
                      f"bf16 q, valid keys {keys}",
             "ms": min(t["e4m3"], t["e4m3_again"]),
@@ -1383,9 +1373,8 @@ def time_decode_e4m3(c):
             "bf16_kernel_ms_runs": [t["bf16"], t["bf16_again"]],
             "bf16_device_ms": dev_bf16, "plain_ms": plain_ms,
             "library_ms": library_ms, "library_device_ms": library_dev_ms,
-            "bound_ms": 1e3 * max(t_bytes, t_flops),
-            "bound_by": "bytes" if t_bytes >= t_flops else "operations",
-            "bytes": nbytes, "flops": flops}
+            "bound_ms": bound, "bound_by": by, "bytes": cost.nbytes,
+            "flops": cost.flops}
 
 
 def log_e4m3_timed(name, t, extra=""):
@@ -1531,7 +1520,9 @@ def paged_decode_kernel_phase(failures):
     from repro_torch.kernels.decode_attention import (
         decode_attention, paged_decode_attention,
         paged_decode_attention_plain)
-    from repro_torch.kernels.decode_attention.ops import tensor_core_path
+    from repro_torch.analysis.roofline import kernel_bound
+    from repro_torch.kernels.decode_attention.ops import (
+        paged_decode_attention_cost, tensor_core_path)
     from repro_torch.models.paged import _gathered_view
 
     yi = (32, 4, 128)
@@ -1629,19 +1620,17 @@ def paged_decode_kernel_phase(failures):
         del gk, gv
         keys = int(torch.clamp(lens, max=Smax).sum())
         pages = int(((torch.clamp(lens, max=Smax) + ps - 1) // ps).sum())
-        nbytes = 2 * keys * K * hd * kp.element_size() + 4 * pages \
-            + 2 * q.numel() * q.element_size()
-        flops = 4 * hd * H * keys
-        t_bytes = nbytes / PEAK_BYTES_PER_S
-        t_flops = flops / PEAK_FLOPS[c["dtype"]]
+        cost = paged_decode_attention_cost(B, H, K, hd, table.shape[1], ps,
+                                           kp.element_size(),
+                                           q.element_size(), keys, pages)
+        bound, by = kernel_bound(cost.nbytes, cost.flops, c["dtype"])
         return {"shape": f"B={B} pages/row={table.shape[1]} ps={ps} H={H} "
                          f"K={K} hd={hd} {c['dtype']} valid keys {keys}",
                 "ms": kernel_ms, "kernel_ms": kernel_ms,
                 "device_ms": dev_ms, "k2_ms": k2_ms, "k2_device_ms": k2_dev_ms,
                 "plain_ms": plain_ms, "library_ms": library_ms,
-                "bound_ms": 1e3 * max(t_bytes, t_flops),
-                "bound_by": "bytes" if t_bytes >= t_flops else "operations",
-                "bytes": nbytes, "flops": flops, "bitwise_k2": bitwise}
+                "bound_ms": bound, "bound_by": by, "bytes": cost.nbytes,
+                "flops": cost.flops, "bitwise_k2": bitwise}
 
     main = timed(cases[0])
     qwen = timed(cases[-2])
@@ -1703,7 +1692,9 @@ def paged_e4m3_cases(failures):
     from repro_torch.kernels.decode_attention import (
         decode_attention, paged_decode_attention,
         paged_decode_attention_plain)
-    from repro_torch.kernels.decode_attention.ops import tensor_core_path
+    from repro_torch.analysis.roofline import kernel_bound
+    from repro_torch.kernels.decode_attention.ops import (
+        paged_decode_attention_cost, tensor_core_path)
     from repro_torch.models.paged import _gathered_view
 
     yi = (32, 4, 128)
@@ -1785,11 +1776,11 @@ def paged_e4m3_cases(failures):
         del gk, gv
         keys = int(torch.clamp(lens, max=Smax).sum())
         pages = int(((torch.clamp(lens, max=Smax) + ps - 1) // ps).sum())
-        nbytes = e4m3_bytes(keys, K, hd, q.numel() * q.element_size(),
-                            4 * pages)
-        flops = 4 * hd * H * keys
-        t_bytes = nbytes / PEAK_BYTES_PER_S
-        t_flops = flops / PEAK_FLOPS["bfloat16"]
+        cost = paged_decode_attention_cost(B, H, K, hd, table.shape[1], ps,
+                                           kp.element_size(),
+                                           q.element_size(), keys, pages)
+        nbytes = cost.nbytes
+        bound, by = kernel_bound(nbytes, cost.flops, "bfloat16")
         rec = {"shape": f"B={B} pages/row={table.shape[1]} ps={ps} H={H} "
                         f"K={K} hd={hd} e4m3 pool, bf16 q, valid keys {keys}",
                "ms": min(t["e4m3"], t["e4m3_again"]),
@@ -1800,9 +1791,8 @@ def paged_e4m3_cases(failures):
                "bf16_kernel_ms_runs": [t["bf16"], t["bf16_again"]],
                "k2_ms": k2_ms, "plain_ms": plain_ms,
                "library_ms": library_ms,
-               "bound_ms": 1e3 * max(t_bytes, t_flops),
-               "bound_by": "bytes" if t_bytes >= t_flops else "operations",
-               "bytes": nbytes, "flops": flops, "bitwise_k2": bitwise}
+               "bound_ms": bound, "bound_by": by, "bytes": nbytes,
+               "flops": cost.flops, "bitwise_k2": bitwise}
         log(f"[kernels] paged_decode_attention e4m3 timed at {rec['shape']}: "
             f"kernel {rec['kernel_ms']:.4f} ms (runs "
             f"{t['e4m3']:.4f}, {t['e4m3_again']:.4f}; device {dev:.4f} ms); "
@@ -2006,80 +1996,6 @@ def pad_mask(B, T, seed=0):
     return m[:, :, None, None], lens
 
 
-def wkv_flops(B, T, H, N, c=32):
-    """fp32 operations of the chunked WKV (each exp one operation): per
-    chunk and head, A off the diagonal (c(c-1)/2 N: two products, a sum,
-    a difference, an exp), its diagonal, A.v, r exp(Lprev) S, the decayed
-    k and the state update."""
-    nc = -(-T // c)
-    per = (5 * c * (c - 1) // 2 * N + 3 * c * N + c * (c + 1) * N
-           + 2 * c * N * N + 6 * c * N + N * N * (2 * c + 2))
-    return B * H * nc * per
-
-
-def ssd_flops(B, T, H, P, N, c=32):
-    """fp32 operations of the chunked SSD (each exp one operation): per
-    (batch row, chunk) G = C B^T once (it does not depend on the head);
-    per head the decay matrix, the intra-chunk product, C h^T, x dt and
-    the state update."""
-    nc = -(-T // c)
-    tri = c * (c + 1) // 2
-    per_head = (3 * tri + 2 * tri * P + 2 * c * N * P + 3 * c * P
-                + P * N * (2 * c + 2) + 2 * c)
-    return B * nc * (2 * tri * N + H * per_head)
-
-
-def recurrent_bound(nbytes, flops):
-    """The fp32 bound: every operation at the CUDA-core peak."""
-    t_bytes = nbytes / PEAK_BYTES_PER_S
-    t_flops = flops / PEAK_FLOPS["float32"]
-    return 1e3 * max(t_bytes, t_flops), ("bytes" if t_bytes >= t_flops
-                                         else "operations")
-
-
-def wkv_tc_ops(B, T, H, N, c=32, sub=8):
-    """(product operations, other operations) of the tensor-core K4 (each
-    exp one operation), per chunk and head: the products A below the
-    diagonal sub-blocks (the 8-step sub-chunks' factored blocks), A.v over
-    s <= t, (r o exp(Lprev)) S and the state update; the rest the diagonal
-    sub-blocks on the fly (two products, a sum, a difference, an exp per
-    (t, s < t, n)), the bonus, the decay factors (an exp, a difference, a
-    product each), the cumulative sums and the state's decay."""
-    nc = -(-T // c)
-    diag_pairs = (c // sub) * sub * (sub - 1) // 2
-    off_pairs = c * (c - 1) // 2 - diag_pairs
-    factor_rows = sum(c - sub * (i + 1) for i in range(c // sub - 1))
-    products = (2 * N * off_pairs + c * (c + 1) * N + 2 * c * N * N
-                + 2 * c * N * N)
-    other = (5 * N * diag_pairs + 3 * c * N
-             + 3 * N * (factor_rows + (c // sub - 1) * sub)
-             + 2 * c * N + 3 * c * N + c * N + 2 * N * N + N)
-    return B * H * nc * products, B * H * nc * other
-
-
-def ssd_tc_ops(B, T, H, P, N, c=32):
-    """(product operations, other operations) of the tensor-core K5 (each
-    exp one operation): per (batch row, chunk) G = C B^T once in fp32 FMAs;
-    per head the products W (x dt), (exp(L) o C) h^T and the state update
-    on tensor cores, the rest (W's decay, x dt, the scales, the state's
-    decay, the scan) on the CUDA cores."""
-    nc = -(-T // c)
-    tri = c * (c + 1) // 2
-    products = 2 * tri * P + 2 * c * N * P + 2 * c * P * N
-    other = 3 * tri + 3 * c * P + c * N + 2 * P * N + 3 * c
-    return B * H * nc * products, B * nc * 2 * c * c * N + B * H * nc * other
-
-
-def tc_bound(nbytes, products, other):
-    """The tensor-core bound: the products at the TF32 peak divided by
-    three (the three-term split issues three), the rest at the fp32 peak,
-    against the bytes."""
-    t_bytes = nbytes / PEAK_BYTES_PER_S
-    t_ops = products / (PEAK_FLOPS["tf32"] / 3) + other / PEAK_FLOPS["float32"]
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                       else "operations")
-
-
 def check_pair(failures, kernel_name, case, got, want, *, scaled=False):
     """Kernel outputs vs plain outputs: finite, allclose (y relative to
     max|y| + 1 with ``scaled``).  Returns the max abs error."""
@@ -2120,9 +2036,11 @@ def log_timed(name, t):
 
 def wkv_kernel_phase(failures):
     import torch
+    from repro_torch.analysis.roofline import kernel_bound, tc_bound
     from repro_torch.kernels.rwkv6_wkv import wkv6, wkv6_plain
     from repro_torch.kernels.rwkv6_wkv.ops import (KERNEL_NAMES,
-                                                   tensor_core_path)
+                                                   tensor_core_path,
+                                                   wkv6_cost)
 
     def run(name, ins):
         got = wkv6(*ins)
@@ -2183,10 +2101,10 @@ def wkv_kernel_phase(failures):
         dev_ms = profiled_ms(lambda: wkv6(*ins), KERNEL_NAMES)
         plain_ms = cuda_time_ms(lambda: wkv6_plain(*ins), iters=5,
                                 warmup=1)
-        nbytes = 4 * (5 * B * T * H * N + H * N + 2 * B * H * N * N)
-        flops = wkv_flops(B, T, H, N)
-        bound, by = recurrent_bound(nbytes, flops)
-        products, other = wkv_tc_ops(B, T, H, N)
+        cost = wkv6_cost(B, T, H, N)
+        nbytes, flops = cost.nbytes, cost.flops
+        products, other = cost.products, cost.other
+        bound, by = kernel_bound(nbytes, flops, "float32")
         tc, tc_by = tc_bound(nbytes, products, other)
         return {"shape": f"B={B} T={T} H={H} N={N} fp32", "ms": kernel_ms,
                 "kernel_ms": kernel_ms, "device_ms": dev_ms,
@@ -2216,8 +2134,9 @@ def wkv_kernel_phase(failures):
 
 def ssd_kernel_phase(failures):
     import torch
+    from repro_torch.analysis.roofline import kernel_bound, tc_bound
     from repro_torch.kernels.mamba2_ssd import ssd, ssd_plain
-    from repro_torch.kernels.mamba2_ssd.ops import (KERNEL_NAMES,
+    from repro_torch.kernels.mamba2_ssd.ops import (KERNEL_NAMES, ssd_cost,
                                                     tensor_core_path)
 
     def run(name, ins):
@@ -2274,11 +2193,10 @@ def ssd_kernel_phase(failures):
         kernel_ms = cuda_time_ms(lambda: ssd(*ins))
         dev_ms = profiled_ms(lambda: ssd(*ins), KERNEL_NAMES)
         plain_ms = cuda_time_ms(lambda: ssd_plain(*ins), iters=5, warmup=1)
-        nbytes = 4 * (2 * B * T * H * P + B * T * H + H + 2 * B * T * N
-                      + 2 * B * H * P * N)
-        flops = ssd_flops(B, T, H, P, N)
-        bound, by = recurrent_bound(nbytes, flops)
-        products, other = ssd_tc_ops(B, T, H, P, N)
+        cost = ssd_cost(B, T, H, P, N)
+        nbytes, flops = cost.nbytes, cost.flops
+        products, other = cost.products, cost.other
+        bound, by = kernel_bound(nbytes, flops, "float32")
         tc, tc_by = tc_bound(nbytes, products, other)
         return {"shape": f"B={B} T={T} H={H} P={P} N={N} fp32",
                 "ms": kernel_ms, "kernel_ms": kernel_ms, "device_ms": dev_ms,
@@ -2387,74 +2305,6 @@ def identity_check(failures, kernel, fwd_plain, plain_bwd, ins, names):
     return rec
 
 
-def wkv_bwd_flops(B, T, H, N, c=32):
-    """fp32 operations of K4's backward (each exp one operation), per chunk
-    and head: the states pass (cumulative sum, decayed k, update), the
-    anchor, the decay D = exp(Lprev_t - L_s) once per (t, s < t, n) (the
-    kernel takes it anew for each of its three uses; the function needs
-    it once), A and Bd, the decayed k and r, dv, dr' and dk' (three
-    operations per (t, s < t, n) each), the bonus and dlogw, the
-    adjoint's update."""
-    nc = -(-T // c)
-    pairs = c * (c - 1) // 2
-    per = (4 * c * N + N * N * (2 * c + 2)          # states pass
-           + 2 * N * N + 2 * c * N                  # anchor, cumsums
-           + 2 * N * pairs                          # D
-           + 3 * N * pairs + 3 * c * N + N * c * (c + 1)   # A, Bd
-           + 5 * c * N                              # kd, rp
-           + c * (c + 1) * N + 2 * c * N * N        # dv
-           + 2 * (3 * N * pairs + 2 * c * N * N + 4 * c * N)  # dr', dk'
-           + 12 * c * N + N * N * (2 * c + 2))      # finalize, adjoint
-    return B * H * nc * per + B * H * N             # du's sum over B
-
-
-def ssd_bwd_flops(B, T, H, P, N, c=32):
-    """fp32 operations of K5's backward (each exp one operation): per
-    (batch row, chunk) CB = C B^T once (it does not depend on the head);
-    per head the states pass, Gc B, h0^T dy, X, M, dC (M X dt once per
-    (t, s <= t), then two operations per n), gx and dx, dB, the
-    rectangle sums of dl, E, F and x.gx, the scans and the adjoint's
-    update; then dB's and dC's sums over the heads."""
-    nc = -(-T // c)
-    tri = c * (c + 1) // 2
-    per_head = (P * N * (3 * c + 1) + 4 * c              # states pass
-                + 4 * c * P * N + 2 * P * tri + 2 * P * N + 4 * tri
-                + tri + 2 * N * tri + 2 * c * N          # dC
-                + 2 * P * tri + 3 * c * P                # gx, dx
-                + 2 * N * tri + 2 * c * P * N + 3 * c * N   # dB
-                + c ** 3 // 2 + 2 * c * N + 4 * c * P + 8 * c
-                + P * N * (3 * c + 1))                   # adjoint
-    return B * nc * (2 * N * tri + H * per_head) + 2 * B * T * H * N + B * H
-
-
-def ssd_bwd_tc_ops(B, T, H, P, N, c=32):
-    """(product operations, other operations) of ``ssd_bwd_flops``'s count
-    for the tensor-core K5 backward: per (batch row, chunk) CB, per head
-    the two boundary scans' state products, Gc B, h0^T dy, Gc^T x and X,
-    and the products of dC, gx and dB over s <= t on tensor cores; the
-    rest (M, the scales, dl's terms, the sums) on the CUDA cores."""
-    nc = -(-T // c)
-    tri = c * (c + 1) // 2
-    products = (B * nc * 2 * N * tri
-                + B * H * nc * (10 * c * P * N + 4 * P * tri + 4 * N * tri))
-    return products, ssd_bwd_flops(B, T, H, P, N, c) - products
-
-
-def wkv_bwd_tc_ops(B, T, H, N, c=32):
-    """(product operations, other operations) of ``wkv_bwd_flops``'s count
-    for the tensor-core K4 backward: per chunk and head the two boundary
-    scans' state products, Bd = dy v^T over s <= t, A's dot products over
-    s < t, dv (A^T dy and the decayed k against G), and dr' and dk' (their
-    sums over the pairs s < t, S dy and G v) on tensor cores; the rest
-    (the decays, the products with them, the bonus, dlogw's sums, the
-    cumulative sums, the anchor) on the CUDA cores."""
-    nc = -(-T // c)
-    pairs = c * (c - 1) // 2
-    products = B * H * nc * (10 * c * N * N + 2 * c * (c + 1) * N
-                             + 6 * N * pairs)
-    return products, wkv_bwd_flops(B, T, H, N, c) - products
-
-
 def time_recurrent_bwd(fn, plain, ins, names, nbytes, flops, shape):
     """One backward's kernel ms (CUDA events), device ms (torch.profiler,
     split between its two kernels: the boundary scans and the chunk
@@ -2463,8 +2313,9 @@ def time_recurrent_bwd(fn, plain, ins, names, nbytes, flops, shape):
     kernel_ms = cuda_time_ms(lambda: fn(*ins), iters=10, warmup=2)
     split = profiled_groups_ms(lambda: fn(*ins),
                                {k: (k,) for k in names}, iters=10)
+    from repro_torch.analysis.roofline import kernel_bound
     plain_ms = cuda_time_ms(lambda: plain(*ins), iters=3, warmup=1)
-    bound, by = recurrent_bound(nbytes, flops)
+    bound, by = kernel_bound(nbytes, flops, "float32")
     return {"shape": shape, "ms": kernel_ms, "kernel_ms": kernel_ms,
             "device_ms": sum(split.values()), "device_split_ms": split,
             "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound,
@@ -2488,10 +2339,12 @@ def wkv_bwd_kernel_phase(failures):
     unaligned r (the CUDA-core route), strong decay, one chunk; timed at
     the training shape against the fp32 and the tensor-core bound."""
     import torch
+    from repro_torch.analysis.roofline import tc_bound
     from repro_torch.kernels.rwkv6_wkv import (wkv6_bwd, wkv6_bwd_plain,
                                                wkv6_plain)
     from repro_torch.kernels.rwkv6_wkv.ops import (BWD_KERNEL_NAMES,
-                                                   tensor_core_path)
+                                                   tensor_core_path,
+                                                   wkv6_bwd_cost)
 
     def inputs(B, T, H, N, *, s0_scale=0.3, dsT=True, seed=0, **kw):
         ins = wkv_inputs(B, T, H, N, s0_scale=s0_scale, seed=seed, **kw)
@@ -2525,14 +2378,12 @@ def wkv_bwd_kernel_phase(failures):
                tensor_core_path(*ins[:4]), False)
     results.append(case("r 4 bytes off 16-byte alignment", ins))
     results.append(case("one chunk (T=20)", inputs(3, 20, 32, 64, seed=5)))
-    # the bytes: r, k, v, logw, dy, u and s0 read once; dr, dk, dv, dlogw,
-    # du and ds0 written once (no dsT in training)
-    nbytes = 4 * (9 * B * T * H * N + 2 * H * N + 2 * B * H * N * N)
+    cost = wkv6_bwd_cost(B, T, H, N)
     t = time_recurrent_bwd(wkv6_bwd, wkv6_bwd_plain, main_ins,
-                           BWD_KERNEL_NAMES, nbytes, wkv_bwd_flops(B, T, H, N),
+                           BWD_KERNEL_NAMES, cost.nbytes, cost.flops,
                            f"B={B} T={T} H={H} N={N} fp32")
-    products, other = wkv_bwd_tc_ops(B, T, H, N)
-    tc, tc_by = tc_bound(nbytes, products, other)
+    products, other = cost.products, cost.other
+    tc, tc_by = tc_bound(cost.nbytes, products, other)
     t.update(bound_tf32x3_ms=tc, bound_tf32x3_by=tc_by, tc_products=products,
              tc_other=other)
     log_bwd_timed("wkv6_bwd", t)
@@ -2567,10 +2418,11 @@ def ssd_bwd_kernel_phase(failures):
     H=6 (a partial head group) and one chunk; timed at the training shape
     against the fp32 and the tensor-core bound."""
     import torch
+    from repro_torch.analysis.roofline import tc_bound
     from repro_torch.kernels.mamba2_ssd import (ssd_bwd, ssd_bwd_plain,
                                                 ssd_plain)
     from repro_torch.kernels.mamba2_ssd.ops import (BWD_KERNEL_NAMES,
-                                                    HEAD_GROUP)
+                                                    HEAD_GROUP, ssd_bwd_cost)
 
     def inputs(B, T, H, P, N, *, h0_scale=0.3, dhT=True, seed=0,
                a_shift=0.0):
@@ -2601,16 +2453,12 @@ def ssd_bwd_kernel_phase(failures):
                         inputs(2, 150, 6, 64, 64, seed=5)))
     results.append(case("one chunk (T=20), H=11", inputs(3, 20, 11, 64, 64,
                                                           seed=6)))
-    # the bytes: x, dt, Bm, Cm, dy, A read once; dx, ddt, dBm, dCm, dA and
-    # dh0 written once (zero h0 read, no dhT in training)
-    nbytes = 4 * (3 * B * T * H * P + 2 * B * T * H + 4 * B * T * N + 2 * H
-                  + 2 * B * H * P * N)
+    cost = ssd_bwd_cost(B, T, H, P, N)
     t = time_recurrent_bwd(ssd_bwd, ssd_bwd_plain, main_ins,
-                           BWD_KERNEL_NAMES, nbytes,
-                           ssd_bwd_flops(B, T, H, P, N),
+                           BWD_KERNEL_NAMES, cost.nbytes, cost.flops,
                            f"B={B} T={T} H={H} P={P} N={N} fp32")
-    products, other = ssd_bwd_tc_ops(B, T, H, P, N)
-    tc, tc_by = tc_bound(nbytes, products, other)
+    products, other = cost.products, cost.other
+    tc, tc_by = tc_bound(cost.nbytes, products, other)
     t.update(bound_tf32x3_ms=tc, bound_tf32x3_by=tc_by, tc_products=products,
              tc_other=other)
     log_bwd_timed("ssd_bwd", t)
@@ -2864,6 +2712,7 @@ def profile_forward(ens, batch, out_dir: Path) -> None:
 GEN_MAX_LEN = 1024
 GEN_BATCH = 8
 GEN_TOKENS = 32
+GEN_PROMPT_MAX = 300    # phase 5's prompts are 17-300 tokens long
 FORCED_STEPS = 8
 
 
@@ -2886,7 +2735,37 @@ def teacher_forced(engine, batch, teacher, steps=FORCED_STEPS):
     return outs
 
 
-def generate_phase(failures, kernels, app, profile_dir):
+def engine_peaks(engine, batch):
+    """Phase 14 B's yi-9b pair: the growth of
+    ``torch.cuda.max_memory_allocated()`` over what was resident (params,
+    a new state and the batch) during one prefill, then during one tick
+    on its state."""
+    import torch
+    out = {"bucket": int(batch["tokens"].shape[1])}
+    state = engine.new_state(GEN_BATCH)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    logits, state = engine.prefill(batch, state)
+    torch.cuda.synchronize()
+    out["prefill"] = torch.cuda.max_memory_allocated() - before
+    token = logits.argmax(-1).to(torch.int32)
+    del logits
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    logits, state = engine.decode(token, state)
+    torch.cuda.synchronize()
+    out["tick"] = torch.cuda.max_memory_allocated() - before
+    del logits, state, token
+    log(f"[fits] yi-9b engine (B={GEN_BATCH}, prompt bucket "
+        f"{out['bucket']}, max_len {GEN_MAX_LEN}): peak growth over the "
+        f"resident params, state and batch: prefill {out['prefill']} bytes, "
+        f"tick {out['tick']} bytes")
+    return out
+
+
+def generate_phase(failures, kernels, app, profile_dir, fits):
     import numpy as np
     import torch
     from repro_torch.core import InferenceEngine, SamplingParams, rng
@@ -2901,8 +2780,8 @@ def generate_phase(failures, kernels, app, profile_dir):
     engine = InferenceEngine(member.model, member.params,
                              max_len=GEN_MAX_LEN, max_batch=GEN_BATCH)
     r = np.random.default_rng(0)
-    lens = r.integers(17, 301, GEN_BATCH)
-    lens[0], lens[-1] = 17, 300
+    lens = r.integers(17, GEN_PROMPT_MAX + 1, GEN_BATCH)
+    lens[0], lens[-1] = 17, GEN_PROMPT_MAX
     prompts = [r.integers(0, cfg.vocab_size, n).tolist() for n in lens]
     log(f"[generate] InferenceEngine(yi-9b#0: {layers} layers, "
         f"d_model {cfg.d_model}, {cfg.dtype}; max_len {GEN_MAX_LEN}, "
@@ -2952,6 +2831,7 @@ def generate_phase(failures, kernels, app, profile_dir):
     dev = engine.device
     batch = {"tokens": torch.from_numpy(tokens).to(dev),
              "lengths": torch.from_numpy(lengths).to(dev)}
+    fits["yi-9b"] = engine_peaks(engine, batch)
     prefill_ms = host_time_ms(
         lambda: engine.prefill(batch, engine.new_state(GEN_BATCH)))
     samp_greedy = {"temperature": torch.zeros(GEN_BATCH, device=dev),
@@ -7195,7 +7075,35 @@ def profile_train_step(trainer, batch, out_dir, groups=None,
     return out
 
 
-def training_phase(failures, kernels, profile_dir, base_bytes):
+def counted_step(failures, trainer, batch, arch, resident, peak):
+    """Phase 14's numbers of one training run: the growth of the peak over
+    what was resident before it (B), and one more, untimed step under a
+    ``costs.Counter`` on the card, its flops and bytes and the kernels'
+    launches as their wrappers count them where they launch (C).  Every
+    wrapper call the counter saw must have launched its kernel once."""
+    import torch
+    from repro_torch.analysis import costs
+    torch.cuda.synchronize()
+    counts_reset()
+    with costs.Counter() as c:
+        trainer.params, trainer.opt_state, _ = trainer._step_fn(
+            trainer.params, trainer.opt_state, batch)
+    n = counts_read()
+    calls = {k: v["calls"] for k, v in c.kernels.items()}
+    out = {"measured_peak": peak - resident, "flops": c.flops,
+           "bytes": c.bytes, "calls": calls,
+           "launches": {k: v for k, v in n.items() if v}}
+    log(f"[fits] {arch}: peak growth over the resident {resident} bytes "
+        f"{out['measured_peak']} bytes; one more step under the counter: "
+        f"flops {c.flops:.6e}, bytes {c.bytes:.6e}, wrapper calls {calls}, "
+        f"launches {out['launches']}")
+    if calls != out["launches"]:
+        failures.append(f"fits C {arch}: the counter saw wrapper calls "
+                        f"{calls}, the kernels launched {out['launches']}")
+    return out
+
+
+def training_phase(failures, kernels, profile_dir, base_bytes, fits):
     """Phase 12: h2o-danube-1.8b trained through ``launch.train`` at full
     width and depth (A), its gradients held against the plain versions
     (B), and whisper-base trained a few steps (C)."""
@@ -7222,6 +7130,7 @@ def training_phase(failures, kernels, profile_dir, base_bytes):
                 "--seq-len", str(TRAIN_SEQ), "--batch", str(TRAIN_BATCH),
                 "--lr", str(TRAIN_LR), "--log-every", "1", "--ckpt-dir",
                 root]
+        resident = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         counts_reset()
         t0 = time.perf_counter()
@@ -7278,6 +7187,8 @@ def training_phase(failures, kernels, profile_dir, base_bytes):
                                       num_dialects=1))
         batch = {k: torch.as_tensor(v, device="cuda")
                  for k, v in data.batch_at(0).items()}
+        fits[TRAIN_ARCH] = counted_step(failures, trainer, batch, TRAIN_ARCH,
+                                        resident, peak)
         info["profile"] = profile_train_step(
             trainer, batch, Path(profile_dir) if profile_dir else None)
         if not info["profile"]["k1_backward_ms"] > 0:
@@ -7493,7 +7404,7 @@ def wkv_layer_check(failures, cfg):
             "bound": RECUR_BWD_REL}
 
 
-def recurrent_train_phase(failures, kernels, profile_dir, base_bytes):
+def recurrent_train_phase(failures, kernels, profile_dir, base_bytes, fits):
     """Phase 13: rwkv6-1.6b and zamba2-2.7b trained through ``launch.train``
     at full width and depth (A, B), and at their initial weights and first
     batch one step's gradients through the kernels against the plain
@@ -7528,6 +7439,7 @@ def recurrent_train_phase(failures, kernels, profile_dir, base_bytes):
                     str(RECUR_TRAIN_STEPS), "--seq-len", str(TRAIN_SEQ),
                     "--batch", str(TRAIN_BATCH), "--lr", str(RECUR_TRAIN_LR),
                     "--log-every", "1", "--ckpt-dir", root]
+            resident = torch.cuda.memory_allocated()
             torch.cuda.reset_peak_memory_stats()
             counts_reset()
             t0 = time.perf_counter()
@@ -7586,6 +7498,8 @@ def recurrent_train_phase(failures, kernels, profile_dir, base_bytes):
                                           num_dialects=1))
             batch = {k: torch.as_tensor(v, device="cuda")
                      for k, v in data.batch_at(0).items()}
+            fits[arch] = counted_step(failures, trainer, batch, arch,
+                                      resident, peak)
             rec["profile"] = profile_train_step(
                 trainer, batch, Path(profile_dir) if profile_dir else None,
                 groups, arch)
@@ -7614,6 +7528,198 @@ def recurrent_train_phase(failures, kernels, profile_dir, base_bytes):
         log(f"[train13] C: {arch} in {info['C'][arch]['seconds']:.1f} s")
     info["seconds"] = time.perf_counter() - t_phase
     log(f"[train13] phase 13 in {info['seconds']:.1f} s")
+
+
+# --- phase 14: what fits one card ---------------------------------------------
+
+TRAIN_SHAPE = (f"train_b{TRAIN_BATCH}x{TRAIN_SEQ}", TRAIN_SEQ, TRAIN_BATCH,
+               "train")         # phases 12 A and 13 A, B
+# the meta pass's peak against the card's, either way: every reading of
+# the five (chip_smoke.py's runs on the H100) sat within 0.01%
+FIT_TOL = 0.005
+FLOPS_TOL = 0.005       # a counted step on the card against the meta pass
+BYTES_TOL = 0.02
+# A's worker processes: every core but the one that runs B's passes
+SWEEP_JOBS = max(1, min(8, len(os.sched_getaffinity(0)) - 1))
+SWEEP_TIMEOUT_S = 300
+
+
+def plans():
+    """Phase 14 B's and C's steps: (name, arch, InputShape, max_len), each
+    under the flags its phase ran with (fp32 moments; the port's defaults
+    otherwise)."""
+    from repro_torch.configs import InputShape
+    from repro_torch.core.batching import BucketSpec
+    bucket = BucketSpec.pow2(GEN_MAX_LEN, min_size=16).bucket_for(
+        GEN_PROMPT_MAX)
+    return ([(arch, arch, InputShape(*TRAIN_SHAPE), None)
+             for arch in (TRAIN_ARCH, *RECUR_TRAIN_ARCHS)]
+            + [(f"{ARCH} prefill", ARCH,
+                InputShape("engine_prefill", bucket, GEN_BATCH, "prefill"),
+                GEN_MAX_LEN),
+               (f"{ARCH} tick", ARCH,
+                InputShape("engine_tick", GEN_MAX_LEN, GEN_BATCH, "decode"),
+                GEN_MAX_LEN)])
+
+
+def fit_check(failures, what, predicted, measured):
+    """One of phase 14 B's comparisons: the meta pass's bytes against the
+    card's, within FIT_TOL either way."""
+    ratio = predicted / measured if measured else float("inf")
+    ok = abs(ratio - 1) <= FIT_TOL
+    log(f"[fits] B: {what}: dry-run {predicted} bytes "
+        f"({predicted / 2 ** 30:.3f} GiB), card {measured} bytes "
+        f"({measured / 2 ** 30:.3f} GiB): {ratio:.4f}x "
+        f"({'within' if ok else 'OUTSIDE'} {FIT_TOL:.1%})")
+    if not ok:
+        failures.append(f"fits B {what}: dry-run {predicted} bytes against "
+                        f"the card's {measured} ({ratio:.4f}x)")
+    return {"predicted": predicted, "measured": measured, "ratio": ratio}
+
+
+def fits_phase(failures, kernels, fits):
+    """Phase 14: what fits one card.  A: the dry-run's sweep over every
+    (arch x shape) in worker processes and its roofline table; B: the meta
+    pass's peak bytes against the card's for the training runs of phases
+    12 and 13 and the yi-9b prefill and tick of phase 5; C: the counted
+    training steps' flops, bytes and launches against the meta pass of the
+    same step.  It runs after every timed phase, so that its CPU work
+    shares the host with none of them."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch import opt
+    from repro_torch.analysis import roofline
+    from repro_torch.configs import ASSIGNED_ARCHS, SHAPES
+    from repro_torch.launch import dryrun
+    t_phase = time.perf_counter()
+    info = {"card": nvidia_smi_line(),
+            "total_memory": torch.cuda.get_device_properties(0).total_memory}
+    kernels[0]["fits"] = info
+    log(f"[fits] the card's memory: {info['total_memory']} bytes "
+        f"(roofline.HBM_BYTES {roofline.HBM_BYTES}); on {info['card']}")
+    if info["total_memory"] != roofline.HBM_BYTES:
+        log("[fits] the card reports another memory size than "
+            "roofline.HBM_BYTES: 'fits' is judged against the constant")
+    tmp = Path(tempfile.mkdtemp(prefix="flexserve-dryrun-"))
+    try:
+        # A's sweep: a meta-device pass needs no card, so none is visible
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                   CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+        with open(tmp / "sweep.log", "w") as out:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+                 "--jobs", str(SWEEP_JOBS), "--out", str(tmp / "records")],
+                cwd=ROOT, env=env, stdout=out, stderr=subprocess.STDOUT)
+            try:
+                # B's and C's plans, here meanwhile
+                planned = {}
+                with opt.flags(opt_bf16_moments=False):
+                    for name, arch, shape, max_len in plans():
+                        planned[name] = (shape, dryrun.run_one(
+                            arch, shape, max_len=max_len, verbose=False))
+                info["plans_s"] = time.perf_counter() - t_phase
+                try:
+                    rc = proc.wait(timeout=SWEEP_TIMEOUT_S)
+                except subprocess.TimeoutExpired:
+                    rc = None
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        tail = (tmp / "sweep.log").read_text().splitlines()[-3:]
+        records = (roofline.load_results(str(tmp / "records"))
+                   if (tmp / "records").is_dir() else [])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # A. the sweep
+    status = {(r["arch"], r["shape"]): r["status"] for r in records}
+    ok = [r for r in records if r["status"] == "ok"]
+    want = len(ASSIGNED_ARCHS) * len(SHAPES)
+    skipped = [k for k, v in status.items() if v == "skipped"]
+    bad = [r for r in ok if not (r["cost"]["flops"] > 0
+                                 and r["memory"]["argument_bytes"] > 0)]
+    info["A"] = {"rc": rc, "seconds": time.perf_counter() - t_phase,
+                 "jobs": SWEEP_JOBS, "ok": len(ok), "skipped": skipped,
+                 "trace_s": sum(r["trace_s"] for r in ok)}
+    log(f"[fits] A: python -m repro_torch.launch.dryrun --all --jobs "
+        f"{SWEEP_JOBS} (no card visible): exit {rc} in "
+        f"{info['A']['seconds']:.1f} s, {len(ok)} ok, skipped {skipped}, of "
+        f"{want} combos; {info['A']['trace_s']:.1f} s of meta passes; its "
+        f"last lines {tail}")
+    if (rc != 0 or len(status) != want or len(ok) != want - 1
+            or skipped != [("whisper-base", "long_500k")] or bad):
+        failures.append(f"fits A: the dry-run sweep: exit {rc}, {len(ok)} "
+                        f"ok of {want}, skipped {skipped}, without flops or "
+                        f"arguments {[(r['arch'], r['shape']) for r in bad]}")
+    rows = [roofline.analyze(r) for r in ok]
+    for line in roofline.table(rows).splitlines():
+        log(f"[fits] A: {line}")
+    info["A"]["rows"] = {f"{r.arch} {r.shape}": {
+        "gib": r.bytes_per_chip / 2 ** 30, "fits": r.fits_hbm,
+        "dominant": r.dominant, "useful": r.useful_ratio} for r in rows}
+    fitting = [f"{r.arch} {r.shape} ({r.dominant})" for r in rows
+               if r.fits_hbm]
+    log(f"[fits] A: fit one card ({roofline.HBM_BYTES / 2 ** 30:.2f} GiB): "
+        f"{len(fitting)} of {len(rows)}: {', '.join(fitting)}")
+
+    # B and C. the meta pass of each measured step
+    info["B"], info["C"] = {}, {}
+    for arch in (TRAIN_ARCH, *RECUR_TRAIN_ARCHS):
+        got = fits.get(arch)
+        if got is None or arch not in planned:
+            failures.append(f"fits: no measurement or plan of {arch}'s "
+                            f"training")
+            continue
+        rec = planned[arch][1]
+        info["B"][arch] = fit_check(
+            failures, f"{arch} training (B={TRAIN_BATCH} x {TRAIN_SEQ}, "
+            f"remat, fp32 moments): the peak",
+            rec["memory"]["peak_bytes"], got["measured_peak"])
+        info["B"][arch]["meta_trace_s"] = rec["trace_s"]
+        df = got["flops"] / rec["cost"]["flops"] - 1
+        db = got["bytes"] / rec["cost"]["bytes_accessed"] - 1
+        planned_calls = {k: v["calls"] for k, v in rec["kernels"].items()}
+        info["C"][arch] = {"flops": [rec["cost"]["flops"], got["flops"]],
+                           "bytes": [rec["cost"]["bytes_accessed"],
+                                     got["bytes"]],
+                           "planned_calls": planned_calls,
+                           "launches": got["launches"]}
+        c_ok = (abs(df) <= FLOPS_TOL and abs(db) <= BYTES_TOL
+                and planned_calls == got["launches"])
+        log(f"[fits] C: {arch}: one step counted on the card against "
+            f"the meta pass: flops {got['flops']:.6e} / "
+            f"{rec['cost']['flops']:.6e} ({df:+.4%}), bytes "
+            f"{got['bytes']:.6e} / {rec['cost']['bytes_accessed']:.6e} "
+            f"({db:+.4%}), launches on the card {got['launches']} / "
+            f"calls planned {planned_calls} ({'ok' if c_ok else 'OUTSIDE'} "
+            f"{FLOPS_TOL:.1%} / {BYTES_TOL:.0%})")
+        if not c_ok:
+            failures.append(f"fits C {arch}: flops {df:+.4%}, bytes "
+                            f"{db:+.4%}, launches {got['launches']} vs "
+                            f"planned calls {planned_calls}")
+    yi = fits.get(ARCH)
+    if yi is None:
+        failures.append("fits: no measurement of the yi-9b engine")
+    else:
+        for kind in ("prefill", "tick"):
+            shape, rec = planned.get(f"{ARCH} {kind}", (None, None))
+            if rec is None or (kind == "prefill"
+                               and shape.seq_len != yi["bucket"]):
+                failures.append(f"fits: the yi-9b {kind}'s plan {shape} "
+                                f"is not phase 5's (bucket {yi['bucket']})")
+                continue
+            mem = rec["memory"]
+            info["B"][f"{ARCH} {kind}"] = fit_check(
+                failures, f"{ARCH} {kind} (B={GEN_BATCH}, "
+                f"{shape.seq_len if kind == 'prefill' else 1} tokens a row, "
+                f"max_len {GEN_MAX_LEN}): the growth over the resident "
+                f"params, state and batch",
+                mem["peak_bytes"] - mem["argument_bytes"], yi[kind])
+    info["seconds"] = time.perf_counter() - t_phase
+    log(f"[fits] phase 14 in {info['seconds']:.1f} s (B's and C's plans "
+        f"{info['plans_s']:.1f} s, beside the sweep)")
 
 
 def main(argv=None) -> int:
@@ -7674,6 +7780,7 @@ def main(argv=None) -> int:
                 log(f"[build]   {entry}: {line.split(':', 1)[-1].strip()}")
 
     failures = []
+    fits = {}
     # the products: wgmma in K1 and its backward; mma.sync in K2/K3 (bf16),
     # K4, K5 and their backward (TF32)
     sass, spills = {}, {}
@@ -7738,7 +7845,7 @@ def main(argv=None) -> int:
     base_bytes = torch.cuda.memory_allocated()
     app = main_path_phase(failures, kernels, args.profile)
     lap("phase 4")
-    generate_phase(failures, kernels, app, args.profile)
+    generate_phase(failures, kernels, app, args.profile, fits)
     lap("phase 5")
     scheduler_phase(failures, kernels, app, args.profile)
     lap("phase 6")
@@ -7776,12 +7883,14 @@ def main(argv=None) -> int:
     lap("phases 10 and 10b")
     gc.collect()
     torch.cuda.empty_cache()
-    training_phase(failures, kernels, args.profile, base_bytes)
+    training_phase(failures, kernels, args.profile, base_bytes, fits)
     lap("phase 12")
     gc.collect()
     torch.cuda.empty_cache()
-    recurrent_train_phase(failures, kernels, args.profile, base_bytes)
+    recurrent_train_phase(failures, kernels, args.profile, base_bytes, fits)
     lap("phase 13")
+    fits_phase(failures, kernels, fits)
+    lap("phase 14")
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -5,8 +5,10 @@ The port's counterpart of ``repro.kernels.common.default_interpret``: where
 the JAX package chose between a compiled and an interpreted Pallas kernel,
 a wrapper here chooses by the tensor it was given.  A CPU tensor takes the
 kernel's plain PyTorch version; a CUDA tensor launches the kernel, and
-anything the kernel cannot take raises.  There is no flag that forces
-either side.
+anything the kernel cannot take raises.  A meta tensor (the dry-run's
+planning pass) is checked and given its outputs and scratch as the CUDA
+path allocates them, and nothing is launched.  There is no flag that
+forces either side.
 
 Kernels are CUDA C++ sources under ``<package>/csrc/`` with a plain C
 interface.  They are compiled with ``nvcc`` at first use into
@@ -59,6 +61,18 @@ def resolve_device(device: Union[str, torch.device, None]) -> torch.device:
                 "port on the CPU")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def is_meta(*tensors: torch.Tensor) -> bool:
+    """True when every tensor is a meta tensor (shapes and dtypes, no
+    storage: the dry-run's pass), False when none is; mixed placement
+    raises.  A wrapper asks this before ``is_cuda``, which refuses meta:
+    on meta it validates and allocates as on the card, and launches
+    nothing."""
+    meta = {t.device.type == "meta" for t in tensors}
+    if len(meta) != 1:
+        raise ValueError("meta tensors mixed with tensors on a device")
+    return meta.pop()
 
 
 def is_cuda(*tensors: torch.Tensor) -> bool:

@@ -12,7 +12,13 @@ stacked (L,B,Smax,K,hd) cache or (L,P,ps,K,hd) pool costs no copy (the TPU
 wrappers moved the head axis, and K2's padded Smax, a copy of the whole
 layer or pool on every call).  The cache takes q's dtype (float32 or
 bfloat16) or, with a bfloat16 q, float8_e4m3fn (the fp8 KV cache), which
-both kernels read directly."""
+both kernels read directly.
+
+Meta tensors (the dry-run) are checked and given the CUDA path's output
+and split scratch, planned for H100_SMS multiprocessors, and nothing is
+launched.  ``decode_attention_cost`` and ``paged_decode_attention_cost``
+give a launch's flops and bytes; each call reports them to an active
+``analysis.costs.Counter``."""
 
 from __future__ import annotations
 
@@ -22,9 +28,10 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch.analysis import costs
 from repro_torch.kernels.common import (cdiv, check_cuda_status, data_ptr,
-                                        is_cuda, load_library, refuse_grad,
-                                        round_up, stream_ptr)
+                                        is_cuda, is_meta, load_library,
+                                        refuse_grad, round_up, stream_ptr)
 from repro_torch.kernels.decode_attention.ref import (
     decode_attention_plain, paged_decode_attention_plain)
 
@@ -53,6 +60,36 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2}
 _CACHE_DTYPES = {torch.float32: (torch.float32,),
                  torch.bfloat16: (torch.bfloat16, torch.float8_e4m3fn)}
 _sm_count: Dict[int, int] = {}
+# the split plan of a meta launch: the multiprocessors of the card the
+# port is measured on, "NVIDIA H100 80GB HBM3, 700.00 W" (nvidia-smi)
+H100_SMS = 132
+
+
+def decode_attention_cost(B: int, H: int, K: int, hd: int, Smax: int,
+                          cache_itemsize: int, q_itemsize: int,
+                          keys: Optional[int] = None) -> costs.Cost:
+    """One K2 launch: the products' flops (q K^T and P V, 4 hd a key a
+    head) and the bytes of the valid keys and values read at the cache's
+    element size, q read and the output written.  ``keys`` counts the
+    valid keys over the batch (each row's min(length, Smax)); by default
+    every row is full, which is all a launch's shapes say."""
+    keys = B * Smax if keys is None else keys
+    return costs.Cost(4 * hd * H * keys,
+                      2 * keys * K * hd * cache_itemsize
+                      + 2 * B * H * hd * q_itemsize)
+
+
+def paged_decode_attention_cost(B: int, H: int, K: int, hd: int, MP: int,
+                                ps: int, cache_itemsize: int,
+                                q_itemsize: int, keys: Optional[int] = None,
+                                pages: Optional[int] = None) -> costs.Cost:
+    """One K3 launch: K2's cost over the pages' keys and the int32 table
+    entries of the ``pages`` a launch reads (by default every row's MP)."""
+    keys = B * MP * ps if keys is None else keys
+    pages = B * MP if pages is None else pages
+    c = decode_attention_cost(B, H, K, hd, MP * ps, cache_itemsize,
+                              q_itemsize, keys)
+    return costs.Cost(c.flops, c.nbytes + 4 * pages)
 
 
 def build() -> ctypes.CDLL:
@@ -118,6 +155,8 @@ def split_plan(B: int, K: int, G: int, Smax: int, hd: int, sms: int,
 
 
 def _sms(device: torch.device) -> int:
+    if device.type == "meta":
+        return H100_SMS
     idx = device.index if device.index is not None else \
         torch.cuda.current_device()
     if idx not in _sm_count:
@@ -204,9 +243,21 @@ def decode_attention(q, cache_k, cache_v, lengths, *,
     ``kpos > length - 1 - window``.  Returns (B,H,hd) in q's dtype."""
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
-    if not is_cuda(q, cache_k, cache_v, lengths):
-        return decode_attention_plain(q, cache_k, cache_v, lengths,
-                                      window=window)
+    def cost():
+        B, H, hd = q.shape
+        return decode_attention_cost(B, H, cache_k.shape[2], hd,
+                                     cache_k.shape[1], cache_k.element_size(),
+                                     q.element_size())
+    with costs.recording("decode_attention", cost):
+        if (not is_meta(q, cache_k, cache_v, lengths)
+                and not is_cuda(q, cache_k, cache_v, lengths)):
+            return decode_attention_plain(q, cache_k, cache_v, lengths,
+                                          window=window)
+        return _decode(q, cache_k, cache_v, lengths, window)
+
+
+def _decode(q, cache_k, cache_v, lengths, window):
+    """One K2 launch on CUDA (or meta) inputs."""
     refuse_grad("decode_attention", q, cache_k, cache_v)
     if q.dim() != 3 or cache_k.dim() != 4:
         raise ValueError("decode_attention takes q (B,H,hd) and cache "
@@ -224,6 +275,8 @@ def decode_attention(q, cache_k, cache_v, lengths, *,
     nsplit, chunk = split_plan(B, K, G, Smax, hd, _sms(q.device), tc)
     lengths = lengths.to(torch.int32).contiguous()
     out, part_acc, part_ml = _scratch(q, nsplit)
+    if q.is_meta:
+        return out
     lib = build()
     status = lib.decode_attention_fwd(
         data_ptr(q), data_ptr(cache_k), data_ptr(cache_v), data_ptr(out),
@@ -251,9 +304,24 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
     keys per row, counting this tick's.  Returns (B,H,hd) in q's dtype."""
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
-    if not is_cuda(q, k_pages, v_pages, page_table, lengths):
-        return paged_decode_attention_plain(q, k_pages, v_pages, page_table,
-                                            lengths, window=window)
+    tensors = (q, k_pages, v_pages, page_table, lengths)
+
+    def cost():
+        B, H, hd = q.shape
+        return paged_decode_attention_cost(
+            B, H, k_pages.shape[2], hd, page_table.shape[1],
+            k_pages.shape[1], k_pages.element_size(), q.element_size())
+    with costs.recording("paged_decode_attention", cost):
+        if not is_meta(*tensors) and not is_cuda(*tensors):
+            return paged_decode_attention_plain(q, k_pages, v_pages,
+                                                page_table, lengths,
+                                                window=window)
+        return _paged_decode(q, k_pages, v_pages, page_table, lengths,
+                             window)
+
+
+def _paged_decode(q, k_pages, v_pages, page_table, lengths, window):
+    """One K3 launch on CUDA (or meta) inputs."""
     refuse_grad("paged_decode_attention", q, k_pages, v_pages)
     if q.dim() != 3 or k_pages.dim() != 4 or page_table.dim() != 2:
         raise ValueError("paged_decode_attention takes q (B,H,hd), "
@@ -281,6 +349,8 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
     lengths = lengths.to(torch.int32).contiguous()
     page_table = page_table.contiguous()
     out, part_acc, part_ml = _scratch(q, nsplit)
+    if q.is_meta:
+        return out
     lib = build()
     status = lib.paged_decode_attention_fwd(
         data_ptr(q), data_ptr(k_pages), data_ptr(v_pages), data_ptr(out),

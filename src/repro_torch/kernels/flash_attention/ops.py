@@ -5,6 +5,10 @@ autograd differentiates; CUDA tensors launch the Hopper kernel in
 ``csrc/flash_attention.cu`` or raise.  The kernel reads the model layout
 through strides, so there is no transpose and no padding copy (unlike the
 TPU wrapper, which moves the head axis and pads S to the block size).
+Meta tensors (the dry-run) are checked and given the CUDA path's outputs
+and log-sum-exp, and nothing is launched.  ``flash_attention_cost`` and
+``flash_attention_bwd_cost`` give a launch's flops and bytes; each call
+reports them to an active ``analysis.costs.Counter``.
 
 Where autograd needs a gradient (grad mode on and some CUDA input
 requiring one), the call goes through ``FlashAttentionFn``: the forward
@@ -15,13 +19,16 @@ backward kernel of ``csrc/flash_attention_bwd.cu``
 from __future__ import annotations
 
 import ctypes
+import functools
 from pathlib import Path
 from typing import Optional
 
+import numpy as np
 import torch
 
+from repro_torch.analysis import costs
 from repro_torch.kernels.common import (check_cuda_status, data_ptr, is_cuda,
-                                        load_library, stream_ptr)
+                                        is_meta, load_library, stream_ptr)
 from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_plain,
                                                      flash_attention_plain)
 
@@ -56,6 +63,52 @@ def build_bwd() -> ctypes.CDLL:
                       ctypes.c_void_p, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=256)
+def visible_pairs(S: int, Skv: int, causal: bool,
+                  window: Optional[int]) -> int:
+    """The (query, key) pairs of one batch row that the mask keeps at full
+    lengths: keys kpos < Skv with kpos <= qpos where ``causal`` and
+    kpos > qpos - window where ``window``."""
+    qpos = np.arange(S, dtype=np.int64)
+    hi = np.minimum(qpos, Skv - 1) if causal else np.full(S, Skv - 1)
+    lo = np.maximum(qpos - window + 1, 0) if window else np.zeros(S,
+                                                                   np.int64)
+    return int(np.clip(hi - lo + 1, 0, None).sum())
+
+
+def flash_attention_cost(B: int, S: int, Skv: int, H: int, K: int, hd: int,
+                         itemsize: int, *, causal: bool = True,
+                         window: Optional[int] = None) -> costs.Cost:
+    """One forward launch: the products' flops (Q K^T and P V, 4 hd a
+    visible pair a head, every row at full length: a launch's shapes say
+    no more) and the bytes of q, k, v read and the output written."""
+    pairs = B * visible_pairs(S, Skv, causal, window)
+    return costs.Cost(4 * hd * H * pairs,
+                      itemsize * (2 * B * S * H * hd + 2 * B * Skv * K * hd))
+
+
+def flash_attention_bwd_cost(B: int, S: int, Skv: int, H: int, K: int,
+                             hd: int, itemsize: int, *, causal: bool = True,
+                             window: Optional[int] = None) -> costs.Cost:
+    """One backward launch: 2.5x the forward's products (S again, dP, dV,
+    dK and dQ) and the bytes of q, k, v, o and dO read, dq, dk and dv
+    written."""
+    fwd = flash_attention_cost(B, S, Skv, H, K, hd, itemsize, causal=causal,
+                               window=window)
+    return costs.Cost(2.5 * fwd.flops,
+                      itemsize * (4 * B * S * H * hd + 4 * B * Skv * K * hd))
+
+
+def _cost(fn, q, k, causal, window):
+    """``fn``'s cost of a launch on q and k, when asked (shapes unchecked
+    until then)."""
+    def cost():
+        B, S, H, hd = q.shape
+        return fn(B, S, k.shape[1], H, k.shape[2], hd, q.element_size(),
+                  causal=causal, window=window)
+    return cost
 
 
 def _check(q, k, v, lengths):
@@ -96,6 +149,8 @@ def _forward(q, k, v, causal, window, lengths, with_lse: bool):
     out = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
     lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
            if with_lse else None)
+    if q.is_meta:
+        return out, lse
     lib = build()
     status = lib.flash_attention_fwd(
         data_ptr(q), data_ptr(k), data_ptr(v), data_ptr(out), data_ptr(lse),
@@ -122,13 +177,17 @@ def flash_attention(q, k, v, *, causal: bool = True,
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
     tensors = (q, k, v) if lengths is None else (q, k, v, lengths)
-    if not is_cuda(*tensors):
-        return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     lengths=lengths)
-    lengths = _check(q, k, v, lengths)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return FlashAttentionFn.apply(q, k, v, lengths, causal, window)
-    return _forward(q, k, v, causal, window, lengths, with_lse=False)[0]
+    with costs.recording("flash_attention",
+                         _cost(flash_attention_cost, q, k, causal, window)):
+        if not is_meta(*tensors) and not is_cuda(*tensors):
+            return flash_attention_plain(q, k, v, causal=causal,
+                                         window=window, lengths=lengths)
+        lengths = _check(q, k, v, lengths)
+        if torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (q, k, v)):
+            return FlashAttentionFn.apply(q, k, v, lengths, causal, window)
+        return _forward(q, k, v, causal, window, lengths,
+                        with_lse=False)[0]
 
 
 flash_attention.launches = 0
@@ -141,9 +200,18 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     output's gradient ``do``; see ``csrc/flash_attention_bwd.cu``.  CPU
     tensors take ``ref.flash_attention_bwd_plain``."""
     tensors = (q, k, v, o, lse, do) + (() if lengths is None else (lengths,))
-    if not is_cuda(*tensors):
-        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
-                                         window=window, lengths=lengths)
+    with costs.recording("flash_attention_bwd",
+                         _cost(flash_attention_bwd_cost, q, k, causal,
+                               window)):
+        if not is_meta(*tensors) and not is_cuda(*tensors):
+            return flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                             causal=causal, window=window,
+                                             lengths=lengths)
+        return _backward(q, k, v, o, lse, do, causal, window, lengths)
+
+
+def _backward(q, k, v, o, lse, do, causal, window, lengths):
+    """One launch of the backward kernels on CUDA (or meta) inputs."""
     lengths = _check(q, k, v, lengths)
     B, S, H, hd = q.shape
     Skv, K = k.shape[1], k.shape[2]
@@ -161,6 +229,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     dk = torch.empty((B, Skv, K, hd), dtype=k.dtype, device=k.device)
     dv = torch.empty_like(dk)
     delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    if q.is_meta:
+        return dq, dk, dv
     tc = ctypes.c_int(0)
     lib = build_bwd()
     status = lib.flash_attention_bwd(

@@ -21,7 +21,13 @@ takes every chunk's terms in parallel, a block per (chunk, head, batch
 row); on the other, one rebuilds the chunk states and one runs the
 adjoint backward over the chunks.  CPU tensors take
 ``ref.wkv6_bwd_plain``.  Both sources include the TF32 x 3 helpers of
-``csrc/wkv_mma.cuh``."""
+``csrc/wkv_mma.cuh``.
+
+Meta tensors (the dry-run) are checked and given the CUDA path's outputs
+and scratch (the backward's boundary tensors too), and nothing is
+launched.  ``wkv6_cost`` and ``wkv6_bwd_cost`` give a launch's operations
+and bytes; each call reports its products' flops and its bytes to an
+active ``analysis.costs.Counter``."""
 
 from __future__ import annotations
 
@@ -30,9 +36,11 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.analysis import costs
 from repro_torch.kernels.common import (cdiv, check_cuda_status, data_ptr,
-                                        float_rows, is_cuda, load_library,
-                                        rows_aligned16, stream_ptr)
+                                        float_rows, is_cuda, is_meta,
+                                        load_library, rows_aligned16,
+                                        stream_ptr)
 from repro_torch.kernels.rwkv6_wkv.ref import CHUNK, wkv6_bwd_plain, wkv6_plain
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -45,6 +53,69 @@ TC_N = 64           # kDim: N of the tensor-core kernel
 KERNEL_NAMES = ("wkv6_kernel", "wkv6_tc_kernel")
 # the tensor-core route's backward kernels (the model's shapes)
 BWD_KERNEL_NAMES = ("wkv6_bwd_scan_kernel", "wkv6_bwd_chunk_kernel")
+SUBCHUNK = 8        # the tensor-core forward's factored sub-chunk
+
+
+def wkv6_cost(B: int, T: int, H: int, N: int) -> costs.Cost:
+    """One forward launch, fp32.  ``flops``: every operation of the chunked
+    WKV (each exp one), per chunk and head: A off the diagonal (c(c-1)/2 N:
+    two products, a sum, a difference, an exp), its diagonal, A.v,
+    r exp(Lprev) S, the decayed k and the state update.  ``products``:
+    per chunk and head A's dot products over s < t, A.v over s <= t,
+    (r o exp(Lprev)) S and the state update (the tensor-core kernel takes
+    all but A's SUBCHUNK-step diagonal blocks on tensor cores, those on
+    the fly); ``other`` the rest: the diagonal blocks' decays (an exp, a
+    difference and a product per (t, s < t, n)), the bonus, the factored
+    blocks' decay factors (an exp, a difference, a product each), the
+    cumulative sums and the state's decay.  ``nbytes``: r, k, v, logw, u and s0 read, y and
+    s_T written."""
+    c, sub = CHUNK, SUBCHUNK
+    nc = cdiv(T, c)
+    per = (5 * c * (c - 1) // 2 * N + 3 * c * N + c * (c + 1) * N
+           + 2 * c * N * N + 6 * c * N + N * N * (2 * c + 2))
+    diag_pairs = (c // sub) * sub * (sub - 1) // 2
+    off_pairs = c * (c - 1) // 2 - diag_pairs
+    factor_rows = sum(c - sub * (i + 1) for i in range(c // sub - 1))
+    products = (2 * N * (off_pairs + diag_pairs) + c * (c + 1) * N
+                + 2 * c * N * N + 2 * c * N * N)
+    other = (3 * N * diag_pairs + 3 * c * N
+             + 3 * N * (factor_rows + (c // sub - 1) * sub)
+             + 2 * c * N + 3 * c * N + c * N + 2 * N * N + N)
+    return costs.Cost(B * H * nc * per,
+                      4 * (5 * B * T * H * N + H * N + 2 * B * H * N * N),
+                      B * H * nc * products, B * H * nc * other)
+
+
+def wkv6_bwd_cost(B: int, T: int, H: int, N: int) -> costs.Cost:
+    """One backward launch, fp32.  ``flops``: per chunk and head the
+    states pass (cumulative sum, decayed k, update), the anchor, the decay
+    D = exp(Lprev_t - L_s) once per (t, s < t, n) (the kernel takes it anew
+    for each of its three uses; the function needs it once), A and Bd, the
+    decayed k and r, dv, dr' and dk' (three operations per (t, s < t, n)
+    each), the bonus and dlogw, the adjoint's update; and du's sum over
+    the batch.  ``products``: the tensor-core backward's, per chunk and
+    head the two boundary scans' state products, Bd = dy v^T over s <= t,
+    A's dot products over s < t, dv (A^T dy and the decayed k against G),
+    and dr' and dk' (their sums over the pairs s < t, S dy and G v);
+    ``other`` the rest.  ``nbytes``: r, k, v, logw, dy, u and s0 read; dr,
+    dk, dv, dlogw, du and ds0 written (no dsT, as training calls it)."""
+    c = CHUNK
+    nc = cdiv(T, c)
+    pairs = c * (c - 1) // 2
+    per = (4 * c * N + N * N * (2 * c + 2)          # states pass
+           + 2 * N * N + 2 * c * N                  # anchor, cumsums
+           + 2 * N * pairs                          # D
+           + 3 * N * pairs + 3 * c * N + N * c * (c + 1)   # A, Bd
+           + 5 * c * N                              # kd, rp
+           + c * (c + 1) * N + 2 * c * N * N        # dv
+           + 2 * (3 * N * pairs + 2 * c * N * N + 4 * c * N)  # dr', dk'
+           + 12 * c * N + N * N * (2 * c + 2))      # finalize, adjoint
+    flops = B * H * nc * per + B * H * N
+    products = B * H * nc * (10 * c * N * N + 2 * c * (c + 1) * N
+                             + 6 * N * pairs)
+    return costs.Cost(flops,
+                      4 * (9 * B * T * H * N + 2 * H * N + 2 * B * H * N * N),
+                      products, flops - products)
 
 
 def build() -> ctypes.CDLL:
@@ -106,6 +177,8 @@ def _forward(r, k, v, logw, u, s0):
     s0 = s0.float().contiguous()
     y = torch.empty((B, T, H, N), dtype=torch.float32, device=r.device)
     sT = torch.empty((B, H, N, N), dtype=torch.float32, device=r.device)
+    if r.is_meta:
+        return y, sT
     lib = build()
     ptrs = [data_ptr(t) for t in (r, k, v, logw, u, s0, y, sT)]
     strides = (*r.stride()[:3], *k.stride()[:3], *v.stride()[:3],
@@ -124,13 +197,15 @@ def _forward(r, k, v, logw, u, s0):
 def wkv6(r, k, v, logw, u, s0):
     """The RWKV-6 recurrence over a sequence; see ``ref.wkv6_plain``.
     Differentiable (through the backward kernels on CUDA)."""
-    if not is_cuda(r, k, v, logw, u, s0):
-        return wkv6_plain(r, k, v, logw, u, s0)
-    _check(r, k, v, logw, u, s0)
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (r, k, v, logw, u, s0)):
-        return Wkv6Fn.apply(r, k, v, logw, u, s0)
-    return _forward(r, k, v, logw, u, s0)
+    with costs.recording("wkv6", lambda: wkv6_cost(*r.shape)):
+        if (not is_meta(r, k, v, logw, u, s0)
+                and not is_cuda(r, k, v, logw, u, s0)):
+            return wkv6_plain(r, k, v, logw, u, s0)
+        _check(r, k, v, logw, u, s0)
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (r, k, v, logw, u, s0)):
+            return Wkv6Fn.apply(r, k, v, logw, u, s0)
+        return _forward(r, k, v, logw, u, s0)
 
 
 wkv6.launches = 0
@@ -142,8 +217,14 @@ def wkv6_bwd(r, k, v, logw, u, s0, dy, dsT=None):
     None: zero), float32; see ``csrc/rwkv6_wkv_bwd.cu``.  CPU tensors take
     ``ref.wkv6_bwd_plain``."""
     given = [t for t in (r, k, v, logw, u, s0, dy, dsT) if t is not None]
-    if not is_cuda(*given):
-        return wkv6_bwd_plain(r, k, v, logw, u, s0, dy, dsT)
+    with costs.recording("wkv6_bwd", lambda: wkv6_bwd_cost(*r.shape)):
+        if not is_meta(*given) and not is_cuda(*given):
+            return wkv6_bwd_plain(r, k, v, logw, u, s0, dy, dsT)
+        return _backward(r, k, v, logw, u, s0, dy, dsT)
+
+
+def _backward(r, k, v, logw, u, s0, dy, dsT):
+    """One launch of the backward kernels on CUDA (or meta) inputs."""
     _check(r, k, v, logw, u, s0)
     B, T, H, N = r.shape
     for name, t, shape in (("dy", dy, r.shape), ("dsT", dsT, s0.shape)):
@@ -168,6 +249,17 @@ def wkv6_bwd(r, k, v, logw, u, s0, dy, dsT=None):
     # one per (b, h) on the other
     du_part = torch.empty((B, nc if tc else 1, H, N), **f32)
     ds0 = None if tc else torch.empty((B, H, N, N), **f32)
+    if not r.is_meta:
+        _launch_bwd(r, k, v, logw, u, s0, dy, dsT, states, adj, dr, dk, dv,
+                    dlogw, du_part, ds0, tc)
+    return (dr, dk, dv, dlogw, du_part.sum((0, 1)),
+            adj[:, :, 0].clone() if tc else ds0)
+
+
+def _launch_bwd(r, k, v, logw, u, s0, dy, dsT, states, adj, dr, dk, dv,
+                dlogw, du_part, ds0, tc):
+    B, T, H, N = r.shape
+    dev = r.device
     lib = build_bwd()
     status = lib.wkv6_bwd(
         *(data_ptr(t) for t in (r, k, v, logw, u, s0, dy, dsT, states, adj,
@@ -176,8 +268,6 @@ def wkv6_bwd(r, k, v, logw, u, s0, dy, dsT=None):
         *logw.stride()[:3], *dy.stride()[:3], int(tc), stream_ptr(dev))
     check_cuda_status(status, "wkv6_bwd")
     wkv6_bwd.launches += 1
-    return (dr, dk, dv, dlogw, du_part.sum((0, 1)),
-            adj[:, :, 0].clone() if tc else ds0)
 
 
 wkv6_bwd.launches = 0

@@ -1,5 +1,5 @@
 """Uniform model API: config -> Model(config, init, loss, forward,
-init_state, prefill, decode).
+init_state, prefill, decode, input_specs, state_specs).
 
 The port of ``repro/models/build.py`` for the families ``dense`` and
 ``moe`` (``transformer.py``; GQA or MLA attention), ``ssm`` (``rwkv6.py``),
@@ -10,7 +10,9 @@ tensors keyed by the JAX checkpoint paths (see ``repro_torch.params``);
 they live on the device ``init`` was given.  The decode state lives
 where ``init_state`` puts it: CUDA unless the caller names another
 device; ``prefill`` and ``decode`` update its tensors in place and return
-the new state."""
+the new state.  ``input_specs`` and ``state_specs`` give a step's inputs
+and decode state as meta tensors (shapes and dtypes, no storage), what the
+dry-run (``launch/dryrun.py``) runs a step on."""
 
 from __future__ import annotations
 
@@ -20,8 +22,10 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.shapes import InputShape
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models import encdec, hybrid, rwkv6, transformer, vlm
+from repro_torch.models.layers import compute_dtype
 
 _FAMILIES = {"dense": transformer, "moe": transformer, "ssm": rwkv6,
              "hybrid": hybrid, "vlm": vlm, "encdec": encdec}
@@ -69,6 +73,38 @@ class Model:
         """``init``'s keys, shapes and dtypes as meta tensors (no storage,
         no random draws): what a checkpoint restores into."""
         return self.init(0, "meta")
+
+    def input_specs(self, shape: InputShape) -> Dict[str, torch.Tensor]:
+        """Every model input of one step of ``shape`` as meta tensors, with
+        the JAX package's dtypes (``repro/models/build.py``,
+        ``_token_specs``): train {"tokens", "labels"} (B,S) int32, prefill
+        {"tokens" (B,S), "lengths" (B,)} int32, decode {"token" (B,)}
+        int32; vlm adds "image_embeds" (B,T,Dv) and encdec "frames"
+        (B,F,D) in the compute dtype, except to a decode step."""
+        cfg = self.config
+        B, S = shape.global_batch, shape.seq_len
+
+        def meta(*dims, dtype=torch.int32):
+            return torch.empty(dims, dtype=dtype, device="meta")
+        if shape.kind == "train":
+            out = {"tokens": meta(B, S), "labels": meta(B, S)}
+        elif shape.kind == "prefill":
+            out = {"tokens": meta(B, S), "lengths": meta(B)}
+        else:   # decode: ONE new token; the state is supplied separately
+            out = {"token": meta(B)}
+        dt = compute_dtype(cfg)
+        if cfg.family == "vlm" and shape.kind != "decode":
+            out["image_embeds"] = meta(B, cfg.vlm.image_tokens,
+                                       cfg.vlm.vision_dim, dtype=dt)
+        if cfg.family == "encdec" and shape.kind != "decode":
+            out["frames"] = meta(B, cfg.encdec.encoder_frames, cfg.d_model,
+                                 dtype=dt)
+        return out
+
+    def state_specs(self, batch: int, max_len: int,
+                    window: Optional[int] = None):
+        """``init_state``'s tree as meta tensors."""
+        return self.init_state(batch, max_len, window, device="meta")
 
     def init_state(self, batch: int, max_len: int,
                    window: Optional[int] = None, *, dtype=None, device=None):

@@ -153,6 +153,13 @@ def _sinusoidal_on(num: int, d: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(table.astype(np.float32)).to(device)
 
 
+def clear_tables() -> None:
+    """Drop the device copies of the rope and sinusoidal tables: the next
+    call makes them anew, as a new process's first step does."""
+    _rope_freqs_on.cache_clear()
+    _sinusoidal_on.cache_clear()
+
+
 def sinusoidal_positions(num: int, d: int, device) -> torch.Tensor:
     """Whisper-style sinusoidal embeddings (num, d), float32 on
     ``device`` (computed in float64 with numpy, as the JAX package's, and

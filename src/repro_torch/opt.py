@@ -25,14 +25,22 @@ What reads each flag in the port:
                   at least 32768 the loss streams the head by vocab chunk
                   (``layers.chunked_cross_entropy``) and never makes the
                   (B, S, V) logits.
-  opt_bf16_moments — read by nothing, as in the JAX package, whose
-                  ``Trainer`` takes ``OptimizerConfig.moment_dtype`` (only
-                  its ``launch/dryrun.py`` reads the flag).
+  opt_bf16_moments — ``launch/dryrun.py``: a training step's moments
+                  are bfloat16 under it, float32 without, as in the JAX
+                  package, whose ``Trainer`` takes
+                  ``OptimizerConfig.moment_dtype`` (only its dry-run reads
+                  the flag).
+  serve_tp, seq_parallel — ``sharding.py::physical_axes``: the d_model
+                  dim of weights on ``pod`` (or unsharded) in place of
+                  ``data``, and the residual stream's sequence dim on
+                  ``model``, in the specs the port keeps as data (one card
+                  places every tensor whole).
   pallas_attn, pallas_paged_decode — read by nothing: in the port the
                   tensor's device chooses the kernel (CUDA) or its plain
                   version (CPU), and no flag forces either.
-  moe_ep, serve_tp, seq_parallel — mesh flags, read by nothing: the port
-                  runs on one GPU and has no mesh.
+  moe_ep — read by nothing: the JAX package's expert-parallel all-to-all
+                  (``moe_block_ep``) needs a mesh's data axis, which one
+                  card lacks; ``moe_block`` is the whole dispatch.
 """
 
 from __future__ import annotations

@@ -86,7 +86,11 @@ def test_import_guard_no_jax_no_repro():
             " repro_torch.training.checkpoint, repro_torch.core.slo,"
             " repro_torch.training.data, repro_torch.training.optimizer,"
             " repro_torch.training.train_loop, repro_torch.launch.train,"
-            " repro_torch.opt;"
+            " repro_torch.opt, repro_torch.sharding,"
+            " repro_torch.launch.mesh, repro_torch.launch.shardings,"
+            " repro_torch.launch.dryrun, repro_torch.analysis.costs,"
+            " repro_torch.analysis.roofline,"
+            " repro_torch.analysis.perf_compare;"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro', 'msgpack', 'ml_dtypes'));"
             "print(bad); sys.exit(1 if bad else 0)")
