@@ -15,11 +15,13 @@ Phases (any failure exits non-zero and prints no final result line):
    paged_decode_attention, one source; K4 wkv6 and its backward, two
    sources; K5 ssd and its backward, two sources) is compiled from
    the checkout's sources with nvcc for sm_90a, one nvcc per source,
-   started together.  cuobjdump's SASS must show HGMMA (wgmma) in K1's
-   library and its backward's and HMMA (mma.sync) in K2/K3's, K4's, K5's
-   and K4's and K5's backward's; the counts go into the kernels line.  A
-   ptxas line saying that it serialised a wgmma of K1's backward fails
-   the build, and so does a spill in K4's or K5's backward.  A yardstick library is
+   started together.  cuobjdump's SASS must show HGMMA (wgmma) and HMMA
+   (mma.sync: the float32 TF32 x 3 kernels) in K1's library and its
+   backward's and HMMA in K2/K3's, K4's, K5's and K4's and K5's
+   backward's; the counts go into the kernels line.  A ptxas line saying
+   that it serialised a wgmma of K1's backward fails the build, and so
+   does a spill in K4's or K5's backward or in any instantiation of K1's
+   float32 tensor-core kernels (``TF32_KERNELS``).  A yardstick library is
    built beside them: K2/K3's source with P rounded to bf16 for P V (one
    product a tile, the kernel before it took P as bf16 hi + lo parts),
    written under build/variants and never called by the port.
@@ -39,7 +41,10 @@ Phases (any failure exits non-zero and prints no final result line):
    unmasked ragged key edge shows, Skv < S with ragged lengths and a
    length-0 row, and causal Skv != S (top-left aligned, as the TPU
    kernel's mask).  K1's tolerance scales atol by min(1, max|ref|)
-   (``scaled_tol``).  K2: the
+   (``scaled_tol``).  Every case logs the route it took
+   (``flash_attention.tensor_cores``); whisper's fp32 encoder must take
+   the tensor cores (TF32 x 3), in the forward and in the backward, and
+   the fp32 timings carry the tensor-core bound beside the fp32 one.  K2: the
    decode tick at B=8, Smax=1024, H=32, K=4, hd=128 with ragged lengths
    (bf16 and fp32), plus a window, ring-style lengths, a length-1 row,
    Smax not a multiple of the tile, a layer view of the stacked cache,
@@ -530,6 +535,29 @@ def sass_counts(library: str) -> dict:
             for op in ("HGMMA", "HMMA")}
 
 
+# K1's float32 tensor-core kernels (TF32 x 3 on mma.sync), by library
+TF32_KERNELS = {"flash_attention": ("flash_attention_tf32_kernel",),
+                "flash_attention_bwd": ("dkdv_tf32_kernel", "dq_tf32_kernel")}
+
+
+def entry_spills(ptxas: str, names) -> dict:
+    """Spill bytes (stores plus loads) of each kernel entry of a ``ptxas
+    -v`` report whose name holds one of ``names``, as "name<HD>"."""
+    out, entry = {}, None
+    for line in ptxas.splitlines():
+        if "Compiling entry" in line:
+            entry = None
+            for n in names:
+                m = re.search(rf"{n}I\w*?(\d+)E", line)
+                if m:
+                    entry = f"{n}<{m.group(1)}>"
+                    out.setdefault(entry, 0)
+        elif entry is not None:
+            out[entry] += sum(int(b) for b in re.findall(
+                r"(\d+) bytes spill (?:stores|loads)", line))
+    return out
+
+
 def ptxas_spills(ptxas: str) -> dict:
     """Spill bytes (stores, loads) summed over a library's kernels, from
     its ``ptxas -v`` report."""
@@ -593,7 +621,6 @@ def attention_case(name, B, S, H, K, hd, dtype, *, causal=True, window=None,
 def time_flash(c):
     """K1 beside its plain version, SDPA and its bound at one case."""
     import torch.nn.functional as F
-    from repro_torch.analysis.roofline import kernel_bound
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
     from repro_torch.kernels.flash_attention.ops import flash_attention_cost
@@ -618,7 +645,6 @@ def time_flash(c):
         library_ms = library_dev_ms = None
     cost = flash_attention_cost(B, S, Skv, H, K, hd, q.element_size(),
                                 causal=c["causal"], window=c["window"])
-    bound, by = kernel_bound(cost.nbytes, cost.flops, c["dtype"])
     return {"shape": f"B={B} S={S}"
                      + (f" Skv={Skv}" if Skv != S else "")
                      + f" H={H} K={K} hd={hd} {c['dtype']} "
@@ -627,8 +653,33 @@ def time_flash(c):
             "ms": kernel_ms, "kernel_ms": kernel_ms,
             "device_ms": kernel_dev_ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "library_device_ms": library_dev_ms,
-            "bound_ms": bound, "bound_by": by, "bytes": cost.nbytes,
-            "flops": cost.flops}
+            "tensor_cores": flash_attention.tensor_cores,
+            **k1_bounds(cost, c["dtype"])}
+
+
+def k1_bounds(cost, dtype):
+    """A K1 launch's bound from its cost: bytes once over the memory rate
+    or the products over the dtype's peak (fp32: the CUDA cores'); fp32
+    also the tensor-core bound of its TF32 x 3 route (the products at a
+    third of the TF32 peak, nothing else counted)."""
+    from repro_torch.analysis.roofline import kernel_bound, tc_bound
+    bound, by = kernel_bound(cost.nbytes, cost.flops, dtype)
+    out = {"bound_ms": bound, "bound_by": by, "bytes": cost.nbytes,
+           "flops": cost.flops}
+    if dtype == "float32":
+        out["tc_bound_ms"], out["tc_bound_by"] = tc_bound(cost.nbytes,
+                                                          cost.flops, 0.0)
+    return out
+
+
+def bound_text(t):
+    """The bound (and the fp32 tensor-core bound) of a timing, for a log
+    line."""
+    text = f"bound {t['bound_ms']:.4f} ms ({t['bound_by']})"
+    if "tc_bound_ms" in t:
+        text += (f", TF32 x 3 bound {t['tc_bound_ms']:.4f} ms "
+                 f"({t['tc_bound_by']})")
+    return text
 
 
 # keys shifted by this much make an unmasked ragged key edge show (see
@@ -745,16 +796,23 @@ def kernel_phase(failures):
         attention_case("causal Skv < S fp32 ragged", 2, 200, 8, 2, 64,
                        "float32", Skv=77, ragged=True),
     ]
+    from repro_torch.kernels.flash_attention import flash_attention
     results = []
     for c in cases:
         ok, err, tol, amax = check_flash_case(c)
+        tc = flash_attention.tensor_cores
         log(f"[kernels] flash_attention {c['name']}: max_abs_err {err:.3e} "
             f"at max|ref| {amax:.3f} ({'ok' if ok else 'FAIL'}, rtol "
-            f"{tol['rtol']}, atol {tol['atol']:.3e})")
+            f"{tol['rtol']}, atol {tol['atol']:.3e}), "
+            f"{'tensor' if tc else 'CUDA'} cores")
         if not ok:
             failures.append(f"flash_attention {c['name']}: err {err}")
         results.append({"case": c["name"], "max_abs_err": err, "ok": ok,
-                        "atol": tol["atol"], "max_abs_ref": amax})
+                        "atol": tol["atol"], "max_abs_ref": amax,
+                        "tensor_cores": tc})
+    check_path(failures, "flash_attention whisper encoder fp32",
+               results[[c["name"] for c in cases].index(
+                   "whisper encoder fp32")]["tensor_cores"], True)
 
     by_name = {c["name"]: c for c in cases}
     main = time_flash(cases[0])
@@ -786,8 +844,8 @@ def kernel_phase(failures):
         log(f"[kernels] flash_attention timed at {t['shape']}: kernel "
             f"{t['kernel_ms']:.4f} ms (device time {t['device_ms']:.4f} ms), "
             f"plain {t['plain_ms']:.4f} ms, SDPA {t['library_ms']} ms "
-            f"(device time {t['library_device_ms']} ms), bound "
-            f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
+            f"(device time {t['library_device_ms']} ms), {bound_text(t)}, "
+            f"{'tensor' if t['tensor_cores'] else 'CUDA'} cores")
     torch.cuda.empty_cache()
     return [entry]
 
@@ -797,8 +855,9 @@ def kernel_phase(failures):
 # K1's backward kernels by launch: Delta, then dK/dV and dQ on the tensor
 # cores (wgmma) or the CUDA cores
 K1_BWD_SPLIT = {"delta": ("delta_kernel",),
-                "dkdv": ("dkdv_wgmma_kernel", "dkdv_kernel"),
-                "dq": ("dq_wgmma_kernel", "dq_kernel")}
+                "dkdv": ("dkdv_wgmma_kernel", "dkdv_tf32_kernel",
+                         "dkdv_kernel"),
+                "dq": ("dq_wgmma_kernel", "dq_tf32_kernel", "dq_kernel")}
 K1_BWD_KERNELS = tuple(n for names in K1_BWD_SPLIT.values() for n in names)
 # h2o-danube-1.8b, the training phase's model: 32/8 heads of 80, its 4096
 # window (wider than the sequence), B=4 x S=2048 a step
@@ -886,7 +945,6 @@ def time_bwd(c):
     and its bound at one case."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.analysis.roofline import kernel_bound
     from repro_torch.kernels.flash_attention import (
         flash_attention_bwd, flash_attention_bwd_plain, ops)
     q, k, v = c["q"], c["k"], c["v"]
@@ -926,7 +984,7 @@ def time_bwd(c):
     cost = ops.flash_attention_bwd_cost(B, S, Skv, H, K, hd, q.element_size(),
                                         causal=c["causal"],
                                         window=c["window"])
-    bound, by = kernel_bound(cost.nbytes, cost.flops, c["dtype"])
+    tc = flash_attention_bwd.tensor_cores
     return {"shape": f"B={B} S={S}" + (f" Skv={Skv}" if Skv != S else "")
                      + f" H={H} K={K} hd={hd} {c['dtype']} "
                      + ("causal" if c["causal"] else "non-causal")
@@ -934,9 +992,8 @@ def time_bwd(c):
             "ms": kernel_ms, "device_ms": device, "device_split_ms": split,
             "fwd_bwd_ms": both_ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
-            "library_device_ms": library_dev_ms,
-            "bound_ms": bound, "bound_by": by, "bytes": cost.nbytes,
-            "flops": cost.flops}
+            "library_device_ms": library_dev_ms, "tensor_cores": tc,
+            **k1_bounds(cost, c["dtype"])}
 
 
 def bwd_cases():
@@ -1017,6 +1074,9 @@ def bwd_kernel_phase(failures):
     if not results[0]["tensor_cores"]:
         failures.append("flash_attention_bwd: danube's case did not take "
                         "the tensor-core kernels")
+    check_path(failures, "flash_attention_bwd whisper encoder fp32",
+               results[[c["name"] for c in cases].index(
+                   "whisper encoder fp32")]["tensor_cores"], True)
     main = time_bwd(cases[0])
     timed = {key: time_bwd(by_name[name]) for key, name in (
         ("vlm_cross", "vlm cross bf16"),
@@ -1029,7 +1089,8 @@ def bwd_kernel_phase(failures):
             + f"; with K1's forward {t['fwd_bwd_ms']:.4f} ms), plain "
             f"{t['plain_ms']:.4f} ms, SDPA forward + backward "
             f"{t['library_ms']} ms (device {t['library_device_ms']} ms), "
-            f"bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+            f"{bound_text(t)}, {'tensor' if t['tensor_cores'] else 'CUDA'} "
+            f"cores")
         if not t["device_ms"] > 0:      # a renamed kernel would read 0
             failures.append(f"flash_attention_bwd: the profiled device time "
                             f"of {K1_BWD_KERNELS} reads 0 at {t['shape']}")
@@ -1091,7 +1152,8 @@ def profiled_ms(fn, names, iters: int = 20) -> float:
     return profiled_groups_ms(fn, {"": names}, iters)[""]
 
 
-K1_KERNELS = ("flash_attention_wgmma_kernel", "flash_attention_kernel")
+K1_KERNELS = ("flash_attention_wgmma_kernel", "flash_attention_tf32_kernel",
+              "flash_attention_kernel")
 K2_KERNELS = ("decode_split_kernel", "decode_split_mma_kernel",
               "decode_combine_kernel")
 
@@ -6885,9 +6947,10 @@ WHISPER_TRAIN_SEQ = 64
 # Phase 12 B's bounds, kernels against plain versions on one step's loss
 # and every leaf's gradient (relative L2 error): bf16 at danube's full
 # width and depth, and the same model on float32 copies of its weights
-# (K1's CUDA-core kernels, where only rounding differs).  Set from the
+# (K1's float32 kernels, where only rounding differs).  Set from the
 # first chip run of the unfaulted kernels (bf16: loss 8.2e-5, worst leaf
-# 2.18e-2, layers/attn/wq; float32: 0 and 6.4e-6) with margin, so that
+# 2.18e-2, layers/attn/wq; float32: 0 and 6.4e-6 on the CUDA-core
+# kernels, 0 and 6.36e-6 on the TF32 x 3 ones) with margin, so that
 # each fault of scripts/k1_bwd_fault.py fails them: the diagonal fault
 # gave 0.24 (both dtypes), the Delta fault 2.24, the last-tile fault 2.8e-2
 # in bf16 (within bf16's noise) and 1.8e-2 in float32.  bf16's noise
@@ -7796,6 +7859,16 @@ def main(argv=None) -> int:
             f"its kernels: {spills[name]}")
         if sass[name] and not sass[name][op]:
             failures.append(f"{name}: no {op} in its SASS")
+    for name, names in TF32_KERNELS.items():
+        if sass[name] and not sass[name]["HMMA"]:
+            failures.append(f"{name}: no HMMA (its TF32 x 3 kernels) in its "
+                            f"SASS")
+        tf32 = entry_spills(str(common.build_log[name]["ptxas"]), names)
+        log(f"[build] {name} float32 tensor-core kernels' spill bytes: "
+            f"{tf32}")
+        if len(tf32) != 4 * len(names) or any(tf32.values()):
+            failures.append(f"{name}: TF32 x 3 kernels' spills {tf32} (one "
+                            f"entry per head dim 64, 80, 96, 128 expected)")
     for name in ("rwkv6_wkv_bwd", "mamba2_ssd_bwd"):
         if any(spills[name].values()):
             failures.append(f"{name}: ptxas spills {spills[name]}")

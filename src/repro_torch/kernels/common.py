@@ -33,6 +33,10 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[3]
 BUILD_DIR = ROOT / "build" / "kernels"
+# headers that kernels of several packages include (``tf32x3.cuh``); nvcc
+# gets this directory with -I, so a source includes them by name from
+# wherever it lies (a variant's copy under build/ too)
+SHARED_CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -123,8 +127,10 @@ def load_library(name: str, sources: Sequence[Path],
     The library is cached in this process and on disk; a build by a
     concurrent process lands under a temporary name and is renamed into
     place, so readers never see a half-written file.  ``build_log[name]``
-    records the seconds spent and the assembler's register/spill report.
-    Different libraries may be built from several threads at once."""
+    records the seconds spent and the assembler's register/spill report,
+    which is kept beside the library (``.ptxas``) so that a later process
+    that loads the built library reads the same report.  Different
+    libraries may be built from several threads at once."""
     with _locks_guard:
         lock = _build_locks.setdefault(name, threading.Lock())
     with lock:
@@ -132,18 +138,22 @@ def load_library(name: str, sources: Sequence[Path],
             return _libs[name]
         out = library_path(name, sources, headers)
         t0 = time.perf_counter()
-        report = ""
+        saved = out.with_suffix(".ptxas")
+        report = saved.read_text() if saved.exists() else ""
         if not out.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-                   *map(str, sources)]
+            cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(SHARED_CSRC), "-o",
+                   str(tmp), *map(str, sources)]
             proc = subprocess.run(cmd, capture_output=True, text=True)
             if proc.returncode != 0:
                 raise RuntimeError(
                     f"nvcc failed for {name} ({proc.returncode}):\n"
                     f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
             report = proc.stderr
+            tmp_report = saved.with_suffix(f".{os.getpid()}.tmp-ptxas")
+            tmp_report.write_text(report)
+            os.replace(tmp_report, saved)
             os.replace(tmp, out)
         build_log[name] = {"seconds": time.perf_counter() - t0,
                            "library": str(out), "ptxas": report}
@@ -160,13 +170,18 @@ def float_rows(t: torch.Tensor) -> torch.Tensor:
     return t if t.stride(-1) == 1 else t.contiguous()
 
 
+def rows_aligned(t: torch.Tensor) -> bool:
+    """Whether every row of a tensor with a contiguous last dimension
+    starts on a 16-byte boundary (its base and its other strides in whole
+    16-byte groups), as a 16-byte ``cp.async`` or a TMA box needs."""
+    per = 16 // t.element_size()
+    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(st % per == 0 for st in t.stride()[:-1]))
+
+
 def rows_aligned16(t: torch.Tensor) -> bool:
-    """Whether every row of a float32 tensor with a contiguous last
-    dimension starts on a 16-byte boundary (its base and its other strides
-    in whole groups of 4 floats), as a 16-byte ``cp.async`` needs."""
-    return (t.dtype == torch.float32 and t.stride(-1) == 1
-            and t.data_ptr() % 16 == 0
-            and all(st % 4 == 0 for st in t.stride()[:-1]))
+    """``rows_aligned`` for a float32 tensor (False for any other dtype)."""
+    return t.dtype == torch.float32 and rows_aligned(t)
 
 
 def refuse_grad(what: str, *tensors: Optional[torch.Tensor]) -> None:

@@ -68,21 +68,45 @@
 // tiles (fewer shared-memory reads per product), 256-row items for G = 1
 // (fewer K/V re-reads), and a TMA store of O.
 //
-// Two paths, chosen per call from what the inputs are:
-//  * tensor cores (flash_attention_wgmma_kernel): bf16, head_dim 64, 80, 96
-//    or 128, every row start 16-byte aligned (the model's q/k/v always
+// Three routes, chosen per call by the caller (ops.tensor_core_path, passed
+// as the entry's tc argument) from what the inputs are:
+//  * bf16 on tensor cores (flash_attention_wgmma_kernel): head_dim 64, 80,
+//    96 or 128, every row start 16-byte aligned (the model's q/k/v always
 //    are).  One persistent block per SM of 2 consumer warpgroups and a
-//    producer warp; see the section below.
-//  * CUDA cores (flash_attention_kernel): fp32, other head dims (up to
-//    256), unaligned bf16.  One block of 128 threads per (query tile,
-//    query head, batch row); each query row is owned by HD_PAD/32
-//    consecutive lanes holding 32 of its head dims of q and of the
-//    accumulator in registers, a q.k dot product is reduced across those
-//    lanes with warp shuffles, and 32-key K/V tiles are converted to fp32
-//    in shared memory, read as float4 in an order that keeps the lanes of
-//    a warp on distinct banks.  It serves the float32 checks, not the
-//    served path.
-// Both run the key loop inside the block and keep m, l and the output
+//    producer warp; see its section below.
+//  * fp32 on tensor cores (flash_attention_tf32_kernel): the same head dims
+//    and alignment.  It serves whisper's encoder, whose float32 frames keep
+//    the residual stream in float32 (6 launches a forward or prefill, and
+//    their backward in training), and float32 calls elsewhere.  Both
+//    products run as TF32 x 3 on mma.sync (each operand split into hi + lo
+//    TF32 parts, three products, fp32 sums: kernels/csrc/tf32x3.cuh), the
+//    precision of the TPU kernel's float32 dot_generals; one TF32 product
+//    (11 bits) misses the float32 tolerance 31-fold at whisper's shape
+//    (tests/test_torch_flash_attention_fp32.py).  What bounds it on an H100:
+//    at whisper's encoder (B=8, S = Skv = 1500, 8/8 heads of 64) 36.9 GFLOP
+//    of products against 98 MB, so the tensor cores: three TF32 products
+//    each, 0.223 ms at a third of the TF32 peak (0.550 ms at the CUDA
+//    cores' fp32 peak).  The design: four warps per 64 query rows, 32-key
+//    K/V tiles through a two-stage cp.async ring, the split by two integer
+//    operations on the bit pattern (cvt.rna.tf32 cost 15-21% more), the
+//    fragment layouts chosen so that P goes from the softmax into P V and a
+//    row's operands load as float2 with no shuffle and no bank conflict,
+//    and each tile's P V summed from zero before it is added into O (see
+//    its section below).  What it does not reach: about 3x its bound.  Each
+//    warp splits every K and V value it reads (four warps a tile), and the
+//    split's instructions weigh (the cheaper rounding alone gained 15-21%);
+//    a 64-key tile ran no faster and 4 blocks an SM slower
+//    (scripts/k1_fp32_variants.py).  Not yet tried: 32 rows a warp, so
+//    that each split B fragment feeds two products.
+//  * CUDA cores (flash_attention_kernel): what the others do not take: other
+//    head dims (up to 256), rows off a 16-byte boundary, in fp32 or bf16.
+//    One block of 128 threads per (query tile, query head, batch row); each
+//    query row is owned by HD_PAD/32 consecutive lanes holding 32 of its
+//    head dims of q and of the accumulator in registers, a q.k dot product
+//    is reduced across those lanes with warp shuffles, and 32-key K/V tiles
+//    are converted to fp32 in shared memory, read as float4 in an order
+//    that keeps the lanes of a warp on distinct banks.
+// All three run the key loop inside the block and keep m, l and the output
 // accumulator in registers for the whole loop.  Where the caller passes an
 // `lse` buffer (B, H, S) fp32 (training: the backward kernel in
 // flash_attention_bwd.cu recomputes P from it), both write each row's
@@ -92,7 +116,8 @@
 // The tensor maps are encoded per call on the host with
 // cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint, so the
 // library links no -lcuda.  The Hopper helpers (mbarriers, TMA, wgmma and
-// the tensor maps) are in sm90.cuh, shared with flash_attention_bwd.cu.
+// the tensor maps) and the float32 route's row copies are in sm90.cuh,
+// shared with flash_attention_bwd.cu.
 
 #include <math.h>
 
@@ -248,6 +273,255 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
         if (d < hd) orow[d] = from_float<T>(acc[4 * c + e] / denom);
       }
     }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Tensor-core float32 path (flash_attention_tf32_kernel): fp32, head_dim
+// HD in {64, 80, 96, 128}, every row start 16-byte aligned.  A block is
+// four warps over 64 query rows of one head (a warp owns 16: a lane holds
+// rows g and g + 8 of them), streaming 32-key tiles of K and V through a
+// two-stage cp.async ring.  Both products run on mma.sync m16n8k8 in TF32
+// with every operand split into hi + lo parts (tf32x3.cuh), so each keeps
+// fp32 precision as the TPU kernel's float32 dot_generals do:
+//  * S = Q K^T: Q's fragments are read from shared memory and split per
+//    k-step, K's per n-tile;
+//  * O += P V: P leaves the online softmax in the accumulator layout,
+//    which is the A layout once the keys of a k-step are ordered 2 t4,
+//    2 t4 + 1 (a thread's columns t4 and t4 + 4), so P is split in
+//    registers with no shuffle; V's fragments are read in the same key
+//    order.  Each tile's P V is summed from zero in registers (64 head
+//    dims at a time) and then added into O with the rescale, so no
+//    tensor-core sum runs longer than one tile.
+// The k index of a k-step is permuted the same way in both operands of
+// Q K^T (dims 2 t4, 2 t4 + 1 at columns t4, t4 + 4), so a thread reads its
+// two values of a row as one float2.  Row strides keep a warp's reads on
+// distinct banks (TfTiles).  Tiles no row of a warp sees are skipped by
+// that warp, masks apply only on tiles that straddle an edge, and the
+// online softmax is the tensor-core bf16 path's (m on the raw scores, the
+// scale folded into each exponent's FFMA).
+// ---------------------------------------------------------------------------
+
+constexpr int kTfWarps = 4;
+constexpr int kTfRows = 16 * kTfWarps;       // query rows of a block
+constexpr int kTfKV = 32;                    // keys of a streamed tile
+constexpr int kTfThreads = 32 * kTfWarps;
+// blocks an SM should hold at head dim hd, as many as shared memory
+// allows: caps ptxas at 168 registers a thread (hd <= 80) or 255, which
+// these kernels fit without a spill (left to its own choice it took 128
+// for some and spilled; at hd 128, 168 spilled too)
+constexpr int tf_min_blocks(int hd) { return hd <= 80 ? 3 : 2; }
+constexpr int kTfChunk = 8;                  // n-tiles (64 dims) a P V pass
+
+// Shared-memory plan (floats): Q, then two stages of K and V.  Q and K are
+// read as float2 at (row g, dims 2 t4 and 2 t4 + 1): a row stride of 8 mod
+// 32 (24 for hd 80) puts the 16 lanes of a half-warp on distinct banks.  V
+// is read as floats at (rows 2 t4 and 2 t4 + 1, dim g): a stride of 4 mod
+// 16 does the same for all 32 lanes.
+template <int HD>
+struct TfTiles {
+  static constexpr int QS = HD + 8;          // Q and K row stride
+  static constexpr int VS = HD + 4;          // V row stride
+  static constexpr int Q = kTfRows * QS;
+  static constexpr int K = kTfKV * QS;
+  static constexpr int STAGE = K + kTfKV * VS;
+  static constexpr int SMEM = 4 * (Q + 2 * STAGE);
+};
+
+template <int HD>
+__global__ void __launch_bounds__(kTfThreads, tf_min_blocks(HD))
+flash_attention_tf32_kernel(const float* __restrict__ q,
+                            const float* __restrict__ k,
+                            const float* __restrict__ v,
+                            float* __restrict__ o, float* __restrict__ lse,
+                            const int* __restrict__ lengths, int S, int Skv,
+                            int G, Strides qs, Strides ks, Strides vs,
+                            Strides os, int causal, int window,
+                            float scale_log2) {
+  using T = TfTiles<HD>;
+  using namespace tf32x3;
+  constexpr int NT = HD / 8;                 // k-steps of Q K^T, n-tiles of O
+  constexpr int NJ = kTfKV / 8;              // n-tiles of S, k-steps of P V
+  extern __shared__ float4 tf_smem4[];
+  float* q_s = reinterpret_cast<float*>(tf_smem4);
+  float* kv_s = q_s + T::Q;
+
+  const int b = blockIdx.z;
+  const int h = blockIdx.y;
+  const int kh = h / G;
+  // causal: the row blocks that see the most keys start first
+  const int mb = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int q0 = mb * kTfRows;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int g = (tid % 32) / 4;
+  const int t4 = tid % 4;
+  const int r0 = q0 + 16 * warp;             // the warp's first row
+  const int rows[2] = {r0 + g, r0 + g + 8};
+
+  int L = lengths != nullptr ? lengths[b] : Skv;
+  L = min(max(L, 0), Skv);
+  // keys some row of the block sees: [lo, hi); of the warp: [wlo, whi)
+  const int lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int hi = causal ? min(L, q0 + kTfRows) : L;
+  const int wlo = window > 0 ? max(0, r0 - window + 1) : 0;
+  const int whi = causal ? min(L, r0 + 16) : L;
+  const int ntiles = hi > lo ? (hi - lo + kTfKV - 1) / kTfKV : 0;
+
+  const float* kb = k + b * ks.b + kh * ks.h;
+  const float* vb = v + b * vs.b + kh * vs.h;
+  auto load_kv = [&](int i) {
+    float* st = kv_s + (i & 1) * T::STAGE;
+    const int t0 = lo + i * kTfKV;
+    cp_rows<HD, kTfKV, kTfThreads>(st, T::QS, kb, ks.s, t0, hi, tid);
+    cp_rows<HD, kTfKV, kTfThreads>(st + T::K, T::VS, vb, vs.s, t0, hi, tid);
+  };
+  if (ntiles > 0) {
+    cp_rows<HD, kTfRows, kTfThreads>(q_s, T::QS, q + b * qs.b + h * qs.h,
+                                     qs.s, q0, S, tid);
+    load_kv(0);
+  }
+  cp_async_commit();
+
+  float oacc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) oacc[n][e] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};   // row maxima of the raw scores
+  float l[2] = {0.f, 0.f};               // this lane's partial row sums
+
+  const float* qr = q_s + (16 * warp + g) * T::QS + 2 * t4;
+  for (int i = 0; i < ntiles; ++i) {
+    if (i + 1 < ntiles) {
+      load_kv(i + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int t0 = lo + i * kTfKV;
+    if (t0 < whi && t0 + kTfKV > wlo) {
+      const float* k_t = kv_s + (i & 1) * T::STAGE;
+      const float* v_t = k_t + T::K;
+      // S = Q K^T; a lane's n-tile j holds keys 8 j + 2 t4 (+1) of rows
+      // g (s[j][0..1]) and g + 8 (s[j][2..3])
+      float s[NJ][4];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < NT; ++kk) {
+        const float2 x0 = ld2(qr + 8 * kk);
+        const float2 x1 = ld2(qr + 8 * T::QS + 8 * kk);
+        uint32_t ah[4], al[4];
+        split_a_bits(x0.x, x1.x, x0.y, x1.y, ah, al);
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          const float2 y = ld2(k_t + (8 * j + g) * T::QS + 8 * kk + 2 * t4);
+          uint32_t bh[2], bl[2];
+          split_bits(y.x, bh[0], bl[0]);
+          split_bits(y.y, bh[1], bl[1]);
+          mma3_acc(s[j], ah, al, bh, bl);
+        }
+      }
+      // masks only on a tile that straddles the length, the diagonal or
+      // the window edge of some row of the warp
+      if (t0 + kTfKV > L || (causal && t0 + kTfKV - 1 > r0) ||
+          (window > 0 && t0 <= r0 + 15 - window)) {
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int kp = t0 + 8 * j + 2 * t4 + (e & 1);
+            const int r = rows[e >> 1];
+            const bool seen = kp < L && (!causal || kp <= r) &&
+                              (window <= 0 || kp > r - window);
+            if (!seen) s[j][e] = -INFINITY;
+          }
+      }
+      float alpha[2];
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {          // row g (x = 0) and g + 8
+        float tmax = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+          tmax = fmaxf(tmax, fmaxf(s[j][2 * x], s[j][2 * x + 1]));
+        tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
+        tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 2));
+        const float m_new = fmaxf(m[x], tmax);
+        const float m_use = m_new == -INFINITY ? 0.f : m_new;
+        alpha[x] = ex2((m[x] - m_use) * scale_log2);
+        const float ms = m_use * scale_log2;
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+#pragma unroll
+          for (int e = 2 * x; e < 2 * x + 2; ++e) {
+            s[j][e] = ex2(fmaf(s[j][e], scale_log2, -ms));
+            sum += s[j][e];
+          }
+        l[x] = l[x] * alpha[x] + sum;
+        m[x] = m_new;
+      }
+      // O = alpha O + P V, 64 head dims a pass
+      uint32_t ph[NJ][4], pl[NJ][4];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+        split_a_bits(s[j][0], s[j][2], s[j][1], s[j][3], ph[j], pl[j]);
+#pragma unroll
+      for (int c = 0; c < NT; c += kTfChunk) {
+        float t[kTfChunk][4];
+#pragma unroll
+        for (int n = 0; n < kTfChunk; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) t[n][e] = 0.f;
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+#pragma unroll
+          for (int n = 0; n < kTfChunk; ++n) {
+            if (c + n < NT) {
+              const float* vr = v_t + (8 * j + 2 * t4) * T::VS +
+                                8 * (c + n) + g;
+              uint32_t bh[2], bl[2];
+              split_bits(vr[0], bh[0], bl[0]);
+              split_bits(vr[T::VS], bh[1], bl[1]);
+              mma3_acc(t[n], ph[j], pl[j], bh, bl);
+            }
+          }
+#pragma unroll
+        for (int n = 0; n < kTfChunk; ++n)
+          if (c + n < NT)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              oacc[c + n][e] = fmaf(oacc[c + n][e], alpha[e >> 1], t[n][e]);
+      }
+    }
+    __syncthreads();                         // stage i & 1 is free again
+  }
+
+#pragma unroll
+  for (int x = 0; x < 2; ++x) {
+    l[x] += __shfl_xor_sync(0xffffffffu, l[x], 1);
+    l[x] += __shfl_xor_sync(0xffffffffu, l[x], 2);
+  }
+#pragma unroll
+  for (int x = 0; x < 2; ++x) {
+    const int r = rows[x];
+    if (r >= S) continue;
+    // m is on the raw scores and l sums powers of 2: back to natural log
+    // units of the scaled scores
+    if (lse != nullptr && t4 == 0)
+      lse[((long long)b * gridDim.y + h) * S + r] =
+          l[x] > 0.f ? (m[x] * scale_log2 + log2f(l[x])) * kLn2 : -INFINITY;
+    const float inv = 1.f / fmaxf(l[x], 1e-30f);
+    float* orow = o + b * os.b + (long long)r * os.s + h * os.h;
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+      *reinterpret_cast<float2*>(orow + 8 * n + 2 * t4) =
+          make_float2(oacc[n][2 * x] * inv, oacc[n][2 * x + 1] * inv);
   }
 }
 
@@ -665,6 +939,25 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
+template <int HD>
+cudaError_t launch_tf32(const void* q, const void* k, const void* v, void* o,
+                        float* lse, const int* lengths, int B, int S, int Skv,
+                        int H, int G, Strides qs, Strides ks, Strides vs,
+                        Strides os, int causal, int window, float scale,
+                        cudaStream_t stream) {
+  auto kern = flash_attention_tf32_kernel<HD>;
+  constexpr int smem = TfTiles<HD>::SMEM;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((S + kTfRows - 1) / kTfRows, H, B);
+  kern<<<grid, kTfThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), lse, lengths, S,
+      Skv, G, qs, ks, vs, os, causal, window, scale * kLog2e);
+  return cudaGetLastError();
+}
+
 template <typename T, int HD_PAD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    float* lse, const int* lengths, int B, int S, int Skv,
@@ -714,7 +1007,11 @@ cudaError_t dispatch_hd(const void* q, const void* k, const void* v, void* o,
 // elements.  lse may be null; else (B, H, S) contiguous fp32, written with
 // each row's log-sum-exp.  lengths may be null (every row has Skv valid
 // keys); a length is read as min(lengths[b], Skv).  window <= 0 means no
-// window.  Returns cudaGetLastError() after the launch (0 on success).
+// window.  tc (the caller's ops.tensor_core_path) picks the tensor-core
+// kernel of the dtype (TF32 x 3 for fp32, wgmma for bf16), which takes
+// head_dim 64, 80, 96 or 128 and 16-byte aligned rows and refuses other
+// inputs; tc = 0 the CUDA-core kernel.  Returns cudaGetLastError() after
+// the launch (0 on success).
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, float* lse,
     const int* lengths, int dtype, int B, int S, int Skv, int H, int K,
@@ -722,33 +1019,51 @@ extern "C" int flash_attention_fwd(
     long long q_ss, long long q_sh, long long k_sb, long long k_ss,
     long long k_sh, long long v_sb, long long v_ss, long long v_sh,
     long long o_sb, long long o_ss, long long o_sh, int causal, int window,
-    float scale, void* stream) {
+    float scale, void* stream, int tc) {
   if (B < 1 || S < 1 || Skv < 1 || K < 1 || H % K != 0 || hd < 1 ||
-      hd > 256)
+      hd > 256 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh},
       vs{v_sb, v_ss, v_sh}, os{o_sb, o_ss, o_sh};
   const int G = H / K;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  if (dtype == 0)
-    e = dispatch_hd<float>(q, k, v, o, lse, lengths, B, S, Skv, H, G, hd, qs,
-                           ks, vs, os, causal, window, scale, st);
-  else if (dtype == 1 && mma_aligned(q, qs) && mma_aligned(k, ks) &&
-           mma_aligned(v, vs) && mma_aligned(o, os) &&
-           (hd == 64 || hd == 80 || hd == 96 || hd == 128)) {
-    // one 64-dim box (hd 64) or two, TMA zero-filling the dims past hd
-    e = hd == 64 ? launch_wgmma<1>(q, k, v, o, lse, lengths, B, S, Skv, H, K,
-                                   hd, qs, ks, vs, os, causal, window, scale,
-                                   st)
-                 : launch_wgmma<2>(q, k, v, o, lse, lengths, B, S, Skv, H, K,
-                                   hd, qs, ks, vs, os, causal, window, scale,
-                                   st);
-  } else if (dtype == 1)
-    e = dispatch_hd<__nv_bfloat16>(q, k, v, o, lse, lengths, B, S, Skv, H, G,
-                                   hd, qs, ks, vs, os, causal, window, scale,
-                                   st);
-  else
-    e = cudaErrorInvalidValue;
-  return (int)e;
+  if (!tc)
+    return (int)(dtype == 0
+                     ? dispatch_hd<float>(q, k, v, o, lse, lengths, B, S, Skv,
+                                          H, G, hd, qs, ks, vs, os, causal,
+                                          window, scale, st)
+                     : dispatch_hd<__nv_bfloat16>(
+                           q, k, v, o, lse, lengths, B, S, Skv, H, G, hd, qs,
+                           ks, vs, os, causal, window, scale, st));
+  if (hd != 64 && hd != 80 && hd != 96 && hd != 128)
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 0) {
+    if (!(f32_aligned(q, qs) && f32_aligned(k, ks) && f32_aligned(v, vs) &&
+          f32_aligned(o, os)))
+      return (int)cudaErrorInvalidValue;
+    cudaError_t e;
+    if (hd == 64)
+      e = launch_tf32<64>(q, k, v, o, lse, lengths, B, S, Skv, H, G, qs, ks,
+                          vs, os, causal, window, scale, st);
+    else if (hd == 80)
+      e = launch_tf32<80>(q, k, v, o, lse, lengths, B, S, Skv, H, G, qs, ks,
+                          vs, os, causal, window, scale, st);
+    else if (hd == 96)
+      e = launch_tf32<96>(q, k, v, o, lse, lengths, B, S, Skv, H, G, qs, ks,
+                          vs, os, causal, window, scale, st);
+    else
+      e = launch_tf32<128>(q, k, v, o, lse, lengths, B, S, Skv, H, G, qs, ks,
+                           vs, os, causal, window, scale, st);
+    return (int)e;
+  }
+  if (!(mma_aligned(q, qs) && mma_aligned(k, ks) && mma_aligned(v, vs) &&
+        mma_aligned(o, os)))
+    return (int)cudaErrorInvalidValue;
+  // one 64-dim box (hd 64) or two, TMA zero-filling the dims past hd
+  return (int)(hd == 64 ? launch_wgmma<1>(q, k, v, o, lse, lengths, B, S,
+                                          Skv, H, K, hd, qs, ks, vs, os,
+                                          causal, window, scale, st)
+                        : launch_wgmma<2>(q, k, v, o, lse, lengths, B, S,
+                                          Skv, H, K, hd, qs, ks, vs, os,
+                                          causal, window, scale, st));
 }

@@ -31,19 +31,31 @@
 //    lse on the way.
 //  * dQ: over query rows of one head, over the key tiles they see, the
 //    same recomputation (the price of having no atomics).
-// Two paths, chosen per call as K1's forward chooses:
-//  * tensor cores (bf16, head_dim 64, 80, 96 or 128, 16-byte aligned rows:
-//    dkdv_wgmma_kernel, dq_wgmma_kernel; the section below);
-//  * CUDA cores (fp32, other head dims up to 256, unaligned bf16): the
-//    forward's CUDA-core layout, HD_PAD/32 lanes owning one row's head dims
-//    in registers, dot products reduced by warp shuffles, 32-row tiles of
-//    the other side staged in shared memory as fp32.
-// What bounds it on an H100: at danube's training shape (B=4, S=2048,
-// 32/8 heads of 80, causal) the gradient's ideal work is five products a
-// visible pair, 215 GFLOP (2.5x the forward's 86), against about 0.3 GB of
-// q, k, v, o, dO and the three gradients: some 700 operations a byte, far
-// above the card's ~295, so the tensor cores bound it (0.217 ms at the
-// bf16 peak).  What the tensor-core design does about it:
+// Three routes, chosen per call as K1's forward chooses (the caller's
+// ops.tensor_core_path, the entry's tc argument):
+//  * bf16 on tensor cores (head_dim 64, 80, 96 or 128, 16-byte aligned
+//    rows: dkdv_wgmma_kernel, dq_wgmma_kernel; the last section below);
+//  * fp32 on tensor cores, the same head dims and alignment
+//    (dkdv_tf32_kernel, dq_tf32_kernel; the section before it): every
+//    product as TF32 x 3 on mma.sync (kernels/csrc/tf32x3.cuh), P and dS
+//    split like the inputs, the fp32 precision of the gradient JAX takes
+//    of its float32 attention.  It serves whisper's encoder in training (6
+//    launches a step).  At its B=2 step shape (S = Skv = 1500, 8/8 heads of
+//    64) the ideal work is 23.0 GFLOP of products against 98 MB, 0.140 ms
+//    at a third of the TF32 peak; the design does seven products a pair
+//    (S and dP again in the dQ kernel) where five are ideal, the price of
+//    having no atomics;
+//  * CUDA cores (other head dims up to 256, rows off a 16-byte boundary,
+//    fp32 or bf16): the forward's CUDA-core layout, HD_PAD/32 lanes owning
+//    one row's head dims in registers, dot products reduced by warp
+//    shuffles, 32-row tiles of the other side staged in shared memory as
+//    fp32.
+// What bounds the bf16 route on an H100: at danube's training shape (B=4,
+// S=2048, 32/8 heads of 80, causal) the gradient's ideal work is five
+// products a visible pair, 215 GFLOP (2.5x the forward's 86), against
+// about 0.3 GB of q, k, v, o, dO and the three gradients: some 700
+// operations a byte, far above the card's ~295, so the tensor cores bound
+// it (0.217 ms at the bf16 peak).  What the tensor-core design does about it:
 //  * every product on wgmma, the only way to the tensor cores' full rate:
 //    S^T = K Q^T and dP^T = V dO^T from shared memory, then dV += P^T dO
 //    and dK += dS^T Q with P^T and dS^T as register A operands (the dQ
@@ -375,6 +387,443 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (qp < S)
     store_row<T, TPR>(dq + b * dqs.b + (long long)qp * dqs.s + h * dqs.h,
                       hd, sub, dqa, scale);
+}
+
+// ---------------------------------------------------------------------------
+// Tensor-core float32 path: fp32, head_dim HD in {64, 80, 96, 128}, every
+// row start 16-byte aligned.  The CUDA-core kernels' structure (a block of
+// 64 resident rows of its own side streaming 32-row tiles of the other
+// side through a two-stage cp.async ring, no atomics), with every product
+// of a visible pair on mma.sync m16n8k8 in TF32 x 3 (tf32x3.cuh: operands
+// split into hi + lo parts, fp32 accumulators), so the gradient keeps
+// fp32 precision.  A block is four warps; a warp owns 16 resident rows (a
+// lane holds rows g and g + 8 of them).
+//  * dkdv_tf32_kernel, per (64 keys, KV head, b): S^T = K Q^T and
+//    dP^T = V dO^T with the warp's K and V rows as A, then P^T from lse and
+//    dS^T = P^T (dP^T - Delta) in the accumulator layout, which is the A
+//    layout of dV += P^T dO and dK += dS^T Q once a k-step's queries are
+//    ordered 2 t4, 2 t4 + 1 (no shuffle); the G query heads of the KV head
+//    stream past in turn.  Each tile's dK and dV are summed from zero in
+//    registers (64 head dims a pass) and added into the block's dK and dV,
+//    which each thread keeps for its own fragments in shared memory.
+//  * dq_tf32_kernel, per (64 query rows, head, b): S = Q K^T and
+//    dP = dO V^T, P and dS as in the forward, dQ += dS K, each tile's sum
+//    from zero added into dQ in registers.
+// No tensor-core sum runs longer than one tile.  The k index of a k-step
+// is permuted alike in both operands of S^T, dP^T, S and dP (dims 2 t4,
+// 2 t4 + 1 at columns t4, t4 + 4), so a row's two values are one float2;
+// every tile's row stride is 8 mod 32 (24 for hd 80), which keeps those
+// reads on distinct banks.  The accumulating products read their B
+// operand down a column (rows 2 t4 and 2 t4 + 1), two lanes to a bank.
+// ---------------------------------------------------------------------------
+
+constexpr int kTfWarps = 4;
+constexpr int kTfThreads = 32 * kTfWarps;
+// blocks an SM should hold at head dim hd, as many as shared memory
+// allows: caps ptxas at 168 registers a thread (hd <= 80) or 255, which
+// these kernels fit without a spill (left to its own choice it took 128
+// for some and spilled; at hd 128, 168 spilled too)
+constexpr int tf_min_blocks(int hd) { return hd <= 80 ? 3 : 2; }
+constexpr int kTfRes = 16 * kTfWarps;        // resident rows of a block
+constexpr int kTfTile = 32;                  // rows of a streamed tile
+constexpr int kTfChunk = 8;                  // n-tiles (64 dims) a pass
+
+// Shared-memory plan (floats): the resident pair (K and V; Q and dO), then
+// two stages of the streamed pair (Q and dO with their rows' lse and
+// Delta; K and V), then (dK/dV) each thread's dK and dV fragments.
+template <int HD>
+struct TfBwd {
+  static constexpr int RS = HD + 8;          // every tile's row stride
+  static constexpr int NT = HD / 8;          // n-tiles of HD
+  static constexpr int RES = 2 * kTfRes * RS;
+  static constexpr int TILE = kTfTile * RS;
+  static constexpr int STAGE_KV = 2 * TILE + 2 * kTfTile;
+  static constexpr int STAGE_Q = 2 * TILE;
+  static constexpr int ACC = 2 * kTfRes * HD;
+  static constexpr int SMEM_KV = 4 * (RES + 2 * STAGE_KV + ACC);
+  static constexpr int SMEM_Q = 4 * (RES + 2 * STAGE_Q);
+};
+
+// The A fragment (rows g, g + 8; k-step columns 2 t4, 2 t4 + 1) of a k-step
+// of 8 dims at `p` (row g, dim 2 t4) of a tile with row stride rs, split.
+__device__ __forceinline__ void tf_a(const float* p, int rs, uint32_t (&hi)[4],
+                                     uint32_t (&lo)[4]) {
+  const float2 x0 = tf32x3::ld2(p);
+  const float2 x1 = tf32x3::ld2(p + 8 * rs);
+  tf32x3::split_a_bits(x0.x, x1.x, x0.y, x1.y, hi, lo);
+}
+
+// acc[n] += A (B rows 8 j + 2 t4 and + 1, columns 8 n + g) for n < NT: the
+// A fragments a (hi, lo) of NJ k-steps against a tile b0 (row 2 t4, column
+// g) with row stride rs, summed from zero 64 columns at a time and handed
+// to add(n, t) for each n-tile.
+template <int NJ, int NT, typename Add>
+__device__ __forceinline__ void tf_accumulate(const uint32_t (&ah)[NJ][4],
+                                              const uint32_t (&al)[NJ][4],
+                                              const float* b0, int rs,
+                                              Add add) {
+#pragma unroll
+  for (int c = 0; c < NT; c += kTfChunk) {
+    float t[kTfChunk][4];
+#pragma unroll
+    for (int n = 0; n < kTfChunk; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) t[n][e] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int n = 0; n < kTfChunk; ++n) {
+        if (c + n < NT) {
+          const float* br = b0 + 8 * j * rs + 8 * (c + n);
+          uint32_t bh[2], bl[2];
+          tf32x3::split_bits(br[0], bh[0], bl[0]);
+          tf32x3::split_bits(br[rs], bh[1], bl[1]);
+          tf32x3::mma3_acc(t[n], ah[j], al[j], bh, bl);
+        }
+      }
+#pragma unroll
+    for (int n = 0; n < kTfChunk; ++n)
+      if (c + n < NT) add(c + n, t[n]);
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kTfThreads, tf_min_blocks(HD))
+dkdv_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ dout,
+                 const float* __restrict__ lse,
+                 const float* __restrict__ delta, float* __restrict__ dk,
+                 float* __restrict__ dv, const int* __restrict__ lengths,
+                 int S, int Skv, int H, int G, Strides qs, Strides ks,
+                 Strides vs, Strides dos, Strides dks, Strides dvs,
+                 int causal, int window, float scale, float scale_log2) {
+  using T = TfBwd<HD>;
+  constexpr int NT = T::NT;
+  constexpr int NJ = kTfTile / 8;            // n-tiles of S^T, k-steps after
+  extern __shared__ float4 tfb_smem4[];
+  float* k_s = reinterpret_cast<float*>(tfb_smem4);
+  float* v_s = k_s + kTfRes * T::RS;
+  float* stages = v_s + kTfRes * T::RS;
+
+  const int b = blockIdx.z;
+  const int kh = blockIdx.y;
+  const int k0 = blockIdx.x * kTfRes;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane / 4;
+  const int t4 = lane % 4;
+  const int kw0 = k0 + 16 * warp;            // the warp's first key
+  const int L = valid_keys(lengths, b, Skv);
+  // this thread's dK and dV fragments: n-tile n at [n * 32]
+  float4* dka = reinterpret_cast<float4*>(stages + 2 * T::STAGE_KV) +
+                warp * NT * 32 + lane;
+  float4* dva = dka + kTfWarps * NT * 32;
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+    dka[n * 32] = dva[n * 32] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  int qlo = 0, qhi = 0;
+  if (k0 < L) query_range(k0, min(k0 + kTfRes, L), S, causal, window, qlo,
+                          qhi);
+  const int ntq = qhi > qlo ? (qhi - qlo + kTfTile - 1) / kTfTile : 0;
+  const int n_items = G * ntq;               // (head, query tile), heads outer
+
+  auto load = [&](int i) {
+    const int h = kh * G + i / ntq;
+    const int t0 = qlo + (i % ntq) * kTfTile;
+    float* st = stages + (i & 1) * T::STAGE_KV;
+    cp_rows<HD, kTfTile, kTfThreads>(st, T::RS, q + b * qs.b + h * qs.h,
+                                     qs.s, t0, qhi, tid);
+    cp_rows<HD, kTfTile, kTfThreads>(st + T::TILE, T::RS,
+                                     dout + b * dos.b + h * dos.h, dos.s, t0,
+                                     qhi, tid);
+    if (tid < 2 * kTfTile) {                 // lse, then Delta, of the rows
+      const int j = tid % kTfTile;
+      const bool ok = t0 + j < qhi;
+      const long long r = ((long long)b * H + h) * S + (ok ? t0 + j : 0);
+      tf32x3::cp_async4(st + 2 * T::TILE + tid,
+                        (tid < kTfTile ? lse : delta) + r, ok);
+    }
+  };
+  if (n_items > 0) {
+    cp_rows<HD, kTfRes, kTfThreads>(k_s, T::RS, k + b * ks.b + kh * ks.h,
+                                    ks.s, k0, Skv, tid);
+    cp_rows<HD, kTfRes, kTfThreads>(v_s, T::RS, v + b * vs.b + kh * vs.h,
+                                    vs.s, k0, Skv, tid);
+    load(0);
+  }
+  tf32x3::cp_async_commit();
+
+  const float* kr = k_s + (16 * warp + g) * T::RS + 2 * t4;
+  const float* vr = v_s + (16 * warp + g) * T::RS + 2 * t4;
+  for (int i = 0; i < n_items; ++i) {
+    if (i + 1 < n_items) {
+      load(i + 1);
+      tf32x3::cp_async_commit();
+      tf32x3::cp_async_wait<1>();
+    } else {
+      tf32x3::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int t0 = qlo + (i % ntq) * kTfTile;
+    // some query of the tile sees some key of the warp
+    if (kw0 < L && (!causal || t0 + kTfTile - 1 >= kw0) &&
+        (window <= 0 || t0 - window < kw0 + 15)) {
+      const float* q_t = stages + (i & 1) * T::STAGE_KV;
+      const float* do_t = q_t + T::TILE;
+      const float* lse_t = do_t + T::TILE;
+      const float* dl_t = lse_t + kTfTile;
+      // S^T and dP^T: a lane's n-tile j holds queries 8 j + 2 t4 (+1) of
+      // keys g ([0..1]) and g + 8 ([2..3])
+      float st[NJ][4], dpt[NJ][4];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < NT; ++kk) {
+        uint32_t kh4[4], kl4[4], vh4[4], vl4[4];
+        tf_a(kr + 8 * kk, T::RS, kh4, kl4);
+        tf_a(vr + 8 * kk, T::RS, vh4, vl4);
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          const int off = (8 * j + g) * T::RS + 8 * kk + 2 * t4;
+          const float2 y = tf32x3::ld2(q_t + off);
+          const float2 z = tf32x3::ld2(do_t + off);
+          uint32_t bh[2], bl[2];
+          tf32x3::split_bits(y.x, bh[0], bl[0]);
+          tf32x3::split_bits(y.y, bh[1], bl[1]);
+          tf32x3::mma3_acc(st[j], kh4, kl4, bh, bl);
+          tf32x3::split_bits(z.x, bh[0], bl[0]);
+          tf32x3::split_bits(z.y, bh[1], bl[1]);
+          tf32x3::mma3_acc(dpt[j], vh4, vl4, bh, bl);
+        }
+      }
+      // P^T from lse, dS^T = P^T (dP^T - Delta); masks only on a tile that
+      // straddles the length, the query edge, the diagonal or the window
+      // edge of some key of the warp
+      const bool mask = kw0 + 16 > L || t0 + kTfTile > qhi ||
+                        (causal && t0 < kw0 + 15) ||
+                        (window > 0 && t0 + kTfTile - 1 - window >= kw0);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const float2 ls = tf32x3::ld2(lse_t + 8 * j + 2 * t4);
+        const float2 dl = tf32x3::ld2(dl_t + 8 * j + 2 * t4);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qp = t0 + 8 * j + 2 * t4 + (e & 1);
+          const int kp = kw0 + g + 8 * (e >> 1);
+          const float p =
+              !mask || (qp < qhi && visible(kp, qp, L, causal, window))
+                  ? ex2(fmaf(st[j][e], scale_log2,
+                             -((e & 1) ? ls.y : ls.x) * kLog2e))
+                  : 0.f;
+          st[j][e] = p;
+          dpt[j][e] = dsoft(p, dpt[j][e], (e & 1) ? dl.y : dl.x);
+        }
+      }
+      // dV += P^T dO, then dK += dS^T Q (scaled at the store)
+      uint32_t ah[NJ][4], al[NJ][4];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+        tf32x3::split_a_bits(st[j][0], st[j][2], st[j][1], st[j][3], ah[j],
+                             al[j]);
+      tf_accumulate<NJ, NT>(ah, al, do_t + 2 * t4 * T::RS + g, T::RS,
+                            [&](int n, const float (&t)[4]) {
+                              float4 a = dva[n * 32];
+                              a.x += t[0];
+                              a.y += t[1];
+                              a.z += t[2];
+                              a.w += t[3];
+                              dva[n * 32] = a;
+                            });
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+        tf32x3::split_a_bits(dpt[j][0], dpt[j][2], dpt[j][1], dpt[j][3],
+                             ah[j], al[j]);
+      tf_accumulate<NJ, NT>(ah, al, q_t + 2 * t4 * T::RS + g, T::RS,
+                            [&](int n, const float (&t)[4]) {
+                              float4 a = dka[n * 32];
+                              a.x += t[0];
+                              a.y += t[1];
+                              a.z += t[2];
+                              a.w += t[3];
+                              dka[n * 32] = a;
+                            });
+    }
+    __syncthreads();                         // stage i & 1 is free again
+  }
+
+#pragma unroll
+  for (int x = 0; x < 2; ++x) {
+    const int kp = kw0 + g + 8 * x;
+    if (kp >= Skv) continue;
+    float* dkr = dk + b * dks.b + (long long)kp * dks.s + kh * dks.h;
+    float* dvr = dv + b * dvs.b + (long long)kp * dvs.s + kh * dvs.h;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const float4 a = dka[n * 32];
+      const float4 c = dva[n * 32];
+      *reinterpret_cast<float2*>(dkr + 8 * n + 2 * t4) =
+          x ? make_float2(a.z * scale, a.w * scale)
+            : make_float2(a.x * scale, a.y * scale);
+      *reinterpret_cast<float2*>(dvr + 8 * n + 2 * t4) =
+          x ? make_float2(c.z, c.w) : make_float2(c.x, c.y);
+    }
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kTfThreads, tf_min_blocks(HD))
+dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, const float* __restrict__ dout,
+               const float* __restrict__ lse,
+               const float* __restrict__ delta, float* __restrict__ dq,
+               const int* __restrict__ lengths, int S, int Skv, int H, int G,
+               Strides qs, Strides ks, Strides vs, Strides dos, Strides dqs,
+               int causal, int window, float scale, float scale_log2) {
+  using T = TfBwd<HD>;
+  constexpr int NT = T::NT;
+  constexpr int NJ = kTfTile / 8;            // n-tiles of S, k-steps of dQ
+  extern __shared__ float4 tfb_smem4[];
+  float* q_s = reinterpret_cast<float*>(tfb_smem4);
+  float* do_s = q_s + kTfRes * T::RS;
+  float* stages = do_s + kTfRes * T::RS;
+
+  const int b = blockIdx.z;
+  const int h = blockIdx.y;
+  const int kh = h / G;
+  // causal: the row blocks that see the most keys start first
+  const int mb = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int q0 = mb * kTfRes;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int g = (tid % 32) / 4;
+  const int t4 = tid % 4;
+  const int r0 = q0 + 16 * warp;             // the warp's first row
+  const int rows[2] = {r0 + g, r0 + g + 8};
+  const int L = valid_keys(lengths, b, Skv);
+  int lo, hi, wlo, whi;
+  key_range(q0, q0 + kTfRes, L, causal, window, lo, hi);
+  key_range(r0, r0 + 16, L, causal, window, wlo, whi);
+  const int ntiles = hi > lo ? (hi - lo + kTfTile - 1) / kTfTile : 0;
+  float lq[2], dlq[2];                       // lse (log2 units) and Delta
+#pragma unroll
+  for (int x = 0; x < 2; ++x) {
+    const long long r = ((long long)b * H + h) * S + min(rows[x], S - 1);
+    lq[x] = lse[r] * kLog2e;
+    dlq[x] = delta[r];
+  }
+
+  const float* kb = k + b * ks.b + kh * ks.h;
+  const float* vb = v + b * vs.b + kh * vs.h;
+  auto load = [&](int i) {
+    float* st = stages + (i & 1) * T::STAGE_Q;
+    const int t0 = lo + i * kTfTile;
+    cp_rows<HD, kTfTile, kTfThreads>(st, T::RS, kb, ks.s, t0, hi, tid);
+    cp_rows<HD, kTfTile, kTfThreads>(st + T::TILE, T::RS, vb, vs.s, t0, hi,
+                                     tid);
+  };
+  if (ntiles > 0) {
+    cp_rows<HD, kTfRes, kTfThreads>(q_s, T::RS, q + b * qs.b + h * qs.h,
+                                    qs.s, q0, S, tid);
+    cp_rows<HD, kTfRes, kTfThreads>(do_s, T::RS,
+                                    dout + b * dos.b + h * dos.h, dos.s, q0,
+                                    S, tid);
+    load(0);
+  }
+  tf32x3::cp_async_commit();
+
+  float dqa[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dqa[n][e] = 0.f;
+  const float* qr = q_s + (16 * warp + g) * T::RS + 2 * t4;
+  const float* dr = do_s + (16 * warp + g) * T::RS + 2 * t4;
+  for (int i = 0; i < ntiles; ++i) {
+    if (i + 1 < ntiles) {
+      load(i + 1);
+      tf32x3::cp_async_commit();
+      tf32x3::cp_async_wait<1>();
+    } else {
+      tf32x3::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int t0 = lo + i * kTfTile;
+    if (t0 < whi && t0 + kTfTile > wlo) {
+      const float* k_t = stages + (i & 1) * T::STAGE_Q;
+      const float* v_t = k_t + T::TILE;
+      // S and dP: a lane's n-tile j holds keys 8 j + 2 t4 (+1) of rows g
+      // ([0..1]) and g + 8 ([2..3])
+      float s[NJ][4], dp[NJ][4];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < NT; ++kk) {
+        uint32_t qh4[4], ql4[4], dh4[4], dl4[4];
+        tf_a(qr + 8 * kk, T::RS, qh4, ql4);
+        tf_a(dr + 8 * kk, T::RS, dh4, dl4);
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          const int off = (8 * j + g) * T::RS + 8 * kk + 2 * t4;
+          const float2 y = tf32x3::ld2(k_t + off);
+          const float2 z = tf32x3::ld2(v_t + off);
+          uint32_t bh[2], bl[2];
+          tf32x3::split_bits(y.x, bh[0], bl[0]);
+          tf32x3::split_bits(y.y, bh[1], bl[1]);
+          tf32x3::mma3_acc(s[j], qh4, ql4, bh, bl);
+          tf32x3::split_bits(z.x, bh[0], bl[0]);
+          tf32x3::split_bits(z.y, bh[1], bl[1]);
+          tf32x3::mma3_acc(dp[j], dh4, dl4, bh, bl);
+        }
+      }
+      // P from lse, dS = P (dP - Delta) into s; masks only on a tile that
+      // straddles the length, S, the diagonal or the window edge
+      const bool mask = t0 + kTfTile > L || r0 + 16 > S ||
+                        (causal && t0 + kTfTile - 1 > r0) ||
+                        (window > 0 && t0 <= r0 + 15 - window);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kp = t0 + 8 * j + 2 * t4 + (e & 1);
+          const int x = e >> 1;
+          const float p =
+              !mask || (rows[x] < S &&
+                        visible(kp, rows[x], L, causal, window))
+                  ? ex2(fmaf(s[j][e], scale_log2, -lq[x]))
+                  : 0.f;
+          s[j][e] = dsoft(p, dp[j][e], dlq[x]);
+        }
+      // dQ += dS K (scaled at the store)
+      uint32_t ah[NJ][4], al[NJ][4];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+        tf32x3::split_a_bits(s[j][0], s[j][2], s[j][1], s[j][3], ah[j],
+                             al[j]);
+      tf_accumulate<NJ, NT>(ah, al, k_t + 2 * t4 * T::RS + g, T::RS,
+                            [&](int n, const float (&t)[4]) {
+#pragma unroll
+                              for (int e = 0; e < 4; ++e) dqa[n][e] += t[e];
+                            });
+    }
+    __syncthreads();                         // stage i & 1 is free again
+  }
+
+#pragma unroll
+  for (int x = 0; x < 2; ++x) {
+    const int r = rows[x];
+    if (r >= S) continue;
+    float* dqr = dq + b * dqs.b + (long long)r * dqs.s + h * dqs.h;
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+      *reinterpret_cast<float2*>(dqr + 8 * n + 2 * t4) =
+          make_float2(dqa[n][2 * x] * scale, dqa[n][2 * x + 1] * scale);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -991,6 +1440,36 @@ cudaError_t dispatch_cuda_core(const Args& a) {
 }
 
 template <int HD>
+cudaError_t launch_tf32(const Args& a) {
+  using T = TfBwd<HD>;
+  const int G = a.H / a.K;
+  const float scale_log2 = a.scale * kLog2e;
+  auto kv = dkdv_tf32_kernel<HD>;
+  cudaError_t e = smem_attr(kv, T::SMEM_KV);
+  if (e != cudaSuccess) return e;
+  kv<<<dim3((a.Skv + kTfRes - 1) / kTfRes, a.K, a.B), kTfThreads, T::SMEM_KV,
+       a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+      a.lse, a.delta, static_cast<float*>(a.dk), static_cast<float*>(a.dv),
+      a.lengths, a.S, a.Skv, a.H, G, a.qs, a.ks, a.vs, a.dos, a.dks, a.dvs,
+      a.causal, a.window, a.scale, scale_log2);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  auto kq = dq_tf32_kernel<HD>;
+  e = smem_attr(kq, T::SMEM_Q);
+  if (e != cudaSuccess) return e;
+  kq<<<dim3((a.S + kTfRes - 1) / kTfRes, a.H, a.B), kTfThreads, T::SMEM_Q,
+       a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+      a.lse, a.delta, static_cast<float*>(a.dq), a.lengths, a.S, a.Skv, a.H,
+      G, a.qs, a.ks, a.vs, a.dos, a.dqs, a.causal, a.window, a.scale,
+      scale_log2);
+  return cudaGetLastError();
+}
+
+template <int HD>
 cudaError_t launch_wgmma(const Args& a) {
   using bf = __nv_bfloat16;
   const int G = a.H / a.K;
@@ -1044,9 +1523,12 @@ cudaError_t launch_wgmma(const Args& a) {
 // The gradients of flash_attention_fwd.  dtype: 0 = float32, 1 = bfloat16
 // (q, k, v, o, dout, dq, dk, dv all of it).  lse (B,H,S) fp32 is the
 // forward's; delta (B,H,S) fp32 is scratch the call fills.  Strides are in
-// elements; lengths may be null; window <= 0 means no window.  Returns
-// cudaGetLastError() after the last launch (0 on success).  Whether the
-// tensor-core path was taken is written to *tensor_cores when not null.
+// elements; lengths may be null; window <= 0 means no window.  tc (the
+// caller's ops.tensor_core_path) picks the tensor-core kernels of the
+// dtype (TF32 x 3 for fp32, wgmma for bf16), which take head_dim 64, 80,
+// 96 or 128 and 16-byte aligned rows and refuse other inputs; tc = 0 the
+// CUDA-core kernels.  Returns cudaGetLastError() after the last launch
+// (0 on success).
 extern "C" int flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const float* lse, float* delta, void* dq, void* dk,
@@ -1058,9 +1540,9 @@ extern "C" int flash_attention_bwd(
     long long dq_sb, long long dq_ss, long long dq_sh, long long dk_sb,
     long long dk_ss, long long dk_sh, long long dv_sb, long long dv_ss,
     long long dv_sh, int causal, int window, float scale, void* stream,
-    int* tensor_cores) {
+    int tc) {
   if (B < 1 || S < 1 || Skv < 1 || K < 1 || H % K != 0 || hd < 1 ||
-      hd > 256 || B > 65535 || H > 65535)
+      hd > 256 || B > 65535 || H > 65535 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   Args a{q, k, v, o, dout, lse, delta, dq, dk, dv, lengths, B, S, Skv, H, K,
          hd, Strides{q_sb, q_ss, q_sh}, Strides{k_sb, k_ss, k_sh},
@@ -1068,32 +1550,30 @@ extern "C" int flash_attention_bwd(
          Strides{do_sb, do_ss, do_sh}, Strides{dq_sb, dq_ss, dq_sh},
          Strides{dk_sb, dk_ss, dk_sh}, Strides{dv_sb, dv_ss, dv_sh}, causal,
          window, scale, static_cast<cudaStream_t>(stream)};
-  const bool tc = dtype == 1 && (hd == 64 || hd == 80 || hd == 96 ||
-                                 hd == 128) &&
-                  mma_aligned(q, a.qs) && mma_aligned(k, a.ks) &&
-                  mma_aligned(v, a.vs) && mma_aligned(dout, a.dos) &&
-                  mma_aligned(dq, a.dqs) && mma_aligned(dk, a.dks) &&
-                  mma_aligned(dv, a.dvs);
-  if (tensor_cores != nullptr) *tensor_cores = tc ? 1 : 0;
-  cudaError_t e;
-  if (dtype == 0)
-    e = launch_delta<float>(a);
-  else if (dtype == 1)
-    e = launch_delta<__nv_bfloat16>(a);
-  else
-    return (int)cudaErrorInvalidValue;
+  if (tc) {
+    bool (*aligned)(const void*, const Strides&) =
+        dtype == 0 ? f32_aligned : mma_aligned;
+    if ((hd != 64 && hd != 80 && hd != 96 && hd != 128) ||
+        !(aligned(q, a.qs) && aligned(k, a.ks) && aligned(v, a.vs) &&
+          aligned(dout, a.dos) && aligned(dq, a.dqs) && aligned(dk, a.dks) &&
+          aligned(dv, a.dvs)))
+      return (int)cudaErrorInvalidValue;
+  }
+  cudaError_t e = dtype == 0 ? launch_delta<float>(a)
+                             : launch_delta<__nv_bfloat16>(a);
   if (e != cudaSuccess) return (int)e;
-  if (dtype == 0)
-    e = dispatch_cuda_core<float>(a);
-  else if (!tc)
-    e = dispatch_cuda_core<__nv_bfloat16>(a);
-  else if (hd == 64)
-    e = launch_wgmma<64>(a);
-  else if (hd == 80)
-    e = launch_wgmma<80>(a);
-  else if (hd == 96)
-    e = launch_wgmma<96>(a);
+  if (!tc)
+    e = dtype == 0 ? dispatch_cuda_core<float>(a)
+                   : dispatch_cuda_core<__nv_bfloat16>(a);
+  else if (dtype == 0)
+    e = hd == 64   ? launch_tf32<64>(a)
+        : hd == 80 ? launch_tf32<80>(a)
+        : hd == 96 ? launch_tf32<96>(a)
+                   : launch_tf32<128>(a);
   else
-    e = launch_wgmma<128>(a);
+    e = hd == 64   ? launch_wgmma<64>(a)
+        : hd == 80 ? launch_wgmma<80>(a)
+        : hd == 96 ? launch_wgmma<96>(a)
+                   : launch_wgmma<128>(a);
   return (int)e;
 }

@@ -2,7 +2,9 @@
 // (flash_attention.cu) and backward (flash_attention_bwd.cu): mbarriers,
 // TMA loads and the host-side tensor-map encoding, wgmma shared-memory
 // descriptors and the wgmma wrappers, register pinning, bf16 packing,
-// setmaxnreg, and the persistent grid's SM count.  Each source includes it
+// setmaxnreg, the persistent grid's SM count, and for the float32
+// tensor-core kernels the row copies by cp.async (the TF32 x 3 products
+// are kernels/csrc/tf32x3.cuh's, included here).  Each source includes it
 // and is built into its own library (ops.build / ops.build_bwd), so the
 // definitions live in an anonymous namespace; load_library hashes this
 // header with either source.
@@ -13,6 +15,8 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "tf32x3.cuh"
 
 namespace {
 
@@ -366,6 +370,32 @@ int sm_count() {
 bool mma_aligned(const void* p, const Strides& st) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0 && st.b % 8 == 0 &&
          st.s % 8 == 0 && st.h % 8 == 0;
+}
+
+// Whether every (b, s, h) row of an fp32 operand starts 16-byte aligned,
+// as the float32 tensor-core kernels' 16-byte cp.async needs.
+bool f32_aligned(const void* p, const Strides& st) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0 && st.b % 4 == 0 &&
+         st.s % 4 == 0 && st.h % 4 == 0;
+}
+
+// Rows [r0, r0 + NROWS) of a strided fp32 matrix (row r at src + r * rs,
+// HD contiguous floats) into shared memory at a stride of ss floats, by
+// 16-byte cp.async shared among NTHREADS threads; rows at or past `valid`
+// are zero-filled (and not read).
+template <int HD, int NROWS, int NTHREADS>
+__device__ __forceinline__ void cp_rows(float* dst, int ss, const float* src,
+                                        long long rs, int r0, int valid,
+                                        int tid) {
+  constexpr int CH = HD / 4;                 // 16-byte chunks a row
+#pragma unroll 4
+  for (int i = tid; i < NROWS * CH; i += NTHREADS) {
+    const int r = i / CH;
+    const int c = i - r * CH;
+    const bool ok = r0 + r < valid;
+    tf32x3::cp_async16(dst + r * ss + 4 * c,
+                       src + (ok ? r0 + r : 0) * rs + 4 * c, ok);
+  }
 }
 
 }  // namespace

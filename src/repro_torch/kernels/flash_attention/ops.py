@@ -14,7 +14,14 @@ Where autograd needs a gradient (grad mode on and some CUDA input
 requiring one), the call goes through ``FlashAttentionFn``: the forward
 kernel also writes each row's log-sum-exp, and the backward runs the
 backward kernel of ``csrc/flash_attention_bwd.cu``
-(``flash_attention_bwd``).  Otherwise the serving launch runs as it is."""
+(``flash_attention_bwd``).  Otherwise the serving launch runs as it is.
+
+``tensor_core_path`` picks each launch's route from shapes, dtype and
+alignment and passes it to the C entries: head dims 64-128 with 16-byte
+aligned rows run on the tensor cores (bf16 on wgmma, float32 as TF32 x 3
+on mma.sync), the rest on the CUDA-core kernels.  Each wrapper records the
+route of its last launch (``flash_attention.tensor_cores``,
+``flash_attention_bwd.tensor_cores``)."""
 
 from __future__ import annotations
 
@@ -27,8 +34,10 @@ import numpy as np
 import torch
 
 from repro_torch.analysis import costs
-from repro_torch.kernels.common import (check_cuda_status, data_ptr, is_cuda,
-                                        is_meta, load_library, stream_ptr)
+from repro_torch.kernels.common import (SHARED_CSRC, check_cuda_status,
+                                        data_ptr, is_cuda, is_meta,
+                                        load_library, rows_aligned,
+                                        stream_ptr)
 from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_plain,
                                                      flash_attention_plain)
 
@@ -36,18 +45,21 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCE = CSRC / "flash_attention.cu"
 BWD_SOURCE = CSRC / "flash_attention_bwd.cu"
 HEADER = CSRC / "sm90.cuh"      # the sm_90a helpers both sources include
+# the headers both sources include (sm90.cuh includes the TF32 x 3 helpers)
+HEADERS = (HEADER, SHARED_CSRC / "tf32x3.cuh")
 MAX_HEAD_DIM = 256
+TC_HEAD_DIMS = (64, 80, 96, 128)   # the tensor-core kernels' head dims
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def build() -> ctypes.CDLL:
     """Compile (once per process, cached on disk) and bind the kernel."""
-    lib = load_library("flash_attention", [SOURCE], [HEADER])
+    lib = load_library("flash_attention", [SOURCE], HEADERS)
     fn = lib.flash_attention_fwd
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
                    + [ctypes.c_longlong] * 12
                    + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                      ctypes.c_void_p])
+                      ctypes.c_void_p, ctypes.c_int])
     fn.restype = ctypes.c_int
     return lib
 
@@ -55,14 +67,25 @@ def build() -> ctypes.CDLL:
 def build_bwd() -> ctypes.CDLL:
     """Compile and bind the backward kernel (a library of its own, so the
     two sources build in parallel)."""
-    lib = load_library("flash_attention_bwd", [BWD_SOURCE], [HEADER])
+    lib = load_library("flash_attention_bwd", [BWD_SOURCE], HEADERS)
     fn = lib.flash_attention_bwd
     fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
                    + [ctypes.c_longlong] * 24
                    + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                      ctypes.c_void_p, ctypes.c_void_p])
+                      ctypes.c_void_p, ctypes.c_int])
     fn.restype = ctypes.c_int
     return lib
+
+
+def tensor_core_path(q, *others) -> bool:
+    """Whether a launch takes K1's tensor-core kernels: head_dim in
+    ``TC_HEAD_DIMS`` and every row of q and ``others`` (k, v; the backward
+    also dO) 16-byte aligned; float32 runs them as TF32 x 3 on mma.sync,
+    bfloat16 on wgmma.  Everything else (hd 32 or 256, an odd stride, an
+    offset view) takes the CUDA-core kernels.  The C entries take the
+    choice as their ``tc`` argument and refuse inputs it cannot hold."""
+    return (q.shape[-1] in TC_HEAD_DIMS
+            and all(rows_aligned(t) for t in (q, *others)))
 
 
 @functools.lru_cache(maxsize=256)
@@ -151,15 +174,17 @@ def _forward(q, k, v, causal, window, lengths, with_lse: bool):
            if with_lse else None)
     if q.is_meta:
         return out, lse
+    tc = tensor_core_path(q, k, v)
     lib = build()
     status = lib.flash_attention_fwd(
         data_ptr(q), data_ptr(k), data_ptr(v), data_ptr(out), data_ptr(lse),
         data_ptr(lengths), _DTYPES[q.dtype], B, S, Skv, H, K, hd,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         *out.stride()[:3], int(causal), int(window or 0),
-        1.0 / (hd ** 0.5), stream_ptr(q.device))
+        1.0 / (hd ** 0.5), stream_ptr(q.device), int(tc))
     check_cuda_status(status, "flash_attention")
     flash_attention.launches += 1
+    flash_attention.tensor_cores = tc
     return out, lse
 
 
@@ -191,6 +216,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
 
 
 flash_attention.launches = 0
+flash_attention.tensor_cores = None     # the last launch's path
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
@@ -231,7 +257,7 @@ def _backward(q, k, v, o, lse, do, causal, window, lengths):
     delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     if q.is_meta:
         return dq, dk, dv
-    tc = ctypes.c_int(0)
+    tc = tensor_core_path(q, k, v, do)
     lib = build_bwd()
     status = lib.flash_attention_bwd(
         data_ptr(q), data_ptr(k), data_ptr(v), data_ptr(o), data_ptr(do),
@@ -240,10 +266,10 @@ def _backward(q, k, v, o, lse, do, causal, window, lengths):
         hd, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         *o.stride()[:3], *do.stride()[:3], *dq.stride()[:3],
         *dk.stride()[:3], *dv.stride()[:3], int(causal), int(window or 0),
-        1.0 / (hd ** 0.5), stream_ptr(q.device), ctypes.addressof(tc))
+        1.0 / (hd ** 0.5), stream_ptr(q.device), int(tc))
     check_cuda_status(status, "flash_attention_bwd")
     flash_attention_bwd.launches += 1
-    flash_attention_bwd.tensor_cores = bool(tc.value)
+    flash_attention_bwd.tensor_cores = tc
     return dq, dk, dv
 
 

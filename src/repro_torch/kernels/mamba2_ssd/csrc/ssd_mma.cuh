@@ -1,104 +1,36 @@
 // TF32 tensor-core products with a three-term split and cp.async staging,
 // shared by K5's forward (mamba2_ssd.cu) and backward (mamba2_ssd_bwd.cu)
-// kernels.  Included by both sources; ops.py hashes it into both
-// libraries' names, so an edit here rebuilds both.
+// kernels: the helpers of kernels/csrc/tf32x3.cuh (shared with K1's
+// float32 path and K4), named in this namespace, and K5's constants.
+// ops.py hashes both headers into both libraries' names, so an edit to
+// either rebuilds both.
 //
 // Each product runs on mma.sync m16n8k8 in TF32 with every operand split
-// as a = hi + lo (hi = cvt.rna.tf32(a), lo = a - hi, which the tensor cores
-// read truncated to TF32) and the product taken as hi*lo + lo*hi + hi*hi
-// with fp32 accumulation, the cross terms in an accumulator of their own.
+// as a = hi + lo and taken as hi*lo + lo*hi + hi*hi with fp32
+// accumulation, the cross terms in an accumulator of their own (mma3).
 // Plain TF32 keeps 11 significant bits, an error near 1e-3 on sums of a
 // few dozen terms against a tolerance of 1e-4; the split's dropped terms
 // are about 2^-21 of each product.
 
 #pragma once
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "tf32x3.cuh"
 
 namespace ssd {
 
 constexpr int kChunk = 32;      // steps per chunk (ref.CHUNK)
 constexpr unsigned kAll = 0xffffffffu;
 
-__device__ __forceinline__ float2 ld2(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ uint32_t tf32_rna(float v) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
-  return r;
-}
-
-// v = hi + lo: hi rounded to TF32 (to nearest), lo the exact rest as
-// an fp32 value; the tensor cores read only the top 19 bits of a TF32
-// operand, so lo enters the products truncated to TF32 (an error of at
-// most 2^-21 of v) at no instruction's cost
-__device__ __forceinline__ void split(float v, uint32_t& hi, uint32_t& lo) {
-  hi = tf32_rna(v);
-  lo = __float_as_uint(v - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// a b with both split: hi * hi into d, the cross terms lo * hi + hi * lo
-// into dx (two accumulators: shorter dependency chains)
-__device__ __forceinline__ void mma3(float (&d)[4], float (&dx)[4],
-                                     const uint32_t (&ah)[4],
-                                     const uint32_t (&al)[4],
-                                     const uint32_t (&bh)[2],
-                                     const uint32_t (&bl)[2]) {
-  mma_tf32(dx, al, bh);
-  mma_tf32(dx, ah, bl);
-  mma_tf32(d, ah, bh);
-}
-
-// A fragment of m16n8k8 from four values: rows g, g+8; columns tig, tig+4
-__device__ __forceinline__ void split_a(float v0, float v1, float v2,
-                                        float v3, uint32_t (&hi)[4],
-                                        uint32_t (&lo)[4]) {
-  split(v0, hi[0], lo[0]);
-  split(v1, hi[1], lo[1]);
-  split(v2, hi[2], lo[2]);
-  split(v3, hi[3], lo[3]);
-}
-
-// 16-byte (or 4-byte) copy to shared memory; zero fill when !full
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool full) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(a),
-               "l"(gmem), "r"(full ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
-                                          bool full) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(a),
-               "l"(gmem), "r"(full ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
+using tf32x3::cp_async16;
+using tf32x3::cp_async4;
+using tf32x3::cp_async_commit;
+using tf32x3::cp_async_wait;
+using tf32x3::ld2;
+using tf32x3::ld4;
+using tf32x3::mma3;
+using tf32x3::mma_tf32;
+using tf32x3::split;
+using tf32x3::split_a;
+using tf32x3::tf32_rna;
 
 }  // namespace ssd

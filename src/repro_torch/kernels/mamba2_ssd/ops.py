@@ -37,14 +37,15 @@ import torch
 from repro_torch.analysis import costs
 from repro_torch.kernels.common import (cdiv, check_cuda_status, data_ptr,
                                         float_rows, is_cuda, is_meta,
-                                        load_library, rows_aligned16,
-                                        stream_ptr)
+                                        SHARED_CSRC, load_library,
+                                        rows_aligned16, stream_ptr)
 from repro_torch.kernels.mamba2_ssd.ref import CHUNK, ssd_bwd_plain, ssd_plain
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCE = CSRC / "mamba2_ssd.cu"
 BWD_SOURCE = CSRC / "mamba2_ssd_bwd.cu"
-HEADERS = (CSRC / "ssd_mma.cuh",)   # included by both sources
+# included by both sources (the first includes the second)
+HEADERS = (CSRC / "ssd_mma.cuh", SHARED_CSRC / "tf32x3.cuh")
 MAX_DIM = 64        # kMaxP and kMaxN in the sources
 TC_DIM = 64         # kDim: P and N of the tensor-core kernel
 # the device kernels a call may launch (torch.profiler names)

@@ -39,14 +39,15 @@ import torch
 from repro_torch.analysis import costs
 from repro_torch.kernels.common import (cdiv, check_cuda_status, data_ptr,
                                         float_rows, is_cuda, is_meta,
-                                        load_library, rows_aligned16,
-                                        stream_ptr)
+                                        SHARED_CSRC, load_library,
+                                        rows_aligned16, stream_ptr)
 from repro_torch.kernels.rwkv6_wkv.ref import CHUNK, wkv6_bwd_plain, wkv6_plain
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCE = CSRC / "rwkv6_wkv.cu"
 BWD_SOURCE = CSRC / "rwkv6_wkv_bwd.cu"
-HEADERS = (CSRC / "wkv_mma.cuh",)   # included by both sources
+# included by both sources (the first includes the second)
+HEADERS = (CSRC / "wkv_mma.cuh", SHARED_CSRC / "tf32x3.cuh")
 MAX_N = 64          # kMaxN in the sources
 TC_N = 64           # kDim: N of the tensor-core kernel
 # the device kernels a call may launch (torch.profiler names)
