@@ -1,0 +1,14 @@
+"""device_idle.interactive: Share of the traced sub-window with no operation
+on the device, in the overloaded open-loop cell, whose throughput it
+moves."""
+
+from perfbench.harness import readers
+
+LAYER = "device (H100)"
+UNIT = "%"
+SOURCE = "device_trace"
+MOVES = "overload_rows_per_s"
+
+
+def read(run):
+    return readers.device_idle_pct(run)
