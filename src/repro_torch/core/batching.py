@@ -93,7 +93,9 @@ class FlexibleBatcher:
 
     fn(batch_dict of device tensors) -> pytree with leading batch axis.
     Calls with ANY batch size n <= max bucket; output is sliced back to n
-    rows.  ``compiles`` records the first call per bucket.
+    rows.  ``compiles`` records the first call per bucket; ``forwards``,
+    ``rows_total`` (the callers' rows) and ``padded_rows_total`` (rows
+    added to reach a bucket) count every forward that returned.
     """
 
     def __init__(self, fn: Callable, buckets: BucketSpec,
@@ -101,17 +103,25 @@ class FlexibleBatcher:
         self._fn = fn
         self.buckets = buckets
         self.device = device
-        self.calls = 0
         self.compiles: Dict[int, int] = {}
+        self.forwards = 0
+        self.rows_total = 0
+        self.padded_rows_total = 0
 
     def __call__(self, batch: Dict[str, Any]):
         n = next(iter(batch.values())).shape[0]
         bucket = self.buckets.bucket_for(n)
         padded, _mask = pad_batch(batch, bucket)
-        self.calls += 1
         out = self._fn(to_device(padded, self.device))
         self.compiles.setdefault(bucket, 1)
+        self.forwards += 1
+        self.rows_total += n
+        self.padded_rows_total += bucket - n
         return tree_map(lambda t: t[:n], out)
+
+    def counts(self) -> Dict[str, int]:
+        return {"forwards": self.forwards, "rows_total": self.rows_total,
+                "padded_rows_total": self.padded_rows_total}
 
     @property
     def num_compilations(self) -> int:

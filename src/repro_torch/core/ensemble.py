@@ -36,6 +36,10 @@ from repro_torch.core.batching import BucketSpec, FlexibleBatcher, to_numpy
 from repro_torch.core.memory import MemoryLedger
 
 
+# the batcher's counters, as ``/metrics`` ``ensemble_batches`` reports them
+BATCH_COUNTS = ("forwards", "rows_total", "padded_rows_total")
+
+
 def _np_softmax(x: np.ndarray) -> np.ndarray:
     x = x.astype(np.float32)
     x = x - x.max(axis=-1, keepdims=True)
@@ -135,6 +139,8 @@ class Ensemble:
         self._state = _EnsembleState(members, max_batch)
         self._swap_lock = threading.Lock()
         self._retired_compiles: Dict[int, int] = {}
+        self._retired_batches: Dict[str, int] = dict.fromkeys(
+            BATCH_COUNTS, 0)
 
     @property
     def members(self) -> List[EnsembleMember]:
@@ -165,6 +171,8 @@ class Ensemble:
             for b, c in old.batcher.compiles.items():
                 self._retired_compiles[b] = \
                     self._retired_compiles.get(b, 0) + c
+            for k, c in old.batcher.counts().items():
+                self._retired_batches[k] += c
         return {"warm_s": warm_s, "drained": drained,
                 "members": [m.name for m in new.members]}
 
@@ -283,6 +291,20 @@ class Ensemble:
             for b, c in self._state.batcher.compiles.items():
                 out[b] = out.get(b, 0) + c
         return out
+
+    @property
+    def batch_counts(self) -> Dict[str, int]:
+        """The batcher's ``forwards``, ``rows_total`` and
+        ``padded_rows_total``, cumulative across swaps."""
+        with self._swap_lock:
+            now = self._state.batcher.counts()
+            return {k: self._retired_batches[k] + now[k]
+                    for k in BATCH_COUNTS}
+
+    @property
+    def device(self) -> torch.device:
+        """The device the members' params (and their forwards) are on."""
+        return self._state.device
 
     # --- shared-memory accounting ----------------------------------------------
 

@@ -18,6 +18,14 @@ list" pattern that previously backed /metrics percentiles:
     previous trimmed windows kept the most recent 2-4k samples — a bound,
     but a biased one; the reservoir's bound is explicit and unbiased.
 
+  * ``Stages`` — aggregate wall and CPU time per named stage of a serving
+    thread (the coalescer's dispatch loop, the HTTP handlers' parse and
+    respond), with one ``StageClock`` per thread that switches from one
+    stage to the next so the stages tile the thread's time.  While the
+    app's own profile capture records (``ranges``), each stage is also a
+    profiler range ``flexserve.<stage>``, on the trace's clock beside the
+    kernels.
+
 This module lives in ``repro.core`` (not ``repro.serving``) because the
 scheduler — a core component — feeds these directly; the serving-plane
 tracer builds on top in ``repro.serving.telemetry``.
@@ -28,7 +36,10 @@ from __future__ import annotations
 import math
 import random
 import threading
+import time
 from typing import Any, Dict, List, Optional, Sequence
+
+import torch.autograd.profiler as _autograd_profiler
 
 
 def pctl(sorted_vals: Sequence[float], p: float) -> float:
@@ -183,3 +194,101 @@ class Reservoir:
     def __len__(self) -> int:
         with self._lock:
             return len(self.samples)
+
+
+class _Stage:
+    """One stage's wall-time histogram (ms) and summed thread CPU time."""
+
+    __slots__ = ("hist", "cpu_ms", "_lock")
+
+    def __init__(self):
+        self.hist = Histogram()
+        self.cpu_ms = 0.0
+        self._lock = threading.Lock()
+
+    def add(self, wall_ms: float, cpu_ms: float) -> None:
+        self.hist.observe(wall_ms)
+        with self._lock:
+            self.cpu_ms += cpu_ms
+
+
+class Stages:
+    """Wall time (a ``Histogram``, ms) and the thread's CPU time
+    (``time.thread_time``, ms) per stage name, from every thread that
+    records.  A stage's wall time less its CPU time is time its thread
+    held the stage and did not run: blocked, or waiting for the
+    interpreter lock.  The CPU time is as fine as the host's thread clock:
+    where that moves in 10 ms steps (as on the H100 host these stages were
+    first measured on), a stage's ``cpu_ms`` is a sample, fair over many
+    stages, not a reading of one short stage.  The stage ``names`` are
+    fixed at construction and reported from the start (zeroed), so the
+    snapshot's key set does not depend on the traffic seen.
+
+    ``ranges`` is set by the app's profile capture (``DeviceProfiler``)
+    while it records, and only then does a stage open a profiler range:
+    on an H100 host, ranges recorded under a session that records every
+    thread took the overloaded /v1/infer cell's device idle from 4-10% to
+    13-51% and lost every kernel of the session in 4 of 13 runs, so a
+    session started outside the app gets none."""
+
+    RANGE_PREFIX = "flexserve."
+
+    def __init__(self, names: Sequence[str]):
+        self.ranges = False
+        self._stages: Dict[str, _Stage] = {n: _Stage() for n in names}
+        self._local = threading.local()
+
+    def clock(self) -> "StageClock":
+        """The calling thread's clock (made on first use)."""
+        c = getattr(self._local, "clock", None)
+        if c is None:
+            c = self._local.clock = StageClock(self)
+        return c
+
+    def add(self, name: str, wall_ms: float, cpu_ms: float) -> None:
+        self._stages[name].add(wall_ms, cpu_ms)
+
+    def snapshot(self) -> Dict[str, Dict[str, Any]]:
+        return {n: {"wall_ms_hist": st.hist.snapshot(), "cpu_ms": st.cpu_ms}
+                for n, st in sorted(self._stages.items())}
+
+
+class StageClock:
+    """One thread's current stage.  ``switch`` ends the open stage and
+    opens the next at the same instant, so the stages a thread switches
+    through tile its time with no gap; ``stop`` ends the open stage and
+    opens none.  Not shared between threads (``Stages.clock``)."""
+
+    __slots__ = ("_stages", "stage", "_t", "_cpu", "_range")
+
+    def __init__(self, stages: Stages):
+        self._stages = stages
+        self.stage: Optional[str] = None
+        self._t = 0.0
+        self._cpu = 0.0
+        self._range = None
+
+    def switch(self, name: str, t: Optional[float] = None) -> None:
+        """Open ``name`` now (its wall time from ``t``, a
+        ``time.perf_counter`` stamp, where given: an earlier moment at
+        which another thread handed this one its work)."""
+        now, cpu = time.perf_counter(), time.thread_time()
+        self._close(now, cpu)
+        self.stage, self._t, self._cpu = name, (now if t is None else t), cpu
+        if self._stages.ranges:
+            self._range = _autograd_profiler.record_function(
+                Stages.RANGE_PREFIX + name)
+            self._range.__enter__()
+
+    def stop(self) -> None:
+        if self.stage is not None:
+            self._close(time.perf_counter(), time.thread_time())
+            self.stage = None
+
+    def _close(self, now: float, cpu: float) -> None:
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
+            self._range = None
+        if self.stage is not None:
+            self._stages.add(self.stage, 1e3 * (now - self._t),
+                             1e3 * (cpu - self._cpu))

@@ -34,6 +34,7 @@ GET  /healthz      -> 200 {"status": "ready", "models": n, "coalescing": b,
                       | 503 {"error": ...} (also with zero ready replicas)
 GET  /metrics      -> {"uptime_s", "started_unix", "requests", "routes",
                        "coalesce": {...}, "ensemble_compiles": {...},
+                       "ensemble_batches": {...}, "stages": {...},
                        "lifecycle": {...}, "generate": {...},
                        "admission": {...}, "replicas": {...},
                        "faults": {...}, "usage": {...}, "slo": {...},

@@ -19,6 +19,19 @@ flushing each other's half-filled groups.
 Only the *forward* is shared — per-request post-processing (vote policy,
 detection threshold) happens on each request's own logits slice, so requests
 with different policies still coalesce into the same device batch.
+
+Given a ``Stages`` recorder (the app's ``trace`` flag), the dispatch thread
+switches through ``DISPATCH_STAGES``, which tile its time, and each forward
+is marked on the device's clock (CUDA events on the current stream where
+the members are on a card): ``device_forward_ms_hist`` from the mark before
+the forward call to the one after it returns, ``device_gap_ms_hist`` from
+the previous forward's end mark to this one's begin mark, the time the
+device waits between forwards; none is recorded before a forward that
+follows a whole idle poll (``IDLE_POLL_S`` with no work at all), where the
+device waited for requests, not for the host.  A handler thread in
+``frontend.parse`` (opened by the HTTP handler) closes it at ``submit``
+and opens ``frontend.respond`` from the moment the dispatcher releases
+it.
 """
 
 from __future__ import annotations
@@ -31,10 +44,27 @@ from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Hashable, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from repro_torch.core.batching import BucketSpec, to_numpy
-from repro_torch.core.telemetry import Histogram, Reservoir
+from repro_torch.core.telemetry import Histogram, Reservoir, Stages
 from repro_torch.serving.admission import DeadlineError
+
+# the dispatch thread's stages: blocked with no open group, blocked with
+# one open, the loop's bookkeeping, the group merged, the forward called
+# (it returns before the device finishes), the host waiting for the logits,
+# the results handed back
+WAIT, LINGER, COLLECT, MERGE, LAUNCH, SYNC, SCATTER = (
+    "coalesce.wait", "coalesce.linger", "coalesce.collect", "coalesce.merge",
+    "coalesce.launch", "coalesce.sync", "coalesce.scatter")
+DISPATCH_STAGES = (WAIT, LINGER, COLLECT, MERGE, LAUNCH, SYNC, SCATTER)
+# a handler thread's: the body in hand to ``submit``, and its release by
+# the dispatcher to the last byte of the answer written
+PARSE, RESPOND = "frontend.parse", "frontend.respond"
+FRONTEND_STAGES = (PARSE, RESPOND)
+# how long the dispatcher blocks with no open group before it looks at
+# ``close`` again
+IDLE_POLL_S = 0.1
 
 
 @dataclass
@@ -50,6 +80,7 @@ class _Pending:
     result: Optional[Dict[str, np.ndarray]] = None
     error: Optional[BaseException] = None
     wait_s: float = 0.0
+    released_at: Optional[float] = None   # stamped with stages on
 
     def expired(self, now: float) -> bool:
         return self.ctx is not None and self.ctx.expired(now)
@@ -105,6 +136,13 @@ class BatchCoalescer:
                   is empty, wait only this long for stragglers before
                   flushing — long enough to absorb near-simultaneous
                   arrivals, short enough that a lone request barely notices.
+    stages:       a ``Stages`` to record the dispatch and handler stages
+                  into, and to mark each forward on the device's clock;
+                  ``None`` records nothing.
+    device:       returns the device the forward runs on (read per
+                  forward while ``stages`` records); a CUDA device's
+                  forwards are marked with CUDA events, any other's on the
+                  host clock (its forward has finished when it returns).
     """
 
     # adaptive-linger envelope: linger ~ GAIN x EWMA inter-arrival gap,
@@ -118,7 +156,10 @@ class BatchCoalescer:
     def __init__(self, forward_fn: Callable, buckets: BucketSpec, *,
                  max_wait_ms: Optional[float] = None,
                  max_rows: Optional[int] = None,
-                 boundary_grace_ms: float = 1.5):
+                 boundary_grace_ms: float = 1.5,
+                 stages: Optional[Stages] = None,
+                 device: Optional[Callable[[], Optional[torch.device]]]
+                 = None):
         self._forward = forward_fn
         try:
             self._fwd_nparams = len(
@@ -154,6 +195,12 @@ class BatchCoalescer:
         self._open_groups = 0
         self._deadline_dropped = 0
         self._ewma_fwd_s: Optional[float] = None
+        self._stages = stages
+        self._device_of = device
+        self._clock = None                # the dispatch thread's StageClock
+        self._dev_fwd_hist = Histogram()
+        self._dev_gap_hist = Histogram()
+        self._prev_fwd_end: Any = None
         self._thread = threading.Thread(target=self._run, daemon=True,
                                         name="flexserve-coalescer")
         self._thread.start()
@@ -172,6 +219,10 @@ class BatchCoalescer:
         if n > self.buckets.sizes[-1]:
             raise ValueError(f"batch of {n} exceeds max bucket "
                              f"{self.buckets.sizes[-1]}")
+        clk = self._stages.clock() if self._stages is not None else None
+        handed = clk is not None and clk.stage == PARSE
+        if handed:
+            clk.stop()
         now = time.perf_counter()
         entry = _Pending({k: np.asarray(v) for k, v in batch.items()},
                          n, now, tag, ctx)
@@ -194,6 +245,8 @@ class BatchCoalescer:
                                          self._pending_rows)
             self._queue.put(entry)
         entry.event.wait()
+        if handed:
+            clk.switch(RESPOND, t=entry.released_at)
         if entry.error is not None:
             raise entry.error
         return entry.result
@@ -244,6 +297,8 @@ class BatchCoalescer:
                 "queue_wait_p95_ms": 1e3 * wait95,
                 "queue_wait_ms_hist": self._wait_hist.snapshot(),
                 "forward_ms_hist": self._fwd_hist.snapshot(),
+                "device_forward_ms_hist": self._dev_fwd_hist.snapshot(),
+                "device_gap_ms_hist": self._dev_gap_hist.snapshot(),
                 "queue_depth_rows": self._pending_rows,
                 "queue_depth_high_water": self._pending_high,
                 "open_groups": self._open_groups,
@@ -272,6 +327,18 @@ class BatchCoalescer:
         return g.deadline
 
     def _run(self) -> None:
+        clk = self._clock = (self._stages.clock()
+                             if self._stages is not None else None)
+        if clk is not None:
+            clk.switch(COLLECT)
+        try:
+            self._loop()
+        finally:
+            if clk is not None:
+                clk.stop()
+
+    def _loop(self) -> None:
+        clk = self._clock
         groups: Dict[Any, _Group] = {}
         while True:
             now = time.perf_counter()
@@ -283,15 +350,23 @@ class BatchCoalescer:
                     min(self._effective_deadline(g, now) - now
                         for g in groups.values()), 0.0)
             else:
-                timeout = 0.1                  # idle poll for the sentinel
+                timeout = IDLE_POLL_S          # idle poll for the sentinel
             with self._stats_lock:
                 self._open_groups = len(groups)
+            if clk is not None:
+                clk.switch(LINGER if groups else WAIT)
             try:
                 entry = self._queue.get(timeout=timeout)
             except queue.Empty:
+                if clk is not None:
+                    clk.switch(COLLECT)
+                    if not groups:             # no work: no host gap
+                        self._prev_fwd_end = None
                 if self._closed and not groups:
                     break
                 continue
+            if clk is not None:
+                clk.switch(COLLECT)
             if entry is None:                  # close sentinel
                 for g in groups.values():      # serve what we have
                     self._execute(g.entries)
@@ -327,6 +402,9 @@ class BatchCoalescer:
         return min(max(e if e is not None else 0.002, 1e-3), 50e-3)
 
     def _execute(self, group: Sequence[_Pending]) -> None:
+        clk = self._clock
+        if clk is not None:
+            clk.switch(MERGE)
         now = time.perf_counter()
         # deadline hand-off: entries already past their deadline are
         # dropped HERE — before their rows cost any forward-pass work —
@@ -350,7 +428,7 @@ class BatchCoalescer:
                 self._pending_rows = max(0,
                                          self._pending_rows - expired_rows)
             for e in expired:
-                e.event.set()
+                self._release(e)
         rows = sum(e.n for e in group)
         for e in group:
             tr = getattr(e.ctx, "trace", None)
@@ -362,6 +440,10 @@ class BatchCoalescer:
             if group:
                 merged = {k: np.concatenate([e.batch[k] for e in group])
                           for k in group[0].batch}
+                if clk is not None:
+                    clk.switch(LAUNCH)
+                    cuda = self._cuda_device()
+                    begin = _device_mark(cuda)
                 t_fwd = time.perf_counter()
                 if self._fwd_nparams >= 3:
                     out = self._forward(merged, group[0].tag,
@@ -370,8 +452,14 @@ class BatchCoalescer:
                     out = self._forward(merged, group[0].tag)
                 else:
                     out = self._forward(merged)
+                if clk is not None:
+                    end = _device_mark(cuda)
+                    clk.switch(SYNC)
                 out_np = _tree_to_numpy(out)
                 fwd_s = time.perf_counter() - t_fwd
+                if clk is not None:
+                    clk.switch(SCATTER)
+                    self._observe_device(begin, end)
                 with self._stats_lock:
                     self._ewma_fwd_s = (
                         fwd_s if self._ewma_fwd_s is None else
@@ -390,6 +478,8 @@ class BatchCoalescer:
             for e in group:
                 e.error = err
         finally:
+            if clk is not None and clk.stage != SCATTER:
+                clk.switch(SCATTER)
             with self._stats_lock:
                 if group:
                     self._batches += 1
@@ -404,7 +494,34 @@ class BatchCoalescer:
                     1e3 * e.wait_s,
                     tr.trace_id if tr is not None else None)
             for e in group:
-                e.event.set()
+                self._release(e)
+            if clk is not None:
+                clk.switch(COLLECT)
+
+    def _release(self, e: _Pending) -> None:
+        """Wake ``e``'s handler thread, stamping the moment (its
+        ``frontend.respond`` starts there) where stages are recorded."""
+        if self._stages is not None:
+            e.released_at = time.perf_counter()
+        e.event.set()
+
+    def _cuda_device(self) -> Optional[torch.device]:
+        dev = self._device_of() if self._device_of is not None else None
+        return dev if dev is not None and dev.type == "cuda" else None
+
+    def _observe_device(self, begin, end) -> None:
+        """One forward's marks (``_device_mark``), read once the host has
+        the logits: the device has passed both, so reading them waits for
+        nothing."""
+        prev, self._prev_fwd_end = self._prev_fwd_end, end
+        if isinstance(begin, float):
+            self._dev_fwd_hist.observe(1e3 * (end - begin))
+            if isinstance(prev, float):
+                self._dev_gap_hist.observe(1e3 * (begin - prev))
+            return
+        self._dev_fwd_hist.observe(begin.elapsed_time(end))
+        if prev is not None and not isinstance(prev, float):
+            self._dev_gap_hist.observe(prev.elapsed_time(begin))
 
     def _drain_on_close(self) -> None:
         err = CoalesceError("coalescer closed with requests in flight")
@@ -418,7 +535,18 @@ class BatchCoalescer:
             entry.error = err
             with self._stats_lock:
                 self._pending_rows = max(0, self._pending_rows - entry.n)
-            entry.event.set()
+            self._release(entry)
+
+
+def _device_mark(cuda: Optional[torch.device]):
+    """A point on the device's clock: a timing CUDA event recorded on the
+    current stream of ``cuda``, or, for a forward that runs on the host
+    and has finished when it returns, the host clock."""
+    if cuda is None:
+        return time.perf_counter()
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record(torch.cuda.current_stream(cuda))
+    return ev
 
 
 def _tree_to_numpy(tree):

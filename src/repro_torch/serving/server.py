@@ -37,17 +37,19 @@ import numpy as np
 
 from repro_torch.core.batching import BucketSpec
 from repro_torch.core.engine import InferenceEngine
-from repro_torch.core.ensemble import Ensemble
+from repro_torch.core.ensemble import BATCH_COUNTS, Ensemble
 from repro_torch.core.faults import (ZERO_FAULT_STATS, FaultInjector,
                                      InjectedFault)
 from repro_torch.core.registry import ModelRegistry
 from repro_torch.core.slo import (ZERO_SLO, SLIStore, SLOController,
                                   UsageLedger, load_policies)
+from repro_torch.core.telemetry import Stages
 from repro_torch.serving import api
 from repro_torch.serving.admission import (AdmissionController, DeadlineError,
                                            RequestContext, ShedError)
 from repro_torch.serving.client import FlexServeClient
-from repro_torch.serving.coalesce import BatchCoalescer
+from repro_torch.serving.coalesce import (DISPATCH_STAGES, FRONTEND_STAGES,
+                                          PARSE, RESPOND, BatchCoalescer)
 from repro_torch.serving.generate import GenerationError, GenerationService
 from repro_torch.serving.lifecycle import LifecycleError, ModelManager
 from repro_torch.serving.modelstore import StoreError
@@ -64,12 +66,22 @@ _ZERO_LIFECYCLE: Dict[str, Any] = {
     "last_warm_ms": 0.0, "warm_total_ms": 0.0, "per_version": {},
     "aliases": {}, "engine_aliases": {}}
 
+# the /v1/infer path's stages (``Stages``), reported in /metrics
+# ``stages`` whether or not they are recorded
+INFER_STAGES = DISPATCH_STAGES + FRONTEND_STAGES
+# the routes whose handler threads record the front end's stages
+_STAGED_ROUTES = ("/v1/infer", "/v1/detect")
+
 
 class FlexServeApp:
     """Bundles a registry, an optional ensemble/manager, and an engine.
 
     ``trace`` (default on) runs every request-plane route under a
-    ``FlightRecorder`` of ``flight_recorder_size`` sealed traces;
+    ``FlightRecorder`` of ``flight_recorder_size`` sealed traces, and
+    records the /v1/infer path's stages (``stages``: the coalescer's
+    dispatch loop, each forward on the device's clock, the front end's
+    parse and respond; profiler ranges ``flexserve.<stage>`` while a
+    ``POST /v1/debug/profile`` capture records);
     ``profile_dir`` enables ``POST /v1/debug/profile``; ``slo_policies``
     (anything ``load_policies`` takes) starts the SLO autopilot, which
     evaluates every ``slo_interval_s`` over ``sli_n_buckets`` windows of
@@ -144,8 +156,10 @@ class FlexServeApp:
             FlightRecorder(capacity=flight_recorder_size,
                            on_complete=self._ingest_trace)
             if trace else None)
+        self.stages: Optional[Stages] = (Stages(INFER_STAGES) if trace
+                                         else None)
         self.profiler: Optional[DeviceProfiler] = (
-            DeviceProfiler(artifact_dir=profile_dir)
+            DeviceProfiler(artifact_dir=profile_dir, stages=self.stages)
             if profile_dir is not None else None)
         self._closing = False
         self._route_stats: Dict[str, Dict[str, float]] = {}
@@ -169,7 +183,8 @@ class FlexServeApp:
                        else BucketSpec.pow2(manager.max_batch))
             self.coalescer = BatchCoalescer(
                 self._coalesced_forward, buckets,
-                max_wait_ms=max_wait_ms, max_rows=max_coalesce_rows)
+                max_wait_ms=max_wait_ms, max_rows=max_coalesce_rows,
+                stages=self.stages, device=self._forward_device)
         if coalesce and (engine is not None or manager is not None):
             self.generation = GenerationService(
                 engine, num_slots=num_slots,
@@ -205,6 +220,10 @@ class FlexServeApp:
         if self.manager is not None:
             return self.manager.forward(batch, alias, ctxs)
         return self._ensemble.forward(batch)
+
+    def _forward_device(self):
+        ens = self.ensemble
+        return ens.device if ens is not None else None
 
     def close(self) -> None:
         """Stop background dispatch threads (idempotent)."""
@@ -551,6 +570,13 @@ class FlexServeApp:
             out["ensemble_compiles"] = {
                 str(b): c
                 for b, c in sorted(self.ensemble.compile_counts.items())}
+        # always present, like the sections below: the batcher's counters
+        # (zero with no ensemble) and the stages (zeroed with tracing off)
+        out["ensemble_batches"] = (self.ensemble.batch_counts
+                                   if self.ensemble is not None
+                                   else dict.fromkeys(BATCH_COUNTS, 0))
+        out["stages"] = (self.stages if self.stages is not None
+                         else Stages(INFER_STAGES)).snapshot()
         out["lifecycle"] = (self.manager.stats() if self.manager is not None
                             else dict(_ZERO_LIFECYCLE))
         if self.generation is not None:
@@ -744,13 +770,21 @@ class FlexServeApp:
         try:
             if self.coalescer is not None:
                 return self.coalescer.submit(batch, tag=alias, ctx=ctx)
+            clk = self.stages.clock() if self.stages is not None else None
+            handed = clk is not None and clk.stage == PARSE
+            if handed:
+                clk.stop()
             with self.device_lock:
                 if ctx.expired():
                     raise DeadlineError(
                         "deadline exceeded waiting for the device lock")
                 if self.manager is not None:
-                    return self.manager.forward(batch, alias, [ctx])
-                return ens.forward(batch)
+                    out = self.manager.forward(batch, alias, [ctx])
+                else:
+                    out = ens.forward(batch)
+            if handed:
+                clk.switch(RESPOND)
+            return out
         except DeadlineError as e:
             self.admission.deadline_miss(
                 "infer", "coalesce" if self.coalescer is not None
@@ -940,6 +974,14 @@ def make_handler(app: FlexServeApp):
                     plane[key.decode("latin-1")] = \
                         val.strip().decode("latin-1")
             body = self.rfile.read(length) if length else b""
+            # the front end's stages of a coalesced route: parse from the
+            # body in hand (closed at the coalescer's submit), respond from
+            # the dispatcher's release to the last byte written
+            clk = None
+            if app.stages is not None and method == "POST" and \
+                    path.partition("?")[0] in _STAGED_ROUTES:
+                clk = app.stages.clock()
+                clk.switch(PARSE)
             extra = None
             try:
                 status, payload = 200, app.handle(method, path, body, plane)
@@ -962,7 +1004,11 @@ def make_handler(app: FlexServeApp):
                 data = api.encode_response(payload.payload)
             else:
                 data = api.encode_response(payload)
-            self._reply(status, data, keep, extra, ctype)
+            try:
+                self._reply(status, data, keep, extra, ctype)
+            finally:
+                if clk is not None:
+                    clk.stop()
             return keep
 
         def _reply(self, status: int, data: bytes, keep: bool,

@@ -67,6 +67,7 @@ from repro_torch.core.telemetry import (  # noqa: F401  (re-exported)
     LATENCY_MS_BUCKETS,
     Histogram,
     Reservoir,
+    Stages,
     pctl,
 )
 
@@ -423,6 +424,16 @@ def prometheus_exposition(stats: Mapping[str, Any],
 # on-demand profiling
 # --------------------------------------------------------------------------
 
+def all_threads_config():
+    """``torch.profiler``'s option to record the host ops of every thread,
+    not only the one that starts the session, where this torch has it."""
+    try:
+        from torch._C._profiler import _ExperimentalConfig
+        return _ExperimentalConfig(profile_all_threads=True)
+    except (ImportError, TypeError):
+        return None
+
+
 class DeviceProfiler:
     """Time-boxed capture for ``POST /v1/debug/profile``.
 
@@ -432,8 +443,12 @@ class DeviceProfiler:
     ``kernels.json`` (device time by kernel name, largest first).  CUPTI
     records kernels from every thread of the process, so the decode
     driver's kernels are in the table although the capture runs on its
-    own thread.  ``mode="python"`` samples ``sys._current_frames()`` at
-    ~97 Hz and writes collapsed stacks as JSON — when
+    own thread; the host ops of every thread are recorded too where this
+    torch can (``profile_all_threads``), and with them, given the app's
+    ``stages``, the /v1/infer path's ``flexserve.<stage>`` ranges, which
+    are opened only while such a capture records.  ``mode="python"``
+    samples ``sys._current_frames()`` at ~97 Hz and writes collapsed
+    stacks as JSON — when
     ``thread_name_prefix`` matches (the decode and coalesce driver threads
     are named ``flexserve-scheduler`` / ``flexserve-coalescer``) only
     those threads are sampled, otherwise all.  ``mode="auto"`` is
@@ -449,8 +464,10 @@ class DeviceProfiler:
 
     def __init__(self, artifact_dir: str = "profiles",
                  thread_name_prefix: str = "flexserve-scheduler",
-                 max_duration_ms: float = MAX_DURATION_MS):
+                 max_duration_ms: float = MAX_DURATION_MS,
+                 stages: Optional[Stages] = None):
         self.artifact_dir = artifact_dir
+        self.stages = stages
         self.thread_name_prefix = thread_name_prefix
         self.max_duration_ms = max_duration_ms
         self._lock = threading.Lock()
@@ -530,10 +547,17 @@ class DeviceProfiler:
         if torch.cuda.is_available():
             activities.append(ProfilerActivity.CUDA)
         os.makedirs(info["artifact"], exist_ok=True)
-        with profile(activities=activities) as prof:
-            time.sleep(info["duration_ms"] / 1000.0)
-            if torch.cuda.is_available():
-                torch.cuda.synchronize()
+        with profile(activities=activities,
+                     experimental_config=all_threads_config()) as prof:
+            if self.stages is not None:
+                self.stages.ranges = True
+            try:
+                time.sleep(info["duration_ms"] / 1000.0)
+                if torch.cuda.is_available():
+                    torch.cuda.synchronize()
+            finally:
+                if self.stages is not None:
+                    self.stages.ranges = False
         prof.export_chrome_trace(os.path.join(info["artifact"],
                                               "trace.json"))
         doc = {"mode": "torch", "duration_ms": info["duration_ms"],
