@@ -146,8 +146,29 @@ Phases (any failure exits non-zero and prints no final result line):
    before and read just after, must be members x layers x forwards for K1
    and 0 for K2, and the flight recorder's index (/v1/traces; the app
    traces every request, the default) must list every request by its
-   X-Request-Id.  One batch's member logits are then held against the
-   plain path on the card.
+   X-Request-Id; the fused block kernels (``kernels/fused_block``) must
+   launch members x forwards x (2L + 1 norms, L ropes, L silu * up): every
+   bf16 norm, rope and silu * up of the served forward takes its kernel
+   (a wrapper on the card launches or raises).  One batch's
+   member logits are then held against the plain path on the card (every
+   kernel swapped for its plain version, the block's for the eager
+   chains).
+4b. the fused block kernels (``rms_norm`` with and without the residual
+   add, ``rope_qk``, ``silu_mul``; bf16) against the eager chains they
+   replace (``kernels/fused_block/ref.py``) at yi-9b's bulk forward (B=16,
+   S=512), h2o-danube's long one (B=4, S=8192) and a tick of each (B=16,
+   S=1, ragged int32 positions): the new residual stream, RoPE and silu *
+   up bit for bit, the norm within one bf16 ulp, one launch a call.  Each
+   timed (CUDA events and device time) beside the eager chain, the
+   norm also beside ``F.rms_norm`` (torch's own kernel, where the card's
+   torch has it), and the bytes-once bound at 3.35 TB/s; ptxas must
+   report no spill.  Then one forward of phase 4's two members at
+   yi9b-pair.bulk's shape (B=16, S=512, past the app's largest bucket, so
+   the members are called as the batcher calls them): the launch counts a
+   member forward (2L + 1, L, L), the device time by group (the eager
+   elementwise kernels, the fused ones, the GEMMs, K1, all) and the host
+   clock, with the kernels and with the eager chains in turns, and the
+   member logits of the two within LOGITS_TOL.
 5. generate path: ``InferenceEngine`` over member yi-9b#0's params (full
    width and depth, bf16, max_len 1024, max_batch 8).  A greedy
    ``generate`` of 8 prompts of 17-300 tokens, 32 new tokens each, must
@@ -2611,8 +2632,9 @@ def main_path_phase(failures, kernels, profile_dir):
     server = FlexServeServer(app).start()
     client = Client(*server.address)
     try:
-        requests, launches = drive_ensemble(failures, client, cfg.vocab_size,
-                                            layers, "main")
+        requests, launches = drive_ensemble(
+            failures, client, cfg.vocab_size, layers, "main",
+            block=block_per_forward(layers))
         kernels[0]["launches"] = launches
         for name in ("/health", "/healthz", "/v1/models"):
             st, body = client.call("GET", name)
@@ -2638,13 +2660,17 @@ def main_path_phase(failures, kernels, profile_dir):
     return app
 
 
-def drive_ensemble(failures, client, vocab, layers, tag, members=MEMBERS):
+def drive_ensemble(failures, client, vocab, layers, tag, members=MEMBERS,
+                   block=None):
     """/v1/infer and /v1/detect at 1, 3 and 8 rows, some concurrent, on an
     ensemble of ``members`` members (two yi-9b by default): every response
     200 with the paper schema, K1 members x layers x coalesced forwards
     (``layers`` counts the layers whose attention is K1's: 0 for MLA) and
     every other kernel 0 (counts zeroed just before, read just after), and
-    the trace index lists every request by its X-Request-Id.  Returns
+    the trace index lists every request by its X-Request-Id.  ``block``,
+    where given, is the fused block kernels' launches in one member's
+    forward ({wrapper: count}): each must launch members x forwards times
+    that (every bf16 norm, rope and silu * up took its kernel).  Returns
     (requests, K1 launches)."""
     import numpy as np
     rng = np.random.default_rng(0)
@@ -2673,11 +2699,14 @@ def drive_ensemble(failures, client, vocab, layers, tag, members=MEMBERS):
     status, m0 = client.call("GET", "/metrics")
     batches0 = m0["coalesce"]["batches_formed"]
     counts_reset()                          # the ensemble path's run
+    for fn in block_fns().values():
+        fn.launches = 0
     results = [send(kind, t) for kind, t in requests]
     with concurrent.futures.ThreadPoolExecutor(len(concurrent_reqs)) as ex:
         futs = [ex.submit(send, kind, t) for kind, t in concurrent_reqs]
         results += [f.result() for f in futs]
     counts = counts_read()
+    block_counts = {k: fn.launches for k, fn in block_fns().items()}
     status, m1 = client.call("GET", "/metrics")
     forwards = m1["coalesce"]["batches_formed"] - batches0
     for kind, n, st, resp, dt, _ in results:
@@ -2696,6 +2725,13 @@ def drive_ensemble(failures, client, vocab, layers, tag, members=MEMBERS):
     if other:
         failures.append(f"{tag}: {counts} on the ensemble path (only K1 "
                         f"runs there)")
+    if block is not None:
+        want = {k: members * forwards * n for k, n in block.items()}
+        log(f"[{tag}] fused block launches {block_counts} (expected "
+            f"members x forwards x per member forward = {want})")
+        if block_counts != want:
+            failures.append(f"{tag}: fused block launches {block_counts} != "
+                            f"{want}")
     # the flight recorder lists every request of the run
     st, idx = client.call("GET", f"/v1/traces?limit={4 * len(results)}")
     listed = {r["trace_id"]: r for r in idx.get("recent", [])}
@@ -2767,6 +2803,237 @@ def profile_forward(ens, batch, out_dir: Path) -> None:
                                       row_limit=30)
     (out_dir / "ensemble_forward_profile.txt").write_text(table)
     log("[profile] " + table.replace("\n", "\n[profile] "))
+
+
+# --- phase 4b: the fused block kernels -----------------------------------------
+
+BLOCK_KERNELS = ("rms_norm_kernel", "rope_qk_kernel", "silu_mul_kernel")
+# the eager chains' kernels, as the benchmark's traced breakdowns name them
+EAGER_ELEMENTWISE = ("elementwise_kernel", "reduce_kernel",
+                     "CatArrayBatchedCopy")
+GEMM_KERNELS = ("nvjet", "gemm", "cutlass", "sm90_xmma")
+# (arch, B, S): the two closed-loop cells' forwards and a decode tick each
+BLOCK_SHAPES = (("yi-9b", 16, 512), ("h2o-danube-1.8b", 4, 8192),
+                ("yi-9b", 16, 1), ("h2o-danube-1.8b", 16, 1))
+HBM_BYTES_PER_S = 3.35e12
+
+
+def block_fns():
+    from repro_torch.kernels.fused_block import rms_norm, rope_qk, silu_mul
+    return {"rms_norm": rms_norm, "rope_qk": rope_qk, "silu_mul": silu_mul}
+
+
+def block_per_forward(layers: int) -> dict:
+    """The fused block kernels' launches in one dense member's forward:
+    ln1, ln2 (with the residual add) and the final norm; one rope and one
+    silu * up a layer."""
+    return {"rms_norm": 2 * layers + 1, "rope_qk": layers,
+            "silu_mul": layers}
+
+
+def bf16_ulps(a, b) -> float:
+    """The largest distance between a and b in units of b's last bf16
+    place."""
+    import torch
+    a, b = a.float(), b.float()
+    ulp = torch.exp2(torch.floor(torch.log2(b.abs().clamp_min(1e-30))) - 7)
+    return float(((a - b).abs() / ulp).max())
+
+
+def block_inputs(arch, B, S, seed=0):
+    """bf16 activations at ``arch``'s widths (norm scales 1 + N(0, 0.1^2),
+    as the benchmark draws them); positions from 0, or a tick's ragged
+    lengths (B, 1) int32 as the decode path passes them."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import _rope_freqs_on
+    cfg = get_config(arch)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen, device="cuda")
+                ).to(torch.bfloat16)
+    D, H, K, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    if S == 1:
+        pos = torch.randint(0, 4096, (B, 1), generator=gen, device="cuda",
+                            dtype=torch.int32)
+    else:
+        pos = torch.arange(S, device="cuda")[None]
+    return dict(cfg=cfg, x=rnd(B, S, D), res=rnd(B, S, D, scale=0.5),
+                scale=1 + 0.1 * torch.randn(D, generator=gen,
+                                            device="cuda"),
+                q=rnd(B, S, H, hd), k=rnd(B, S, K, hd), pos=pos,
+                freqs=_rope_freqs_on(hd, cfg.rope_theta,
+                                     torch.device("cuda")),
+                gate=rnd(B, S, cfg.d_ff, scale=3.0), up=rnd(B, S, cfg.d_ff))
+
+
+def block_kernel_phase(failures) -> dict:
+    """Phase 4b, kernels: each fused block kernel against its eager chain
+    at BLOCK_SHAPES (the residual stream and RoPE and silu * up bit for
+    bit, the norm within one bf16 ulp), then timed: CUDA events and
+    device time a call beside the eager chain's and the bytes-once bound
+    at 3.35 TB/s, the norm also beside ``F.rms_norm``."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.fused_block import (ops, rms_norm_plain,
+                                                 rope_qk_plain,
+                                                 silu_mul_plain)
+    fns = block_fns()
+    out = {}
+    for arch, B, S in BLOCK_SHAPES:
+        c = block_inputs(arch, B, S)
+        cfg, eps = c["cfg"], c["cfg"].norm_eps
+        x, res, scale = c["x"], c["res"], c["scale"]
+        q, k, pos, freqs = c["q"], c["k"], c["pos"], c["freqs"]
+        gate, up = c["gate"], c["up"]
+        name = f"{arch} B={B} S={S}"
+        before = {n: f.launches for n, f in fns.items()}
+        with torch.no_grad():
+            got_x, got_y = fns["rms_norm"](x, scale, eps, residual=res)
+            want_x, want_y = rms_norm_plain(x, scale, eps, residual=res)
+            got_plain = fns["rms_norm"](x, scale, eps)
+            want_plain = rms_norm_plain(x, scale, eps)
+            got_q, got_k = fns["rope_qk"](q.clone(), k.clone(), pos, freqs)
+            want_q, want_k = rope_qk_plain(q, k, pos, freqs)
+            got_h = fns["silu_mul"](gate, up)
+            want_h = silu_mul_plain(gate, up)
+        torch.cuda.synchronize()
+        launched = {n: f.launches - before[n] for n, f in fns.items()}
+        err = {
+            "residual_mismatches": int((got_x != want_x).sum()),
+            "norm_ulps": max(bf16_ulps(got_y, want_y),
+                             bf16_ulps(got_plain, want_plain)),
+            "norm_mismatch_share": float((got_y != want_y).float().mean()),
+            "rope_mismatches": int((got_q != want_q).sum()
+                                   + (got_k != want_k).sum()),
+            "rope_max_abs": float(max((got_q.float() - want_q.float()).abs()
+                                      .max(), (got_k.float()
+                                               - want_k.float()).abs().max())),
+            "silu_mul_mismatches": int((got_h != want_h).sum()),
+            "silu_mul_max_abs": float((got_h.float() - want_h.float()).abs()
+                                      .max())}
+        ok = (err["residual_mismatches"] == 0 and err["norm_ulps"] <= 1.0
+              and err["rope_mismatches"] == 0
+              and err["silu_mul_mismatches"] == 0
+              and launched == {"rms_norm": 2, "rope_qk": 1, "silu_mul": 1})
+        log(f"[block] {name}: {json.dumps(err)} launches {launched} "
+            f"({'ok' if ok else 'FAIL'})")
+        if not ok:
+            failures.append(f"fused block {name}: {err} {launched}")
+        rows = B * S
+        cases = {
+            "rms_norm+residual": (
+                lambda: fns["rms_norm"](x, scale, eps, residual=res),
+                lambda: rms_norm_plain(x, scale, eps, residual=res),
+                ops.rms_norm_cost(rows, cfg.d_model, True)),
+            "rms_norm": (
+                lambda: fns["rms_norm"](x, scale, eps),
+                lambda: rms_norm_plain(x, scale, eps),
+                ops.rms_norm_cost(rows, cfg.d_model, False)),
+            "rope_qk": (
+                lambda: fns["rope_qk"](q, k, pos, freqs),
+                lambda: rope_qk_plain(q, k, pos, freqs),
+                ops.rope_qk_cost(B, S, cfg.num_heads, cfg.num_kv_heads,
+                                 cfg.head_dim, pos.numel(),
+                                 pos.element_size())),
+            "silu_mul": (
+                lambda: fns["silu_mul"](gate, up),
+                lambda: silu_mul_plain(gate, up),
+                ops.silu_mul_cost(gate.numel()))}
+        timed = {}
+        with torch.no_grad():
+            for op, (kern, eager, cost) in cases.items():
+                bound = 1e3 * cost.nbytes / HBM_BYTES_PER_S
+                t = {"event_ms": cuda_time_ms(kern),
+                     "device_ms": profiled_ms(kern, BLOCK_KERNELS),
+                     "eager_event_ms": cuda_time_ms(eager),
+                     "eager_device_ms": profiled_ms(eager, ()),
+                     "bound_ms": bound, "bytes": cost.nbytes}
+                t["roofline_pct"] = 100 * bound / t["device_ms"]
+                lib = ""
+                if op == "rms_norm" and hasattr(F, "rms_norm"):
+                    w = scale.to(x.dtype)   # torch's kernel takes x's dtype
+
+                    def library():
+                        return F.rms_norm(x, (cfg.d_model,), w, eps)
+                    t["library_event_ms"] = cuda_time_ms(library)
+                    t["library_device_ms"] = profiled_ms(library, ())
+                    lib = (f"; F.rms_norm event {t['library_event_ms']:.4f}, "
+                           f"device {t['library_device_ms']:.4f} ms")
+                timed[op] = t
+                log(f"[block] {name} {op}: kernel event "
+                    f"{t['event_ms']:.4f} ms, device {t['device_ms']:.4f} "
+                    f"ms; eager chain event {t['eager_event_ms']:.4f}, "
+                    f"device {t['eager_device_ms']:.4f} ms{lib}; bound "
+                    f"{bound:.4f} ms ({cost.nbytes / 1e6:.1f} MB once at "
+                    f"3.35 TB/s): {t['roofline_pct']:.1f}% of it")
+        out[name] = {"errors": err, "timed": timed}
+        del c, x, res, q, k, gate, up, got_x, got_y, want_x, want_y
+        torch.cuda.empty_cache()
+    return out
+
+
+def block_forward_phase(failures, ens, layers, members=MEMBERS) -> dict:
+    """Phase 4b, one forward of the ensemble's members at yi9b-pair.bulk's
+    shape, B=16 and S=512 (past the app's largest bucket, so the members
+    are called as the batcher calls them, under inference_mode): the
+    fused block kernels' launches (``block_per_forward`` a member), the
+    device time of the eager elementwise kernels (EAGER_ELEMENTWISE), the
+    fused ones, the GEMMs and K1 from torch.profiler with the kernels and
+    with the eager chains (``eager_block``, K1 kept), the host clock of
+    each, and the member logits of the two within LOGITS_TOL."""
+    import numpy as np
+    import torch
+    B, S = 16, 512
+    vocab = ens.members[0].params["embed"].shape[0]
+    tokens = np.random.default_rng(1).integers(0, vocab, (B, S))
+    batch = {"tokens": torch.from_numpy(tokens.astype(np.int32)).cuda()}
+
+    def forward():
+        with torch.inference_mode():
+            return {m.name: m.apply(m.params, batch) for m in ens.members}
+    fns = block_fns()
+    forward()
+    torch.cuda.synchronize()
+    for fn in fns.values():
+        fn.launches = 0
+    kern = forward()
+    torch.cuda.synchronize()
+    counts = {k: fn.launches for k, fn in fns.items()}
+    want = {k: members * n for k, n in block_per_forward(layers).items()}
+    log(f"[block] one ensemble forward (B={B}, S={S}): launches {counts} "
+        f"(expected {want})")
+    if counts != want:
+        failures.append(f"fused block forward launches {counts} != {want}")
+    groups = {"elementwise": EAGER_ELEMENTWISE, "fused": BLOCK_KERNELS,
+              "gemm": GEMM_KERNELS, "k1": K1_KERNELS, "all": ()}
+    res = {}
+    for side in ("fused", "eager", "eager", "fused"):    # in turns
+        ctx = eager_block() if side == "eager" else nullcontext()
+        with ctx:
+            ms = profiled_groups_ms(forward, groups, iters=3)
+            ms["host_ms"] = host_time_ms(forward)
+        for g, v in ms.items():
+            res.setdefault(side, {}).setdefault(g, []).append(v)
+    for side, groups_ms in res.items():
+        log(f"[block] forward, {side} chains: " + ", ".join(
+            f"{g} {' / '.join(f'{v:.2f}' for v in vals)} ms"
+            for g, vals in groups_ms.items())
+            + " (device time a forward by kernel group; host clock around "
+              "a synchronised forward)")
+    with eager_block():
+        eager = forward()
+    for name in kern:
+        a, b = kern[name].float(), eager[name].float()
+        err = float((a - b).abs().max())
+        ok = torch.allclose(a, b, **LOGITS_TOL)
+        log(f"[block] member {name} logits, fused vs eager chains: max_abs_err "
+            f"{err:.3e} ({'ok' if ok else 'FAIL'})")
+        if not ok:
+            failures.append(f"fused block: member {name} logits vs eager: "
+                            f"{err}")
+    return {"launches": counts, "forward_ms": res}
 
 
 # --- phase 5: generate path ----------------------------------------------------
@@ -3067,19 +3334,36 @@ def remat_plain_attention(*args, **kw):
                       preserve_rng_state=False, **kw)
 
 
-class plain_kernels:
-    """Swap K1, K2, K4 and K5 for their plain versions in the model
-    modules for the duration of a ``with`` block (the comparison runs;
-    there is deliberately no flag for this in the port)."""
+def block_swaps():
+    """The fused block kernels' wrappers in ``models/layers.py`` against
+    their plain versions (the eager chains)."""
+    from repro_torch.kernels.fused_block import (rms_norm_plain,
+                                                 rope_qk_plain,
+                                                 silu_mul_plain)
+    from repro_torch.models import layers
+    return [(layers, "rms_norm", rms_norm_plain),
+            (layers, "rope_qk", rope_qk_plain),
+            (layers, "silu_mul", silu_mul_plain)]
 
-    def __enter__(self):
+
+class plain_kernels:
+    """Swap K1, K2, K4, K5 and the fused block kernels for their plain
+    versions in the model modules for the duration of a ``with`` block
+    (the comparison runs; there is deliberately no flag for this in the
+    port)."""
+
+    def swaps(self):
         from repro_torch.kernels.decode_attention import decode_attention_plain
         from repro_torch.kernels.mamba2_ssd import ssd_plain
         from repro_torch.kernels.rwkv6_wkv import wkv6_plain
         from repro_torch.models import attention, mamba2, rwkv6
-        swaps = [(attention, "flash_attention", remat_plain_attention),
-                 (attention, "decode_attention", decode_attention_plain),
-                 (rwkv6, "wkv6", wkv6_plain), (mamba2, "ssd", ssd_plain)]
+        return [(attention, "flash_attention", remat_plain_attention),
+                (attention, "decode_attention", decode_attention_plain),
+                (rwkv6, "wkv6", wkv6_plain), (mamba2, "ssd", ssd_plain),
+                *block_swaps()]
+
+    def __enter__(self):
+        swaps = self.swaps()
         self.saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
         for m, n, plain in swaps:
             setattr(m, n, plain)
@@ -3087,6 +3371,14 @@ class plain_kernels:
     def __exit__(self, *exc):
         for m, n, orig in self.saved:
             setattr(m, n, orig)
+
+
+class eager_block(plain_kernels):
+    """Only the fused block kernels swapped for the eager chains (K1 and
+    the rest stay): the forward as it ran before those kernels."""
+
+    def swaps(self):
+        return block_swaps()
 
 
 def drive_service(svc, work, extras=None):
@@ -7817,12 +8109,13 @@ def main(argv=None) -> int:
     from repro_torch.kernels import common
     from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.fused_block import ops as fb_ops
     from repro_torch.kernels.mamba2_ssd import ops as ssd_ops
     from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
     t0 = time.perf_counter()
     builds = (fa_ops.build, fa_ops.build_bwd, da_ops.build, wkv_ops.build,
               ssd_ops.build, wkv_ops.build_bwd, ssd_ops.build_bwd,
-              bf16_p_library)
+              fb_ops.build, bf16_p_library)
     with concurrent.futures.ThreadPoolExecutor(len(builds)) as ex:
         for fut in [ex.submit(b) for b in builds]:    # one nvcc each
             fut.result()
@@ -7869,7 +8162,11 @@ def main(argv=None) -> int:
         if len(tf32) != 4 * len(names) or any(tf32.values()):
             failures.append(f"{name}: TF32 x 3 kernels' spills {tf32} (one "
                             f"entry per head dim 64, 80, 96, 128 expected)")
-    for name in ("rwkv6_wkv_bwd", "mamba2_ssd_bwd"):
+    spills["fused_block"] = ptxas_spills(
+        str(common.build_log["fused_block"]["ptxas"]))
+    log(f"[build] fused_block ptxas spill bytes over its kernels: "
+        f"{spills['fused_block']}")
+    for name in ("rwkv6_wkv_bwd", "mamba2_ssd_bwd", "fused_block"):
         if any(spills[name].values()):
             failures.append(f"{name}: ptxas spills {spills[name]}")
     # ptxas serialises a wgmma whose registers it cannot keep in flight: a
@@ -7918,6 +8215,12 @@ def main(argv=None) -> int:
     base_bytes = torch.cuda.memory_allocated()
     app = main_path_phase(failures, kernels, args.profile)
     lap("phase 4")
+    block = block_kernel_phase(failures)
+    block.update(block_forward_phase(
+        failures, app.ensemble,
+        app.registry.get(f"{ARCH}#0").model.config.num_layers))
+    kernels.append({"name": "fused_block", **block})
+    lap("phase 4b")
     generate_phase(failures, kernels, app, args.profile, fits)
     lap("phase 5")
     scheduler_phase(failures, kernels, app, args.profile)

@@ -42,8 +42,9 @@ from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_plain)
 from repro_torch.kernels.decode_attention.ref import raw
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.models.layers import (apply_rope, compute_dtype, dense_init,
-                                       matmul, rms_norm_simple)
+from repro_torch.kernels.fused_block import rms_norm_plain
+from repro_torch.models.layers import (apply_rope, apply_rope_qk,
+                                       compute_dtype, dense_init, matmul)
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
@@ -95,13 +96,12 @@ def project_qkv(p, x, cfg: ModelConfig, kv_x=None, positions=None,
     kk = _linear(kv_x, p["wk"], p.get("bk")).reshape(B, Skv, k, hd)
     vv = _linear(kv_x, p["wv"], p.get("bv")).reshape(B, Skv, k, hd)
     if cfg.use_qk_norm:
-        q = rms_norm_simple(q, p["qnorm"])
-        kk = rms_norm_simple(kk, p["knorm"])
+        q = rms_norm_plain(q, p["qnorm"])
+        kk = rms_norm_plain(kk, p["knorm"])
     if rope and cfg.rope_theta > 0:
         if positions is None:
             positions = torch.arange(S, device=x.device)[None, :]
-        q = apply_rope(q, positions, cfg.rope_theta)
-        kk = apply_rope(kk, positions, cfg.rope_theta)
+        q, kk = apply_rope_qk(q, kk, positions, cfg.rope_theta)
     return q, kk, vv
 
 
@@ -332,7 +332,7 @@ def cross_decode_attn_block(p, x1, kv_k, kv_v, cfg: ModelConfig,
     h, hd = cfg.num_heads, cfg.head_dim
     q = _linear(x1, p["wq"], p.get("bq")).reshape(B, 1, h, hd)
     if cfg.use_qk_norm:
-        q = rms_norm_simple(q, p["qnorm"])
+        q = rms_norm_plain(q, p["qnorm"])
     T = kv_k.shape[1]
     lengths = (kv_lengths if kv_lengths is not None else
                torch.full((B,), T, dtype=torch.int32, device=x1.device))
@@ -370,7 +370,7 @@ def _mla_q(p, x, cfg: ModelConfig, positions):
     """q (B,S,H, nope | rope) -> (q_nope, q_rope rotated)."""
     m = cfg.mla
     B, S, _ = x.shape
-    q_lat = rms_norm_simple(x @ p["q_a"], p["q_a_scale"])
+    q_lat = rms_norm_plain(x @ p["q_a"], p["q_a_scale"])
     q = (q_lat @ p["q_b"]).reshape(B, S, cfg.num_heads,
                                    m.rope_head_dim + m.nope_head_dim)
     q_nope, q_rope = q.split([m.nope_head_dim, m.rope_head_dim], dim=-1)
@@ -383,7 +383,7 @@ def _mla_ckv(p, x, cfg: ModelConfig, positions):
     m = cfg.mla
     c_kv, k_rope = (x @ p["kv_a"]).split(
         [m.kv_lora_rank, m.rope_head_dim], dim=-1)
-    c_kv = rms_norm_simple(c_kv, p["kv_a_scale"])
+    c_kv = rms_norm_plain(c_kv, p["kv_a_scale"])
     k_rope = apply_rope(k_rope[:, :, None, :], positions,
                         cfg.rope_theta)[:, :, 0]
     return c_kv, k_rope

@@ -38,7 +38,7 @@ import torch
 from repro_torch import opt
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
-from repro_torch.models.layers import (apply_mlp, apply_norm, apply_rope,
+from repro_torch.models.layers import (apply_mlp, apply_norm, apply_rope_qk,
                                        compute_dtype, cross_entropy_loss,
                                        dense_init, embed_init, generator,
                                        init_mlp, init_norm, stack_init)
@@ -128,8 +128,7 @@ def shared_block_full(sp, cfg: ModelConfig, x, e0, lora_a, lora_b, positions,
     xin = _block_in(sp, cfg, x, e0)
     h = apply_norm(sp["ln1"], xin, cfg)
     q, k, v = _shared_qkv(sp, h, lora_a, lora_b, cfg)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    q, k = apply_rope_qk(q, k, positions, cfg.rope_theta)
     out = attn.flash_attention(q, k, v, causal=True, window=window,
                                lengths=kv_lengths)
     return _block_out(sp, cfg, x, xin, out), (k, v)
@@ -143,8 +142,7 @@ def shared_block_step(sp, cfg: ModelConfig, x1, e0_1, lora_a, lora_b,
     h = apply_norm(sp["ln1"], xin, cfg)
     q, k, v = _shared_qkv(sp, h, lora_a, lora_b, cfg)
     positions = lengths[:, None]
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    q, k = apply_rope_qk(q, k, positions, cfg.rope_theta)
     Smax = cache_k.shape[1]
     if window is not None and Smax <= window:           # ring cache
         ck, cv = attn.ring_write(cache_k, cache_v, k, v, lengths, Smax)

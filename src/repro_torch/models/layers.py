@@ -2,7 +2,10 @@
 
 Plain functions on tensors, params as dicts of tensors (the port of
 ``repro/models/layers.py``).  Norm statistics are computed in float32
-regardless of the compute dtype; matmuls run in the config dtype.
+regardless of the compute dtype; matmuls run in the config dtype.  RMSNorm
+(with the residual add before it), RoPE on q and k and SwiGLU's
+``silu(gate) * up`` take ``kernels.fused_block``'s one-pass kernels where
+``fused`` says so, and their eager chains elsewhere.
 """
 
 from __future__ import annotations
@@ -15,6 +18,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.fused_block import (VEC, rms_norm, rms_norm_plain,
+                                             rope_plain, rope_qk,
+                                             rope_qk_plain, silu_mul,
+                                             silu_mul_plain)
 
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -91,26 +98,46 @@ def init_norm(cfg: ModelConfig, device, d: Optional[int] = None):
     return p
 
 
+def fused(width: int, *tensors: torch.Tensor) -> bool:
+    """Whether a call takes the fused block kernels: bfloat16 activations
+    (``tensors[0]``'s dtype) whose ``width`` (the dim the kernel cuts into
+    16-byte vectors) is a multiple of ``VEC``, and no gradient needed, since
+    the kernels have no backward.  float32 (witness copies, encoder
+    frames), other widths and training run the eager chain; the kernels'
+    wrappers raise on anything else they cannot take."""
+    return (tensors[0].dtype == torch.bfloat16 and width % VEC == 0
+            and not (torch.is_grad_enabled()
+                     and any(t.requires_grad for t in tensors)))
+
+
 def apply_norm(p, x, cfg: ModelConfig, eps: Optional[float] = None):
+    """LayerNorm or RMSNorm of x over its last dim, statistics in float32;
+    an RMSNorm in one pass of ``rms_norm`` where ``fused``."""
     eps = eps or cfg.norm_eps
+    if cfg.norm_kind != "layernorm":
+        norm = rms_norm if fused(x.shape[-1], x, p["scale"]) else \
+            rms_norm_plain
+        return norm(x, p["scale"], eps)
     xf = x.float()
-    if cfg.norm_kind == "layernorm":
-        mu = xf.mean(-1, keepdim=True)
-        var = (xf - mu).square().mean(-1, keepdim=True)
-        y = (xf - mu) * torch.rsqrt(var + eps)
-        y = y * p["scale"]
-        if "nbias" in p:
-            y = y + p["nbias"]
-    else:  # rmsnorm
-        var = xf.square().mean(-1, keepdim=True)
-        y = xf * torch.rsqrt(var + eps) * p["scale"]
+    mu = xf.mean(-1, keepdim=True)
+    var = (xf - mu).square().mean(-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    y = y * p["scale"]
+    if "nbias" in p:
+        y = y + p["nbias"]
     return y.to(x.dtype)
 
 
-def rms_norm_simple(x, scale, eps: float = 1e-6):
-    xf = x.float()
-    y = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
-    return (y * scale).to(x.dtype)
+def add_norm(p, x, residual, cfg: ModelConfig,
+             eps: Optional[float] = None):
+    """(x + residual, ``apply_norm`` of it): the residual add and the norm
+    after it, in one pass of ``rms_norm`` where ``fused``."""
+    if cfg.norm_kind != "layernorm":
+        norm = rms_norm if fused(x.shape[-1], x, residual, p["scale"]) \
+            else rms_norm_plain
+        return norm(x, p["scale"], eps or cfg.norm_eps, residual=residual)
+    x = x + residual
+    return x, apply_norm(p, x, cfg, eps)
 
 
 def group_norm(x, scale, bias, num_groups: int, eps: float = 1e-5):
@@ -171,14 +198,20 @@ def apply_rope(x, positions, theta: float):
     """x: (..., seq, heads, head_dim); positions: (..., seq) integer."""
     if theta <= 0.0:
         return x
-    hd = x.shape[-1]
-    freqs = _rope_freqs_on(hd, float(theta), x.device)      # (hd/2,)
-    angles = positions[..., None].float() * freqs          # (..., S, hd/2)
-    cos = torch.cos(angles)[..., None, :]                  # (..., S, 1, hd/2)
-    sin = torch.sin(angles)[..., None, :]
-    x1, x2 = x.float().chunk(2, dim=-1)
-    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
-    return out.to(x.dtype)
+    return rope_plain(x, positions,
+                      _rope_freqs_on(x.shape[-1], float(theta), x.device))
+
+
+def apply_rope_qk(q, k, positions, theta: float):
+    """``apply_rope`` of q (B,S,H,hd) and of k (B,S,K,hd), the fresh
+    projections of one block, in one launch of ``rope_qk`` where ``fused``:
+    q and k may be rotated in place, so callers take the returned pair and
+    keep no other reference to them."""
+    if theta <= 0.0:
+        return q, k
+    hd = q.shape[-1]
+    rope = rope_qk if hd % 2 == 0 and fused(hd // 2, q, k) else rope_qk_plain
+    return rope(q, k, positions, _rope_freqs_on(hd, float(theta), q.device))
 
 
 # ---------------------------------------------------------------------------
@@ -218,7 +251,10 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig,
 
 def apply_mlp(p, x, cfg: ModelConfig):
     if cfg.act == "swiglu":
-        h = F.silu(matmul(x, p["w_gate"])) * matmul(x, p["w_up"])
+        gate, up = matmul(x, p["w_gate"]), matmul(x, p["w_up"])
+        act = silu_mul if fused(gate.shape[-1], gate, up) else \
+            silu_mul_plain
+        h = act(gate, up)
     else:
         u = matmul(x, p["w_up"])
         if "b_up" in p:

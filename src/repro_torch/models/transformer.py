@@ -30,7 +30,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import opt
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
-from repro_torch.models.layers import (apply_mlp, apply_norm,
+from repro_torch.models.layers import (add_norm, apply_mlp, apply_norm,
                                        chunked_cross_entropy, compute_dtype,
                                        cross_entropy_loss, dense_init,
                                        embed_init, generator, init_mlp,
@@ -164,8 +164,7 @@ def _residual(cfg: ModelConfig, lp, x, h, attn_out):
     MoE block's router aux loss, or None)."""
     if cfg.parallel_block:
         return x + attn_out + apply_mlp(lp["mlp"], h, cfg), None
-    x = x + attn_out
-    h2 = apply_norm(lp["ln2"], x, cfg)
+    x, h2 = add_norm(lp["ln2"], x, attn_out, cfg)
     if "moe" in lp:
         mo, aux = moe_block(lp["moe"], h2, cfg)
         return x + mo, aux

@@ -36,13 +36,13 @@ import torch
 
 from repro_torch import opt
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.fused_block import rms_norm_plain
 from repro_torch.models import attention as attn
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import (apply_mlp, apply_norm, compute_dtype,
                                        cross_entropy_loss, dense_init,
                                        embed_init, generator, init_mlp,
-                                       init_norm, matmul, rms_norm_simple,
-                                       stack_init)
+                                       init_norm, matmul, stack_init)
 from repro_torch.params import flatten
 
 
@@ -112,7 +112,7 @@ def _cross_kv(cp, image_embeds, cfg: ModelConfig):
     K, hd = cfg.num_kv_heads, cfg.head_dim
     k = matmul(image_embeds, cp["attn"]["wk"]).reshape(B, T, K, hd)
     v = matmul(image_embeds, cp["attn"]["wv"]).reshape(B, T, K, hd)
-    return rms_norm_simple(k, cp["k_norm_scale"]), v
+    return rms_norm_plain(k, cp["k_norm_scale"]), v
 
 
 def _gated(x, gate, y):
@@ -125,7 +125,7 @@ def _query(cp, cfg: ModelConfig, h):
     B, S, _ = h.shape
     q = matmul(h, cp["attn"]["wq"]).reshape(B, S, cfg.num_heads,
                                              cfg.head_dim)
-    return rms_norm_simple(q, cp["q_norm_scale"])
+    return rms_norm_plain(q, cp["q_norm_scale"])
 
 
 def _cross_tail(cp, cfg: ModelConfig, x, attn_out):

@@ -25,6 +25,7 @@ from repro.models import build_model as jbuild_model
 from repro.models import layers as jlayers
 from repro.training.checkpoint import _flatten
 from repro_torch.configs import get_config, reduce_for_smoke
+from repro_torch.kernels.fused_block import rms_norm_plain
 from repro_torch.models import attention as tattn
 from repro_torch.models import build_model
 from repro_torch.models import layers as tlayers
@@ -86,8 +87,7 @@ def test_rms_norm_simple_and_rope():
     x = _x((2, 7, 3, 32))
     scale = _x((32,), 1)
     assert_allclose(
-        tlayers.rms_norm_simple(torch.from_numpy(x),
-                                torch.from_numpy(scale)).numpy(),
+        rms_norm_plain(torch.from_numpy(x), torch.from_numpy(scale)).numpy(),
         np.asarray(jlayers.rms_norm_simple(jnp.asarray(x),
                                            jnp.asarray(scale))), **UNIT)
     pos = np.arange(3, 10)[None, :].repeat(2, 0)
